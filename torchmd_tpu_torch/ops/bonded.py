@@ -1,0 +1,338 @@
+"""Fused bonded energies + forces: the CUDA bonded kernel, its plain
+PyTorch version, and the wrapper that picks between them by device.
+
+Counterpart of `torchmd_tpu/ops/pallas_bonded.py`. The plan carries over
+`build_pallas_bonded_plan`: multi-term maps expanded per assignment (no
+segment sum at run time), rows sorted by their lowest atom index (here it
+keeps a block's atomics on nearby addresses), and 1-4 rows baked as
+[A/scnb, B/scnb, ELEC_FACTOR*qi*qj/scee]. Energy keys follow
+`pallas_bonded_energy_forces`: 1-4 energies add into "lj" and
+"electrostatics".
+
+`bonded_energy_forces(plan, pos, box)` runs the plain version for a CPU
+tensor and launches the kernel for a CUDA tensor; on a CUDA tensor it
+launches or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from torchmd_tpu.units import ELEC_FACTOR
+
+from ..potentials import add_energy, wrap_displacement
+from . import _build
+
+# Kernel launches made by `bonded_energy_forces` (one per call on CUDA).
+LAUNCHES = 0
+
+BLOCK = 256   # rows per CUDA block (csrc/bonded.cu BLOCK)
+MAXFAM = 8    # csrc/bonded.cu MAXFAM
+KINDS = {"bond": 0, "angle": 1, "torsion": 2, "nb14": 3}
+ARITY = {"bond": 2, "angle": 3, "torsion": 4, "nb14": 2}
+
+
+class KernelFamily(NamedTuple):
+    kind: str            # bond | angle | torsion | nb14
+    name: str            # energy key ("bonds", "urey-bradley", "dihedrals", ...)
+    count: int           # real rows
+    row0: int            # first row in the plan's idx/par arrays (whole blocks)
+    nblocks: int
+    flags: int           # bond: cutoff on; torsion: AMBER; nb14: 1 lj | 2 elec
+    cutoff: float
+
+
+class BondedKernelPlan(NamedTuple):
+    natoms: int
+    families: tuple          # KernelFamily per family, in row order
+    idx: torch.Tensor        # (R, 4) int32, -1 in unused slots / padding
+    par: torch.Tensor        # (R, 3) per-row parameters
+
+
+def build_bonded_kernel_plan(ffp, cfg, dtype=None) -> Optional[BondedKernelPlan]:
+    """Row plan on ffp's device at `dtype` (default ffp's). None when no
+    bonded term is active."""
+    dtype = ffp.charges.dtype if dtype is None else dtype
+    natoms = int(ffp.charges.shape[0])
+    fams, idx_rows, par_rows = [], [], []
+    row = 0
+
+    def per_assignment(table):
+        params = table.params.double().cpu().numpy()[table.map_param.cpu().numpy()]
+        idx = table.idx.cpu().numpy()[table.map_term.cpu().numpy()]
+        return idx, params
+
+    def add(kind, name, idx, par, flags=0, cutoff=0.0):
+        nonlocal row
+        count = idx.shape[0]
+        if count == 0:
+            return
+        # locality sort: a block's rows then touch nearby atoms
+        order = np.argsort(idx.min(axis=1), kind="stable")
+        nblocks = -(-count // BLOCK)
+        i4 = np.full((nblocks * BLOCK, 4), -1, np.int32)
+        i4[:count, :idx.shape[1]] = idx[order]
+        p3 = np.zeros((nblocks * BLOCK, 3), np.float64)
+        p3[:count, :par.shape[1]] = par[order]
+        fams.append(KernelFamily(kind, name, count, row, nblocks, int(flags),
+                                 float(cutoff)))
+        idx_rows.append(i4)
+        par_rows.append(p3)
+        row += nblocks * BLOCK
+
+    if "bonds" in cfg.terms and ffp.bonds is not None:
+        idx, par = per_assignment(ffp.bonds)
+        add("bond", "bonds", idx, par[:, :2], flags=cfg.cutoff is not None,
+            cutoff=cfg.cutoff or 0.0)
+    if "urey-bradley" in cfg.terms and ffp.urey_bradley is not None:
+        idx, par = per_assignment(ffp.urey_bradley)
+        add("bond", "urey-bradley", idx, par[:, :2])
+    if "angles" in cfg.terms and ffp.angles is not None:
+        idx, par = per_assignment(ffp.angles)
+        add("angle", "angles", idx, par[:, :2])
+    for name, amber in (("dihedrals", cfg.dihedrals_amber),
+                        ("impropers", cfg.impropers_amber)):
+        tbl = getattr(ffp, name)
+        if name in cfg.terms and tbl is not None:
+            idx, par = per_assignment(tbl)
+            add("torsion", name, idx, par[:, :3], flags=bool(amber))
+    if "1-4" in cfg.terms and ffp.nb14 is not None:
+        idx, par = per_assignment(ffp.nb14)
+        q = ffp.charges.double().cpu().numpy()
+        nbpar = np.stack([
+            par[:, 0] / par[:, 2],
+            par[:, 1] / par[:, 2],
+            ELEC_FACTOR * q[idx[:, 0]] * q[idx[:, 1]] / par[:, 3],
+        ], axis=1)
+        add("nb14", "1-4", idx, nbpar,
+            flags=("lj" in cfg.terms) | (2 * ("electrostatics" in cfg.terms)))
+    if not fams:
+        return None
+    if len(fams) > MAXFAM:
+        raise ValueError(f"at most {MAXFAM} bonded families, got {len(fams)}")
+    dev = ffp.charges.device
+    return BondedKernelPlan(
+        natoms=natoms, families=tuple(fams),
+        idx=torch.as_tensor(np.concatenate(idx_rows), device=dev),
+        par=torch.as_tensor(np.concatenate(par_rows), dtype=dtype, device=dev),
+    )
+
+
+def _energy_dict(plan, energies):
+    """{term: energy} from per-family (main, aux) energies; 1-4 LJ and
+    electrostatics add into "lj" and "electrostatics"."""
+    pot: dict = {}
+    for f, fam in enumerate(plan.families):
+        if fam.kind == "nb14":
+            if fam.flags & 1:
+                add_energy(pot, "lj", energies[f][0])
+            if fam.flags & 2:
+                add_energy(pot, "electrostatics", energies[f][1])
+        else:
+            add_energy(pot, fam.name, energies[f][0])
+    return pot
+
+
+# ----------------------------------------------------------------------
+# Plain PyTorch version
+# ----------------------------------------------------------------------
+
+def _delta(pos, a, b, box):
+    return wrap_displacement(pos[a] - pos[b], box)
+
+
+def _dot(a, b):
+    return (a * b).sum(-1)
+
+
+def _inv_norm(v):
+    return torch.rsqrt(torch.clamp(_dot(v, v), min=1e-32))
+
+
+def _family_physics(fam, pos, idx, p, box):
+    """(e_main, e_aux, [force per atom slot]) of one family's real rows:
+    the function of pallas_bonded._physics."""
+    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+    if fam.kind == "bond":
+        d = _delta(pos, idx[:, 0], idx[:, 1], box)
+        d2 = _dot(d, d)
+        rinv = torch.rsqrt(torch.clamp(d2, min=1e-32))
+        r = d2 * rinv
+        x = r - p[:, 1]
+        e = p[:, 0] * x * x
+        coeff = 2.0 * p[:, 0] * x
+        if fam.flags:
+            keep = (r <= fam.cutoff).to(pos.dtype)
+            e, coeff = e * keep, coeff * keep
+        f = (coeff * rinv)[:, None] * d
+        return e.sum(), zero, [-f, f]
+    if fam.kind == "angle":
+        r21 = _delta(pos, idx[:, 0], idx[:, 1], box)
+        r23 = _delta(pos, idx[:, 2], idx[:, 1], box)
+        n21, n23 = _inv_norm(r21), _inv_norm(r23)
+        cos_t = torch.clamp(_dot(r21, r23) * n21 * n23, -1.0, 1.0)
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        theta = torch.atan2(torch.clamp(sin_t, min=1e-12), cos_t)
+        dt_ = theta - p[:, 1]
+        coeff = torch.where(sin_t != 0,
+                            -2.0 * p[:, 0] * dt_ / torch.clamp(sin_t, min=1e-30),
+                            torch.zeros_like(sin_t))
+        a21 = (coeff * n21 * n21 * cos_t)[:, None]
+        a23 = (coeff * n23 * n23 * cos_t)[:, None]
+        ab = (coeff * n21 * n23)[:, None]
+        f0 = a21 * r21 - ab * r23
+        f2 = a23 * r23 - ab * r21
+        return (p[:, 0] * dt_ * dt_).sum(), zero, [f0, -(f0 + f2), f2]
+    if fam.kind == "torsion":
+        r12 = _delta(pos, idx[:, 0], idx[:, 1], box)
+        r23 = _delta(pos, idx[:, 1], idx[:, 2], box)
+        r34 = _delta(pos, idx[:, 2], idx[:, 3], box)
+        A = torch.linalg.cross(r12, r23, dim=-1)
+        B = torch.linalg.cross(r23, r34, dim=-1)
+        C = torch.linalg.cross(r23, A, dim=-1)
+        inA, inB, inC = _inv_norm(A), _inv_norm(B), _inv_norm(C)
+        phi = -torch.atan2(_dot(C, B) * inC * inB, _dot(A, B) * inA * inB)
+        k0, phi0, per = p[:, 0], p[:, 1], p[:, 2]
+        if fam.flags:
+            diff = per * phi - phi0
+            e = k0 * (1.0 + torch.cos(diff))
+            coeff = -per * k0 * torch.sin(diff)
+        else:
+            diff = phi - phi0
+            diff = diff - 2.0 * math.pi * torch.round(diff / (2.0 * math.pi))
+            e = k0 * diff * diff
+            coeff = 2.0 * k0 * diff
+        inD = _inv_norm(r23)
+        normD = _dot(r23, r23) * inD
+        in2D = inD * inD
+        f0 = (-coeff * normD * inA * inA)[:, None] * A
+        f3 = (coeff * normD * inB * inB)[:, None] * B
+        s = (_dot(r12, r23) * in2D)[:, None] * f0 - (_dot(r34, r23) * in2D)[:, None] * f3
+        return e.sum(), zero, [-f0, f0 + s, f3 - s, -f3]
+    # nb14
+    d = _delta(pos, idx[:, 0], idx[:, 1], box)
+    rinv = _inv_norm(d)
+    rinv2 = rinv * rinv
+    coeff = torch.zeros_like(rinv)
+    e_lj = e_el = zero
+    if fam.flags & 1:
+        rinv6 = rinv2 * rinv2 * rinv2
+        rinv12 = rinv6 * rinv6
+        e_lj = (p[:, 0] * rinv12 - p[:, 1] * rinv6).sum()
+        coeff = coeff + (-12.0 * p[:, 0] * rinv12 + 6.0 * p[:, 1] * rinv6) * rinv2
+    if fam.flags & 2:
+        p_e = p[:, 2] * rinv
+        e_el = p_e.sum()
+        coeff = coeff - p_e * rinv2
+    f = coeff[:, None] * d
+    return e_lj, e_el, [-f, f]
+
+
+def bonded_reference(plan: BondedKernelPlan, pos, box=None):
+    """Plain PyTorch version of the bonded kernel, at the dtype and on the
+    device of `pos`. Returns ({term: energy}, forces (N, 3))."""
+    forces = torch.zeros((plan.natoms, 3), dtype=pos.dtype, device=pos.device)
+    energies = []
+    for fam in plan.families:
+        rows = slice(fam.row0, fam.row0 + fam.count)
+        idx = plan.idx[rows, :ARITY[fam.kind]].long()
+        e_main, e_aux, contribs = _family_physics(
+            fam, pos, idx, plan.par[rows].to(pos.dtype), box)
+        for slot, f in enumerate(contribs):
+            forces.index_add_(0, idx[:, slot], f)
+        energies.append((e_main, e_aux))
+    return _energy_dict(plan, energies), forces
+
+
+# ----------------------------------------------------------------------
+# CUDA kernel
+# ----------------------------------------------------------------------
+
+class BondedCfg(ctypes.Structure):
+    """Mirror of `struct BondedCfg` in csrc/bonded.cu."""
+
+    _fields_ = [
+        ("natoms", ctypes.c_int),
+        ("nfam", ctypes.c_int),
+        ("block_start", ctypes.c_int * (MAXFAM + 1)),
+        ("kind", ctypes.c_int * MAXFAM),
+        ("flags", ctypes.c_int * MAXFAM),
+        ("cutoff", ctypes.c_float * MAXFAM),
+    ]
+
+
+_P = ctypes.c_void_p
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.load("bonded")
+        lib.tmd_bonded_energy_forces.argtypes = [_P] * 4 + [BondedCfg] + [_P] * 4
+        lib.tmd_bonded_energy_forces.restype = ctypes.c_int
+        lib.tmd_error_string.argtypes = [ctypes.c_int]
+        lib.tmd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def build():
+    """Compile and load the kernel library (done at first launch anyway)."""
+    _library()
+
+
+def _kernel_cfg(plan: BondedKernelPlan) -> BondedCfg:
+    c = BondedCfg(natoms=plan.natoms, nfam=len(plan.families))
+    for f, fam in enumerate(plan.families):
+        c.block_start[f] = fam.row0 // BLOCK
+        c.kind[f] = KINDS[fam.kind]
+        c.flags[f] = fam.flags
+        c.cutoff[f] = fam.cutoff
+    last = plan.families[-1]
+    c.block_start[len(plan.families)] = last.row0 // BLOCK + last.nblocks
+    return c
+
+
+def _launch(plan: BondedKernelPlan, pos, box):
+    global LAUNCHES
+    n, dev, f32 = plan.natoms, pos.device, torch.float32
+    nrows = plan.idx.shape[0]
+    _build.check_tensor(pos, "pos", f32, (n, 3), dev)
+    _build.check_tensor(plan.idx, "idx", torch.int32, (nrows, 4), dev)
+    _build.check_tensor(plan.par, "par", f32, (nrows, 3), dev)
+    if plan.idx.data_ptr() % 16:
+        raise ValueError("idx must be 16-byte aligned (read as int4 rows)")
+    if box is not None:
+        _build.check_tensor(box, "box", f32, (3,), dev)
+    lib = _library()
+    nblocks = nrows // BLOCK
+    epart = torch.empty((nblocks, 2), dtype=torch.float64, device=dev)
+    forces = torch.empty((n, 3), dtype=f32, device=dev)
+    energies = torch.empty((len(plan.families), 2), dtype=f32, device=dev)
+    err = lib.tmd_bonded_energy_forces(
+        pos.data_ptr(), plan.idx.data_ptr(), plan.par.data_ptr(),
+        None if box is None else box.data_ptr(), _kernel_cfg(plan),
+        epart.data_ptr(), forces.data_ptr(), energies.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"bonded kernel launch failed: {lib.tmd_error_string(err).decode()}")
+    LAUNCHES += 1
+    return _energy_dict(plan, energies), forces
+
+
+def bonded_energy_forces(plan: BondedKernelPlan, pos, box=None):
+    """pos: (N, 3); box: (3,) diagonal tensor or None (no PBC). Returns
+    ({term: 0-dim energy tensor}, forces (N, 3)). A CPU tensor runs the
+    plain version; a CUDA tensor launches the kernel (f32 only) or raises."""
+    if pos.device.type == "cuda":
+        return _launch(plan, pos, box)
+    if pos.device.type == "cpu":
+        return bonded_reference(plan, pos, box)
+    raise ValueError(f"no bonded kernel for device {pos.device}")

@@ -9,7 +9,8 @@ Integrator.step. Imports nothing of JAX.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: require CUDA, print the card's name and power limit;
-  2. build: compile both CUDA kernels from csrc/ with nvcc;
+  2. build: compile both CUDA kernels from csrc/ with nvcc, and print
+     ptxas's registers, spills and shared memory for each kernel;
   3. kernels: each kernel (f32) against its plain PyTorch version (f64) on
      the card, on several cases; then each kernel and its plain version
      timed at f32 on thrombin's shapes (CUDA events around each of 30
@@ -122,12 +123,17 @@ def phase_device():
 
 
 def phase_build():
-    from torchmd_tpu_torch.ops import bonded, nonbonded
+    from torchmd_tpu_torch.ops import _build, bonded, nonbonded
 
     t0 = time.perf_counter()
     nonbonded.build()
     bonded.build()
     log("build", seconds=f"{time.perf_counter() - t0:.2f}")
+    for lib in ("nonbonded", "bonded"):
+        usage = _build.resource_usage(lib)
+        require(usage, f"no ptxas report for {lib}.cu")
+        for kernel, fields in usage.items():
+            log("ptxas", source=f"{lib}.cu", kernel=kernel, **fields)
 
 
 def _kernel_cases():

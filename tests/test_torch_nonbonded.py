@@ -124,7 +124,7 @@ def test_plain_version_matches_dense_f64(name):
     assert np.abs(got_f - want_f).max() <= 1e-7 * max(1.0, np.abs(want_f).max())
 
 
-def test_row_blocks_do_not_change_the_result():
+def test_row_blocks_do_not_change_the_result(monkeypatch):
     """The plain version walks the square in row blocks, as the kernel
     walks it in i-tiles: a block size that leaves a ragged last block
     gives the same numbers."""
@@ -132,7 +132,8 @@ def test_row_blocks_do_not_change_the_result():
     data = kn.prepare_nb_data(ffp)
     p, b = torch.as_tensor(pos), torch.as_tensor(box)
     pot1, f1 = kn.pair_terms_reference(data, cfg, p, b)
-    pot2, f2 = kn.pair_terms_reference(data, cfg, p, b, rows=100)
+    monkeypatch.setattr(kn, "REFERENCE_ROWS", 100)
+    pot2, f2 = kn.pair_terms_reference(data, cfg, p, b)
     for k in pot1:
         assert abs(float(pot1[k]) - float(pot2[k])) <= 1e-10 * abs(float(pot1[k]))
     assert float((f1 - f2).abs().max()) <= 1e-10
@@ -182,6 +183,34 @@ def test_library_name_follows_the_source():
     assert os.path.dirname(path) == _build.BUILD_DIR
     assert os.path.basename(path).startswith("libnonbonded_")
     assert path != _build.library_path("bonded")
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__c7e98fa1_12_nonbonded_cu_6ed012a011pair_kernelILb1ELb0EEEvPKfS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__c7e98fa1_12_nonbonded_cu_6ed012a011pair_kernelILb1ELb0EEEvPKfS2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 47 registers, used 1 barriers, 19488 bytes smem, 464 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z11pair_finishPKfPKd' for 'sm_90a'
+ptxas info    : Function properties for _Z11pair_finishPKfPKd
+    32 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 18 registers, 424 bytes cmem[0]
+"""
+
+
+def test_resource_usage_reads_the_ptxas_report(monkeypatch, tmp_path):
+    """A built library's log gives each kernel's registers and spills."""
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    lib = _build.library_path("nonbonded")
+    open(lib, "wb").close()
+    with open(lib[:-len(".so")] + ".log", "w") as fh:
+        fh.write(PTXAS_LOG)
+    assert _build.resource_usage("nonbonded") == {
+        "pair_kernel<1,0>": dict(stack=0, spill_stores=0, spill_loads=0,
+                                 registers=47, smem=19488),
+        "pair_finish": dict(stack=32, spill_stores=8, spill_loads=4,
+                            registers=18, smem=0),
+    }
 
 
 @pytest.mark.gpu

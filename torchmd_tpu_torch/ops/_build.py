@@ -5,7 +5,9 @@ shared library under `torchmd_tpu_torch/_build/`, named by a hash of its
 source and the compiler flags, so an edited source builds anew and an
 unchanged one loads at once. The build runs at first use, inside the
 first wrapper call on a CUDA tensor. A missing compiler or a failed build
-raises: there is no fallback.
+raises: there is no fallback. ptxas reports each kernel's registers,
+spills and shared memory into a `.log` beside the library, which
+`resource_usage` reads back.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,7 +24,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -46,7 +49,7 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
-def build(name: str, verbose: bool = False) -> str:
+def build(name: str) -> str:
     """Compile `csrc/<name>.cu` unless an up-to-date library exists;
     returns the library path. Raises RuntimeError if nvcc fails."""
     out = library_path(name)
@@ -56,17 +59,65 @@ def build(name: str, verbose: bool = False) -> str:
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
            os.path.join(CSRC_DIR, f"{name}.cu")]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    with open(f"{tmp}.log", "w") as fh:
+        fh.write(proc.stdout + proc.stderr)
+    # atomic, log first: a concurrent loader never sees a partial file,
+    # and a library on disk always has its log
+    os.replace(f"{tmp}.log", _log_path(out))
+    os.replace(tmp, out)
     return out
+
+
+def _log_path(library: str) -> str:
+    return library[:-len(".so")] + ".log"
+
+
+def _kernel_name(mangled: str) -> str:
+    """`pair_kernel<1,0>` from `_Z11pair_kernelILb1ELb0EEv...`, or from the
+    nested `_ZN<len><namespace><len>pair_kernelILb1ELb0EEEv...`."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while m := re.match(r"\d+", mangled[pos:]):
+        pos += m.end()
+        name = mangled[pos:pos + int(m.group())]
+        pos += int(m.group())
+    flags = re.match(r"I((?:Lb[01]E)+)E", mangled[pos:])
+    args = f"<{','.join(re.findall(r'Lb([01])E', flags.group(1)))}>" if flags else ""
+    return name + args
+
+
+def resource_usage(name: str) -> dict:
+    """{kernel: {registers, smem, stack, spill_stores, spill_loads}} of the
+    built `csrc/<name>.cu`, from ptxas's report in its build log."""
+    with open(_log_path(build(name))) as fh:
+        text = fh.read()
+    usage: dict = {}
+    kernel = None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            kernel = usage.setdefault(_kernel_name(m.group(1)), {})
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            kernel.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                          spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            kernel.update(registers=int(m.group(1)),
+                          smem=int(smem.group(1)) if smem else 0)
+            kernel = None
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

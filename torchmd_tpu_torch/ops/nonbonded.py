@@ -17,14 +17,14 @@ tensor it launches or raises.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from torchmd_tpu.units import ELEC_FACTOR
 
-from ..potentials import LJ_FAMILY, rfa_constants, wrap_displacement
+from ..potentials import (LJ_FAMILY, add_energy, nonbonded_block_energy_forces,
+                          rfa_constants, wrap_displacement)
 from . import _build
 
 # Kernel launches made by `nonbonded_energy_forces` (one per call on CUDA).
@@ -109,107 +109,37 @@ def prepare_nb_data(ffp, dtype=None) -> NBData:
 # Plain PyTorch version
 # ----------------------------------------------------------------------
 
-def pair_terms(kcfg, d2, mask, si, sj, ei, ej, qi, qj, A=None, B=None):
-    """Per-pair term math on broadcast blocks (the function of
-    pallas_nonbonded.pair_terms, with the exact erfc): returns
-    (e_lj, e_el with the 0.5 symmetric factor, g = (dE/dr)/r block)."""
-    d2 = torch.where(mask, d2, torch.ones_like(d2))
-    rinv = torch.rsqrt(d2)
-    if kcfg["cutoff"] is not None:
-        mask = mask & (d2 <= kcfg["cutoff"] * kcfg["cutoff"])
-    fmask = mask.to(d2.dtype)
-    zero = torch.zeros((), dtype=d2.dtype, device=d2.device)
-    e_lj = e_el = zero
-    g = torch.zeros_like(d2)
-    dist = d2 * rinv
-
-    if kcfg["lj"] or kcfg["repulsion"] or kcfg["repulsioncg"]:
-        if A is None:
-            sig = si + sj
-            s2 = sig * sig
-            s6 = s2 * s2 * s2
-            B = 4.0 * (ei * ej) * s6
-            A = B * s6
-        rinv2 = rinv * rinv
-        rinv6 = rinv2 * rinv2 * rinv2
-        rinv12 = rinv6 * rinv6
-    if kcfg["lj"]:
-        pot = A * rinv12 - B * rinv6
-        dEdr = (-12.0 * A * rinv12 + 6.0 * B * rinv6) * rinv
-        if kcfg["switch"] is not None and kcfg["cutoff"] is not None:
-            sd, co = kcfg["switch"], kcfg["cutoff"]
-            t = (dist - sd) / (co - sd)
-            sw = 1.0 + t * t * t * (-10.0 + t * (15.0 - t * 6.0))
-            dsw = t * t * (-30.0 + t * (60.0 - t * 30.0)) / (co - sd)
-            in_sw = dist > sd
-            dEdr = torch.where(in_sw, dEdr * sw + pot * dsw, dEdr)
-            pot = torch.where(in_sw, pot * sw, pot)
-        e_lj = e_lj + 0.5 * (pot * fmask).sum()
-        g = g + dEdr * rinv * fmask
-    if kcfg["repulsion"]:
-        e_lj = e_lj + 0.5 * (A * rinv12 * fmask).sum()
-        g = g + (-12.0 * A * rinv12 * rinv * rinv) * fmask
-    if kcfg["repulsioncg"]:
-        e_lj = e_lj + 0.5 * (B * rinv6 * fmask).sum()
-        g = g + (-6.0 * B * rinv6 * rinv * rinv) * fmask
-    if kcfg["elec"]:
-        qq = kcfg["elec_factor"] * qi * qj
-        if kcfg["ewald_alpha"] is not None:
-            a = kcfg["ewald_alpha"]
-            x = a * dist
-            erfc_t = torch.special.erfc(x)
-            pot = qq * erfc_t * rinv
-            dEdr_r = -qq * rinv * rinv * (
-                erfc_t * rinv + (2.0 * a / math.sqrt(math.pi)) * torch.exp(-x * x))
-        elif kcfg["rfa"] and kcfg["cutoff"] is not None:
-            pot = qq * (rinv + kcfg["krf"] * d2 - kcfg["crf"])
-            dEdr_r = qq * (2.0 * kcfg["krf"] - rinv * rinv * rinv)
-        else:
-            pot = qq * rinv
-            dEdr_r = -qq * rinv * rinv * rinv
-        e_el = e_el + 0.5 * (pot * fmask).sum()
-        g = g + dEdr_r * fmask
-    return e_lj, e_el, g
-
-
-def _energy_dict(kcfg, e_lj, e_el):
-    out = {}
-    for term in LJ_FAMILY:
-        if kcfg[term]:
-            out[term] = e_lj
-    if kcfg["elec"]:
-        out["electrostatics"] = e_el
-    return out
-
-
-def pair_terms_reference(data: NBData, cfg, pos, box=None,
-                         rows: int = REFERENCE_ROWS):
-    """Plain PyTorch version of the pair kernel: the full square in row
-    blocks of `rows` atoms, at the dtype and on the device of `pos`.
-    Returns ({term: energy}, forces (N, 3))."""
-    kcfg = make_kernel_cfg(cfg, box is not None)
-    n = data.natoms
-    dt = pos.dtype
+def pair_terms_reference(data: NBData, cfg, pos, box=None):
+    """Plain PyTorch version of the pair kernel: the port's
+    `nonbonded_block_energy_forces` on the kernel's inputs, over the full
+    square in blocks of REFERENCE_ROWS rows, at the dtype and on the
+    device of `pos`. Returns ({term: energy}, forces (N, 3))."""
+    n, dt = data.natoms, pos.dtype
     mask = data.mask != 0
     q, sig, eps = data.q.to(dt), data.sig.to(dt), data.eps.to(dt)
-    e_lj = e_el = torch.zeros((), dtype=dt, device=pos.device)
+    ti = data.types.long()
+    want_lj = any(t in cfg.terms for t in LJ_FAMILY)
+    pot: dict = {}
     forces = torch.empty_like(pos)
-    for r0 in range(0, n, rows):
-        r1 = min(n, r0 + rows)
-        dv = wrap_displacement(pos[r0:r1, None, :] - pos[None, :, :], box)
-        d2 = (dv * dv).sum(-1)
-        A = B = None
-        if data.lj_a is not None:
-            ti = data.types.long()
-            A = data.lj_a.to(dt)[ti[r0:r1, None], ti[None, :]]
-            B = data.lj_b.to(dt)[ti[r0:r1, None], ti[None, :]]
-        blj, bel, g = pair_terms(
-            kcfg, d2, mask[r0:r1], sig[r0:r1, None], sig[None, :],
-            eps[r0:r1, None], eps[None, :], q[r0:r1, None], q[None, :], A, B)
-        e_lj = e_lj + blj
-        e_el = e_el + bel
-        forces[r0:r1] = -torch.einsum("ij,ijk->ik", g, dv)
-    return _energy_dict(kcfg, e_lj, e_el), forces
+    for r0 in range(0, n, REFERENCE_ROWS):
+        rows = slice(r0, min(n, r0 + REFERENCE_ROWS))
+        dv = wrap_displacement(pos[rows, None, :] - pos[None, :, :], box)
+        qq = A = B = None
+        if "electrostatics" in cfg.terms:
+            qq = ELEC_FACTOR * q[rows, None] * q[None, :]
+        if want_lj and data.lj_a is not None:
+            A = data.lj_a.to(dt)[ti[rows, None], ti[None, :]]
+            B = data.lj_b.to(dt)[ti[rows, None], ti[None, :]]
+        elif want_lj:
+            s6 = (sig[rows, None] + sig[None, :]) ** 6
+            B = 4.0 * (eps[rows, None] * eps[None, :]) * s6
+            A = B * s6
+        block, forces_rows = nonbonded_block_energy_forces(
+            cfg, dv, mask[rows], qq, A, B)
+        forces[rows] = forces_rows
+        for k, v in block.items():
+            add_energy(pot, k, v)
+    return pot, forces
 
 
 # ----------------------------------------------------------------------
@@ -255,6 +185,16 @@ def _num_splits(natoms: int, device) -> int:
         _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     ntiles = -(-natoms // TILE)
     return max(1, min(ntiles, -(-2 * _sm_count[idx] // ntiles)))
+
+
+def _energy_dict(kcfg, e_lj, e_el):
+    out = {}
+    for term in LJ_FAMILY:
+        if kcfg[term]:
+            out[term] = e_lj
+    if kcfg["elec"]:
+        out["electrostatics"] = e_el
+    return out
 
 
 def _launch(data: NBData, cfg, pos, box):

@@ -1,25 +1,45 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Drives the port's main path, the bench configuration of the JAX package
-(thrombin-ligand, 4,676 atoms, 7 terms, cutoff 7.3 A, reaction field, no
-box, velocity Verlet + Langevin at 300 K / gamma 0.1 ps^-1, f32) at a 2 fs
-timestep (see TIMESTEP),
-through the entry points a user calls: Parameters -> Forces -> System ->
-Integrator.step. Imports nothing of JAX.
+Drives the port's two main paths through the entry points a user calls
+(Molecule -> ForceField -> Parameters -> Forces -> System ->
+Integrator.step), f32, imports nothing of JAX or of the JAX package:
 
-Phases (each prints one line; any failure raises and exits non-zero):
+  - thrombin-ligand (4,676 atoms, 7 terms, cutoff 7.3 A, reaction field, no
+    box, velocity Verlet + Langevin at 300 K / gamma 0.1 ps^-1) at a 2 fs
+    timestep (see TIMESTEP): the dense pair kernel and the bonded kernel;
+  - the TIP4P/2005 water box of scripts/bench_waterbox.py (25^3 = 15,625
+    waters, 62,500 sites, box 77.6 A, cutoff 8.5 A, skin 2 A, PME order 4
+    on an 80^3 mesh, SETTLE, virtual sites, Nose-Hoover chain at 300 K,
+    tau 200 fs, 2 fs): the cell-list pair kernel and the PME spread and ik
+    gather kernels (its bonded plan has no rows: the water bonds' force
+    constants are 0).
+
+Phases (each prints lines; any failure raises and exits non-zero):
   1. device: require CUDA, print the card's name and power limit;
-  2. build: compile both CUDA kernels from csrc/ with nvcc, and print
-     ptxas's registers, spills and shared memory for each kernel;
+  2. build: compile every CUDA kernel from torchmd_tpu_torch/csrc/ with
+     nvcc (one process per source, all at once), and print ptxas's
+     registers, spills and shared memory for each kernel;
   3. kernels: each kernel (f32) against its plain PyTorch version (f64) on
-     the card, on several cases; then each kernel and its plain version
-     timed at f32 on thrombin's shapes (CUDA events around each of 30
-     calls queued behind a sleep kernel, median: device time);
-  4. parity: Forces on the kernel path against autograd of the port's
-     compute_potentials at f32 on thrombin;
-  5. dynamics: a warm-up chunk, then 1,000 timed Langevin steps with the
-     kernels' launch counters reset just before and read just after; and
-     10 NVE steps on the kernel path against the dense f64 torch-op path.
+     the card at the Pallas bars, on several cases; then each kernel and
+     its plain version timed at f32 at the main paths' shapes (CUDA events
+     around each of 30 calls queued behind a sleep kernel, median: device
+     time), and each kernel's bound (the least time the card could take
+     for the work these inputs need);
+  4. parity: thrombin's Forces on the kernel path against autograd of the
+     port's compute_potentials at f32;
+  5. dynamics: thrombin, a warm-up chunk, then 1,000 timed Langevin steps
+     with the launch counters reset just before and read just after; 10
+     NVE steps on the kernel path against the dense f64 torch-op path;
+  6. waterbox: the water box, a warm-up chunk, then WATER_STEPS timed NVT
+     steps with the counters reset just before and read just after;
+     SETTLE error, snapped sites, the extended-energy change; NVE_STEPS
+     NVE steps of the kernel path against the plain f64 path from one
+     state (energy change); then 10 NVT steps from one state of the kernel
+     path against the plain path at f32 and f64, with the deviation after
+     steps 1, 2, 5 and 10 beside the rounding floor (the kernel path from
+     a start moved by one f32 ulp per coordinate; also at coordinates
+     shifted by 2 box edges, where the ulp doubles) and two fault controls
+     (the kernel path with every charge scaled by 1 + 1e-3 and 1 + 1e-2).
 The last two lines are a JSON summary of the kernels and the JSON status
 line. Usage: python3 chip_smoke.py
 """
@@ -31,7 +51,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -48,9 +70,90 @@ TIMESTEP = 2.0
 TIMED_STEPS = 1000
 WARMUP_STEPS = 100
 E_TOL, F_TOL = 2e-5, 5e-5     # tests/test_pallas.py:51-57 bars
+MESH_TOL = 1e-5               # spread: max |d mesh| <= MESH_TOL * max |mesh|
 DEVICE = "cuda"
 SLEEP_CYCLES = 40_000_000     # ~20 ms of device sleep before each timed call
 MAIN_SYSTEM = ("thrombin-ligand-amber", "structure.pdb")
+
+# The water box of scripts/bench_waterbox.py: n^3 waters on a 3.104 A
+# lattice (0.997 g/cm^3) with seed-0 jitter; and the 216-water box of
+# tests/test_gromacs.py (6^3 on 3.25 A, 19.5 A box, cutoff 4 A, PME order 6).
+WATER_N, WATER_SPACING, WATER_CUTOFF = 25, 3.104, 8.5
+SMALL_WATER = (6, 3.25, 4.0)
+WATER_TERMS = ["bonds", "lj", "electrostatics"]
+WATER_WARMUP, WATER_STEPS, WATER_CHUNK = 100, 500, 100
+# 10 steps from one state at ~440 K, kernel path f32 against the plain
+# path at f32 and f64: SETTLE's velocity correction (pos_c - pos) / dt
+# turns f32 rounding of the absolute coordinates (an ulp is 7.6e-6 A
+# between 64 and 128 A) into velocity every step, so any difference in
+# the low bits grows to the same deviation as a start moved by one ulp
+# (the floor). The kernel path stays within WATER_FLOOR_FACTOR x the floor
+# of the plain paths after 10 steps; the larger charge-scale control must
+# land beyond that limit.
+WATER_FLOOR_FACTOR = 3.0
+WATER_WITNESS_STEPS = (1, 2, 5, 10)
+WATER_CONTROL_Q = (1e-3, 1e-2)   # relative charge errors of the fault controls
+WATER_TAU = 200.0             # fs, the Nose-Hoover chain's time constant
+# NVE from one state, kernel path f32 against the plain path f64: the two
+# trajectories part at the rounding floor above, so their energy changes
+# (each +12 to +26 kcal/mol over 100 steps, run to run) differ by that
+# spread; they agree within NVE_DH_TOL kcal/mol
+NVE_STEPS, NVE_DH_TOL = 100, 20.0
+KERNEL_SOURCES = ("nonbonded", "bonded", "cell", "pme")
+
+# Bounds. Published H100 SXM peaks (NVIDIA datasheet, at 700 W):
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# FP32 operations per pair inside the cutoff, counted in pair_terms.cuh
+# and the kernels' loops (an FMA counts 2; rsqrtf, erfcf and expf as
+# 1, 20 and 8): distance 8, cutoff test 1, Lorentz-Berthelot mixing 8,
+# rsqrt and r 2, LJ 16, charge product 2, force accumulation 6, plus the
+# electrostatics: reaction field 10, Ewald erfc 45. The function needs
+# each unordered pair once, Newton's third law giving the partner's force
+# for NEWTON_J_FLOPS more.
+PAIR_FLOPS = {"rfa": 8 + 1 + 8 + 2 + 16 + 2 + 6 + 10,
+              "ewald": 8 + 1 + 8 + 2 + 16 + 2 + 6 + 45}
+NEWTON_J_FLOPS = 6
+# per bonded row, counted in bonded.cu (gathers not counted)
+BONDED_ROW_FLOPS = {"bond": 20, "angle": 60, "torsion": 110, "nb14": 40}
+
+TIP4P2005_TOP = """
+[ defaults ]
+  1 2 yes 0.5 0.8333
+
+[ atomtypes ]
+  OW  8 15.99940  0.0     A  0.31589  0.7749
+  HW  1  1.00800  0.5564  A  0.0      0.0
+  MW  0  0.00000 -1.1128  D  0.0      0.0
+
+[ moleculetype ]
+  SOL 2
+
+[ atoms ]
+  1 OW 1 SOL OW  1  0.0000 15.9994
+  2 HW 1 SOL HW1 1  0.5564  1.008
+  3 HW 1 SOL HW2 1  0.5564  1.008
+  4 MW 1 SOL MW  1 -1.1128  0.000
+
+[ settles ]
+  1 1 0.09572 0.15139
+
+[ virtual_sites3 ]
+; site i j k funct a b
+  4 1 2 3 1 0.13193828 0.13193828
+
+[ exclusions ]
+1 2 3 4
+2 1 3 4
+3 1 2 4
+4 1 2 3
+
+[ system ]
+tip4p/2005
+
+[ molecules ]
+SOL {nw}
+"""
 
 
 def require(cond, what):
@@ -64,10 +167,10 @@ def log(phase, **fields):
           flush=True)
 
 
-def load_amber(folder, coords, extra=None, terms=TERMS):
-    from torchmd_tpu.forcefields.ff_amber import AmberForcefield
-    from torchmd_tpu.io import Molecule
-    from torchmd_tpu.parameters import Parameters
+def load_amber(folder, coords, extra=None, terms=TERMS, precision="single"):
+    from torchmd_tpu_torch.forcefields.ff_amber import AmberForcefield
+    from torchmd_tpu_torch.io import Molecule
+    from torchmd_tpu_torch.parameters import Parameters
 
     d = os.path.join(DATA, folder)
     mol = Molecule(os.path.join(d, "structure.prmtop"))
@@ -75,7 +178,41 @@ def load_amber(folder, coords, extra=None, terms=TERMS):
     if extra:
         mol.read(os.path.join(d, extra))
     ff = AmberForcefield(mol, os.path.join(d, "structure.prmtop"))
-    return mol, Parameters(ff, mol, terms, precision="single")
+    return mol, Parameters(ff, mol, terms, precision=precision)
+
+
+def tip4p_water(origin):
+    """One TIP4P geometry: O, H1, H2, and the M row at O (snapped later)."""
+    doh, theta = 0.9572, np.radians(104.52)
+    o = np.asarray(origin, dtype=np.float64)
+    h1 = o + doh * np.array([np.cos(theta / 2), np.sin(theta / 2), 0.0])
+    h2 = o + doh * np.array([np.cos(theta / 2), -np.sin(theta / 2), 0.0])
+    return np.stack([o, h1, h2, o])
+
+
+def build_water(n, spacing, jitter, precision="single"):
+    """(mol, par, box edge) of an n^3 TIP4P/2005 lattice: origins at
+    g * spacing + 0.8 plus seed-0 normal jitter of 0.05 A (the bench), or
+    g * spacing + 0.9 without jitter (the 216-water test box)."""
+    from torchmd_tpu_torch.forcefields import ForceField
+    from torchmd_tpu_torch.io import Molecule
+    from torchmd_tpu_torch.parameters import Parameters
+
+    with tempfile.TemporaryDirectory() as td:
+        top = os.path.join(td, "tip4p.top")
+        with open(top, "w") as fh:
+            fh.write(TIP4P2005_TOP.format(nw=n**3))
+        mol = Molecule(top)
+        ff = ForceField.create(mol, top)
+    grid = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"),
+                    axis=-1).reshape(-1, 3)
+    rs = np.random.RandomState(0)
+    origins = [g * spacing + (0.8 + rs.randn(3) * 0.05 if jitter else 0.9)
+               for g in grid]
+    mol.coords = np.concatenate([tip4p_water(o) for o in origins])[:, :, None]
+    L = n * spacing
+    mol.box = np.full((3, 1), L)
+    return mol, Parameters(ff, mol, WATER_TERMS, precision=precision), L
 
 
 def cuda_events_ms(fn, calls=30, warmup=3):
@@ -103,6 +240,23 @@ def cuda_events_ms(fn, calls=30, warmup=3):
     return statistics.median(times)
 
 
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    FP32 operations over the FP32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def tensor_bytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def pair_flops(pairs, elec):
+    """FP32 operations of the pair function over `pairs` unordered pairs
+    inside the cutoff."""
+    return pairs * (PAIR_FLOPS[elec] + NEWTON_J_FLOPS)
+
+
 # ----------------------------------------------------------------------
 def phase_device():
     import torch
@@ -123,13 +277,14 @@ def phase_device():
 
 
 def phase_build():
-    from torchmd_tpu_torch.ops import _build, bonded, nonbonded
+    from torchmd_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    nonbonded.build()
-    bonded.build()
-    log("build", seconds=f"{time.perf_counter() - t0:.2f}")
-    for lib in ("nonbonded", "bonded"):
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(_build.build, KERNEL_SOURCES))
+    log("build", seconds=f"{time.perf_counter() - t0:.2f}",
+        sources=",".join(f"{s}.cu" for s in KERNEL_SOURCES))
+    for lib in KERNEL_SOURCES:
         usage = _build.resource_usage(lib)
         require(usage, f"no ptxas report for {lib}.cu")
         for kernel, fields in usage.items():
@@ -182,7 +337,14 @@ def _compare(tag, pot_k, f_k, pot_p, f_p):
     return err
 
 
+def _thrombin_pair_count(d32, cutoff, pos):
+    """Unordered non-excluded pairs inside the cutoff."""
+    d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+    return int(((d32.mask != 0) & (d2 <= cutoff * cutoff)).sum()) // 2
+
+
 def phase_kernels():
+    """The dense pair and bonded kernels on thrombin and alanine."""
     import torch
 
     from torchmd_tpu_torch.forces import Forces
@@ -232,16 +394,156 @@ def phase_kernels():
             timing_inputs = (d32, cfg, p32, plan32)
 
     d32, cfg, p32, plan32 = timing_inputs
-    times = {
-        "pair": (cuda_events_ms(lambda: kn.nonbonded_energy_forces(d32, cfg, p32)),
-                 cuda_events_ms(lambda: kn.pair_terms_reference(d32, cfg, p32))),
-        "bonded": (cuda_events_ms(lambda: kb.bonded_energy_forces(plan32, p32)),
-                   cuda_events_ms(lambda: kb.bonded_reference(plan32, p32))),
+    rows = sum(f.count for f in plan32.families)
+    npairs = _thrombin_pair_count(d32, CUTOFF, p32)
+    out = {
+        "pair": dict(
+            ms=cuda_events_ms(lambda: kn.nonbonded_energy_forces(d32, cfg, p32)),
+            plain_ms=cuda_events_ms(lambda: kn.pair_terms_reference(d32, cfg, p32)),
+            bound=bound(tensor_bytes(p32, d32.q, d32.sig, d32.eps, d32.types,
+                                     d32.mask, p32),
+                        pair_flops(npairs, "rfa")),
+            work=f"pairs_in_cutoff={npairs}"),
+        "bonded": dict(
+            ms=cuda_events_ms(lambda: kb.bonded_energy_forces(plan32, p32)),
+            plain_ms=cuda_events_ms(lambda: kb.bonded_reference(plan32, p32)),
+            bound=bound(rows * (16 + 12) + tensor_bytes(p32, p32),
+                        sum(f.count * BONDED_ROW_FLOPS[f.kind] for f in plan32.families)),
+            work=f"rows={rows}"),
     }
-    for k, (ms, plain_ms) in times.items():
-        log("timing", kernel=k, shapes="thrombin", ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", speedup=f"{plain_ms / ms:.2f}")
-    return errs, times
+    for k, v in out.items():
+        v["max_abs_err"] = errs[k]
+        log("timing", kernel=k, shapes="thrombin", ms=f"{v['ms']:.4f}",
+            plain_ms=f"{v['plain_ms']:.4f}", speedup=f"{v['plain_ms'] / v['ms']:.2f}",
+            bound_ms=f"{v['bound'][0]:.5f}", bound_by=v["bound"][1], work=v["work"])
+    return out
+
+
+def _water_forces(par, cutoff, precision="single", plain=False, gather=None):
+    from torchmd_tpu_torch.forces import Forces
+
+    return Forces(par, terms=WATER_TERMS, precision=precision, cutoff=cutoff,
+                  elec="ewald" if par.natoms >= 4096 else "pme", kernel="cell",
+                  device=DEVICE, plain=plain, gather=gather)
+
+
+def _water_pair_count(data, pos, box, cutoff, rows=2048):
+    """Unordered pairs inside the cutoff: minimum-image pairs within the
+    cutoff, less self and excluded pairs, halved."""
+    import torch
+
+    n = pos.shape[0]
+    total = 0
+    for r0 in range(0, n, rows):
+        dv = pos[r0:r0 + rows, None, :] - pos[None, :, :]
+        dv = dv - box * torch.round(dv / box)
+        total += int(((dv * dv).sum(-1) <= cutoff * cutoff).sum())
+    excl = data.excl.long()
+    partner = torch.where(excl < n, excl, torch.arange(n, device=pos.device)[:, None])
+    dv = pos[:, None, :] - pos[partner]
+    dv = dv - box * torch.round(dv / box)
+    near = ((dv * dv).sum(-1) <= cutoff * cutoff) & (excl < n)
+    return (total - n - int(near.sum())) // 2
+
+
+def phase_water_kernels():
+    """The cell, PME spread and PME ik-gather kernels against their plain
+    f64 versions on the 216-water box (order 6) and the full box (order
+    4); the timings and bounds at the full box."""
+    import torch
+
+    from torchmd_tpu_torch.ops import cell as kc
+    from torchmd_tpu_torch.ops import pme as kp
+    from torchmd_tpu_torch.vsites import apply_vsites
+
+    errs = {"cell": 0.0, "pme_spread": 0.0, "pme_gather": 0.0}
+    out = {}
+    cases = (("water216",) + SMALL_WATER + (False,),
+             ("water-full", WATER_N, WATER_SPACING, WATER_CUTOFF, True))
+    for name, n, spacing, cutoff, jitter in cases:
+        mol, par, L = build_water(n, spacing, jitter)
+        f32 = _water_forces(par, cutoff)
+        f64 = _water_forces(par, cutoff, "double", plain=True)
+        box_np = np.full((1, 3), L)
+        raw = torch.as_tensor(mol.coords[:, :, 0], dtype=torch.float64, device=DEVICE)
+        f32.prepare(raw.float()[None], box_np)
+        f64.prepare(raw[None], box_np)
+        b32 = torch.as_tensor(box_np[0], dtype=torch.float32, device=DEVICE)
+        b64 = b32.double()
+        # one set of inputs: the f32 positions, upcast for the plain version
+        p32 = apply_vsites(f64.vsites, raw, b64).float()
+        p64 = p32.double()
+        kern, rec32, rec64 = f32._cell_kernel, f32._ewald, f64._ewald
+        cl = kern.build(p32, b32)
+        cl64 = cl._replace(ref_pos=cl.ref_pos.double())
+        d32, cfg, clcfg = kern.data, kern.cfg, kern.clcfg
+        d64 = f64._cell_kernel.data
+
+        pot_k, f_k = kc.cell_energy_forces(d32, cfg, clcfg, cl, p32, b32)
+        pot_p, f_p = kc.cell_reference(d64, cfg, clcfg, cl64, p64, b64)
+        torch.cuda.synchronize()
+        e_cell = _compare(f"{name}/cell", pot_k, f_k, pot_p, f_p)
+
+        kmesh, order = rec32.cfg.kmax, rec32.ORDER
+        q32, q64 = rec32.charges, rec64.charges
+        mesh_k = kp.pme_spread(p32, q32, b32, kmesh, order)
+        mesh_p = kp.spread_reference(p64, q64, b64, kmesh, order)
+        torch.cuda.synchronize()
+        e_spread = float((mesh_k.double() - mesh_p).abs().max())
+        require(e_spread <= MESH_TOL * float(mesh_p.abs().max()),
+                (name, "spread", e_spread))
+
+        grids64 = rec64.ik_grids(p64, b64)
+        grids32 = [g.float().contiguous() for g in grids64]
+        fg_k = kp.pme_gather_ik(p32, q32, b32, grids32, order)
+        fg_p = kp.gather_ik_reference(p64, q64, b64, grids64, order)
+        torch.cuda.synchronize()
+        e_gather = _compare(f"{name}/pme_gather", {}, fg_k, {}, fg_p)
+        for k, e in (("cell", e_cell), ("pme_spread", e_spread), ("pme_gather", e_gather)):
+            errs[k] = max(errs[k], e)
+        log("water_kernels", case=name, natoms=par.natoms, ncells=clcfg.ncells,
+            capacity=clcfg.capacity, mesh=kmesh, order=order,
+            cell_max_abs_err=e_cell, spread_max_abs_err=e_spread,
+            spread_mesh_max=float(mesh_p.abs().max()), gather_max_abs_err=e_gather)
+        if name != "water-full":
+            continue
+
+        ncells = int(np.prod(clcfg.ncells))
+        npairs = _water_pair_count(d32, p32, b32, cutoff)
+        slots_total = 27 * ncells * clcfg.capacity ** 2
+        c3 = cl.counts.double().reshape(clcfg.ncells)
+        visited = int(sum((c3 * torch.roll(c3, shifts=o, dims=(0, 1, 2))).sum()
+                          for o in kc.STENCIL))
+        out["cell"] = dict(
+            ms=cuda_events_ms(lambda: kc.cell_energy_forces(d32, cfg, clcfg, cl, p32, b32)),
+            plain_ms=cuda_events_ms(lambda: kc.cell_reference(d32, cfg, clcfg, cl, p32, b32),
+                                    calls=5, warmup=1),
+            bound=bound(tensor_bytes(p32, d32.q, d32.sig, d32.eps, cl.slots,
+                                     cl.counts, d32.excl, p32),
+                        pair_flops(npairs, "ewald")),
+            work=(f"pairs_in_cutoff={npairs} visited_pairs={visited} "
+                  f"padded_slot_pairs={slots_total}"))
+        taps = 3 * (4 * order + 5 * order * (order - 2)) + order**2
+        mesh_bytes = 4 * int(np.prod(kmesh))
+        out["pme_spread"] = dict(
+            ms=cuda_events_ms(lambda: kp.pme_spread(p32, q32, b32, kmesh, order)),
+            plain_ms=cuda_events_ms(lambda: kp.spread_reference(p32, q32, b32, kmesh, order)),
+            bound=bound(tensor_bytes(p32, q32) + mesh_bytes,
+                        par.natoms * (taps + 2 * order**3)),
+            work=f"taps={par.natoms * order**3}")
+        out["pme_gather"] = dict(
+            ms=cuda_events_ms(lambda: kp.pme_gather_ik(p32, q32, b32, grids32, order)),
+            plain_ms=cuda_events_ms(
+                lambda: kp.gather_ik_reference(p32, q32, b32, grids32, order)),
+            bound=bound(tensor_bytes(p32, q32, p32) + 3 * mesh_bytes,
+                        par.natoms * (taps + 7 * order**3)),
+            work=f"taps={par.natoms * order**3}")
+    for k, v in out.items():
+        v["max_abs_err"] = errs[k]
+        log("timing", kernel=k, shapes="water-full", ms=f"{v['ms']:.4f}",
+            plain_ms=f"{v['plain_ms']:.4f}", speedup=f"{v['plain_ms'] / v['ms']:.2f}",
+            bound_ms=f"{v['bound'][0]:.5f}", bound_by=v["bound"][1], work=v["work"])
+    return out
 
 
 def _thrombin_forces(device, precision="single", kernel="auto"):
@@ -327,29 +629,254 @@ def phase_dynamics():
     dev = float(np.abs(final["kernels"] - final["dense"]).max())
     log("nve", steps=10, max_pos_dev_A=dev)
     require(dev <= 1e-3, f"NVE kernel vs dense positions differ by {dev} A")
-    return launches, steps_per_s
+    return launches
+
+
+def _water_integrator(par, mol_pos, vel, L, precision="single", plain=False,
+                      gather=None, thermostat=True):
+    from torchmd_tpu_torch.integrator import Integrator
+    from torchmd_tpu_torch.systems import System
+
+    forces = _water_forces(par, WATER_CUTOFF, precision, plain, gather)
+    system = System(par.natoms, 1, precision)
+    system.set_positions(mol_pos)
+    system.set_box(np.full(3, L))
+    system.set_velocities(vel)
+    forces.compute(system.pos, system.box, system.forces)  # the first half-kick's
+    kw = dict(T=TEMP, thermostat="nhc", tau=WATER_TAU) if thermostat else {}
+    integ = Integrator(system, forces, TIMESTEP, constraints="settle", **kw)
+    return system, forces, integ
+
+
+def phase_waterbox():
+    """The water box's NVT phase at full size through the entry points."""
+    import torch
+
+    from torchmd_tpu_torch.constraints import max_settle_error
+    from torchmd_tpu_torch.integrator import maxwell_boltzmann
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import cell as kc
+    from torchmd_tpu_torch.ops import pme as kp
+    from torchmd_tpu_torch.vsites import apply_vsites
+
+    t0 = time.perf_counter()
+    mol, par, L = build_water(WATER_N, WATER_SPACING, True)
+    vel = maxwell_boltzmann(par.masses, TEMP, 1, seed=3, device=DEVICE,
+                            dtype=torch.float32)
+    system, forces, integ = _water_integrator(par, mol.coords, vel, L)
+    log("waterbox_setup", natoms=par.natoms, box=L, seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    integ.step(niter=WATER_WARMUP)
+    torch.cuda.synchronize()
+    kern, rec = forces._cell_kernel, forces._ewald
+    log("waterbox_warmup", steps=WATER_WARMUP, seconds=f"{time.perf_counter() - t0:.2f}",
+        ncells=kern.clcfg.ncells, capacity=kern.clcfg.capacity, mesh=rec.cfg.kmax,
+        order=rec.ORDER, alpha=rec.cfg.alpha, gather=rec.gather)
+
+    ek, ep, _ = integ.step(niter=1)
+    h0 = float(ek[0] + ep[0] + integ.thermostat_energy()[0])
+    # the state S the timed run starts from; the NVE check restarts from it
+    s_pos, s_vel = system.pos[0].copy(), system.vel.copy()
+    torch.cuda.synchronize()
+    kc.LAUNCHES = kp.SPREAD_LAUNCHES = kp.GATHER_LAUNCHES = kb.LAUNCHES = 0
+    retries0 = integ.overflow_retries
+    t0 = time.perf_counter()
+    done = 0
+    while done < WATER_STEPS:
+        Ekin, Epot, T = integ.step(niter=WATER_CHUNK)
+        done += WATER_CHUNK
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"cell": kc.LAUNCHES, "pme_spread": kp.SPREAD_LAUNCHES,
+                "pme_gather": kp.GATHER_LAUNCHES, "bonded": kb.LAUNCHES}
+    h1 = float(Ekin[0] + Epot[0] + integ.thermostat_energy()[0])
+    sps = done / dt
+
+    pos = torch.as_tensor(system.pos[0], dtype=torch.float64, device=DEVICE)
+    box = torch.full((3,), L, dtype=torch.float64, device=DEVICE)
+    settle_err = float(max_settle_error(integ.constraints.settle, pos))
+    sites = forces.vsites[0].sites
+    snapped = apply_vsites(forces.vsites, pos, box)
+    site_err = float((pos[sites] - snapped[sites]).abs().max())
+    log("waterbox", steps=done, seconds=f"{dt:.4f}", steps_per_s=f"{sps:.2f}",
+        ns_per_day=f"{sps * TIMESTEP * 1e-6 * 86400:.3f}", T=f"{T[0]:.3f}",
+        Epot=f"{Epot[0]:.4f}", Ekin=f"{Ekin[0]:.4f}", H0=h0, H1=h1, dH=h1 - h0,
+        settle_max_err_A=settle_err, site_max_err_A=site_err,
+        overflow_retries=integ.overflow_retries - retries0,
+        **{f"{k}_launches": v for k, v in launches.items()})
+    for k in ("cell", "pme_spread", "pme_gather"):
+        require(launches[k] >= done, f"{k} kernel launched {launches[k]} < {done} times")
+    require(launches["bonded"] == 0, "the water box's bonded plan should have no rows")
+    require(np.all(np.isfinite(system.pos)) and np.all(np.isfinite(system.vel)),
+            "non-finite water-box state")
+    require(np.isfinite([T[0], Epot[0], h0, h1]).all(), (T, Epot, h0, h1))
+    require(settle_err < 1e-3, f"SETTLE error {settle_err} A")
+    require(site_err < 1e-4, f"virtual sites off by {site_err} A")
+
+    profile_water_step(integ, 1.0 / sps)
+    par64 = build_water(WATER_N, WATER_SPACING, True, "double")[1]
+    water_nve_check(par, par64, s_pos, s_vel, L)
+    water_trajectory_check(par, par64, system.pos[0].copy(), system.vel.copy(), L)
+    return launches, sps
+
+
+def water_nve_check(par, par64, s_pos, s_vel, L):
+    """NVE_STEPS NVE steps from state S on the kernel path (f32) and the
+    plain path (f64): the total energies change alike."""
+    import torch
+
+    m = np.asarray(par64.masses, np.float64).reshape(1, -1, 1)
+    ek_s = float(0.5 * (m * s_vel.astype(np.float64) ** 2).sum())
+    dh = {}
+    for label, p, precision, plain in (("kernels", par, "single", False),
+                                       ("plain64", par64, "double", True)):
+        _, f, it = _water_integrator(p, s_pos, s_vel, L, precision, plain,
+                                     thermostat=False)
+        h_s = ek_s + f.compute(s_pos[None], np.full((1, 3), L))[0]
+        ek, ep, _ = it.step(niter=NVE_STEPS)
+        dh[label] = float(ek[0] + ep[0]) - h_s
+        del f, it
+        torch.cuda.empty_cache()
+    gap = abs(dh["kernels"] - dh["plain64"])
+    log("waterbox_nve", steps=NVE_STEPS, kernels_dH=dh["kernels"],
+        plain64_dH=dh["plain64"], gap=gap)
+    require(np.isfinite(gap) and gap <= NVE_DH_TOL,
+            f"NVE energy change: kernels {dh['kernels']}, plain f64 {dh['plain64']}")
+
+
+def water_trajectory_check(par, par64, start_pos, start_vel, L):
+    """10 NVT steps from one state: the kernel path against the plain path
+    at f32 and f64, beside the rounding floor (the kernel path from a start
+    moved by one ulp per coordinate, in the box frame and shifted by two
+    box edges) and fault controls (every charge scaled by 1 + q)."""
+    import copy
+
+    import torch
+
+    one_ulp = np.random.RandomState(4).rand(*start_pos.shape) < 0.5
+    p32 = start_pos.astype(np.float32)
+
+    def moved(p):
+        return np.where(one_ulp, np.nextafter(p, np.float32(np.inf)),
+                        np.nextafter(p, np.float32(-np.inf)))
+
+    def scaled(q):
+        wrong = copy.copy(par)
+        wrong.charges = par.charges * (1.0 + q)
+        return wrong
+
+    shifted = (start_pos.astype(np.float64) + 2 * L).astype(np.float32)
+    runs = {"kernels": (par, p32, "single", False),
+            "kernels_ulp": (par, moved(p32), "single", False),
+            "shift": (par, shifted, "single", False),
+            "shift_ulp": (par, moved(shifted), "single", False),
+            "plain32": (par, p32, "single", True),
+            "plain64": (par64, p32, "double", True),
+            **{f"charges_x(1+{q:g})": (scaled(q), p32, "single", False)
+               for q in WATER_CONTROL_Q}}
+    traj = {}
+    for label, (p, pos0, precision, plain) in runs.items():
+        s, f, it = _water_integrator(p, pos0, start_vel, L, precision, plain, "ik")
+        traj[label] = {}
+        for k in range(1, WATER_WITNESS_STEPS[-1] + 1):
+            it.step(niter=1)
+            if k in WATER_WITNESS_STEPS:
+                traj[label][k] = s.pos[0].astype(np.float64)
+        del f, it
+        torch.cuda.empty_cache()
+
+    def dev(a, b, k):
+        return float(np.abs(traj[a][k] - traj[b][k]).max())
+
+    pairs = {"kernels_vs_plain32": ("kernels", "plain32"),
+             "kernels_vs_plain64": ("kernels", "plain64"),
+             "plain32_vs_plain64": ("plain32", "plain64"),
+             "floor_ulp": ("kernels", "kernels_ulp"),
+             "floor_ulp_shift2L": ("shift", "shift_ulp"),
+             **{f"control_q{q:g}": ("kernels", f"charges_x(1+{q:g})")
+                for q in WATER_CONTROL_Q}}
+    for k in WATER_WITNESS_STEPS:
+        d = np.abs(traj["kernels"][k] - traj["plain64"][k])
+        atom, axis = np.unravel_index(int(d.argmax()), d.shape)
+        log("waterbox_vs_plain", step=k,
+            **{name: dev(a, b, k) for name, (a, b) in pairs.items()},
+            worst_atom=int(atom), worst_site=("O", "H1", "H2", "M")[atom % 4],
+            worst_coord_A=float(traj["kernels"][k][atom, axis]))
+    k = WATER_WITNESS_STEPS[-1]
+    limit = WATER_FLOOR_FACTOR * dev("kernels", "kernels_ulp", k)
+    d32, d64 = dev("kernels", "plain32", k), dev("kernels", "plain64", k)
+    q = WATER_CONTROL_Q[-1]
+    d_ctl = dev("kernels", f"charges_x(1+{q:g})", k)
+    log("waterbox_vs_plain_limit", step=k, limit_A=limit, kernels_vs_plain32=d32,
+        kernels_vs_plain64=d64, control=d_ctl)
+    require(np.isfinite(d64) and d32 <= limit and d64 <= limit,
+            f"water box kernel path vs plain: {d32} A (f32), {d64} A (f64), "
+            f"limit {limit} A")
+    require(d_ctl > limit, f"the charge-scale control moved only {d_ctl} A")
+
+
+def profile_water_step(integ, step_s, steps=20, top=14):
+    """torch.profiler over `steps` water-box steps: device time per step by
+    kernel, and the device's busy share against the unprofiled step time
+    `step_s` of the timed run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    integ.step(niter=steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        integ.step(niter=steps)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    kernels = [e for e in prof.key_averages()
+               if dev_us(e) > 0 and e.cpu_time_total == 0]
+    total_us = sum(dev_us(e) for e in kernels) / steps
+    launches = sum(e.count for e in kernels) / steps
+    log("water_profile", steps=steps, device_ms_per_step=f"{total_us / 1e3:.4f}",
+        device_events_per_step=f"{launches:.1f}",
+        unprofiled_step_ms=f"{step_s * 1e3:.4f}",
+        device_busy_share=f"{total_us / 1e6 / step_s:.3f}")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
+        log("water_profile_kernel", us_per_step=f"{dev_us(e) / steps:.2f}",
+            calls_per_step=f"{e.count / steps:.1f}", name=repr(e.key[:90]))
+
+
+def _kernel_entry(name, source, replaces, launches, t):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": None}
 
 
 def main():
     phase_device()
     phase_build()
-    errs, times = phase_kernels()
+    times = phase_kernels()
+    times.update(phase_water_kernels())
     phase_parity()
-    launches, _ = phase_dynamics()
+    thr_launches = phase_dynamics()
+    water_launches, _ = phase_waterbox()
 
     import torch
 
+    src = "torchmd_tpu_torch/csrc/"
     kernels = [
-        {"name": "pair", "route": "cuda",
-         "source": "torchmd_tpu_torch/csrc/nonbonded.cu",
-         "replaces": "torchmd_tpu/ops/pallas_nonbonded.py:545",
-         "launches": launches["pair"], "max_abs_err": errs["pair"],
-         "ms": times["pair"][0], "plain_ms": times["pair"][1]},
-        {"name": "bonded", "route": "cuda",
-         "source": "torchmd_tpu_torch/csrc/bonded.cu",
-         "replaces": "torchmd_tpu/ops/pallas_bonded.py:575",
-         "launches": launches["bonded"], "max_abs_err": errs["bonded"],
-         "ms": times["bonded"][0], "plain_ms": times["bonded"][1]},
+        _kernel_entry("pair", src + "nonbonded.cu",
+                      "torchmd_tpu/ops/pallas_nonbonded.py:545",
+                      thr_launches["pair"], times["pair"]),
+        _kernel_entry("bonded", src + "bonded.cu",
+                      "torchmd_tpu/ops/pallas_bonded.py:575",
+                      thr_launches["bonded"], times["bonded"]),
+        _kernel_entry("cell", src + "cell.cu", "torchmd_tpu/ops/pallas_cell.py:238",
+                      water_launches["cell"], times["cell"]),
+        _kernel_entry("pme_spread", src + "pme.cu", "torchmd_tpu/ops/pallas_pme.py:235",
+                      water_launches["pme_spread"], times["pme_spread"]),
+        _kernel_entry("pme_gather", src + "pme.cu", "torchmd_tpu/ops/pallas_pme.py:168",
+                      water_launches["pme_gather"], times["pme_gather"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

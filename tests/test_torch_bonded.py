@@ -280,3 +280,26 @@ def test_kernel_plan_layout():
     np.testing.assert_allclose(
         plan.par[f.row0].numpy(),
         [a / scnb, b / scnb, ELEC_FACTOR * q[i] * q[j] / scee], rtol=1e-12)
+
+
+def test_zero_force_constant_rows_leave_the_plan():
+    """Rows with a zero force constant add 0 energy and 0 force: the plan
+    leaves them out and still matches the JAX package at f64 (1e-7); a term
+    whose rows are all zero keeps its 0 energy with no rows."""
+    jffp, jcfg, pos, box = _random_case()
+    bp = np.asarray(jffp.bonds.params).copy()
+    bp[::2, 0] = 0.0
+    ap = np.asarray(jffp.angles.params).copy()
+    ap[:, 0] = 0.0
+    jffp = jffp._replace(bonds=jffp.bonds._replace(params=jnp.asarray(bp)),
+                         angles=jffp.angles._replace(params=jnp.asarray(ap)))
+    want, want_f = _jax_bonded(jffp, jcfg, pos, box)
+    ffp, cfg = _port(jffp, jcfg, torch.float64)
+    plan = kb.build_bonded_kernel_plan(ffp, cfg)
+    live = int((bp[np.asarray(jffp.bonds.map_param), 0] != 0).sum())
+    assert [f.name for f in plan.families] == ["bonds", "dihedrals", "impropers", "1-4"]
+    assert 0 < plan.families[0].count == live < 30
+    assert plan.zero_terms == ("angles",)
+    got, got_f = kb.bonded_energy_forces(plan, _t(pos, torch.float64),
+                                         _t(box, torch.float64))
+    _check(got, got_f, want, want_f, 1e-7, 1e-7)

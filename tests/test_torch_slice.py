@@ -65,7 +65,8 @@ def test_forces_compute_matches_jax(name, kernel):
     pos[1] += 0.01 * np.random.RandomState(0).randn(*pos[1].shape)
     box = np.repeat(mol.box[:, 0][None], 2, axis=0)
     jf = JaxForces(par, terms=ALL_TERMS, precision="double", **nb)
-    tf = Forces(par, terms=ALL_TERMS, precision="double", kernel=kernel, **nb)
+    tf = Forces(par, terms=ALL_TERMS, precision="double", kernel=kernel,
+                device="cpu", **nb)
     jforces = np.zeros_like(pos)
     tforces = np.zeros_like(pos)
     want = jf.compute(pos, box, jforces, returnDetails=True)
@@ -107,7 +108,7 @@ def test_ffparams_from_numpy_gives_the_same_energies(name):
 
 def test_langevin_run_through_public_entry_points():
     mol, par, nb = _system("alanine")
-    forces = Forces(par, terms=ALL_TERMS, precision="single", **nb)
+    forces = Forces(par, terms=ALL_TERMS, precision="single", device="cpu", **nb)
     system = System(mol.numAtoms, 1, "single")
     system.set_positions(mol.coords)
     system.set_box(mol.box)
@@ -140,13 +141,23 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(kernel="cell"), dict(kernel="verlet"), dict(elec="ewald", cutoff=9.0),
-    dict(elec="pme", cutoff=9.0), dict(external=object()),
+    dict(kernel="verlet"), dict(elec="ewald", cutoff=9.0),
+    dict(constraints="hbonds"), dict(thermostat="csvr", T=300.0),
+    dict(external=object()),
 ])
 def test_later_slices_raise_not_implemented(kwargs):
-    _, par, _ = _system("ligand")
+    """Options of later slices raise NotImplementedError: Verlet lists,
+    the exact Ewald sum (elec='ewald' below the PME size), SHAKE, CSVR and
+    external potentials."""
+    mol, par, _ = _system("ligand")
+    integ_kw = {k: kwargs.pop(k) for k in ("constraints", "thermostat", "T")
+                if k in kwargs}
     with pytest.raises(NotImplementedError, match="slice|not ported"):
-        Forces(par, terms=ALL_TERMS, precision="double", **kwargs)
+        forces = Forces(par, terms=ALL_TERMS, precision="double", device="cpu",
+                        **kwargs)
+        pos = mol.coords[:, :, 0][None]
+        forces.compute(pos, np.full((1, 3), 40.0))
+        Integrator(System(mol.numAtoms, 1, "double"), forces, 1.0, **integ_kw)
 
 
 def test_kernel_path_on_cuda_needs_single_precision():
@@ -166,7 +177,7 @@ def test_slice_on_cuda_matches_cpu_plain_path():
 
     mol, par, nb = _system("alanine")
     pos, box = mol.coords[:, :, 0][None], mol.box[:, 0][None]
-    cpu = Forces(par, terms=ALL_TERMS, precision="double", **nb)
+    cpu = Forces(par, terms=ALL_TERMS, precision="double", device="cpu", **nb)
     gpu = Forces(par, terms=ALL_TERMS, precision="single", device="cuda", **nb)
     n_pair, n_bonded = kn.LAUNCHES, kb.LAUNCHES
     want = cpu.compute(pos, box, returnDetails=True)[0]

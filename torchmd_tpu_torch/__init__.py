@@ -2,31 +2,33 @@
 
 Beside the JAX package `torchmd_tpu`, which stays the reference, this
 package runs the same molecular dynamics on torch tensors, with
-hand-written CUDA kernels for the hot path on an NVIDIA Hopper GPU (the
-dense pair kernel and the fused bonded kernel, `torchmd_tpu_torch.ops`).
-It shares the JAX package's numpy-only front end (`torchmd_tpu.io`,
-`torchmd_tpu.forcefields`, `torchmd_tpu.parameters`, `torchmd_tpu.units`)
-and never imports jax.
+hand-written CUDA kernels for the hot paths on an NVIDIA Hopper GPU
+(`torchmd_tpu_torch.ops`: the dense pair kernel, the fused bonded kernel,
+the cell-list pair kernel and the PME spread and ik-gather kernels). It
+has its own copy of the numpy front end (`io`, `forcefields`,
+`parameters`, `units`) and imports neither jax nor the JAX package.
+Entry points run on the CUDA card unless given `device="cpu"`.
 
-Quick start (thrombin-ligand, the slice's main path):
+Quick start (a TIP4P/2005 water box with PME, SETTLE, virtual sites and a
+Nose-Hoover chain; `water.top` is a GROMACS topology, `coords` (N, 3) in
+Angstrom, `L` the cubic box edge):
 
-    from torchmd_tpu.io import Molecule
-    from torchmd_tpu.forcefields.ff_amber import AmberForcefield
-    from torchmd_tpu.parameters import Parameters
-    from torchmd_tpu_torch import Forces, System, Integrator, maxwell_boltzmann
+    import numpy as np
+    from torchmd_tpu_torch import (Forces, ForceField, Integrator, Molecule,
+                                   Parameters, System, maxwell_boltzmann)
 
-    mol = Molecule("structure.prmtop"); mol.read("structure.pdb")
-    ff = AmberForcefield(mol, "structure.prmtop")
-    terms = ["bonds", "angles", "dihedrals", "impropers", "1-4",
-             "electrostatics", "lj"]
+    mol = Molecule("water.top")
+    ff = ForceField.create(mol, "water.top")
+    terms = ["bonds", "lj", "electrostatics"]
     par = Parameters(ff, mol, terms, precision="single")
-    forces = Forces(par, terms=terms, precision="single", cutoff=7.3,
-                    rfa=True, device="cuda")
+    forces = Forces(par, terms=terms, precision="single", cutoff=8.5,
+                    elec="ewald")                 # cell list + PME on the card
     system = System(mol.numAtoms, 1, "single")
-    system.set_positions(mol.coords)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    system.set_velocities(maxwell_boltzmann(par.masses, 300, generator=gen))
-    integ = Integrator(system, forces, 4.0, gamma=0.1, T=300)
+    system.set_positions(coords)
+    system.set_box(np.full(3, L))
+    system.set_velocities(maxwell_boltzmann(par.masses, 300, seed=3))
+    integ = Integrator(system, forces, 2.0, T=300, thermostat="nhc",
+                       constraints="settle")
     Ekin, Epot, T = integ.step(niter=100)
 """
 
@@ -34,16 +36,21 @@ __version__ = "0.1.0"
 
 __all__ = [
     "systems", "potentials", "bonded", "forces", "integrator", "interop",
-    "ops",
+    "ops", "io", "forcefields", "parameters", "units", "neighbors", "ewald",
+    "vsites", "constraints", "thermostats",
     # convenience re-exports (lazy)
-    "Molecule", "AmberForcefield", "Parameters", "System", "Forces",
-    "Integrator", "maxwell_boltzmann", "ffparams_from_numpy",
+    "Molecule", "ForceField", "AmberForcefield", "GromacsForcefield",
+    "Parameters", "System", "Forces", "Integrator", "maxwell_boltzmann",
+    "ffparams_from_numpy",
 ]
 
 _LAZY = {
-    "Molecule": ("torchmd_tpu.io", "Molecule"),
-    "AmberForcefield": ("torchmd_tpu.forcefields.ff_amber", "AmberForcefield"),
-    "Parameters": ("torchmd_tpu.parameters", "Parameters"),
+    "Molecule": ("torchmd_tpu_torch.io", "Molecule"),
+    "ForceField": ("torchmd_tpu_torch.forcefields", "ForceField"),
+    "AmberForcefield": ("torchmd_tpu_torch.forcefields.ff_amber", "AmberForcefield"),
+    "GromacsForcefield": ("torchmd_tpu_torch.forcefields.ff_gromacs",
+                          "GromacsForcefield"),
+    "Parameters": ("torchmd_tpu_torch.parameters", "Parameters"),
     "System": ("torchmd_tpu_torch.systems", "System"),
     "Forces": ("torchmd_tpu_torch.forces", "Forces"),
     "Integrator": ("torchmd_tpu_torch.integrator", "Integrator"),

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from torchmd_tpu.units import ELEC_FACTOR
+from .units import ELEC_FACTOR
 
 from .potentials import FFParams, ForceTermConfig, add_energy, wrap_displacement
 

@@ -1,4 +1,5 @@
 // Dense all-pairs nonbonded energy and forces on Hopper (sm_90a).
+// The per-pair term math is pair_terms.cuh, shared with cell.cu.
 //
 // Replaces: torchmd_tpu/ops/pallas_nonbonded.py, pallas_nonbonded_energy_forces
 // with its kernels _kernel_tri (the Newton-half schedule) and _kernel (the
@@ -34,6 +35,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "pair_terms.cuh"
+
 namespace {
 
 constexpr int TILE = 128;
@@ -64,18 +67,6 @@ namespace {
 
 __device__ __forceinline__ float wrap(float d, float b) {
   return b > 0.f ? d - b * rintf(d / b) : d;
-}
-
-__device__ __forceinline__ double block_sum(double v, double* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // scratch may still be read by a previous call
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  double s = 0.0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += scratch[w];
-  return s;  // valid in thread 0
 }
 
 template <bool PBC, bool NBFIX>
@@ -136,63 +127,17 @@ pair_kernel(const float* __restrict__ pos, const float* __restrict__ q,
       if (PBC) { dx = wrap(dx, bx); dy = wrap(dy, by); dz = wrap(dz, bz); }
       const float d2 = dx * dx + dy * dy + dz * dz;
       if (cfg.use_cutoff && d2 > cfg.cutoff2) continue;
-      const float rinv = rsqrtf(d2);
-      const float dist = d2 * rinv;
-      float g = 0.f;  // (dE/dr) / r
-
+      float A = 0.f, B = 0.f;
       if (cfg.lj_kind != 0) {
-        float A, B;
         if (NBFIX) {
           const int k = ti * cfg.ntypes + st[r];
           A = __ldg(lj_a + k);
           B = __ldg(lj_b + k);
         } else {
-          const float s = si + ss[r];  // rows carry sigma/2
-          const float e = ei * se[r];  // rows carry sqrt|eps|
-          const float s2 = s * s;
-          const float s6 = s2 * s2 * s2;
-          B = 4.f * e * s6;
-          A = B * s6;
-        }
-        const float rinv2 = rinv * rinv;
-        const float rinv6 = rinv2 * rinv2 * rinv2;
-        const float rinv12 = rinv6 * rinv6;
-        if (cfg.lj_kind == 1) {
-          float pot = A * rinv12 - B * rinv6;
-          float dEdr = (-12.f * A * rinv12 + 6.f * B * rinv6) * rinv;
-          if (cfg.use_switch && dist > cfg.switch_dist) {
-            const float u = (dist - cfg.switch_dist) * cfg.inv_switch_width;
-            const float sw = 1.f + u * u * u * (-10.f + u * (15.f - u * 6.f));
-            const float dsw = u * u * (-30.f + u * (60.f - u * 30.f)) * cfg.inv_switch_width;
-            dEdr = dEdr * sw + pot * dsw;
-            pot *= sw;
-          }
-          tlj += pot;
-          g += dEdr * rinv;
-        } else if (cfg.lj_kind == 2) {
-          tlj += A * rinv12;
-          g += -12.f * A * rinv12 * rinv2;
-        } else {
-          tlj += B * rinv6;
-          g += -6.f * B * rinv6 * rinv2;
+          lb_coefficients(si, ss[r], ei, se[r], A, B);
         }
       }
-      if (cfg.elec_kind != 0) {
-        const float qq = cfg.elec_factor * qi * sq[r];
-        if (cfg.elec_kind == 3) {
-          const float x = cfg.ewald_alpha * dist;
-          const float erfc_t = erfcf(x);
-          tel += qq * erfc_t * rinv;
-          g += -qq * rinv * rinv *
-               (erfc_t * rinv + (2.f * cfg.ewald_alpha * 0.5641895835477563f) * expf(-x * x));
-        } else if (cfg.elec_kind == 2) {
-          tel += qq * (rinv + cfg.krf * d2 - cfg.crf);
-          g += qq * (2.f * cfg.krf - rinv * rinv * rinv);
-        } else {
-          tel += qq * rinv;
-          g += -qq * rinv * rinv * rinv;
-        }
-      }
+      const float g = pair_terms(cfg, d2, A, B, cfg.elec_factor * qi * sq[r], tlj, tel);
       fx -= g * dx;
       fy -= g * dy;
       fz -= g * dz;

@@ -43,9 +43,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Path of the shared library built from `csrc/<name>.cu`."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    """Path of the shared library built from `csrc/<name>.cu`, keyed by
+    its source, the shared `csrc/*.cuh` headers and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
@@ -79,7 +83,8 @@ def _log_path(library: str) -> str:
 
 def _kernel_name(mangled: str) -> str:
     """`pair_kernel<1,0>` from `_Z11pair_kernelILb1ELb0EEv...`, or from the
-    nested `_ZN<len><namespace><len>pair_kernelILb1ELb0EEEv...`."""
+    nested `_ZN<len><namespace><len>pair_kernelILb1ELb0EEEv...`; integer
+    template arguments (`ILi4EE`) read the same way."""
     if not mangled.startswith("_Z"):
         return mangled
     pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
@@ -87,8 +92,8 @@ def _kernel_name(mangled: str) -> str:
         pos += m.end()
         name = mangled[pos:pos + int(m.group())]
         pos += int(m.group())
-    flags = re.match(r"I((?:Lb[01]E)+)E", mangled[pos:])
-    args = f"<{','.join(re.findall(r'Lb([01])E', flags.group(1)))}>" if flags else ""
+    flags = re.match(r"I((?:L[bi]\d+E)+)E", mangled[pos:])
+    args = f"<{','.join(re.findall(r'L[bi](\d+)E', flags.group(1)))}>" if flags else ""
     return name + args
 
 

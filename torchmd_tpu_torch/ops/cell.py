@@ -1,0 +1,259 @@
+"""Cell-list nonbonded energy + forces: the CUDA cell kernel, its plain
+PyTorch version, and the wrapper that picks between them by device.
+
+Counterpart of `torchmd_tpu/ops/pallas_cell.py` (`pallas_cell_energy_forces`)
+and of `neighbors.cell_nonbonded_energy_forces`, whose contract it computes:
+the pairs of each cell's atoms with the atoms of its 27 neighbouring cells
+(a 3x3x3 stencil of cells with edge >= cutoff + skin), periodic images as
+a per-neighbour-cell shift of the anchored positions, exclusions from a
+padded per-atom list, the cutoff on d^2, and the pair terms of the dense
+kernel (LJ with the switch, repulsion or repulsioncg, Coulomb plain /
+reaction field / Ewald erfc). Energies carry the 0.5 symmetric factor
+(every pair is seen from both of its cells); forces are per atom.
+
+`cell_energy_forces(data, cfg, clcfg, cl, pos, box)` runs the plain
+version for a CPU tensor and launches the kernel (`csrc/cell.cu`) for a
+CUDA tensor; on a CUDA tensor it launches or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import itertools
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..potentials import LJ_FAMILY, add_energy, nonbonded_block_energy_forces
+from ..units import ELEC_FACTOR
+from . import _build
+from .nonbonded import atom_rows, make_kernel_cfg, supported_terms
+
+# Kernel launches made by `cell_energy_forces` (one per call on CUDA).
+LAUNCHES = 0
+
+MAX_THREADS = 1024   # one thread per slot: capacity <= 1024 on the card
+STENCIL = tuple(itertools.product((-1, 0, 1), repeat=3))
+
+
+class CellData(NamedTuple):
+    """Per-atom rows and exclusion lists, prepared once per topology."""
+
+    natoms: int
+    q: torch.Tensor                     # (N,) charges
+    sig: torch.Tensor                   # (N,) sigma/2
+    eps: torch.Tensor                   # (N,) sqrt|epsilon|
+    types: torch.Tensor                 # (N,) int32 LJ type
+    excl: torch.Tensor                  # (N, E) int32, N = empty
+    lj_a: Optional[torch.Tensor] = None  # (T, T) NBFIX A table
+    lj_b: Optional[torch.Tensor] = None  # (T, T) NBFIX B table
+
+
+def prepare_cell_data(ffp, excl_table, dtype=None) -> CellData:
+    """Kernel inputs from FFParams and a (natoms, E) exclusion table
+    (`neighbors.build_exclusion_table`), on ffp's device."""
+    excl = torch.as_tensor(np.array(excl_table), dtype=torch.int32,
+                           device=ffp.charges.device)
+    return CellData(excl=excl.contiguous(), **atom_rows(ffp, dtype))
+
+
+# ----------------------------------------------------------------------
+# Plain PyTorch version
+# ----------------------------------------------------------------------
+
+def _image_shift(clcfg, box, offset, like):
+    """(ncx, ncy, ncz, 1, 3) position shift of the neighbour cell at
+    `offset` from each cell: +-box where the stencil wraps around a face."""
+    axes = []
+    for ax, (d, nc) in enumerate(zip(offset, clcfg.ncells)):
+        wraps = torch.div(torch.arange(nc, device=like.device) + d, nc,
+                          rounding_mode="floor")
+        shape = [1, 1, 1]
+        shape[ax] = nc
+        axes.append((wraps.to(like.dtype) * box[ax]).reshape(shape))
+    return torch.stack(torch.broadcast_tensors(*axes), dim=-1)[..., None, :]
+
+
+def cell_reference(data: CellData, cfg, clcfg, cl, pos, box):
+    """Plain PyTorch version of the cell kernel: the 27 stencil offsets in
+    turn, each a (ncells * cap, cap) pair block through the port's
+    `nonbonded_block_energy_forces`, at the dtype and on the device of
+    `pos`. Returns ({term: energy}, forces (N, 3))."""
+    from ..neighbors import anchored_positions
+
+    n, dt, dev = data.natoms, pos.dtype, pos.device
+    grid = tuple(clcfg.ncells)
+    ncells, cap = int(np.prod(grid)), clcfg.capacity
+    rows = ncells * cap
+    box = torch.as_tensor(box, dtype=dt, device=dev).reshape(3)
+    slots = cl.slots.long()
+
+    def slot_rows(a, fill):
+        pad = torch.cat([a, torch.full_like(a[:1], fill)])
+        return pad[slots].reshape(grid + (cap,) + a.shape[1:])
+
+    def roll(a, offset):
+        return torch.roll(a, shifts=tuple(-d for d in offset), dims=(0, 1, 2))
+
+    P = slot_rows(anchored_positions(pos, cl.ref_pos.to(dt), box), 0.0)
+    Q = slot_rows(data.q.to(dt), 0.0)
+    ids = slots.reshape(grid + (cap,))
+    ids_i = slots.reshape(rows)
+    valid_i = ids_i < n
+    nexcl = data.excl.shape[1]
+    EX = slot_rows(data.excl.long(), n).reshape(rows, 1, nexcl)
+    want_lj = any(t in cfg.terms for t in LJ_FAMILY)
+    if want_lj and data.lj_a is not None:
+        T = slot_rows(data.types.long(), 0)
+    elif want_lj:
+        S, E = slot_rows(data.sig.to(dt), 0.0), slot_rows(data.eps.to(dt), 0.0)
+
+    def pair_block(a_i, a_j):
+        """a_i per i slot as (ncells, cap, 1), a_j per j slot as
+        (ncells, 1, cap): operands that broadcast to the pair block."""
+        return a_i.reshape(ncells, cap, 1), a_j.reshape(ncells, 1, cap)
+
+    pot: dict = {}
+    f_slots = torch.zeros((rows, 3), dtype=dt, device=dev)
+    for offset in STENCIL:
+        Pn = roll(P, offset) + _image_shift(clcfg, box, offset, P)
+        dv = (P.reshape(ncells, cap, 1, 3)
+              - Pn.reshape(ncells, 1, cap, 3)).reshape(rows, cap, 3)
+        idn = roll(ids, offset).reshape(ncells, 1, cap).expand(
+            ncells, cap, cap).reshape(rows, cap)
+        mask = valid_i[:, None] & (idn < n) & (ids_i[:, None] != idn)
+        if nexcl:
+            mask = mask & ~(EX == idn[:, :, None]).any(-1)
+        qq = A = B = None
+        if "electrostatics" in cfg.terms:
+            qi, qj = pair_block(Q, roll(Q, offset))
+            qq = (ELEC_FACTOR * qi * qj).reshape(rows, cap)
+        if want_lj and data.lj_a is not None:
+            ti, tj = pair_block(T, roll(T, offset))
+            A = data.lj_a.to(dt)[ti, tj].reshape(rows, cap)
+            B = data.lj_b.to(dt)[ti, tj].reshape(rows, cap)
+        elif want_lj:
+            si, sj = pair_block(S, roll(S, offset))
+            ei, ej = pair_block(E, roll(E, offset))
+            s6 = ((si + sj) ** 6).reshape(rows, cap)
+            B = 4.0 * (ei * ej).reshape(rows, cap) * s6
+            A = B * s6
+        block, f_rows = nonbonded_block_energy_forces(cfg, dv, mask, qq, A, B)
+        f_slots = f_slots + f_rows
+        for k, v in block.items():
+            add_energy(pot, k, v)
+    forces = torch.zeros((n + 1, 3), dtype=dt, device=dev).index_add_(
+        0, slots.reshape(-1), f_slots)[:n]
+    return pot, forces
+
+
+# ----------------------------------------------------------------------
+# CUDA kernel
+# ----------------------------------------------------------------------
+
+class CellCfg(ctypes.Structure):
+    """Mirror of `struct CellCfg` in csrc/cell.cu."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "natoms", "capacity", "ncx", "ncy", "ncz", "nexcl", "lj_kind",
+        "elec_kind", "use_switch")] + [(name, ctypes.c_float) for name in (
+            "cutoff2", "switch_dist", "inv_switch_width", "krf", "crf",
+            "ewald_alpha", "elec_factor")]
+
+
+_P = ctypes.c_void_p
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.load("cell")
+        lib.tmd_cell_energy_forces.argtypes = [_P] * 8 + [CellCfg] + [_P] * 4
+        lib.tmd_cell_energy_forces.restype = ctypes.c_int
+        lib.tmd_error_string.argtypes = [ctypes.c_int]
+        lib.tmd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def build():
+    """Compile and load the kernel library (done at first launch anyway)."""
+    _library()
+
+
+def kernel_cfg(cfg, clcfg, natoms, nexcl) -> CellCfg:
+    kcfg = make_kernel_cfg(cfg, True)
+    lj_kind = (1 if kcfg["lj"] else 2 if kcfg["repulsion"]
+               else 3 if kcfg["repulsioncg"] else 0)
+    elec_kind = 0
+    if kcfg["elec"]:
+        elec_kind = 3 if kcfg["ewald_alpha"] is not None else 2 if kcfg["rfa"] else 1
+    use_switch = kcfg["switch"] is not None
+    ncx, ncy, ncz = clcfg.ncells
+    return CellCfg(
+        natoms=natoms, capacity=clcfg.capacity, ncx=ncx, ncy=ncy, ncz=ncz,
+        nexcl=nexcl, lj_kind=lj_kind, elec_kind=elec_kind,
+        use_switch=int(use_switch), cutoff2=kcfg["cutoff"] ** 2,
+        switch_dist=kcfg["switch"] if use_switch else 0.0,
+        inv_switch_width=(1.0 / (kcfg["cutoff"] - kcfg["switch"])
+                          if use_switch else 0.0),
+        krf=kcfg["krf"], crf=kcfg["crf"], ewald_alpha=kcfg["ewald_alpha"] or 0.0,
+        elec_factor=kcfg["elec_factor"])
+
+
+def _launch(data: CellData, cfg, clcfg, cl, pos, box):
+    global LAUNCHES
+    from ..neighbors import anchored_positions
+
+    if not supported_terms(cfg):
+        raise NotImplementedError(
+            "the cell kernel takes at most one of lj/repulsion/repulsioncg")
+    if data.lj_a is not None:
+        raise NotImplementedError(
+            "the cell kernel takes Lorentz-Berthelot rows, not NBFIX tables")
+    if clcfg.capacity > MAX_THREADS:
+        raise ValueError(f"cell capacity {clcfg.capacity} > {MAX_THREADS}")
+    n, dev, f32, i32 = data.natoms, pos.device, torch.float32, torch.int32
+    ncells = int(np.prod(clcfg.ncells))
+    nexcl = int(data.excl.shape[1])
+    _build.check_tensor(pos, "pos", f32, (n, 3), dev)
+    _build.check_tensor(box, "box", f32, (3,), dev)
+    for name in ("q", "sig", "eps"):
+        _build.check_tensor(getattr(data, name), name, f32, (n,), dev)
+    _build.check_tensor(data.excl, "excl", i32, (n, nexcl), dev)
+    _build.check_tensor(cl.slots, "slots", i32, (ncells, clcfg.capacity), dev)
+    _build.check_tensor(cl.counts, "counts", i32, (ncells,), dev)
+
+    pos_w = anchored_positions(pos, cl.ref_pos, box).contiguous()
+    forces = torch.empty((n, 3), dtype=f32, device=dev)
+    epart = torch.empty((ncells, 2), dtype=torch.float64, device=dev)
+    energies = torch.empty(2, dtype=f32, device=dev)
+    lib = _library()
+    err = lib.tmd_cell_energy_forces(
+        pos_w.data_ptr(), data.q.data_ptr(), data.sig.data_ptr(),
+        data.eps.data_ptr(), cl.slots.data_ptr(), cl.counts.data_ptr(),
+        data.excl.data_ptr(), box.data_ptr(), kernel_cfg(cfg, clcfg, n, nexcl),
+        forces.data_ptr(), epart.data_ptr(), energies.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"cell kernel launch failed: {lib.tmd_error_string(err).decode()}")
+    LAUNCHES += 1
+    out = {t: energies[0] for t in LJ_FAMILY if t in cfg.terms}
+    if "electrostatics" in cfg.terms:
+        out["electrostatics"] = energies[1]
+    return out, forces
+
+
+def cell_energy_forces(data: CellData, cfg, clcfg, cl, pos, box):
+    """pos: (N, 3); box: (3,) diagonal tensor; `cl` a CellList built for
+    `clcfg`. Returns ({term: 0-dim energy tensor}, forces (N, 3)). A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel (f32
+    only) or raises."""
+    if pos.device.type == "cuda":
+        return _launch(data, cfg, clcfg, cl, pos, box)
+    if pos.device.type == "cpu":
+        return cell_reference(data, cfg, clcfg, cl, pos, box)
+    raise ValueError(f"no cell kernel for device {pos.device}")

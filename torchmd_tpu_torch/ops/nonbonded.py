@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from torchmd_tpu.units import ELEC_FACTOR
+from ..units import ELEC_FACTOR
 
 from ..potentials import (LJ_FAMILY, add_energy, nonbonded_block_energy_forces,
                           rfa_constants, wrap_displacement)
@@ -77,9 +77,10 @@ class NBData(NamedTuple):
     lj_b: Optional[torch.Tensor] = None  # (T, T) NBFIX B table
 
 
-def prepare_nb_data(ffp, dtype=None) -> NBData:
-    """Kernel inputs from FFParams, on ffp's device, at `dtype` (default:
-    the dtype of ffp.charges)."""
+def atom_rows(ffp, dtype=None) -> dict:
+    """Per-atom kernel rows from FFParams, on ffp's device, at `dtype`
+    (default: the dtype of ffp.charges): natoms, q, sig (sigma/2), eps
+    (sqrt|eps|), types (int32) and the NBFIX lj_a/lj_b tables or None."""
     dtype = ffp.charges.dtype if dtype is None else dtype
     n = int(ffp.charges.shape[0])
     dev = ffp.charges.device
@@ -96,13 +97,16 @@ def prepare_nb_data(ffp, dtype=None) -> NBData:
         eps = torch.sqrt(torch.abs(ffp.lj_params[:, 1][types])).to(dtype)
     else:
         sig = eps = torch.zeros(n, dtype=dtype, device=dev)
-    return NBData(
-        natoms=n, q=ffp.charges.to(dtype).contiguous(),
-        sig=sig.contiguous(), eps=eps.contiguous(),
-        types=types.to(torch.int32).contiguous(),
-        mask=ffp.nb_mask.to(torch.int8).contiguous(),
-        lj_a=lj_a, lj_b=lj_b,
-    )
+    return dict(natoms=n, q=ffp.charges.to(dtype).contiguous(),
+                sig=sig.contiguous(), eps=eps.contiguous(),
+                types=types.to(torch.int32).contiguous(), lj_a=lj_a, lj_b=lj_b)
+
+
+def prepare_nb_data(ffp, dtype=None) -> NBData:
+    """Kernel inputs from FFParams, on ffp's device, at `dtype` (default:
+    the dtype of ffp.charges)."""
+    return NBData(mask=ffp.nb_mask.to(torch.int8).contiguous(),
+                  **atom_rows(ffp, dtype))
 
 
 # ----------------------------------------------------------------------

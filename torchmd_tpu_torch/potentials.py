@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from torchmd_tpu.units import ELEC_FACTOR
+from .units import ELEC_FACTOR
 
 BONDED_TERMS = ("bonds", "angles", "dihedrals", "impropers", "1-4",
                 "urey-bradley", "cmap")

@@ -41,6 +41,18 @@ def torch_dtype(precision) -> torch.dtype:
             else torch.float32)
 
 
+def resolve_device(device) -> torch.device:
+    """`device`, or the CUDA card when None. Without a card, None raises:
+    the port never falls back to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless asked otherwise; "
+            "pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def to_numpy(x) -> np.ndarray:
     """numpy view of an array-like, copying a torch tensor to the host."""
     if isinstance(x, torch.Tensor):

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Drives the port's two main paths through the entry points a user calls
+Drives the port's three main paths through the entry points a user calls
 (Molecule -> ForceField -> Parameters -> Forces -> System ->
 Integrator.step), f32, imports nothing of JAX or of the JAX package:
 
@@ -10,9 +10,13 @@ Integrator.step), f32, imports nothing of JAX or of the JAX package:
   - the TIP4P/2005 water box of scripts/bench_waterbox.py (25^3 = 15,625
     waters, 62,500 sites, box 77.6 A, cutoff 8.5 A, skin 2 A, PME order 4
     on an 80^3 mesh, SETTLE, virtual sites, Nose-Hoover chain at 300 K,
-    tau 200 fs, 2 fs): the cell-list pair kernel and the PME spread and ik
-    gather kernels (its bonded plan has no rows: the water bonds' force
-    constants are 0).
+    tau 200 fs, 2 fs), NVT phase with `column=False`: the cell-list pair
+    kernel and the PME spread and ik gather kernels (its bonded plan has
+    no rows: the water bonds' force constants are 0);
+  - the same box's NPT phase (MTKBarostat(1 bar, 300 K, tau_p 2000 fs),
+    iso, seed 3, the defaults of Forces): the column pair kernel with its
+    per-axis virial and the PME spread kernel (PME forces by the exact
+    gather on the NPT path).
 
 Phases (each prints lines; any failure raises and exits non-zero):
   1. device: require CUDA, print the card's name and power limit;
@@ -39,7 +43,17 @@ Phases (each prints lines; any failure raises and exits non-zero):
      steps 1, 2, 5 and 10 beside the rounding floor (the kernel path from
      a start moved by one f32 ulp per coordinate; also at coordinates
      shifted by 2 box edges, where the ulp doubles) and two fault controls
-     (the kernel path with every charge scaled by 1 + 1e-3 and 1 + 1e-2).
+     (the kernel path with every charge scaled by 1 + 1e-3 and 1 + 1e-2);
+  7. column kernels: the column kernel and the cell kernel's virial
+     variant (f32) against their plain versions (f64) on the full box, the
+     216-water box and a 1,500-atom charged LJ gas; both timed at the same
+     full-box state, with visited slot pairs and bounds;
+  8. npt: the full box's NPT phase, NPT_WARMUP then NPT_STEPS timed steps
+     with the counters reset just before and read just after (steps/s,
+     launches per step, volume, density, T, the extended-energy change,
+     SETTLE and site errors, no cell launch), a profiler breakdown, and a
+     10-step kernel (f32) against plain (f64) check of positions and box
+     beside the one-ulp floor and a 1 % charge control.
 The last two lines are a JSON summary of the kernels and the JSON status
 line. Usage: python3 chip_smoke.py
 """
@@ -99,7 +113,35 @@ WATER_TAU = 200.0             # fs, the Nose-Hoover chain's time constant
 # (each +12 to +26 kcal/mol over 100 steps, run to run) differ by that
 # spread; they agree within NVE_DH_TOL kcal/mol
 NVE_STEPS, NVE_DH_TOL = 100, 20.0
-KERNEL_SOURCES = ("nonbonded", "bonded", "cell", "pme")
+KERNEL_SOURCES = ("nonbonded", "bonded", "cell", "pme", "column")
+# NPT phase: scripts/bench_waterbox.py's second phase, 1 bar, tau_p 2000 fs
+NPT_PRESSURE, NPT_TAU_P = 1.0, 2000.0
+NPT_WARMUP, NPT_STEPS, NPT_CHUNK = 100, 500, 100
+NPT_VOLUME_RANGE = (0.7, 1.4)     # final volume over the lattice's
+# the kernel's per-axis virial: 3 multiplies and 3 adds per pair
+VIRIAL_FLOPS = 6
+# the LJ gas of tests/test_columns.py: 1,500 atoms in 60 A, cutoff 9 A,
+# reaction field, charges 0.05 e x N(0, 1)
+GAS_N, GAS_L, GAS_CUTOFF = 1500, 60.0, 9.0
+GAS_TOP = """
+[ defaults ]
+  1 2 yes 0.5 0.8333
+
+[ atomtypes ]
+  AR 18 39.948 0.0 A 0.3405 0.995792
+
+[ moleculetype ]
+  AR 1
+
+[ atoms ]
+  1 AR 1 AR AR 1 0.0 39.948
+
+[ system ]
+gas
+
+[ molecules ]
+AR {n}
+"""
 
 # Bounds. Published H100 SXM peaks (NVIDIA datasheet, at 700 W):
 HBM_BYTES_PER_S = 3.35e12
@@ -419,12 +461,15 @@ def phase_kernels():
     return out
 
 
-def _water_forces(par, cutoff, precision="single", plain=False, gather=None):
+def _water_forces(par, cutoff, precision="single", plain=False, gather=None,
+                  column=False):
+    """The water box's Forces; the NVT phase keeps the cell kernel
+    (column=False), the NPT phase takes the defaults (column=None)."""
     from torchmd_tpu_torch.forces import Forces
 
     return Forces(par, terms=WATER_TERMS, precision=precision, cutoff=cutoff,
                   elec="ewald" if par.natoms >= 4096 else "pme", kernel="cell",
-                  device=DEVICE, plain=plain, gather=gather)
+                  device=DEVICE, plain=plain, gather=gather, column=column)
 
 
 def _water_pair_count(data, pos, box, cutoff, rows=2048):
@@ -815,7 +860,7 @@ def water_trajectory_check(par, par64, start_pos, start_vel, L):
     require(d_ctl > limit, f"the charge-scale control moved only {d_ctl} A")
 
 
-def profile_water_step(integ, step_s, steps=20, top=14):
+def profile_water_step(integ, step_s, steps=20, top=14, label="water_profile"):
     """torch.profiler over `steps` water-box steps: device time per step by
     kernel, and the device's busy share against the unprofiled step time
     `step_s` of the timed run."""
@@ -836,13 +881,337 @@ def profile_water_step(integ, step_s, steps=20, top=14):
                if dev_us(e) > 0 and e.cpu_time_total == 0]
     total_us = sum(dev_us(e) for e in kernels) / steps
     launches = sum(e.count for e in kernels) / steps
-    log("water_profile", steps=steps, device_ms_per_step=f"{total_us / 1e3:.4f}",
+    log(label, steps=steps, device_ms_per_step=f"{total_us / 1e3:.4f}",
         device_events_per_step=f"{launches:.1f}",
         unprofiled_step_ms=f"{step_s * 1e3:.4f}",
         device_busy_share=f"{total_us / 1e6 / step_s:.3f}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
-        log("water_profile_kernel", us_per_step=f"{dev_us(e) / steps:.2f}",
+        log(f"{label}_kernel", us_per_step=f"{dev_us(e) / steps:.2f}",
             calls_per_step=f"{e.count / steps:.1f}", name=repr(e.key[:90]))
+
+def build_gas(precision="single"):
+    """(par, positions, box edge) of the charged LJ gas of
+    tests/test_columns.py (argon-like atoms on a jittered grid, seed 0)."""
+    from torchmd_tpu_torch.forcefields import ForceField
+    from torchmd_tpu_torch.io import Molecule
+    from torchmd_tpu_torch.parameters import Parameters
+
+    with tempfile.TemporaryDirectory() as td:
+        top = os.path.join(td, "gas.top")
+        with open(top, "w") as fh:
+            fh.write(GAS_TOP.format(n=GAS_N))
+        mol = Molecule(top)
+        ff = ForceField.create(mol, top)
+    rs = np.random.RandomState(0)
+    charges = rs.randn(GAS_N) * 0.05
+    m = int(np.ceil(GAS_N ** (1 / 3)))
+    grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                    axis=-1).reshape(-1, 3)[:GAS_N]
+    coords = (grid + 0.5) * (GAS_L / m) + rs.randn(GAS_N, 3) * 0.3
+    par = Parameters(ff, mol, ["lj", "electrostatics"], precision=precision)
+    par.charges = charges
+    return par, coords, GAS_L
+
+
+def _compare_virial(tag, vir_k, vir_p):
+    """Kernel virial against the plain one: |dW_a| <= E_TOL max(1, |W_a|)."""
+    vk, vp = vir_k.double().cpu(), vir_p.double().cpu()
+    err = (vk - vp).abs()
+    require(bool((err <= E_TOL * vp.abs().clamp(min=1.0)).all()), (tag, vk.tolist(), vp.tolist()))
+    return float(err.max())
+
+
+def phase_column_kernels():
+    """The column kernel (with its virial) and the cell kernel's virial
+    variant, f32, against their plain f64 versions on the full water box,
+    the 216-water box and the LJ gas; their times at the full box."""
+    import torch
+
+    from torchmd_tpu_torch import columns as tcol
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.ops import cell as kc
+    from torchmd_tpu_torch.ops import column as kcol
+    from torchmd_tpu_torch.vsites import apply_vsites
+
+    errs = {"column": 0.0, "cell_virial": 0.0}
+    out = {}
+    cases = (("water216",) + SMALL_WATER + (False,),
+             ("water-full", WATER_N, WATER_SPACING, WATER_CUTOFF, True),
+             ("lj-gas", None, None, GAS_CUTOFF, None))
+    for name, n, spacing, cutoff, jitter in cases:
+        if name == "lj-gas":
+            par, raw_np, L = build_gas()
+            mk = dict(terms=["lj", "electrostatics"], cutoff=cutoff, rfa=True)
+        else:
+            mol, par, L = build_water(n, spacing, jitter)
+            raw_np = mol.coords[:, :, 0]
+            mk = dict(terms=WATER_TERMS, cutoff=cutoff,
+                      elec="ewald" if par.natoms >= 4096 else "pme")
+        box_np = np.full((1, 3), L)
+        b32 = torch.as_tensor(box_np[0], dtype=torch.float32, device=DEVICE)
+        b64 = b32.double()
+        raw = torch.as_tensor(raw_np, dtype=torch.float64, device=DEVICE)
+        kerns = {}
+        for column in (True, False):
+            f = Forces(par, precision="single", kernel="cell", device=DEVICE,
+                       column=column, **mk)
+            f.prepare(raw.float()[None], box_np)
+            kerns[column] = f
+        fcol, fcell = kerns[True], kerns[False]
+        require(isinstance(fcol._cell_kernel, tcol.ColumnKernel), "no column kernel")
+        p32 = (apply_vsites(fcol.vsites, raw, b64) if fcol.vsites else raw).float()
+        p64 = p32.double()
+        cfg = fcol._cell_kernel.cfg
+        # the column kernel on its own state; the plain f64 version on the same
+        ck = fcol._cell_kernel
+        st = ck.build(p32, b32)
+        require(not bool(st.overflow), f"{name}: column structure overflow")
+        st64 = st._replace(jzshift=st.jzshift.double(), ref_pos=st.ref_pos.double())
+        d64 = kc.CellData(**{k: (v.double() if torch.is_tensor(v) and v.is_floating_point()
+                                 else v) for k, v in ck.data._asdict().items()})
+        pot_k, f_k, vir_k = kcol.column_energy_forces(ck.data, cfg, ck.ccfg, st, p32, b32,
+                                                      with_virial=True)
+        pot_p, f_p, vir_p = kcol.column_reference(d64, cfg, ck.ccfg, st64, p64, b64,
+                                                  with_virial=True)
+        torch.cuda.synchronize()
+        e_col = _compare(f"{name}/column", pot_k, f_k, pot_p, f_p)
+        v_col = _compare_virial(f"{name}/column", vir_k, vir_p)
+        # the cell kernel's virial variant
+        kk = fcell._cell_kernel
+        cl = kk.build(p32, b32)
+        cl64 = cl._replace(ref_pos=cl.ref_pos.double())
+        pot_k, f_k, cvir_k = kc.cell_energy_forces(kk.data, cfg, kk.clcfg, cl, p32, b32,
+                                                   with_virial=True)
+        pot_p, f_p, cvir_p = kc.cell_reference(d64, cfg, kk.clcfg, cl64, p64, b64,
+                                               with_virial=True)
+        torch.cuda.synchronize()
+        e_cell = _compare(f"{name}/cell_virial", pot_k, f_k, pot_p, f_p)
+        v_cell = _compare_virial(f"{name}/cell_virial", cvir_k, cvir_p)
+        require(bool((vir_p - cvir_p).abs().max() <= 1e-9 * cvir_p.abs().max()),
+                (name, "column and cell virials differ at f64", vir_p.tolist(), cvir_p.tolist()))
+        errs["column"] = max(errs["column"], e_col)
+        errs["cell_virial"] = max(errs["cell_virial"], e_cell)
+        log("column_kernels", case=name, natoms=par.natoms, ncols=ck.ccfg.ncols,
+            C=ck.ccfg.C, CE=ck.ccfg.CE, W=ck.ccfg.W, NB=ck.ccfg.NB,
+            column_max_abs_err=e_col, column_virial_max_abs_err=v_col,
+            cell_virial_max_abs_err=e_cell, cell_virial_virial_max_abs_err=v_cell,
+            virial=[round(float(v), 4) for v in vir_p])
+        if name != "water-full":
+            continue
+
+        data = ck.data
+        npairs = _water_pair_count(data, p32, b32, cutoff)
+        visited = kcol.visited_slot_pairs(ck.ccfg, st)
+        c3 = cl.counts.double().reshape(kk.clcfg.ncells)
+        cell_visited = int(sum((c3 * torch.roll(c3, shifts=o, dims=(0, 1, 2))).sum()
+                               for o in kc.STENCIL))
+        flops = npairs * (PAIR_FLOPS["ewald"] + NEWTON_J_FLOPS + VIRIAL_FLOPS)
+        out["column"] = dict(
+            ms=cuda_events_ms(lambda: kcol.column_energy_forces(
+                data, cfg, ck.ccfg, st, p32, b32, with_virial=True)),
+            plain_ms=cuda_events_ms(lambda: kcol.column_reference(
+                data, cfg, ck.ccfg, st, p32, b32, with_virial=True), calls=5, warmup=1),
+            bound=bound(tensor_bytes(p32, data.q, data.sig, data.eps, data.excl, st.islot,
+                                     st.jslot, st.jzshift, st.wstart, p32), flops),
+            work=f"pairs_in_cutoff={npairs} visited_slot_pairs={visited}")
+        out["cell_virial"] = dict(
+            ms=cuda_events_ms(lambda: kc.cell_energy_forces(
+                kk.data, cfg, kk.clcfg, cl, p32, b32, with_virial=True)),
+            plain_ms=cuda_events_ms(lambda: kc.cell_reference(
+                kk.data, cfg, kk.clcfg, cl, p32, b32, with_virial=True), calls=5, warmup=1),
+            bound=bound(tensor_bytes(p32, data.q, data.sig, data.eps, cl.slots, cl.counts,
+                                     data.excl, p32), flops),
+            work=f"pairs_in_cutoff={npairs} visited_slot_pairs={cell_visited}")
+        out["cell_same_state"] = dict(ms=cuda_events_ms(lambda: kc.cell_energy_forces(
+            kk.data, cfg, kk.clcfg, cl, p32, b32)))
+        log("column_vs_cell", state="water-full", column_ms=f"{out['column']['ms']:.4f}",
+            cell_virial_ms=f"{out['cell_virial']['ms']:.4f}",
+            cell_ms=f"{out['cell_same_state']['ms']:.4f}",
+            column_visited=visited, cell_visited=cell_visited, pairs_in_cutoff=npairs)
+    for k in ("column", "cell_virial"):
+        v = out[k]
+        v["max_abs_err"] = errs[k]
+        log("timing", kernel=k, shapes="water-full", ms=f"{v['ms']:.4f}",
+            plain_ms=f"{v['plain_ms']:.4f}", speedup=f"{v['plain_ms'] / v['ms']:.2f}",
+            bound_ms=f"{v['bound'][0]:.5f}", bound_by=v["bound"][1], work=v["work"])
+    return out
+
+
+def _npt_integrator(par, pos, vel, box, precision="single", plain=False, column=None,
+                    state=None):
+    """A full-box NPT integrator (bench_waterbox.py's second phase) from
+    positions, velocities and a box; `state` = (particle chain state,
+    (v_eps, barostat chain state)) carries an extended state over."""
+    from torchmd_tpu_torch.barostat import MTKBarostat
+    from torchmd_tpu_torch.integrator import Integrator
+    from torchmd_tpu_torch.systems import System
+
+    forces = _water_forces(par, WATER_CUTOFF, precision, plain, column=column)
+    system = System(par.natoms, 1, precision)
+    system.set_positions(pos)
+    system.set_box(np.asarray(box, np.float64))
+    system.set_velocities(vel)
+    forces.compute(system.pos, system.box, system.forces)
+    integ = Integrator(system, forces, TIMESTEP, constraints="settle", seed=3,
+                       thermostat="nhc", T=TEMP,
+                       barostat=MTKBarostat(NPT_PRESSURE, TEMP, tau_fs=NPT_TAU_P))
+    if state is not None:
+        dt = integ.dtype
+        aux_p, (v_eps, aux_b) = state
+        integ._thermo_aux = {k: v.to(DEVICE, dt) for k, v in aux_p.items()}
+        integ.npt_state = (v_eps.to(DEVICE, dt),
+                           {k: v.to(DEVICE, dt) for k, v in aux_b.items()})
+    return system, forces, integ
+
+
+def _extended_energy(ek, ep, integ):
+    return float(ek[0] + ep[0] + integ.thermostat_energy()[0] + integ.npt_energy()[0])
+
+
+def phase_npt():
+    """The water box's NPT phase at full size through the entry points,
+    on the defaults of Forces (the column kernel on the card)."""
+    import torch
+
+    from torchmd_tpu_torch import columns as tcol
+    from torchmd_tpu_torch.constraints import max_settle_error
+    from torchmd_tpu_torch.integrator import maxwell_boltzmann
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import cell as kc
+    from torchmd_tpu_torch.ops import column as kcol
+    from torchmd_tpu_torch.ops import pme as kp
+    from torchmd_tpu_torch.vsites import apply_vsites
+
+    t0 = time.perf_counter()
+    mol, par, L = build_water(WATER_N, WATER_SPACING, True)
+    vel = maxwell_boltzmann(par.masses, TEMP, 1, seed=3, device=DEVICE,
+                            dtype=torch.float32)
+    system, forces, integ = _npt_integrator(par, mol.coords, vel, np.full(3, L))
+    log("npt_setup", natoms=par.natoms, box=L, seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    integ.step(niter=NPT_WARMUP)
+    torch.cuda.synchronize()
+    kern, rec = forces._cell_kernel, forces._ewald
+    require(isinstance(kern, tcol.ColumnKernel), f"NPT runs on {type(kern).__name__}")
+    log("npt_warmup", steps=NPT_WARMUP, seconds=f"{time.perf_counter() - t0:.2f}",
+        kernel=type(kern).__name__, ncols=kern.ccfg.ncols, C=kern.ccfg.C,
+        CE=kern.ccfg.CE, W=kern.ccfg.W, mesh=rec.cfg.kmax, order=rec.ORDER,
+        gather=integ._npt_gather(), box=system.box_diag[0].tolist())
+
+    ek, ep, _ = integ.step(niter=1)
+    h0 = _extended_energy(ek, ep, integ)
+    # the state S the timed run starts from; the trajectory check restarts from it
+    s_pos, s_vel, s_box = system.pos[0].copy(), system.vel.copy(), system.box_diag[0].copy()
+    v_eps, aux_b, _ = integ.npt_state
+    s_ext = ({k: v.clone() for k, v in integ._thermo_aux.items()},
+             (v_eps.clone(), {k: v.clone() for k, v in aux_b.items()}))
+    torch.cuda.synchronize()
+    kc.LAUNCHES = kcol.LAUNCHES = kp.SPREAD_LAUNCHES = kp.GATHER_LAUNCHES = kb.LAUNCHES = 0
+    retries0 = integ.overflow_retries
+    t0 = time.perf_counter()
+    done = 0
+    while done < NPT_STEPS:
+        Ekin, Epot, T = integ.step(niter=NPT_CHUNK)
+        done += NPT_CHUNK
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"column": kcol.LAUNCHES, "cell": kc.LAUNCHES,
+                "pme_spread": kp.SPREAD_LAUNCHES, "pme_gather": kp.GATHER_LAUNCHES,
+                "bonded": kb.LAUNCHES}
+    h1 = _extended_energy(Ekin, Epot, integ)
+    sps = done / dt
+
+    box_now = system.box_diag[0].astype(np.float64)
+    V0, V = L ** 3, float(np.prod(box_now))
+    mass = float(np.sum(par.masses))
+    density = mass * 1.66053906660 / V      # g/cm^3 from amu / A^3
+    pos = torch.as_tensor(system.pos[0], dtype=torch.float64, device=DEVICE)
+    box = torch.as_tensor(box_now, dtype=torch.float64, device=DEVICE)
+    settle_err = float(max_settle_error(integ.constraints.settle, pos))
+    sites = forces.vsites[0].sites
+    snapped = apply_vsites(forces.vsites, pos, box)
+    site_err = float((pos[sites] - snapped[sites]).abs().max())
+    log("npt", steps=done, seconds=f"{dt:.4f}", steps_per_s=f"{sps:.2f}",
+        ns_per_day=f"{sps * TIMESTEP * 1e-6 * 86400:.3f}", T=f"{T[0]:.3f}",
+        Epot=f"{Epot[0]:.4f}", Ekin=f"{Ekin[0]:.4f}", volume_A3=V,
+        volume_ratio=V / V0, density_g_cm3=density, box=box_now.tolist(),
+        H0=h0, H1=h1, dH=h1 - h0, settle_max_err_A=settle_err, site_max_err_A=site_err,
+        overflow_retries=integ.overflow_retries - retries0,
+        launches_per_step=f"{sum(launches.values()) / done:.2f}",
+        **{f"{k}_launches": v for k, v in launches.items()})
+    require(launches["column"] >= done,
+            f"column kernel launched {launches['column']} < {done} times")
+    require(launches["pme_spread"] >= done,
+            f"spread kernel launched {launches['pme_spread']} < {done} times")
+    require(launches["cell"] == 0, "the NPT path launched the cell kernel")
+    require(np.all(np.isfinite(system.pos)) and np.all(np.isfinite(system.vel))
+            and np.all(np.isfinite(box_now)), "non-finite NPT state")
+    require(np.isfinite([T[0], Epot[0], h0, h1]).all(), (T, Epot, h0, h1))
+    require(settle_err < 1e-3, f"SETTLE error {settle_err} A")
+    require(site_err < 1e-4, f"virtual sites off by {site_err} A")
+    require(NPT_VOLUME_RANGE[0] <= V / V0 <= NPT_VOLUME_RANGE[1],
+            f"volume ratio {V / V0}")
+
+    profile_water_step(integ, 1.0 / sps, label="npt_profile")
+    par64 = build_water(WATER_N, WATER_SPACING, True, "double")[1]
+    npt_trajectory_check(par, par64, s_pos, s_vel, s_box, s_ext)
+    return launches, sps
+
+
+def npt_trajectory_check(par, par64, start_pos, start_vel, start_box, ext, steps=10):
+    """`steps` NPT steps from state S: the kernel path (f32) against the
+    plain path (f64), positions and box, beside the floor (the kernel path
+    from a start moved by one f32 ulp per coordinate) and a fault control
+    (every charge scaled by 1 + 1e-2)."""
+    import copy
+
+    import torch
+
+    one_ulp = np.random.RandomState(4).rand(*start_pos.shape) < 0.5
+    p32 = start_pos.astype(np.float32)
+    moved = np.where(one_ulp, np.nextafter(p32, np.float32(np.inf)),
+                     np.nextafter(p32, np.float32(-np.inf)))
+    q = WATER_CONTROL_Q[-1]
+    wrong = copy.copy(par)
+    wrong.charges = par.charges * (1.0 + q)
+    runs = {"kernels": (par, p32, "single", False),
+            "kernels_ulp": (par, moved, "single", False),
+            "plain32": (par, p32, "single", True),
+            "plain64": (par64, p32, "double", True),
+            f"charges_x(1+{q:g})": (wrong, p32, "single", False)}
+    final = {}
+    for label, (p, pos0, precision, plain) in runs.items():
+        s, f, it = _npt_integrator(p, pos0, start_vel, start_box, precision, plain,
+                                   column=True, state=ext)
+        it.step(niter=steps)
+        final[label] = (s.pos[0].astype(np.float64), s.box_diag[0].astype(np.float64))
+        del f, it
+        torch.cuda.empty_cache()
+
+    def dev(a, b):
+        return (float(np.abs(final[a][0] - final[b][0]).max()),
+                float(np.abs(final[a][1] / final[b][1] - 1.0).max()))
+
+    floor_pos, floor_box = dev("kernels", "kernels_ulp")
+    lim_pos = WATER_FLOOR_FACTOR * floor_pos
+    # the box floor is at least one f32 rounding of the box
+    lim_box = WATER_FLOOR_FACTOR * max(floor_box, float(np.finfo(np.float32).eps))
+    d_pos, d_box = dev("kernels", "plain64")
+    d32_pos, d32_box = dev("kernels", "plain32")
+    p_pos, p_box = dev("plain32", "plain64")
+    c_pos, c_box = dev("kernels", f"charges_x(1+{q:g})")
+    log("npt_vs_plain", steps=steps, kernels_vs_plain64_pos_A=d_pos,
+        kernels_vs_plain64_box_rel=d_box, kernels_vs_plain32_pos_A=d32_pos,
+        kernels_vs_plain32_box_rel=d32_box, plain32_vs_plain64_pos_A=p_pos,
+        plain32_vs_plain64_box_rel=p_box, floor_pos_A=floor_pos, floor_box_rel=floor_box,
+        limit_pos_A=lim_pos, limit_box_rel=lim_box, control_pos_A=c_pos,
+        control_box_rel=c_box)
+    for tag, dp, db in (("f64", d_pos, d_box), ("f32", d32_pos, d32_box)):
+        require(np.isfinite(dp) and dp <= lim_pos and db <= lim_box,
+                f"NPT kernel path vs plain {tag}: {dp} A, box {db} (limits {lim_pos}, "
+                f"{lim_box})")
+    require(c_pos > lim_pos, f"the charge-scale control moved only {c_pos} A")
+
 
 
 def _kernel_entry(name, source, replaces, launches, t):
@@ -857,9 +1226,11 @@ def main():
     phase_build()
     times = phase_kernels()
     times.update(phase_water_kernels())
+    times.update(phase_column_kernels())
     phase_parity()
     thr_launches = phase_dynamics()
     water_launches, _ = phase_waterbox()
+    npt_launches, _ = phase_npt()
 
     import torch
 
@@ -877,6 +1248,8 @@ def main():
                       water_launches["pme_spread"], times["pme_spread"]),
         _kernel_entry("pme_gather", src + "pme.cu", "torchmd_tpu/ops/pallas_pme.py:168",
                       water_launches["pme_gather"], times["pme_gather"]),
+        _kernel_entry("column", src + "column.cu", "torchmd_tpu/ops/pallas_column.py:266",
+                      npt_launches["column"], times["column"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

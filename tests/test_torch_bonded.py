@@ -38,6 +38,10 @@ from torchmd_tpu_torch.interop import ffparams_from_numpy
 from torchmd_tpu_torch.ops import bonded as kb
 from torchmd_tpu_torch.potentials import ForceTermConfig
 
+# one intra-op thread per test process: the suite runs under xdist, and
+# a pool of one thread per core in every worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 TERMS = ["bonds", "angles", "dihedrals", "impropers", "1-4",
          "electrostatics", "lj"]
 

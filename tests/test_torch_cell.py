@@ -16,7 +16,10 @@ Small size: the 216-water TIP4P/2005 box (864 sites, 19.5 A box, cutoff
     forces 1e-4 of the largest: water's energies are too large for an
     absolute 1e-6);
   - an overflowing capacity grows in `Forces.compute` and, inside a chunk,
-    in `Integrator.step`, which redoes the chunk.
+    in `Integrator.step`, which redoes the chunk;
+  - the per-axis pair virial (the MTK barostat's) of the plain version
+    equals `neighbors.cell_nonbonded_energy_forces(..., with_virial=True)`
+    at f64 within 1e-9 relative, energies and forces unchanged by it.
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ from torchmd_tpu_torch import Forces, Integrator, System, interop
 from torchmd_tpu_torch import neighbors as tnb
 from torchmd_tpu_torch.ops import cell as tcell
 from torchmd_tpu_torch.potentials import ForceTermConfig, make_ffparams
+
+# one intra-op thread per test process: the suite runs under xdist, and
+# a pool of one thread per core in every worker oversubscribes the CPU
+torch.set_num_threads(1)
 
 CONFIGS = {
     "ewald": (dict(cutoff=CUTOFF), dict(ewald_alpha=0.82)),
@@ -85,6 +92,19 @@ def test_plain_cell_matches_jax_f64(name):
     pot_w, f_w = tnb.cell_nonbonded_energy_forces(
         ffp, tcfg, clcfg, cl, interop.exclusion_table_from_numpy(jk.excl_table), pos, box)
     assert torch.equal(f_w, f_t)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_plain_cell_virial_matches_jax_f64(name):
+    jf, cfg, jk, jcl, jpos, jbox, port, _ = _setup(name)
+    pot_j, f_j, vir_j = jnb.cell_nonbonded_energy_forces(
+        jf.ffparams, cfg, jk.clcfg, jcl, jk.excl_table, jpos, jbox, with_virial=True)
+    pot_t, f_t, vir_t = tcell.cell_reference(*port, with_virial=True)
+    _assert_close(pot_t, f_t, pot_j, f_j, 1e-9, 1e-9)
+    vir_j = np.asarray(vir_j)
+    assert np.abs(vir_t.numpy() - vir_j).max() <= 1e-9 * np.abs(vir_j).max()
+    pot_0, f_0 = tcell.cell_reference(*port)
+    assert torch.equal(f_0, f_t) and all(torch.equal(pot_0[k], pot_t[k]) for k in pot_t)
 
 
 def test_plain_cell_f32_matches_pallas_interpret():
@@ -190,3 +210,27 @@ def test_cell_kernel_on_cuda_matches_plain():
     pot_p, f_p = tcell.cell_reference(data, cfg, clcfg, cl, pos, box)
     assert tcell.LAUNCHES == n0 + 1
     _assert_close(pot_k, f_k.cpu(), pot_p, f_p.numpy(), 2e-5, 5e-5)
+
+
+@pytest.mark.gpu
+def test_cell_virial_kernel_on_cuda_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _, _, _, _, _, _, port, _ = _setup("ewald")
+    data, cfg, clcfg, cl, pos, box = port
+    dev = torch.device("cuda")
+    data32 = tcell.CellData(**{k: (v.to(dev, torch.float32) if torch.is_tensor(v)
+                                   and v.is_floating_point() else
+                                   v.to(dev) if torch.is_tensor(v) else v)
+                               for k, v in data._asdict().items()})
+    cl32 = cl._replace(slots=cl.slots.to(dev), counts=cl.counts.to(dev),
+                       ref_pos=cl.ref_pos.to(dev, torch.float32),
+                       overflow=cl.overflow.to(dev))
+    pot_k, f_k, vir_k = tcell.cell_energy_forces(
+        data32, cfg, clcfg, cl32, pos.to(dev, torch.float32),
+        box.to(dev, torch.float32), with_virial=True)
+    pot_p, f_p, vir_p = tcell.cell_reference(data, cfg, clcfg, cl, pos, box,
+                                             with_virial=True)
+    _assert_close(pot_k, f_k.cpu(), pot_p, f_p.numpy(), 2e-5, 5e-5)
+    err = (vir_k.cpu().double() - vir_p).abs()
+    assert bool((err <= 2e-5 * torch.clamp(vir_p.abs(), min=1.0)).all()), (vir_k, vir_p)

@@ -31,6 +31,10 @@ from torchmd_tpu_torch.forcefields import ForceField
 from torchmd_tpu_torch.io import Molecule
 from torchmd_tpu_torch.parameters import Parameters
 
+# one intra-op thread per test process: the suite runs under xdist, and
+# a pool of one thread per core in every worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AMBER_TERMS = ["bonds", "angles", "dihedrals", "impropers", "1-4",
                "electrostatics", "lj"]
@@ -113,7 +117,9 @@ sys.modules["jax"] = None
 import numpy as np
 import torchmd_tpu_torch as t
 from torchmd_tpu_torch import ewald, neighbors, vsites, constraints, thermostats
-from torchmd_tpu_torch.ops import cell, pme, nonbonded, bonded
+from torchmd_tpu_torch import columns, barostat, integrator, interop
+from torchmd_tpu_torch.ops import cell, column, pme, nonbonded, bonded
+t.MTKBarostat(1.0, 300.0, tau_fs=2000.0)
 d = sys.argv[1]
 mol = t.Molecule(d + "/structure.prmtop"); mol.read(d + "/structure.pdb")
 par = t.Parameters(t.ForceField.create(mol, d + "/structure.prmtop"), mol,

@@ -29,6 +29,10 @@ from torchmd_tpu_torch import integrator as tint
 from torchmd_tpu_torch.forces import Forces
 from torchmd_tpu_torch.systems import System
 
+# one intra-op thread per test process: the suite runs under xdist, and
+# a pool of one thread per core in every worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 NB = dict(cutoff=9.0, switch_dist=7.5, rfa=True)
 
 

@@ -33,6 +33,10 @@ from torchmd_tpu_torch.ops import _build
 from torchmd_tpu_torch.ops import nonbonded as kn
 from torchmd_tpu_torch.potentials import ForceTermConfig, make_ffparams
 
+# one intra-op thread per test process: the suite runs under xdist, and
+# a pool of one thread per core in every worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 # name: (data folder, terms, Forces overrides, cfg overrides, nbfix)
 CASES = {
     "rfa-switch-pbc": ("prod_alanine_dipeptide_amber", ALL_TERMS,

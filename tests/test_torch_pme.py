@@ -16,7 +16,11 @@ PME order 6 on a 40^3 mesh) with seeded jitter.
     mode) within 1e-4 of the largest force; ik forces agree with the
     exact gradient to the spline truncation order (2.5e-2 of the largest
     force at order 4, 1.6e-3 at order 6, on this small box) and the
-    reciprocal ik forces sum to ~0.
+    reciprocal ik forces sum to ~0;
+  - the per-axis scaling virial of `energy_forces_virial` (the MTK
+    barostat's -dE/ds_a, analytic) equals `jax.grad` over s of the JAX
+    `PmeRecip.energy(s pos, s box)` at f64 within 1e-9 relative, orders 4
+    and 6, with a net charge (the 1/V term) and the exclusion pairs.
 """
 
 from __future__ import annotations
@@ -34,6 +38,10 @@ from torchmd_tpu.ops import pallas_pme as ppme
 from torchmd_tpu_torch import ewald as tew
 from torchmd_tpu_torch import interop
 from torchmd_tpu_torch.ops import pme as tpme
+
+# one intra-op thread per test process: the suite runs under xdist, and
+# a pool of one thread per core in every worker oversubscribes the CPU
+torch.set_num_threads(1)
 
 
 def _system(seed=11, scale=0.05):
@@ -173,6 +181,23 @@ def test_ik_energy_forces_match_jax_ik_interpret(order, monkeypatch):
     assert abs(float(te) - float(je)) <= 2e-5 * abs(float(je))
     scale = np.abs(np.asarray(jf)).max()
     assert np.abs(tf.numpy() - np.asarray(jf)).max() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("order", [4, 6])
+def test_pme_virial_matches_jax_scaling_grad(order):
+    pos, q, box, excl = _system()
+    q = q + 0.013   # a net charge: the 1/V term has a virial of its own
+    jrec = jew.PmeRecip(q, box, CUTOFF, excl_pairs=excl, dtype=jnp.float64, order=order)
+    trec = interop.pme_recip_from_numpy(q, box, CUTOFF, jrec.cfg.kmax, jrec.cfg.alpha,
+                                        jrec.ORDER, excl)
+    want = -np.asarray(jax.jit(jax.grad(
+        lambda s: jrec.energy(jnp.asarray(pos) * s, jnp.asarray(box) * s)))(jnp.ones(3)))
+    p, b = torch.as_tensor(pos), torch.as_tensor(box)
+    for gather in ("exact", "ik"):
+        e, f, vir = trec.energy_forces_virial(p, b, gather=gather)
+        assert np.abs(vir.numpy() - want).max() <= 1e-9 * np.abs(want).max(), gather
+        e0, f0 = trec.energy_forces(p, b, gather=gather)
+        assert torch.equal(e, e0) and torch.equal(f, f0)
 
 
 def test_gather_choice_is_explicit():

@@ -24,6 +24,10 @@ from torchmd_tpu.parameters import Parameters
 from torchmd_tpu import potentials as jpot
 from torchmd_tpu_torch import potentials as tpot
 
+# one intra-op thread per test process: the suite runs under xdist, and
+# a pool of one thread per core in every worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 TOL = 1e-7
 F64 = torch.float64
 

@@ -34,6 +34,10 @@ from torchmd_tpu_torch import Forces, Integrator, System, maxwell_boltzmann
 from torchmd_tpu_torch import potentials as tpot
 from torchmd_tpu_torch.interop import ffparams_from_numpy
 
+# one intra-op thread per test process: the suite runs under xdist, and
+# a pool of one thread per core in every worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYSTEMS = {
     "alanine": ("prod_alanine_dipeptide_amber",

@@ -47,6 +47,10 @@ from torchmd_tpu_torch.io import Molecule
 from torchmd_tpu_torch.parameters import Parameters
 from torchmd_tpu_torch.units import BOLTZMANN
 
+# one intra-op thread per test process: the suite runs under xdist, and
+# a pool of one thread per core in every worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 TERMS = ["bonds", "lj", "electrostatics"]
 CUTOFF = 4.0
 
@@ -249,7 +253,9 @@ def test_water_box_bonded_plan_has_no_rows():
 @pytest.mark.gpu
 def test_water_slice_on_cuda_matches_cpu_plain_path():
     """Kernel path (f32, card) against the plain path (f64, CPU): step-0
-    energies at the Pallas bars and positions after 10 NVT steps."""
+    energies at the Pallas bars and positions after 10 NVT steps, on the
+    cell kernel (column=False: the column kernel is the card's default and
+    has its own test in test_torch_npt.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from torchmd_tpu_torch.ops import cell as kc
@@ -260,7 +266,7 @@ def test_water_slice_on_cuda_matches_cpu_plain_path():
     out = {}
     for dev, prec in (("cpu", "double"), ("cuda", "single")):
         forces = Forces(tpar, terms=TERMS, precision=prec, cutoff=CUTOFF,
-                        kernel="cell", elec="pme", device=dev)
+                        kernel="cell", elec="pme", device=dev, column=False)
         s = System(coords.shape[0], 1, prec)
         s.set_positions(coords)
         s.set_box(np.full((3, 1), L))

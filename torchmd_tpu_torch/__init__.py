@@ -4,7 +4,8 @@ Beside the JAX package `torchmd_tpu`, which stays the reference, this
 package runs the same molecular dynamics on torch tensors, with
 hand-written CUDA kernels for the hot paths on an NVIDIA Hopper GPU
 (`torchmd_tpu_torch.ops`: the dense pair kernel, the fused bonded kernel,
-the cell-list pair kernel and the PME spread and ik-gather kernels). It
+the cell-list and column pair kernels and the PME spread and ik-gather
+kernels). It
 has its own copy of the numpy front end (`io`, `forcefields`,
 `parameters`, `units`) and imports neither jax nor the JAX package.
 Entry points run on the CUDA card unless given `device="cpu"`.
@@ -30,6 +31,12 @@ Angstrom, `L` the cubic box edge):
     integ = Integrator(system, forces, 2.0, T=300, thermostat="nhc",
                        constraints="settle")
     Ekin, Epot, T = integ.step(niter=100)
+
+NPT (MTK barostat, 1 bar, on the column kernel on the card):
+
+    integ = Integrator(system, forces, 2.0, T=300, thermostat="nhc",
+                       constraints="settle",
+                       barostat=MTKBarostat(1.0, 300.0, tau_fs=2000.0))
 """
 
 __version__ = "0.1.0"
@@ -37,11 +44,11 @@ __version__ = "0.1.0"
 __all__ = [
     "systems", "potentials", "bonded", "forces", "integrator", "interop",
     "ops", "io", "forcefields", "parameters", "units", "neighbors", "ewald",
-    "vsites", "constraints", "thermostats",
+    "vsites", "constraints", "thermostats", "columns", "barostat",
     # convenience re-exports (lazy)
     "Molecule", "ForceField", "AmberForcefield", "GromacsForcefield",
     "Parameters", "System", "Forces", "Integrator", "maxwell_boltzmann",
-    "ffparams_from_numpy",
+    "ffparams_from_numpy", "MTKBarostat",
 ]
 
 _LAZY = {
@@ -56,6 +63,7 @@ _LAZY = {
     "Integrator": ("torchmd_tpu_torch.integrator", "Integrator"),
     "maxwell_boltzmann": ("torchmd_tpu_torch.integrator", "maxwell_boltzmann"),
     "ffparams_from_numpy": ("torchmd_tpu_torch.interop", "ffparams_from_numpy"),
+    "MTKBarostat": ("torchmd_tpu_torch.barostat", "MTKBarostat"),
 }
 
 

@@ -291,3 +291,16 @@ def apply_position_constraints(c: Constraints, pos_new, pos_ref):
 
 def apply_velocity_constraints(c: Constraints, pos, vel):
     return settle_velocities(c.settle, pos, vel)
+
+
+def constraint_virial(c: Constraints, masses, delta, drift, pos):
+    """Per-axis virial sum_i f_i,a r_i,a of the position constraint's
+    forces f = 2 m delta / drift^2 (the MTK barostat's; drift (R, 1, 3)),
+    with each water's hydrogens taken relative to its oxygen: the forces
+    of one water sum to zero, so this equals the sum over absolute
+    positions, without that sum's f32 cancellation (absolute coordinates
+    up to the box edge times forces that cancel within each water)."""
+    f = 2.0 * masses * delta / (drift * drift)
+    ss = c.settle
+    o = _rows(pos, ss.oidx)
+    return sum((_rows(f, h) * (_rows(pos, h) - o)).sum(-2) for h in (ss.h1, ss.h2))

@@ -28,6 +28,10 @@
 //   - each thread owns its atom's force: no atomics, deterministic forces;
 //   - energies accumulate per neighbour cell in f32 and across cells in
 //     f64, reduce per block, and a finishing kernel sums the blocks.
+// The VIRIAL instance (MTK barostat; pallas_cell.py's with_virial) also
+// sums g * d_a^2 per axis over the pairs, like the energies, and returns
+// that raw sum: the caller applies the -0.5 (each pair is seen from both
+// cells). The plain instance carries none of it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,6 +75,7 @@ __device__ __forceinline__ int wrap_cell(int c, int nc, float box, float& shift)
   return c;
 }
 
+template <bool VIRIAL>
 __global__ void __launch_bounds__(MAX_THREADS)
 cell_kernel(const float* __restrict__ pos, const float* __restrict__ q,
             const float* __restrict__ sig, const float* __restrict__ eps,
@@ -113,6 +118,7 @@ cell_kernel(const float* __restrict__ pos, const float* __restrict__ q,
 
   float fx = 0.f, fy = 0.f, fz = 0.f;
   double elj = 0.0, eel = 0.0;
+  double wx = 0.0, wy = 0.0, wz = 0.0;
   for (int o = 0; o < 27; ++o) {
     float shx, shy, shz;
     const int nx = wrap_cell(cx + o / 9 - 1, cfg.ncx, bx, shx);
@@ -133,6 +139,7 @@ cell_kernel(const float* __restrict__ pos, const float* __restrict__ q,
     if (!active) continue;
 
     float tlj = 0.f, tel = 0.f;
+    float vx = 0.f, vy = 0.f, vz = 0.f;
     for (int r = 0; r < cnt_j; ++r) {
       const float dx = xi - sx[r], dy = yi - sy[r], dz = zi - sz[r];
       const float d2 = dx * dx + dy * dy + dz * dz;
@@ -150,37 +157,54 @@ cell_kernel(const float* __restrict__ pos, const float* __restrict__ q,
       fx -= g * dx;
       fy -= g * dy;
       fz -= g * dz;
+      if (VIRIAL) {
+        vx += g * dx * dx;
+        vy += g * dy * dy;
+        vz += g * dz * dz;
+      }
     }
     elj += (double)tlj;
     eel += (double)tel;
+    if (VIRIAL) {
+      wx += (double)vx;
+      wy += (double)vy;
+      wz += (double)vz;
+    }
   }
 
   if (active) {
     forces[3 * i] = fx; forces[3 * i + 1] = fy; forces[3 * i + 2] = fz;
   }
+  constexpr int NP = VIRIAL ? 5 : 2;
   const double blj = block_sum(elj, scratch);
   const double bel = block_sum(eel, scratch);
   if (t == 0) {
-    epart[2 * c] = 0.5 * blj;
-    epart[2 * c + 1] = 0.5 * bel;
+    epart[NP * c] = 0.5 * blj;
+    epart[NP * c + 1] = 0.5 * bel;
+  }
+  if (VIRIAL) {
+    const double bx = block_sum(wx, scratch);
+    const double by = block_sum(wy, scratch);
+    const double bz = block_sum(wz, scratch);
+    if (t == 0) {
+      epart[NP * c + 2] = bx;
+      epart[NP * c + 3] = by;
+      epart[NP * c + 4] = bz;
+    }
   }
 }
 
-// Sums the per-cell energy partials in a fixed order.
+// Sums the per-cell partials (np of them per cell: the two energies, and
+// the three raw virial sums) in a fixed order.
 __global__ void __launch_bounds__(FIN_THREADS)
-cell_finish(const double* __restrict__ epart, int ncells,
+cell_finish(const double* __restrict__ epart, int ncells, int np,
             float* __restrict__ energies) {
   __shared__ double scratch[FIN_THREADS / 32];
-  double a = 0.0, b = 0.0;
-  for (int p = threadIdx.x; p < ncells; p += FIN_THREADS) {
-    a += epart[2 * p];
-    b += epart[2 * p + 1];
-  }
-  a = block_sum(a, scratch);
-  b = block_sum(b, scratch);
-  if (threadIdx.x == 0) {
-    energies[0] = (float)a;
-    energies[1] = (float)b;
+  for (int k = 0; k < np; ++k) {
+    double a = 0.0;
+    for (int p = threadIdx.x; p < ncells; p += FIN_THREADS) a += epart[np * p + k];
+    a = block_sum(a, scratch);
+    if (threadIdx.x == 0) energies[k] = (float)a;
   }
 }
 
@@ -188,14 +212,16 @@ cell_finish(const double* __restrict__ epart, int ncells,
 
 // pos (N,3) anchored positions, q/sig/eps (N), slots (ncells, capacity)
 // int32 with slot k < counts[c] occupied, counts (ncells) int32, excl
-// (N, nexcl) int32 (N = empty), box (3). Scratch: epart (ncells, 2) f64.
-// Outputs: forces (N,3), zeroed first so an atom that a capacity overflow
-// dropped from its cell reads 0 (the caller redoes an overflowed step);
-// energies (2) as [lj-family, electrostatics]. Returns cudaGetLastError().
+// (N, nexcl) int32 (N = empty), box (3). Scratch: epart (ncells, np) f64
+// with np = 5 when `virial` is set, else 2. Outputs: forces (N,3), zeroed
+// first so an atom that a capacity overflow dropped from its cell reads 0
+// (the caller redoes an overflowed step); energies (np) as [lj-family,
+// electrostatics] and, with `virial`, the raw sums g * d_a^2 for a = x,
+// y, z. Returns cudaGetLastError().
 extern "C" int tmd_cell_energy_forces(
     const float* pos, const float* q, const float* sig, const float* eps,
     const int32_t* slots, const int32_t* counts, const int32_t* excl,
-    const float* box, CellCfg cfg, float* forces, double* epart,
+    const float* box, CellCfg cfg, int virial, float* forces, double* epart,
     float* energies, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ncells = cfg.ncx * cfg.ncy * cfg.ncz;
@@ -204,11 +230,15 @@ extern "C" int tmd_cell_energy_forces(
   if (err != cudaSuccess) return (int)err;
   const int threads = (cfg.capacity + 31) / 32 * 32;
   const size_t smem = sizeof(float) * 7 * (size_t)cfg.capacity;
-  cell_kernel<<<ncells, threads, smem, s>>>(pos, q, sig, eps, slots, counts, excl,
-                                            box, cfg, forces, epart);
+  if (virial)
+    cell_kernel<true><<<ncells, threads, smem, s>>>(pos, q, sig, eps, slots, counts,
+                                                    excl, box, cfg, forces, epart);
+  else
+    cell_kernel<false><<<ncells, threads, smem, s>>>(pos, q, sig, eps, slots, counts,
+                                                     excl, box, cfg, forces, epart);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cell_finish<<<1, FIN_THREADS, 0, s>>>(epart, ncells, energies);
+  cell_finish<<<1, FIN_THREADS, 0, s>>>(epart, ncells, virial ? 5 : 2, energies);
   return (int)cudaGetLastError();
 }
 

@@ -20,8 +20,11 @@ one of two gathers, chosen at construction:
     default otherwise (f64, CPU).
 
 Self, net-charge and excluded-pair corrections are analytic in the
-positions. The exact separable Ewald sum (`EwaldRecip`) comes with a later
-slice of the port.
+positions. `energy_forces_virial` adds the per-axis scaling virial
+-dE/ds_a of E(s pos, s box) that the MTK barostat needs, analytically:
+the JAX package takes it by autodiff of `ewald.energy`, which the spread
+kernel here does not support. The exact separable Ewald sum
+(`EwaldRecip`) comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -206,23 +209,32 @@ class PmeRecip:
                            torch.zeros_like(k2))
         bx, by, bz = self._b2
         b2 = bx[:, None, None] * by[None, :, None] * bz[:Kz // 2 + 1][None, None, :]
-        # kz = 0 (and the Nyquist plane when Kz is even) appear once in the
-        # full spectrum; every other kz column stands for itself and its
-        # conjugate
+        return pref * b2.to(pref.dtype), self._zweights(box)
+
+    def _zweights(self, box):
+        """Hermitian weights of the half spectrum's kz columns: kz = 0 (and
+        the Nyquist plane when Kz is even) appear once in the full
+        spectrum; every other column stands for itself and its conjugate."""
+        Kz = self.cfg.kmax[2]
         w = torch.full((Kz // 2 + 1,), 2.0, dtype=box.dtype, device=box.device)
         w[0] = 1.0
         if Kz % 2 == 0:
             w[-1] = 1.0
-        return pref * b2.to(pref.dtype), w
+        return w
 
     def _corrections(self, pos, box, q):
-        """Self + net-charge + exclusion terms: (energy, forces)."""
+        """Self + net-charge + exclusion terms: (energy, forces, per-axis
+        virial). The self term does not depend on the box; the net-charge
+        term goes as 1/V, so its virial is its energy on every axis; the
+        exclusion pairs' is -sum grad_a dv_a (grad = dE/d dv)."""
         alpha = self.cfg.alpha
         V = box[0] * box[1] * box[2]
         e = -ELEC_FACTOR * alpha / math.sqrt(math.pi) * (q * q).sum()
         qtot = q.sum()
-        e = e - ELEC_FACTOR * math.pi / (2.0 * V * alpha**2) * qtot * qtot
+        e_net = -ELEC_FACTOR * math.pi / (2.0 * V * alpha**2) * qtot * qtot
+        e = e + e_net
         forces = torch.zeros_like(pos)
+        vir = e_net * torch.ones_like(box)
         if self.excl is not None:
             i, j = self.excl[:, 0], self.excl[:, 1]
             dv = pos[i] - pos[j]
@@ -231,7 +243,8 @@ class PmeRecip:
             e = e + e_ex
             forces.index_add_(0, i, -grad)
             forces.index_add_(0, j, grad)
-        return e, forces
+            vir = vir - (grad * dv).sum(0)
+        return e, forces, vir
 
     def _mesh_energy(self, pos, box, q):
         """(reciprocal energy, rfftn of the mesh, B, c = k_e 2 pi / V)."""
@@ -266,21 +279,52 @@ class PmeRecip:
         return self._ik_grids(B.to(Sk.dtype) * Sk, box,
                               2.0 * c * int(np.prod(self.cfg.kmax)), pos.dtype)
 
-    def energy_forces(self, pos, box):
-        """(energy, forces (N, 3)) with the constructor's gather."""
+    def energy_forces(self, pos, box, gather=None):
+        """(energy, forces (N, 3)) with `gather` ("ik" or "exact"; default
+        the constructor's)."""
+        return self._evaluate(pos, box, gather, False)
+
+    def energy_forces_virial(self, pos, box, gather=None):
+        """(energy, forces (N, 3), per-axis virial (3,)): the virial is
+        -dE/ds_a of E(s pos, s box). Scaling leaves the fractional
+        coordinates, so the mesh and |S(k)|^2 and the b^2 factors, as they
+        are; each mode's energy E_k = c w B(k) |S(k)|^2 moves through
+        c ~ 1/V and exp(-k^2 / 4 alpha^2) / k^2 with k_a ~ 1/s_a:
+        -dE/ds_a = sum_k E_k [1 - 2 k_a^2 (1/k^2 + 1/(4 alpha^2))], plus
+        the corrections' terms (`_corrections`)."""
+        return self._evaluate(pos, box, gather, True)
+
+    def _evaluate(self, pos, box, gather, with_virial):
+        gather = self.gather if gather is None else gather
+        if gather not in GATHERS:
+            raise ValueError(f"gather={gather!r} (want one of {GATHERS})")
         box = self._box(box, pos)
         q = self.charges.to(pos.dtype)
         e_recip, Sk, B, c = self._mesh_energy(pos, box, q)
         scale = 2.0 * c * int(np.prod(self.cfg.kmax))
         BS = B.to(Sk.dtype) * Sk
-        if self.gather == "ik":
+        if gather == "ik":
             grids = self._ik_grids(BS, box, scale, pos.dtype)
             frc = self._gather_fn(pos, q, box, grids, self.ORDER)
         else:
             phi = (scale * torch.fft.irfftn(BS, s=self.cfg.kmax)).to(pos.dtype)
             frc = _gather_exact(pos, q, box, phi, self.ORDER)
-        e_corr, f_corr = self._corrections(pos, box, q)
-        return e_recip + e_corr, frc + f_corr
+        e_corr, f_corr, v_corr = self._corrections(pos, box, q)
+        if not with_virial:
+            return e_recip + e_corr, frc + f_corr
+        return e_recip + e_corr, frc + f_corr, self._recip_virial(Sk, B, c, box) + v_corr
+
+    def _recip_virial(self, Sk, B, c, box):
+        """sum_k E_k [1 - 2 k_a^2 (1/k^2 + 1/(4 alpha^2))] per axis a."""
+        Kx, Ky, Kz = self.cfg.kmax
+        ka2 = (self._kvec(Kx, box[0])[:, None, None] ** 2,
+               self._kvec(Ky, box[1])[None, :, None] ** 2,
+               self._kzvec(Kz, box[2])[None, None, :] ** 2)
+        k2 = ka2[0] + ka2[1] + ka2[2]
+        inv = torch.where(k2 > 0, 1.0 / torch.where(k2 > 0, k2, torch.ones_like(k2)),
+                          torch.zeros_like(k2)) + 1.0 / (4.0 * self.cfg.alpha**2)
+        Ek = c * B * (Sk.real**2 + Sk.imag**2).to(box.dtype) * self._zweights(box)
+        return torch.stack([(Ek * (1.0 - 2.0 * a2 * inv)).sum() for a2 in ka2])
 
 
 def _gather_exact(pos, q, box, phi, order):

@@ -64,17 +64,9 @@ _CACHE: dict = {}
 def load_gmx_top(path, include_dirs=(), defines=None):
     from ..io.gmxtop import build_molecule_arrays, parse_top
 
-    if defines is None:
-        # TMD_GMX_DEFINES="POSRES,FLEXIBLE" or "NAME=value,..." reaches
-        # both dispatch sites (Molecule reader + ForceField.create, which
-        # cannot thread kwargs) consistently
-        env = os.environ.get("TMD_GMX_DEFINES", "")
-        defines = {}
-        for tok in env.split(","):
-            tok = tok.strip()
-            if tok:
-                name, _, val = tok.partition("=")
-                defines[name] = val if val else None
+    # the port reads no environment: preprocessor defines come only from
+    # the caller (the JAX package also reads TMD_GMX_DEFINES)
+    defines = dict(defines or {})
     key = (
         os.path.abspath(path),
         tuple(include_dirs), tuple(sorted((defines or {}).items())),

@@ -15,6 +15,15 @@ The path follows the device:
     cell-list path (`neighbors.CellKernel`, the cell kernel); others the
     dense pair kernel;
   - `kernel="cell"` asks for the cell-list path;
+  - on that large-N path, `column` picks the neighbour structure: the
+    z-sorted column kernel (`columns.ColumnKernel`) or the 27-cell
+    kernel (`neighbors.CellKernel`). None (the default) takes the column
+    kernel on CUDA f32 with the kernels, where the JAX package takes it
+    on TPU f32 with Pallas, whenever `columns.column_supported` (a 3x3
+    column grid, Lorentz-Berthelot LJ, one LJ-family term); True asks for
+    it on any device (its plain version off the card); False keeps the
+    cell kernel. The cell kernel serves wherever the column kernel
+    cannot (NBFIX tables, f64, narrow grids);
   - `kernel="dense"` selects the torch-op path on any device: analytic
     dense nonbonded (`potentials`) and analytic bonded (`bonded`);
   - `plain=True` runs every kernel's plain PyTorch version on any device
@@ -94,6 +103,7 @@ class Forces:
         device=None,
         plain=False,
         gather=None,
+        column=None,
     ):
         self.par = parameters
         if terms is None:
@@ -136,6 +146,9 @@ class Forces:
         self.elec_mode = elec
         self.plain = bool(plain)
         self.pme_gather = gather
+        if column not in (None, True, False):
+            raise ValueError(f"column={column!r} (want None, True or False)")
+        self.column = column
         self.device = resolve_device(device)
         self.dtype = torch_dtype(
             precision if precision is not None
@@ -314,22 +327,44 @@ class Forces:
             self._build_evaluators()
         return self.ffparams
 
-    def ensure_cell_kernel(self, box, pos0=None):
-        """Build (once) the cell-list kernel for a concrete box diagonal;
-        `pos0` sizes the capacity from the real occupancy."""
-        if self._cell_kernel is None:
-            from .neighbors import CellKernel
+    def wants_column(self, box) -> bool:
+        """The column kernel rather than the cell kernel for this box (see
+        `column` in the module docstring)."""
+        from .columns import column_supported
 
-            self._cell_kernel = CellKernel(
-                self.ffparams, self.config, self.par,
-                np.asarray(box, np.float64).reshape(-1)[:3],
-                skin=CELL_SKIN, exclusions=self.exclusions, pos0=pos0,
-                plain=not self.use_kernels)
+        if self.column is False:
+            return False
+        supported = column_supported(
+            self.config, self.ffparams, np.asarray(box, np.float64).reshape(-1)[:3],
+            skin=CELL_SKIN)
+        if self.column is True:
+            if not supported:
+                raise ValueError(
+                    "column=True: the column kernel cannot serve this system (it "
+                    "needs a 3x3 column grid, Lorentz-Berthelot LJ and one "
+                    "LJ-family term)")
+            return True
+        return (supported and self.use_kernels and self.device.type == "cuda"
+                and self.dtype == torch.float32)
+
+    def ensure_cell_kernel(self, box, pos0=None):
+        """Build (once) the large-N neighbour kernel for a concrete box
+        diagonal, the column or the cell kernel (`wants_column`); `pos0`
+        sizes the capacities from the real occupancy."""
+        if self._cell_kernel is None:
+            box = np.asarray(box, np.float64).reshape(-1)[:3]
+            if self.wants_column(box):
+                from .columns import ColumnKernel as Kernel
+            else:
+                from .neighbors import CellKernel as Kernel
+            self._cell_kernel = Kernel(
+                self.ffparams, self.config, self.par, box, skin=CELL_SKIN,
+                exclusions=self.exclusions, pos0=pos0, plain=not self.use_kernels)
             self._build_evaluators()
         return self._cell_kernel
 
     def set_cell_kernel(self, kern):
-        """Swap in a grown or reboxed cell kernel."""
+        """Swap in a grown or reboxed cell or column kernel."""
         self._cell_kernel = kern
         self._build_evaluators()
 

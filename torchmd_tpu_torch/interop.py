@@ -5,10 +5,11 @@ with every leaf as a numpy array (for example
 `jax.tree_util.tree_map(np.asarray, ffp)`), or a mapping with the same
 field names, and returns the port's `FFParams` on `device`. Integer
 leaves become int64, boolean leaves stay bool, float leaves take `dtype`.
-The functions below do the same for the periodic slice's structures: the
-exclusion table, the cell configuration and list, PME, SETTLE, virtual
-sites and the Nose-Hoover chain state, so that a test can run both
-packages on identical inputs.
+The functions below do the same for the periodic slices' structures: the
+exclusion table, the cell and column configurations, the cell list, PME,
+SETTLE, virtual sites, the Nose-Hoover chain state and the MTK barostat's
+extended state, so that a test can run both packages on identical inputs
+or hand a run from one to the other.
 """
 
 from __future__ import annotations
@@ -127,3 +128,29 @@ def vsite_groups_from_numpy(groups, device="cpu", dtype=torch.float64):
 def nhc_state_from_numpy(aux, device="cpu", dtype=torch.float64):
     """The Nose-Hoover chain state {"xi", "vxi"} ((nreplicas, nchain) each)."""
     return {k: _tensor(aux[k], device, dtype) for k in ("xi", "vxi")}
+
+
+def column_config_from_numpy(ccfg):
+    """A `ColumnConfig` from the JAX package's (whose phase replicas, P > 1,
+    the port does not take)."""
+    from .columns import ColumnConfig
+
+    if int(getattr(ccfg, "P", 1)) != 1:
+        raise NotImplementedError("the port's column layout has no phase replicas (P = 1)")
+    return ColumnConfig(
+        box=tuple(float(b) for b in ccfg.box), cutoff=float(ccfg.cutoff),
+        skin=float(ccfg.skin), ncols=tuple(int(c) for c in ccfg.ncols),
+        C=int(ccfg.C), CE=int(ccfg.CE), W=int(ccfg.W), IBLK=int(ccfg.IBLK),
+        nbins=int(ccfg.nbins), nexcl=int(ccfg.nexcl))
+
+
+def mtk_state_from_numpy(v_eps, xi, vxi, virial=None, device="cpu",
+                         dtype=torch.float64):
+    """The MTK extended state for `Integrator.npt_state`: v_eps (R, 3), the
+    barostat chain {"xi", "vxi"} ((R, nchain) each) and, optionally, the
+    carried virial (R, 3), from the JAX package's `_npt_extra` as numpy
+    arrays. A run handed over with its virial continues exactly; without
+    it the port recomputes the virial at the entry state."""
+    vir = None if virial is None else _tensor(np.reshape(virial, (-1, 3)), device, dtype)
+    return (_tensor(np.reshape(v_eps, (-1, 3)), device, dtype),
+            {"xi": _tensor(xi, device, dtype), "vxi": _tensor(vxi, device, dtype)}, vir)

@@ -170,15 +170,16 @@ def build_exclusion_table(parameters, natoms,
 
 
 def cell_nonbonded_energy_forces(ffp, cfg, clcfg: CellListConfig, cl: CellList,
-                                 excl_table, pos, box):
+                                 excl_table, pos, box, with_virial=False):
     """Nonbonded energies + forces in cell-pair form, the plain PyTorch
     version (energies carry the 0.5 symmetric factor: every pair is seen
     from both cells). `excl_table` is the (natoms, E) table of
-    `build_exclusion_table`."""
+    `build_exclusion_table`. With `with_virial=True` also the per-axis
+    pair virial (3,), -dE/ds_a of E(s pos, s box)."""
     from .ops.cell import cell_reference, prepare_cell_data
 
     return cell_reference(prepare_cell_data(ffp, excl_table), cfg, clcfg, cl,
-                          pos, box)
+                          pos, box, with_virial)
 
 
 class CellKernel:
@@ -247,6 +248,14 @@ class CellKernel:
 
         fn = _ops_cell.cell_reference if self.plain else _ops_cell.cell_energy_forces
         return fn(self.data, self.cfg, self.clcfg, cl, pos, box)
+
+    def energy_forces_virial(self, pos, box, cl: CellList):
+        """(pot, forces, per-axis pair virial (3,)): the MTK barostat's
+        scaling virial -dE/ds_a of E(s pos, s box) for the pair terms."""
+        from .ops import cell as _ops_cell
+
+        fn = _ops_cell.cell_reference if self.plain else _ops_cell.cell_energy_forces
+        return fn(self.data, self.cfg, self.clcfg, cl, pos, box, with_virial=True)
 
     def grow(self) -> "CellKernel":
         new = copy.copy(self)

@@ -30,15 +30,15 @@ _lock = threading.Lock()
 _libs: dict = {}
 
 
+CUDA_NVCC = "/usr/local/cuda/bin/nvcc"
+
+
 def find_nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
-                 os.path.join(cuda_home, "bin", "nvcc")):
+    for cand in (shutil.which("nvcc"), CUDA_NVCC):
         if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
             return cand
     raise RuntimeError(
-        "nvcc not found (set NVCC or CUDA_HOME, or put the CUDA toolkit's "
-        "bin/ on PATH); "
+        f"nvcc not found on PATH or at {CUDA_NVCC}; "
         "the CUDA kernels of torchmd_tpu_torch are built from source")
 
 

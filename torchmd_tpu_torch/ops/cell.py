@@ -9,7 +9,9 @@ a per-neighbour-cell shift of the anchored positions, exclusions from a
 padded per-atom list, the cutoff on d^2, and the pair terms of the dense
 kernel (LJ with the switch, repulsion or repulsioncg, Coulomb plain /
 reaction field / Ewald erfc). Energies carry the 0.5 symmetric factor
-(every pair is seen from both of its cells); forces are per atom.
+(every pair is seen from both of its cells); forces are per atom. With
+`with_virial=True` the per-axis pair virial -0.5 sum g d_a^2 (the MTK
+barostat's -dE/ds_a) comes back too.
 
 `cell_energy_forces(data, cfg, clcfg, cl, pos, box)` runs the plain
 version for a CPU tensor and launches the kernel (`csrc/cell.cu`) for a
@@ -75,11 +77,11 @@ def _image_shift(clcfg, box, offset, like):
     return torch.stack(torch.broadcast_tensors(*axes), dim=-1)[..., None, :]
 
 
-def cell_reference(data: CellData, cfg, clcfg, cl, pos, box):
+def cell_reference(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False):
     """Plain PyTorch version of the cell kernel: the 27 stencil offsets in
     turn, each a (ncells * cap, cap) pair block through the port's
     `nonbonded_block_energy_forces`, at the dtype and on the device of
-    `pos`. Returns ({term: energy}, forces (N, 3))."""
+    `pos`. Returns ({term: energy}, forces (N, 3)[, virial (3,)])."""
     from ..neighbors import anchored_positions
 
     n, dt, dev = data.natoms, pos.dtype, pos.device
@@ -116,6 +118,7 @@ def cell_reference(data: CellData, cfg, clcfg, cl, pos, box):
 
     pot: dict = {}
     f_slots = torch.zeros((rows, 3), dtype=dt, device=dev)
+    vir = torch.zeros(3, dtype=dt, device=dev)
     for offset in STENCIL:
         Pn = roll(P, offset) + _image_shift(clcfg, box, offset, P)
         dv = (P.reshape(ncells, cap, 1, 3)
@@ -139,12 +142,17 @@ def cell_reference(data: CellData, cfg, clcfg, cl, pos, box):
             s6 = ((si + sj) ** 6).reshape(rows, cap)
             B = 4.0 * (ei * ej).reshape(rows, cap) * s6
             A = B * s6
-        block, f_rows = nonbonded_block_energy_forces(cfg, dv, mask, qq, A, B)
+        block, f_rows, *v = nonbonded_block_energy_forces(
+            cfg, dv, mask, qq, A, B, with_virial=with_virial)
         f_slots = f_slots + f_rows
+        if with_virial:
+            vir = vir + v[0]
         for k, v in block.items():
             add_energy(pot, k, v)
     forces = torch.zeros((n + 1, 3), dtype=dt, device=dev).index_add_(
         0, slots.reshape(-1), f_slots)[:n]
+    if with_virial:
+        return pot, forces, vir
     return pot, forces
 
 
@@ -170,7 +178,8 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load("cell")
-        lib.tmd_cell_energy_forces.argtypes = [_P] * 8 + [CellCfg] + [_P] * 4
+        lib.tmd_cell_energy_forces.argtypes = ([_P] * 8 + [CellCfg, ctypes.c_int]
+                                               + [_P] * 4)
         lib.tmd_cell_energy_forces.restype = ctypes.c_int
         lib.tmd_error_string.argtypes = [ctypes.c_int]
         lib.tmd_error_string.restype = ctypes.c_char_p
@@ -183,7 +192,9 @@ def build():
     _library()
 
 
-def kernel_cfg(cfg, clcfg, natoms, nexcl) -> CellCfg:
+def pair_fields(cfg) -> dict:
+    """The pair-term fields shared by the cell and column kernels' config
+    structs (the meanings of `Cfg` in csrc/pair_terms.cuh)."""
     kcfg = make_kernel_cfg(cfg, True)
     lj_kind = (1 if kcfg["lj"] else 2 if kcfg["repulsion"]
                else 3 if kcfg["repulsioncg"] else 0)
@@ -191,10 +202,8 @@ def kernel_cfg(cfg, clcfg, natoms, nexcl) -> CellCfg:
     if kcfg["elec"]:
         elec_kind = 3 if kcfg["ewald_alpha"] is not None else 2 if kcfg["rfa"] else 1
     use_switch = kcfg["switch"] is not None
-    ncx, ncy, ncz = clcfg.ncells
-    return CellCfg(
-        natoms=natoms, capacity=clcfg.capacity, ncx=ncx, ncy=ncy, ncz=ncz,
-        nexcl=nexcl, lj_kind=lj_kind, elec_kind=elec_kind,
+    return dict(
+        lj_kind=lj_kind, elec_kind=elec_kind,
         use_switch=int(use_switch), cutoff2=kcfg["cutoff"] ** 2,
         switch_dist=kcfg["switch"] if use_switch else 0.0,
         inv_switch_width=(1.0 / (kcfg["cutoff"] - kcfg["switch"])
@@ -203,7 +212,13 @@ def kernel_cfg(cfg, clcfg, natoms, nexcl) -> CellCfg:
         elec_factor=kcfg["elec_factor"])
 
 
-def _launch(data: CellData, cfg, clcfg, cl, pos, box):
+def kernel_cfg(cfg, clcfg, natoms, nexcl) -> CellCfg:
+    ncx, ncy, ncz = clcfg.ncells
+    return CellCfg(natoms=natoms, capacity=clcfg.capacity, ncx=ncx, ncy=ncy,
+                   ncz=ncz, nexcl=nexcl, **pair_fields(cfg))
+
+
+def _launch(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False):
     global LAUNCHES
     from ..neighbors import anchored_positions
 
@@ -228,14 +243,15 @@ def _launch(data: CellData, cfg, clcfg, cl, pos, box):
 
     pos_w = anchored_positions(pos, cl.ref_pos, box).contiguous()
     forces = torch.empty((n, 3), dtype=f32, device=dev)
-    epart = torch.empty((ncells, 2), dtype=torch.float64, device=dev)
-    energies = torch.empty(2, dtype=f32, device=dev)
+    nparts = 5 if with_virial else 2
+    epart = torch.empty((ncells, nparts), dtype=torch.float64, device=dev)
+    energies = torch.empty(nparts, dtype=f32, device=dev)
     lib = _library()
     err = lib.tmd_cell_energy_forces(
         pos_w.data_ptr(), data.q.data_ptr(), data.sig.data_ptr(),
         data.eps.data_ptr(), cl.slots.data_ptr(), cl.counts.data_ptr(),
         data.excl.data_ptr(), box.data_ptr(), kernel_cfg(cfg, clcfg, n, nexcl),
-        forces.data_ptr(), epart.data_ptr(), energies.data_ptr(),
+        int(with_virial), forces.data_ptr(), epart.data_ptr(), energies.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
@@ -244,16 +260,19 @@ def _launch(data: CellData, cfg, clcfg, cl, pos, box):
     out = {t: energies[0] for t in LJ_FAMILY if t in cfg.terms}
     if "electrostatics" in cfg.terms:
         out["electrostatics"] = energies[1]
+    if with_virial:
+        # the kernel returns the raw sums over ordered pairs
+        return out, forces, -0.5 * energies[2:]
     return out, forces
 
 
-def cell_energy_forces(data: CellData, cfg, clcfg, cl, pos, box):
+def cell_energy_forces(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False):
     """pos: (N, 3); box: (3,) diagonal tensor; `cl` a CellList built for
-    `clcfg`. Returns ({term: 0-dim energy tensor}, forces (N, 3)). A CPU
-    tensor runs the plain version; a CUDA tensor launches the kernel (f32
-    only) or raises."""
+    `clcfg`. Returns ({term: 0-dim energy tensor}, forces (N, 3)) and, with
+    `with_virial`, the per-axis pair virial (3,). A CPU tensor runs the
+    plain version; a CUDA tensor launches the kernel (f32 only) or raises."""
     if pos.device.type == "cuda":
-        return _launch(data, cfg, clcfg, cl, pos, box)
+        return _launch(data, cfg, clcfg, cl, pos, box, with_virial)
     if pos.device.type == "cpu":
-        return cell_reference(data, cfg, clcfg, cl, pos, box)
+        return cell_reference(data, cfg, clcfg, cl, pos, box, with_virial)
     raise ValueError(f"no cell kernel for device {pos.device}")

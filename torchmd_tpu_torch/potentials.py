@@ -330,13 +330,28 @@ def energy_and_forces(par: FFParams, pos, box, cfg: ForceTermConfig):
 # ----------------------------------------------------------------------
 
 def nonbonded_block_energy_forces(cfg: ForceTermConfig, dv, mask, qq,
-                                  A_ij, B_ij):
+                                  A_ij, B_ij, with_virial=False):
     """Pair-block nonbonded math: ({term: 0.5 * sum energy}, row forces).
 
     dv: (rows, cols, 3) minimum-image displacements; mask: (rows, cols)
     valid pairs (self, exclusions and padding removed); qq, A_ij, B_ij:
     per-pair coefficient blocks (None when no active term needs them).
-    F_i = -sum_j g_ij dv_ij with g = (dE/dr)/r."""
+    F_i = -sum_j g_ij dv_ij with g = (dE/dr)/r.
+
+    With `with_virial=True` also returns the block's per-axis pair virial
+    -0.5 sum g dv_a^2 (the 0.5 of the energies: each pair is visited from
+    both sides), the scaling derivative -dE/ds_a of E(s pos, s box)."""
+    out, g = pair_block_terms(cfg, dv, mask, qq, A_ij, B_ij)
+    forces = -torch.einsum("ij,ijk->ik", g, dv)
+    if with_virial:
+        return out, forces, -0.5 * torch.einsum("ij,ijk->k", g, dv * dv)
+    return out, forces
+
+
+def pair_block_terms(cfg: ForceTermConfig, dv, mask, qq, A_ij, B_ij):
+    """({term: 0.5 * sum energy}, g) of a pair block, g = (dE/dr)/r per
+    pair (0 outside the mask and the cutoff); the arguments are those of
+    `nonbonded_block_energy_forces`."""
     d2 = torch.where(mask, (dv * dv).sum(-1), torch.ones_like(dv[..., 0]))
     rinv2 = 1.0 / d2
     if "electrostatics" in cfg.terms or (
@@ -389,8 +404,7 @@ def nonbonded_block_energy_forces(cfg: ForceTermConfig, dv, mask, qq,
             dEdr_r = -qq * rinv * rinv * rinv
         out["electrostatics"] = 0.5 * (pot * fmask).sum()
         g = g + dEdr_r * fmask
-    forces = -torch.einsum("ij,ijk->ik", g, dv)
-    return out, forces
+    return out, g
 
 
 def pair_coefficients(par: FFParams, cfg: ForceTermConfig, rows=None):

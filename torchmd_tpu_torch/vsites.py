@@ -103,6 +103,15 @@ def apply_vsites(groups, pos, box=None):
     return pos
 
 
+def apply_vsites_scaling(groups, pos, box):
+    """(snapped positions, their derivative along a uniform scaling of
+    positions and box): one forward-mode pass of `apply_vsites` with
+    tangents (pos, box). Host rows give the tangent pos itself; a site's
+    fixed-length offsets do not scale with the box."""
+    return torch.func.jvp(lambda p, b: apply_vsites(groups, p, b),
+                          (pos, box), (pos, box))
+
+
 def _linear_coefficients(g: VSiteGroup):
     """Per-host weights of a linear site: r_site = sum_h w_h r_h."""
     a, b = g.params[:, 0], g.params[:, 1]

@@ -16,7 +16,16 @@ Integrator.step), f32, imports nothing of JAX or of the JAX package:
   - the same box's NPT phase (MTKBarostat(1 bar, 300 K, tau_p 2000 fs),
     iso, seed 3, the defaults of Forces): the column pair kernel with its
     per-axis virial and the PME spread kernel (PME forces by the exact
-    gather on the NPT path).
+    gather on the NPT path);
+  - the staged probe of the dense pair kernel (python -m
+    torchmd_tpu_torch.roofline, 4,676 atoms, tiles of 512): seven stage
+    kernels and the elemental-throughput chains.
+The cell and column kernels walk 32-atom tiles (csrc/tile_pairs.cuh):
+bounding-box culling of tile pairs and a per-lane queue that runs the
+pair math on full warps; their timings print the walk's counters
+(candidate and surviving tile pairs, visited slot pairs, the share of
+active lanes in the pair math) beside the times of the lane-per-pair
+kernels they replaced (EARLIER_MS).
 
 Phases (each prints lines; any failure raises and exits non-zero):
   1. device: require CUDA, print the card's name and power limit;
@@ -53,7 +62,16 @@ Phases (each prints lines; any failure raises and exits non-zero):
      launches per step, volume, density, T, the extended-energy change,
      SETTLE and site errors, no cell launch), a profiler breakdown, and a
      10-step kernel (f32) against plain (f64) check of positions and box
-     beside the one-ulp floor and a 1 % charge control.
+     beside the one-ulp floor and a 1 % charge control;
+  9. roofline: every probe stage (f32) against its plain version (f64) at
+     the probe's full size, on its inputs and on the same rows without
+     pairs nearer than 2 A, each row's force held to the size of its terms
+     (force_scale); four planted faults (the plain version with k_rf
+     doubled or the switch moved) that the checks must catch; the chain kernels against their plain
+     versions at the probe's shape; then the probe's own run with its
+     counters reset just before and read just after: stage times, deltas,
+     the mxred-vs-forces error (within 1e-5 of each row's scale, without
+     the close pairs) and the chain throughputs.
 The last two lines are a JSON summary of the kernels and the JSON status
 line. Usage: python3 chip_smoke.py
 """
@@ -62,7 +80,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -86,7 +103,6 @@ WARMUP_STEPS = 100
 E_TOL, F_TOL = 2e-5, 5e-5     # tests/test_pallas.py:51-57 bars
 MESH_TOL = 1e-5               # spread: max |d mesh| <= MESH_TOL * max |mesh|
 DEVICE = "cuda"
-SLEEP_CYCLES = 40_000_000     # ~20 ms of device sleep before each timed call
 MAIN_SYSTEM = ("thrombin-ligand-amber", "structure.pdb")
 
 # The water box of scripts/bench_waterbox.py: n^3 waters on a 3.104 A
@@ -113,7 +129,17 @@ WATER_TAU = 200.0             # fs, the Nose-Hoover chain's time constant
 # (each +12 to +26 kcal/mol over 100 steps, run to run) differ by that
 # spread; they agree within NVE_DH_TOL kcal/mol
 NVE_STEPS, NVE_DH_TOL = 100, 20.0
-KERNEL_SOURCES = ("nonbonded", "bonded", "cell", "pme", "column")
+KERNEL_SOURCES = ("nonbonded", "bonded", "cell", "pme", "column", "roofline")
+# Device ms per call of the lane-per-pair cell and column kernels that the
+# tile walk replaced, at the full box's state (lowest and highest of three
+# runs on an H100 80GB HBM3 at 700 W; PERF.md)
+EARLIER_MS = {"cell": (1.2551, 1.2651), "cell_virial": (1.3489, 1.3594),
+              "column": (1.4640, 1.4764)}
+# the staged probe of the dense pair kernel (scripts/bench_roofline.py)
+PROBE_N, PROBE_TILE = 4676, 512
+# mxred's forces within 1e-5 of the forces stage's, row by row over each
+# row's force_scale, on the probe's rows without pairs nearer than 2 A
+MXRED_TOL = 1e-5
 # NPT phase: scripts/bench_waterbox.py's second phase, 1 bar, tau_p 2000 fs
 NPT_PRESSURE, NPT_TAU_P = 1.0, 2000.0
 NPT_WARMUP, NPT_STEPS, NPT_CHUNK = 100, 500, 100
@@ -258,28 +284,12 @@ def build_water(n, spacing, jitter, precision="single"):
 
 
 def cuda_events_ms(fn, calls=30, warmup=3):
-    """Median device milliseconds of `fn()` over `calls` calls, each
-    bracketed by CUDA events. A sleep kernel before each call lets the
-    host queue the whole call while the device waits, so the events time
-    the device work and not the Python between launches (one call at a
-    time: the launch queue is too short to hold 30 calls of the plain
-    versions' hundreds of kernels)."""
-    import torch
+    """Median device milliseconds of `fn()` (torchmd_tpu_torch.roofline's
+    device_ms: CUDA events around each call, queued behind a sleep
+    kernel)."""
+    from torchmd_tpu_torch.roofline import device_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(calls):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return device_ms(fn, calls, warmup)
 
 
 def bound(nbytes, flops):
@@ -297,6 +307,29 @@ def pair_flops(pairs, elec):
     """FP32 operations of the pair function over `pairs` unordered pairs
     inside the cutoff."""
     return pairs * (PAIR_FLOPS[elec] + NEWTON_J_FLOPS)
+
+
+def tile_walk(kernel, call):
+    """Run `call(stats)` once with a fresh counter tensor and log the tile
+    walk's counters; returns them as a dict."""
+    import torch
+
+    from torchmd_tpu_torch.ops import cell as kc
+
+    stats = torch.zeros(kc.NSTATS, dtype=torch.int64, device=DEVICE)
+    call(stats)
+    torch.cuda.synchronize()
+    walk = dict(zip(kc.STATS, (int(v) for v in stats.tolist())))
+    walk["active_lane_share"] = walk["lane_rounds"] / max(1, 32 * walk["rounds"])
+    walk["surviving_share"] = walk["tile_pairs"] / max(1, walk["candidate_tile_pairs"])
+    log("tile_walk", kernel=kernel, **walk)
+    return walk
+
+
+def log_earlier(kernel, ms):
+    lo, hi = EARLIER_MS[kernel]
+    log("vs_earlier", kernel=kernel, ms=f"{ms:.4f}", earlier_ms=f"{lo:.4f}-{hi:.4f}",
+        speedup_vs_lowest=f"{lo / ms:.2f}")
 
 
 # ----------------------------------------------------------------------
@@ -559,6 +592,8 @@ def phase_water_kernels():
         c3 = cl.counts.double().reshape(clcfg.ncells)
         visited = int(sum((c3 * torch.roll(c3, shifts=o, dims=(0, 1, 2))).sum()
                           for o in kc.STENCIL))
+        walk = tile_walk("cell", lambda stats: kc.cell_energy_forces(
+            d32, cfg, clcfg, cl, p32, b32, stats=stats))
         out["cell"] = dict(
             ms=cuda_events_ms(lambda: kc.cell_energy_forces(d32, cfg, clcfg, cl, p32, b32)),
             plain_ms=cuda_events_ms(lambda: kc.cell_reference(d32, cfg, clcfg, cl, p32, b32),
@@ -566,8 +601,11 @@ def phase_water_kernels():
             bound=bound(tensor_bytes(p32, d32.q, d32.sig, d32.eps, cl.slots,
                                      cl.counts, d32.excl, p32),
                         pair_flops(npairs, "ewald")),
-            work=(f"pairs_in_cutoff={npairs} visited_pairs={visited} "
-                  f"padded_slot_pairs={slots_total}"))
+            work=(f"pairs_in_cutoff={npairs} cell_slot_pairs={visited} "
+                  f"padded_slot_pairs={slots_total} visited_slot_pairs={walk['slot_pairs']} "
+                  f"tile_pairs={walk['tile_pairs']} "
+                  f"active_lane_share={walk['active_lane_share']:.4f}"))
+        log_earlier("cell", out["cell"]["ms"])
         taps = 3 * (4 * order + 5 * order * (order - 2)) + order**2
         mesh_bytes = 4 * int(np.prod(kmesh))
         out["pme_spread"] = dict(
@@ -1001,7 +1039,11 @@ def phase_column_kernels():
 
         data = ck.data
         npairs = _water_pair_count(data, p32, b32, cutoff)
-        visited = kcol.visited_slot_pairs(ck.ccfg, st)
+        windows = kcol.window_slot_pairs(ck.ccfg, st)
+        walk_col = tile_walk("column", lambda stats: kcol.column_energy_forces(
+            data, cfg, ck.ccfg, st, p32, b32, with_virial=True, stats=stats))
+        walk_cell = tile_walk("cell_virial", lambda stats: kc.cell_energy_forces(
+            kk.data, cfg, kk.clcfg, cl, p32, b32, with_virial=True, stats=stats))
         c3 = cl.counts.double().reshape(kk.clcfg.ncells)
         cell_visited = int(sum((c3 * torch.roll(c3, shifts=o, dims=(0, 1, 2))).sum()
                                for o in kc.STENCIL))
@@ -1013,7 +1055,10 @@ def phase_column_kernels():
                 data, cfg, ck.ccfg, st, p32, b32, with_virial=True), calls=5, warmup=1),
             bound=bound(tensor_bytes(p32, data.q, data.sig, data.eps, data.excl, st.islot,
                                      st.jslot, st.jzshift, st.wstart, p32), flops),
-            work=f"pairs_in_cutoff={npairs} visited_slot_pairs={visited}")
+            work=(f"pairs_in_cutoff={npairs} window_slot_pairs={windows} "
+                  f"visited_slot_pairs={walk_col['slot_pairs']} "
+                  f"tile_pairs={walk_col['tile_pairs']} "
+                  f"active_lane_share={walk_col['active_lane_share']:.4f}"))
         out["cell_virial"] = dict(
             ms=cuda_events_ms(lambda: kc.cell_energy_forces(
                 kk.data, cfg, kk.clcfg, cl, p32, b32, with_virial=True)),
@@ -1021,13 +1066,19 @@ def phase_column_kernels():
                 kk.data, cfg, kk.clcfg, cl, p32, b32, with_virial=True), calls=5, warmup=1),
             bound=bound(tensor_bytes(p32, data.q, data.sig, data.eps, cl.slots, cl.counts,
                                      data.excl, p32), flops),
-            work=f"pairs_in_cutoff={npairs} visited_slot_pairs={cell_visited}")
+            work=(f"pairs_in_cutoff={npairs} cell_slot_pairs={cell_visited} "
+                  f"visited_slot_pairs={walk_cell['slot_pairs']} "
+                  f"tile_pairs={walk_cell['tile_pairs']} "
+                  f"active_lane_share={walk_cell['active_lane_share']:.4f}"))
         out["cell_same_state"] = dict(ms=cuda_events_ms(lambda: kc.cell_energy_forces(
             kk.data, cfg, kk.clcfg, cl, p32, b32)))
         log("column_vs_cell", state="water-full", column_ms=f"{out['column']['ms']:.4f}",
             cell_virial_ms=f"{out['cell_virial']['ms']:.4f}",
             cell_ms=f"{out['cell_same_state']['ms']:.4f}",
-            column_visited=visited, cell_visited=cell_visited, pairs_in_cutoff=npairs)
+            column_visited=walk_col["slot_pairs"], cell_visited=walk_cell["slot_pairs"],
+            pairs_in_cutoff=npairs)
+        log_earlier("column", out["column"]["ms"])
+        log_earlier("cell_virial", out["cell_virial"]["ms"])
     for k in ("column", "cell_virial"):
         v = out[k]
         v["max_abs_err"] = errs[k]
@@ -1213,6 +1264,108 @@ def npt_trajectory_check(par, par64, start_pos, start_vel, start_box, ext, steps
     require(c_pos > lim_pos, f"the charge-scale control moved only {c_pos} A")
 
 
+def _probe_ratios(got, want, scale):
+    """One probe stage's kernel result against the plain f64 one: (energy
+    error over its bar E_TOL max(1, |E|), the largest row's force error
+    over its bar F_TOL max(1, force_scale), max abs force error)."""
+    import torch
+
+    from torchmd_tpu_torch.ops import roofline as rl
+
+    ep = float(want[3])
+    e_ratio = abs(float(got[3]) - ep) / (E_TOL * max(1.0, abs(ep)))
+    f_ratio = rl.row_error(got[:3], want[:3], scale) / F_TOL
+    err = float((torch.stack(got[:3]).double() - torch.stack(want[:3])).abs().max())
+    return e_ratio, f_ratio, err
+
+
+def phase_roofline():
+    """The staged probe (scripts/bench_roofline.py's port): every stage
+    kernel against its plain f64 version on the probe's inputs and on the
+    same rows without pairs nearer than 2 A (forces held row by row), four
+    planted faults that the checks must catch, the chain kernels against
+    their plain versions at the probe's shape, then the probe's run
+    through its entry point with the counters reset just before and read
+    just after."""
+    import torch
+
+    from torchmd_tpu_torch import roofline as probe
+    from torchmd_tpu_torch.ops import roofline as rl
+
+    inp = rl.make_inputs(PROBE_N, PROBE_TILE, DEVICE)
+    sets = {"probe": inp, "no_close_pairs": rl.without_close_pairs(inp)}
+    errs, scales = {}, {}
+    for tag, data in sets.items():
+        d64 = rl.in_f64(data)
+        scales[tag] = rl.force_scale(d64)
+        ratios = {}
+        for st in rl.STAGES:
+            got, want = rl.stage_call(st, data), rl.stage_reference(st, d64)
+            e_r, f_r, err = _probe_ratios(got, want, scales[tag])
+            require(e_r <= 1.0 and f_r <= 1.0, (f"roofline/{tag}/{st}", e_r, f_r))
+            ratios[st] = f"{e_r:.3g}/{f_r:.3g}"
+            if tag == "probe":
+                errs[st] = err
+        log("roofline_check", inputs=tag, n=PROBE_N, tile=PROBE_TILE,
+            pairs_masked_in=int((data.mask != 0).sum()) // 2,
+            energy_over_bar_force_rows_over_bar=ratios)
+    log("roofline_check", **{f"{st}_max_abs_err": e for st, e in errs.items()})
+    # planted faults: the kernel against a plain version with one wrong
+    # constant must fail the checks (they compare |kernel - plain|, so a
+    # fault on either side shows alike)
+    c = rl.CONSTANTS
+    for tag, st, name, wrong in (("probe", "forces", "krf_x2", c._replace(krf=2 * c.krf)),
+                                 ("probe", "forces", "switch_6.1", c._replace(switch=6.1)),
+                                 ("no_close_pairs", "math", "krf_x2",
+                                  c._replace(krf=2 * c.krf)),
+                                 ("no_close_pairs", "g", "krf_x2", c._replace(krf=2 * c.krf))):
+        got = rl.stage_call(st, sets[tag])
+        want = rl.stage_reference(st, rl.in_f64(sets[tag]), wrong)
+        e_r, f_r, _ = _probe_ratios(got, want, scales[tag])
+        log("roofline_control", inputs=tag, stage=st, fault=name,
+            energy_over_bar=f"{e_r:.3g}", force_rows_over_bar=f"{f_r:.3g}")
+        require(max(e_r, f_r) > 1.0, f"planted fault {name} in {st} on {tag} passed")
+    x = torch.full(probe.CHAIN_SHAPE, 0.4999, dtype=torch.float32, device=DEVICE)
+    for op in rl.CHAIN_OPS:
+        want = rl.chain_reference(op, x, probe.CHAIN_ITERS)
+        got = rl.chain_call(op, x.clone(), probe.CHAIN_ITERS)
+        err = float(((got - want).abs() / want.abs()).max())
+        log("roofline_chain_check", op=op, shape=tuple(probe.CHAIN_SHAPE),
+            steps=rl.UNROLL * probe.CHAIN_ITERS, max_rel_err=f"{err:.3g}")
+        require(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6)), ("chain", op, err))
+
+    rl.LAUNCHES = rl.CHAIN_LAUNCHES = 0
+    res = probe.run(PROBE_N, PROBE_TILE, echo=lambda line: print(f"[roofline] {line}",
+                                                                  flush=True))
+    launches = {"stages": rl.LAUNCHES, "chains": rl.CHAIN_LAUNCHES}
+    log("roofline_launches", **launches)
+    require(launches["stages"] >= len(rl.STAGES) and launches["chains"] >= len(rl.CHAIN_OPS),
+            f"probe launches {launches}")
+    require(res["mxred_vs_forces_row_err"] <= MXRED_TOL,
+            f"mxred vs forces {res['mxred_vs_forces_row_err']} of a row's force scale")
+    for st, (fx, fy, fz, e) in res["outputs"].items():
+        require(bool(torch.isfinite(torch.stack([fx, fy, fz])).all())
+                and bool(torch.isfinite(e)), f"probe stage {st} not finite")
+
+    # the forces stage is the production kernel's work: its bound is that
+    # of the dense pair function on these inputs (bytes of the rows and the
+    # mask in, forces and energy out; operations of the pairs in the cutoff)
+    pos = torch.stack([inp.x, inp.y, inp.z], 1)[:PROBE_N]
+    d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+    npairs = (int((d2 <= rl.CONSTANTS.cutoff ** 2).sum()) - PROBE_N) // 2
+    out = dict(
+        ms=res["ms"]["forces"],
+        plain_ms=cuda_events_ms(lambda: rl.stage_reference("forces", inp), calls=5, warmup=1),
+        bound=bound(tensor_bytes(*inp[:7]) + 4 * (3 * inp.x.numel() + 1),
+                    pair_flops(npairs, "rfa")),
+        max_abs_err=errs["forces"],
+        work=f"pairs_in_cutoff={npairs} npad={inp.x.numel()}")
+    log("timing", kernel="roofline_forces", shapes=f"probe n={PROBE_N} tile={PROBE_TILE}",
+        ms=f"{out['ms']:.4f}", plain_ms=f"{out['plain_ms']:.4f}",
+        speedup=f"{out['plain_ms'] / out['ms']:.2f}", bound_ms=f"{out['bound'][0]:.5f}",
+        bound_by=out["bound"][1], work=out["work"])
+    return out, launches["stages"]
+
 
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1231,6 +1384,7 @@ def main():
     thr_launches = phase_dynamics()
     water_launches, _ = phase_waterbox()
     npt_launches, _ = phase_npt()
+    times["roofline"], probe_launches = phase_roofline()
 
     import torch
 
@@ -1238,6 +1392,11 @@ def main():
     kernels = [
         _kernel_entry("pair", src + "nonbonded.cu",
                       "torchmd_tpu/ops/pallas_nonbonded.py:545",
+                      thr_launches["pair"], times["pair"]),
+        # the full-square Pallas kernel: the one CUDA pair kernel computes
+        # both (a thread a whole row)
+        _kernel_entry("pair_full_square", src + "nonbonded.cu",
+                      "torchmd_tpu/ops/pallas_nonbonded.py:620",
                       thr_launches["pair"], times["pair"]),
         _kernel_entry("bonded", src + "bonded.cu",
                       "torchmd_tpu/ops/pallas_bonded.py:575",
@@ -1250,6 +1409,8 @@ def main():
                       water_launches["pme_gather"], times["pme_gather"]),
         _kernel_entry("column", src + "column.cu", "torchmd_tpu/ops/pallas_column.py:266",
                       npt_launches["column"], times["column"]),
+        _kernel_entry("roofline", src + "roofline.cu", "scripts/bench_roofline.py:213",
+                      probe_launches, times["roofline"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,47 +3,50 @@
 // Replaces: torchmd_tpu/ops/pallas_cell.py, pallas_cell_energy_forces with
 // its kernel _kernel (27-stencil ghost-cell pair blocks; the per-pair math
 // is pallas_nonbonded.pair_terms, here pair_terms.cuh shared with
-// nonbonded.cu). Same contract as neighbors.cell_nonbonded_energy_forces:
-// the pairs of each cell's atoms with the atoms of its 27 neighbour cells
-// (cell edge >= cutoff + skin), the periodic image as a per-neighbour-cell
-// shift of the anchored positions (no per-pair wrap, no ghost arrays),
-// exclusions from a padded per-atom list, the cutoff on d^2, LJ with the
-// switch or repulsion or repulsioncg plus Coulomb plain / reaction field /
-// Ewald erfc. Energies carry 0.5 (every pair is seen from both cells).
+// nonbonded.cu and column.cu). Same contract as
+// neighbors.cell_nonbonded_energy_forces: the pairs of each cell's atoms
+// with the atoms of its 27 neighbour cells (cell edge >= cutoff + skin),
+// the periodic image as a per-neighbour-cell shift of the anchored
+// positions, exclusions from a padded per-atom list, the cutoff on d^2, LJ
+// with the switch or repulsion or repulsioncg plus Coulomb plain /
+// reaction field / Ewald erfc. Energies carry 0.5 (every pair is seen
+// from both cells).
 //
-// What bounds it on this card: the stencil visits every (i, j) pair of
-// neighbouring cells, 27 * ncells * count^2 candidate pairs (the 62,500-site
-// water box: ~3e8 for ~2.2e7 pairs inside the cutoff), each a shared-memory
-// read and ~10 FP32 operations before the cutoff test; the ~7 % inside the
-// cutoff take the full pair terms (~60 operations with erfc). It is FP32-
-// ALU and shared-memory bound; device memory moves only O(N) bytes. So:
-//   - one block per cell, one thread per slot of the cell (blockDim = the
-//     capacity rounded up to a warp), i data in registers;
-//   - for each of the 27 neighbour cells the block stages its occupied
-//     slots (x, y, z + image shift, q, sigma/2, sqrt|eps|, id) in shared
-//     memory, and every thread loops over them; the loop bound is the
-//     neighbour's count, so empty slots cost nothing;
-//   - i's exclusion list is held in registers (the first REG_EXCL entries)
-//     and checked only for pairs inside the cutoff;
-//   - each thread owns its atom's force: no atomics, deterministic forces;
-//   - energies accumulate per neighbour cell in f32 and across cells in
-//     f64, reduce per block, and a finishing kernel sums the blocks.
-// The VIRIAL instance (MTK barostat; pallas_cell.py's with_virial) also
-// sums g * d_a^2 per axis over the pairs, like the energies, and returns
-// that raw sum: the caller applies the -0.5 (each pair is seen from both
-// cells). The plain instance carries none of it.
+// What bounds it on this card: FP32 issue. Only ~7 % of the slot pairs of
+// neighbouring cells lie inside the cutoff (the 62,500-site water box:
+// 3.05e8 slot pairs for 2.1e7 ordered pairs inside it), and a warp whose
+// lanes test the cutoff one pair each runs the full pair math (~100
+// operations with erfc) whenever one lane is inside. Device memory moves
+// O(N) bytes. So the walk is tile_pairs.cuh's:
+//   - a prep pass (one block per cell) orders each cell's atoms along a
+//     Morton curve over 4x4x4 sub-cells, writes them as packed float4 rows
+//     (x, y, z, q and sigma/2, sqrt|eps|, id) in that order, and the
+//     bounding box of every 32-atom tile; the cell list itself is not
+//     touched;
+//   - one block of two warps per i tile walks the tiles of the 27
+//     neighbour cells (the self cell, then opposite offsets in turn), culls
+//     those whose boxes lie beyond the cutoff, shares the survivors out
+//     between its warps, queues each lane's pairs inside the cutoff and
+//     runs the pair math on full warps;
+//   - each lane owns its atom's share of the force, which meets the other
+//     warp's in two atomic additions onto zero: deterministic forces;
+//   - energies (and with VIRIAL the raw per-axis sums g * d_a^2) sum per
+//     warp in f64, and a finishing kernel adds the warps in a fixed order.
+// The VIRIAL instance (MTK barostat; pallas_cell.py's with_virial) returns
+// the raw sums: the caller applies the -0.5.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "pair_terms.cuh"
+#include "tile_pairs.cuh"
 
 namespace {
 
-constexpr int REG_EXCL = 8;
-constexpr int MAX_THREADS = 1024;
+constexpr int MAX_CAPACITY = 1024;
+constexpr int PREP_THREADS = 256;
 constexpr int FIN_THREADS = 256;
+constexpr int SUB = 4;            // sub-cells per cell edge for the Morton order
 
 }  // namespace
 
@@ -67,6 +70,77 @@ struct CellCfg {
 
 namespace {
 
+__device__ __forceinline__ int tiles_per_cell(const CellCfg& cfg) {
+  return (cfg.capacity + tiles::TILE - 1) / tiles::TILE;
+}
+
+// Morton index of a sub-cell (2 bits per axis, x lowest).
+__device__ __forceinline__ int morton(int a, int b, int c) {
+  return (a & 1) | ((b & 1) << 1) | ((c & 1) << 2) | ((a & 2) << 2) | ((b & 2) << 3) |
+         ((c & 2) << 4);
+}
+
+// Sub-cell coordinate of x along an axis of `nc` cells per box edge:
+// trunc((x * (nc / box) - cell) * SUB), clamped; the rounding is spelled
+// out so that ops/cell.py's plain version gives the same integers.
+__device__ __forceinline__ int sub_cell(float x, float scale, int cell) {
+  const float f = __fmul_rn(__fsub_rn(__fmul_rn(x, scale), (float)cell), (float)SUB);
+  return min(max((int)f, 0), SUB - 1);
+}
+
+// One block per cell: the cell's atoms in Morton order of their sub-cells
+// (ties by slot), packed, and each 32-slot tile's bounding box.
+__global__ void __launch_bounds__(PREP_THREADS)
+cell_prep(const float* __restrict__ pos, const float* __restrict__ q,
+          const float* __restrict__ sig, const float* __restrict__ eps,
+          const int32_t* __restrict__ slots, const int32_t* __restrict__ counts,
+          const float* __restrict__ box, const __grid_constant__ CellCfg cfg,
+          float4* __restrict__ pq,
+          float4* __restrict__ aux, float4* __restrict__ tbox) {
+  extern __shared__ float4 prep_smem[];
+  const int cap = cfg.capacity;
+  float4* sorted = prep_smem;                              // (cap) positions
+  int* key = reinterpret_cast<int*>(sorted + cap);         // (cap)
+  const int c = blockIdx.x;
+  const int cz = c % cfg.ncz;
+  const int cy = (c / cfg.ncz) % cfg.ncy;
+  const int cx = c / (cfg.ncz * cfg.ncy);
+  const int cnt = min(counts[c], cap);
+  const float scx = (float)cfg.ncx / box[0];
+  const float scy = (float)cfg.ncy / box[1];
+  const float scz = (float)cfg.ncz / box[2];
+  for (int k = threadIdx.x; k < cnt; k += PREP_THREADS) {
+    const int i = slots[c * cap + k];
+    const int m = morton(sub_cell(pos[3 * i], scx, cx), sub_cell(pos[3 * i + 1], scy, cy),
+                         sub_cell(pos[3 * i + 2], scz, cz));
+    key[k] = (m << 10) | k;  // distinct: k < 1024
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < cnt; k += PREP_THREADS) {
+    const int mine = key[k];
+    int rank = 0;
+    for (int m = 0; m < cnt; ++m) rank += key[m] < mine;
+    const int i = slots[c * cap + k];
+    const float4 p = make_float4(pos[3 * i], pos[3 * i + 1], pos[3 * i + 2], q[i]);
+    pq[c * cap + rank] = p;
+    aux[c * cap + rank] = make_float4(sig[i], eps[i], __int_as_float(i), 0.f);
+    sorted[rank] = p;
+  }
+  __syncthreads();
+  const int tpc = tiles_per_cell(cfg);
+  for (int t = threadIdx.x; t < tpc; t += PREP_THREADS) {
+    float4 lo = make_float4(tiles::FAR, tiles::FAR, tiles::FAR, 0.f);
+    float4 hi = make_float4(-tiles::FAR, -tiles::FAR, -tiles::FAR, 0.f);
+    for (int k = t * tiles::TILE; k < min(cnt, (t + 1) * tiles::TILE); ++k) {
+      const float4 p = sorted[k];
+      lo.x = fminf(lo.x, p.x); lo.y = fminf(lo.y, p.y); lo.z = fminf(lo.z, p.z);
+      hi.x = fmaxf(hi.x, p.x); hi.y = fmaxf(hi.y, p.y); hi.z = fmaxf(hi.z, p.z);
+    }
+    tbox[2 * (c * tpc + t)] = lo;
+    tbox[2 * (c * tpc + t) + 1] = hi;
+  }
+}
+
 // Neighbour cell index along one axis and the image shift of its atoms.
 __device__ __forceinline__ int wrap_cell(int c, int nc, float box, float& shift) {
   shift = 0.f;
@@ -75,171 +149,176 @@ __device__ __forceinline__ int wrap_cell(int c, int nc, float box, float& shift)
   return c;
 }
 
-template <bool VIRIAL>
-__global__ void __launch_bounds__(MAX_THREADS)
-cell_kernel(const float* __restrict__ pos, const float* __restrict__ q,
-            const float* __restrict__ sig, const float* __restrict__ eps,
-            const int32_t* __restrict__ slots, const int32_t* __restrict__ counts,
+template <bool VIRIAL, int ELEC>
+__global__ void __launch_bounds__(tiles::NSPLIT * 32)
+cell_kernel(const float4* __restrict__ pq, const float4* __restrict__ aux,
+            const float4* __restrict__ tbox, const int32_t* __restrict__ counts,
             const int32_t* __restrict__ excl, const float* __restrict__ box,
-            const CellCfg cfg, float* __restrict__ forces,
-            double* __restrict__ epart) {
-  extern __shared__ float smem[];
-  __shared__ double scratch[MAX_THREADS / 32];
+            const __grid_constant__ CellCfg cfg, float* __restrict__ forces,
+            double* __restrict__ part,
+            unsigned long long* __restrict__ stats) {
+  __shared__ tiles::WarpSmem smem[tiles::NSPLIT];
+  constexpr int NP = VIRIAL ? 5 : 2;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gt = blockIdx.x;  // this block's i tile
+  const int tpc = tiles_per_cell(cfg);
+  const int c = gt / tpc, ti = gt % tpc;
   const int cap = cfg.capacity;
-  float* sx = smem;
-  float* sy = sx + cap;
-  float* sz = sy + cap;
-  float* sq = sz + cap;
-  float* ss = sq + cap;
-  float* se = ss + cap;
-  int* sid = reinterpret_cast<int*>(se + cap);
-
-  const int c = blockIdx.x;
+  const int cnt_i = min(counts[c], cap);
+  double* wpart = part + NP * (tiles::NSPLIT * gt + w);
+  if (ti * tiles::TILE >= cnt_i) {
+    tiles::empty_part(wpart, NP);
+    return;
+  }
   const int cz = c % cfg.ncz;
   const int cy = (c / cfg.ncz) % cfg.ncy;
   const int cx = c / (cfg.ncz * cfg.ncy);
-  const int t = threadIdx.x;
-  const int cnt_i = min(counts[c], cap);
-  const bool active = t < cnt_i;
-  const int ne = cfg.nexcl;
-
-  int i = -1;
-  float xi = 0.f, yi = 0.f, zi = 0.f, qi = 0.f, si = 0.f, ei = 0.f;
-  int ex[REG_EXCL];
-  if (active) {
-    i = slots[c * cap + t];
-    xi = pos[3 * i]; yi = pos[3 * i + 1]; zi = pos[3 * i + 2];
-    qi = q[i]; si = sig[i]; ei = eps[i];
-  }
-#pragma unroll
-  for (int e = 0; e < REG_EXCL; ++e)
-    ex[e] = (active && e < ne) ? excl[(size_t)i * ne + e] : -1;
   const float bx = box[0], by = box[1], bz = box[2];
+  tiles::WarpSmem& sm = smem[w];
+  int nbr = 0;  // lane o < 27: the neighbour cell of stencil offset o
+  if (lane < 27) {
+    float4 sh = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int nx = wrap_cell(cx + lane / 9 - 1, cfg.ncx, bx, sh.x);
+    const int ny = wrap_cell(cy + (lane / 3) % 3 - 1, cfg.ncy, by, sh.y);
+    const int nz = wrap_cell(cz + lane % 3 - 1, cfg.ncz, bz, sh.z);
+    nbr = (nx * cfg.ncy + ny) * cfg.ncz + nz;
+    sm.shift[lane] = sh;
+  }
+  __syncwarp();
 
-  float fx = 0.f, fy = 0.f, fz = 0.f;
-  double elj = 0.0, eel = 0.0;
-  double wx = 0.0, wy = 0.0, wz = 0.0;
-  for (int o = 0; o < 27; ++o) {
-    float shx, shy, shz;
-    const int nx = wrap_cell(cx + o / 9 - 1, cfg.ncx, bx, shx);
-    const int ny = wrap_cell(cy + (o / 3) % 3 - 1, cfg.ncy, by, shy);
-    const int nz = wrap_cell(cz + o % 3 - 1, cfg.ncz, bz, shz);
-    const int nc = (nx * cfg.ncy + ny) * cfg.ncz + nz;
-    const int cnt_j = min(counts[nc], cap);
-    __syncthreads();  // the previous neighbour cell has been consumed
-    for (int k = t; k < cnt_j; k += blockDim.x) {
-      const int j = slots[nc * cap + k];
-      sx[k] = pos[3 * j] + shx;
-      sy[k] = pos[3 * j + 1] + shy;
-      sz[k] = pos[3 * j + 2] + shz;
-      sq[k] = q[j]; ss[k] = sig[j]; se[k] = eps[j];
-      sid[k] = j;
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    float tlj = 0.f, tel = 0.f;
-    float vx = 0.f, vy = 0.f, vz = 0.f;
-    for (int r = 0; r < cnt_j; ++r) {
-      const float dx = xi - sx[r], dy = yi - sy[r], dz = zi - sz[r];
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      if (d2 > cfg.cutoff2) continue;
-      const int j = sid[r];
-      if (j == i) continue;
-      bool hit = false;
-#pragma unroll
-      for (int e = 0; e < REG_EXCL; ++e) hit |= ex[e] == j;
-      for (int e = REG_EXCL; e < ne; ++e) hit |= __ldg(excl + (size_t)i * ne + e) == j;
-      if (hit) continue;
-      float A = 0.f, B = 0.f;
-      if (cfg.lj_kind != 0) lb_coefficients(si, ss[r], ei, se[r], A, B);
-      const float g = pair_terms(cfg, d2, A, B, cfg.elec_factor * qi * sq[r], tlj, tel);
-      fx -= g * dx;
-      fy -= g * dy;
-      fz -= g * dz;
-      if (VIRIAL) {
-        vx += g * dx * dx;
-        vy += g * dy * dy;
-        vz += g * dz * dz;
-      }
-    }
-    elj += (double)tlj;
-    eel += (double)tel;
-    if (VIRIAL) {
-      wx += (double)vx;
-      wy += (double)vy;
-      wz += (double)vz;
+  const int slot = c * cap + ti * tiles::TILE + lane;
+  const bool active = ti * tiles::TILE + lane < cnt_i;
+  float4 pi = make_float4(0.f, 0.f, 0.f, 0.f), ai = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (active) { pi = pq[slot]; ai = aux[slot]; }
+  tiles::TileWarp<CellCfg, VIRIAL, ELEC> tw(cfg, pq, aux, excl, sm, active,
+                                      __float_as_int(ai.z), pi.x, pi.y, pi.z, pi.w,
+                                      ai.x, ai.y);
+  for (int oo = 0; oo < 27; ++oo) {
+    // the self cell, then offsets 0, 26, 1, 25, ...: opposite cells in turn
+    const int o = oo == 0 ? 13 : ((oo & 1) ? (oo - 1) / 2 : 26 - (oo - 1) / 2);
+    const int nc = __shfl_sync(tiles::FULL, nbr, o);
+    const int cnt_j = min(__ldg(counts + nc), cap);
+    const float4 sh = sm.shift[o];
+    unsigned keep = tw.cull(tbox, nc * tpc, (cnt_j + tiles::TILE - 1) / tiles::TILE, sh);
+    while (keep) {
+      const int t = __ffs(keep) - 1;
+      keep &= keep - 1;
+      tw.visit(nc * cap + t * tiles::TILE, min(tiles::TILE, cnt_j - t * tiles::TILE), o);
     }
   }
+  tw.finish(forces, wpart, 0.5, stats);
+}
 
-  if (active) {
-    forces[3 * i] = fx; forces[3 * i + 1] = fy; forces[3 * i + 2] = fz;
-  }
-  constexpr int NP = VIRIAL ? 5 : 2;
-  const double blj = block_sum(elj, scratch);
-  const double bel = block_sum(eel, scratch);
-  if (t == 0) {
-    epart[NP * c] = 0.5 * blj;
-    epart[NP * c + 1] = 0.5 * bel;
-  }
-  if (VIRIAL) {
-    const double bx = block_sum(wx, scratch);
-    const double by = block_sum(wy, scratch);
-    const double bz = block_sum(wz, scratch);
-    if (t == 0) {
-      epart[NP * c + 2] = bx;
-      epart[NP * c + 3] = by;
-      epart[NP * c + 4] = bz;
-    }
+}  // namespace
+
+// Scratch of a call, in bytes: packed rows (2 x ncells x capacity float4),
+// tile boxes (2 x ncells x tiles-per-cell float4) and the per-warp
+// partials (5 doubles per warp, NSPLIT warps per i tile).
+extern "C" long long tmd_cell_scratch_bytes(CellCfg cfg) {
+  const long long ncells = (long long)cfg.ncx * cfg.ncy * cfg.ncz;
+  const long long tpc = (cfg.capacity + tiles::TILE - 1) / tiles::TILE;
+  return 16 * (2 * ncells * cfg.capacity + 2 * ncells * tpc) +
+         8 * 5 * tiles::NSPLIT * ncells * tpc;
+}
+
+namespace {
+
+void carve(const CellCfg& cfg, void* scratch, float4*& pq, float4*& aux, float4*& tbox,
+           double*& part) {
+  const long long ncells = (long long)cfg.ncx * cfg.ncy * cfg.ncz;
+  const long long tpc = (cfg.capacity + tiles::TILE - 1) / tiles::TILE;
+  pq = static_cast<float4*>(scratch);
+  aux = pq + ncells * cfg.capacity;
+  tbox = aux + ncells * cfg.capacity;
+  part = reinterpret_cast<double*>(tbox + 2 * ncells * tpc);
+}
+
+// The pair kernel's instance for the virial flag and electrostatics kind.
+template <bool VIRIAL>
+void launch_pairs(int ntiles, cudaStream_t s, const float4* pq, const float4* aux,
+                  const float4* tbox, const int32_t* counts, const int32_t* excl,
+                  const float* box, const CellCfg& cfg, float* forces, double* part,
+                  unsigned long long* stats) {
+  constexpr int threads = tiles::NSPLIT * 32;
+  switch (cfg.elec_kind) {
+    case 0:
+      cell_kernel<VIRIAL, 0><<<ntiles, threads, 0, s>>>(pq, aux, tbox, counts, excl, box, cfg,
+                                                        forces, part, stats);
+      break;
+    case 1:
+      cell_kernel<VIRIAL, 1><<<ntiles, threads, 0, s>>>(pq, aux, tbox, counts, excl, box, cfg,
+                                                        forces, part, stats);
+      break;
+    case 2:
+      cell_kernel<VIRIAL, 2><<<ntiles, threads, 0, s>>>(pq, aux, tbox, counts, excl, box, cfg,
+                                                        forces, part, stats);
+      break;
+    default:
+      cell_kernel<VIRIAL, 3><<<ntiles, threads, 0, s>>>(pq, aux, tbox, counts, excl, box, cfg,
+                                                        forces, part, stats);
   }
 }
 
-// Sums the per-cell partials (np of them per cell: the two energies, and
-// the three raw virial sums) in a fixed order.
-__global__ void __launch_bounds__(FIN_THREADS)
-cell_finish(const double* __restrict__ epart, int ncells, int np,
-            float* __restrict__ energies) {
-  __shared__ double scratch[FIN_THREADS / 32];
-  for (int k = 0; k < np; ++k) {
-    double a = 0.0;
-    for (int p = threadIdx.x; p < ncells; p += FIN_THREADS) a += epart[np * p + k];
-    a = block_sum(a, scratch);
-    if (threadIdx.x == 0) energies[k] = (float)a;
-  }
+cudaError_t prep(const float* pos, const float* q, const float* sig, const float* eps,
+                 const int32_t* slots, const int32_t* counts, const float* box,
+                 const CellCfg& cfg, float4* pq, float4* aux, float4* tbox, cudaStream_t s) {
+  const int ncells = cfg.ncx * cfg.ncy * cfg.ncz;
+  const size_t smem = (sizeof(float4) + sizeof(int)) * (size_t)cfg.capacity;
+  cell_prep<<<ncells, PREP_THREADS, smem, s>>>(pos, q, sig, eps, slots, counts, box, cfg,
+                                               pq, aux, tbox);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // pos (N,3) anchored positions, q/sig/eps (N), slots (ncells, capacity)
 // int32 with slot k < counts[c] occupied, counts (ncells) int32, excl
-// (N, nexcl) int32 (N = empty), box (3). Scratch: epart (ncells, np) f64
-// with np = 5 when `virial` is set, else 2. Outputs: forces (N,3), zeroed
-// first so an atom that a capacity overflow dropped from its cell reads 0
-// (the caller redoes an overflowed step); energies (np) as [lj-family,
-// electrostatics] and, with `virial`, the raw sums g * d_a^2 for a = x,
-// y, z. Returns cudaGetLastError().
+// (N, nexcl) int32 (N = empty), box (3); scratch of
+// tmd_cell_scratch_bytes(cfg) bytes (16-byte aligned). Outputs: forces
+// (N,3), zeroed first so an atom that a capacity overflow dropped from its
+// cell reads 0 (the caller redoes an overflowed step); energies (np) as
+// [lj-family, electrostatics] and, with `virial`, the raw sums g * d_a^2
+// for a = x, y, z; stats (5 uint64, or null) gains the walk's counters
+// (tile_pairs.cuh Counters). Returns cudaGetLastError().
 extern "C" int tmd_cell_energy_forces(
     const float* pos, const float* q, const float* sig, const float* eps,
     const int32_t* slots, const int32_t* counts, const int32_t* excl,
-    const float* box, CellCfg cfg, int virial, float* forces, double* epart,
-    float* energies, void* stream) {
+    const float* box, CellCfg cfg, int virial, void* scratch, float* forces,
+    float* energies, unsigned long long* stats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ncells = cfg.ncx * cfg.ncy * cfg.ncz;
-  if (cfg.capacity < 1 || cfg.capacity > MAX_THREADS) return (int)cudaErrorInvalidValue;
+  if (cfg.capacity < 1 || cfg.capacity > MAX_CAPACITY ||
+      (long long)ncells * cfg.capacity > tiles::SLOT_MASK)
+    return (int)cudaErrorInvalidValue;
+  float4 *pq, *aux, *tbox;
+  double* part;
+  carve(cfg, scratch, pq, aux, tbox, part);
   cudaError_t err = cudaMemsetAsync(forces, 0, sizeof(float) * 3 * (size_t)cfg.natoms, s);
   if (err != cudaSuccess) return (int)err;
-  const int threads = (cfg.capacity + 31) / 32 * 32;
-  const size_t smem = sizeof(float) * 7 * (size_t)cfg.capacity;
+  err = prep(pos, q, sig, eps, slots, counts, box, cfg, pq, aux, tbox, s);
+  if (err != cudaSuccess) return (int)err;
+  const int ntiles = ncells * ((cfg.capacity + tiles::TILE - 1) / tiles::TILE);
   if (virial)
-    cell_kernel<true><<<ncells, threads, smem, s>>>(pos, q, sig, eps, slots, counts,
-                                                    excl, box, cfg, forces, epart);
+    launch_pairs<true>(ntiles, s, pq, aux, tbox, counts, excl, box, cfg, forces, part, stats);
   else
-    cell_kernel<false><<<ncells, threads, smem, s>>>(pos, q, sig, eps, slots, counts,
-                                                     excl, box, cfg, forces, epart);
+    launch_pairs<false>(ntiles, s, pq, aux, tbox, counts, excl, box, cfg, forces, part, stats);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cell_finish<<<1, FIN_THREADS, 0, s>>>(epart, ncells, virial ? 5 : 2, energies);
+  tiles::finish_parts<FIN_THREADS><<<1, FIN_THREADS, 0, s>>>(
+      part, tiles::NSPLIT * ntiles, virial ? 5 : 2, energies);
   return (int)cudaGetLastError();
+}
+
+// The prep pass alone (tests): packed rows and tile boxes into `scratch`.
+extern "C" int tmd_cell_prep(const float* pos, const float* q, const float* sig,
+                             const float* eps, const int32_t* slots, const int32_t* counts,
+                             const float* box, CellCfg cfg, void* scratch, void* stream) {
+  if (cfg.capacity < 1 || cfg.capacity > MAX_CAPACITY) return (int)cudaErrorInvalidValue;
+  float4 *pq, *aux, *tbox;
+  double* part;
+  carve(cfg, scratch, pq, aux, tbox, part);
+  return (int)prep(pos, q, sig, eps, slots, counts, box, cfg, pq, aux, tbox,
+                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* tmd_error_string(int err) {

@@ -4,58 +4,54 @@
 // Replaces: torchmd_tpu/ops/pallas_column.py, column_pair_call with its
 // kernel _kernel, together with what its caller columns.column_energy_forces
 // does around it (the per-slot force scatter and the -0.5 on the virial
-// stays with the Python wrapper). The contract is ops/column.py's: for
-// every column c, i block bi of IBLK slots and half-stencil offset o9 in
-// 4..8, the block's atoms against the W extended j slots of the neighbour
-// column starting at slot 128 * wstart[c][o9][bi] (j z shifted by
-// jzshift * Lz, x/y by the neighbour column's wrap times the current box);
-// a pair counts when both ids are below N, i != j, j is not excluded for
-// i and d^2 < cutoff^2. The self offset (o9 = 4) has weight 1 on the 0.5-
-// weighted energies and i-side forces only; the four directed offsets have
-// weight 2 and put the j-side force on atom j. The per-pair math is
-// pair_terms.cuh, shared with nonbonded.cu and cell.cu.
+// stays with the Python wrapper). The contract is ops/column.py's, on the
+// JAX package's layout: islot (ncol, C) z-sorted atoms per (x, y) column,
+// jslot (ncol, CE) the same plus z ghosts with jzshift in units of Lz, and
+// wstart (ncol, 9, NB) the start (in 128-slot units) of each IBLK-wide i
+// block's W-slot window in each of the 3x3 neighbour columns, which covers
+// every partner within cutoff + skin. A pair counts when both ids are
+// below N, i != j, j is not excluded for i and d^2 <= cutoff^2; energies
+// and the returned raw virial sums g * d_a^2 are those of the half-stencil
+// sum (self offset at weight 1/2 on the energies, directed offsets at 1).
+// The per-pair math is pair_terms.cuh, shared with nonbonded.cu and cell.cu.
 //
-// What bounds it on this card: it visits 5 * ncol * NB * IBLK * W slot
-// pairs (the 62,500-site water box: ~4.1e8 for ~1.05e7 unordered pairs
-// inside the cutoff), each a shared-memory read and ~10 FP32 operations
-// before the cutoff test; device memory moves O(N) bytes. It is FP32-ALU
-// and shared-memory bound, so:
-//   - one block per (column, i block), SPLIT threads per i slot, each
-//     taking a quarter of the window: IBLK * SPLIT = 192 threads, i data
-//     in registers, the 5 offsets in a loop inside the block;
-//   - for each offset the block stages the W-slot window (x, y, z with
-//     the image shift added, q, sigma/2, sqrt|eps|, id) in shared memory;
-//     padding slots sit at 1e18 A, so the cutoff test drops them;
-//   - the lanes of a warp start their pass over the window quarter at
-//     their own i slot (a rotation), so at each step they touch distinct
-//     j slots: the j-side forces of the directed offsets go to a shared
-//     per-window-slot accumulator with atomicAdd free of same-address
-//     conflicts, and after the offset each slot's sum is added to the
-//     atom with one global atomicAdd per axis;
-//   - i forces stay in registers across the offsets, are reduced over the
-//     SPLIT threads of the slot through shared memory, and added to the
-//     atom with atomicAdd (the atom also receives j-side forces from other
-//     blocks). Forces are therefore summed in a run-dependent order: not
-//     bitwise deterministic, equal to f32 rounding;
-//   - energies and the raw virial sums g * d_a^2 accumulate per offset in
-//     f32 and across offsets in f64, reduce per block, and each block adds
-//     them with one double atomicAdd; a finishing kernel rounds to f32.
+// What bounds it on this card: FP32 issue, as for cell.cu: the windows hold
+// 2.86e8 slot pairs for 1.05e7 unordered pairs inside the cutoff (the
+// 62,500-site water box), and a lane-per-pair cutoff branch runs the full
+// pair math for most warp steps. So the walk is tile_pairs.cuh's:
+//   - a prep pass packs every extended slot (z ghost shift added) as float4
+//     rows (x, y, z, q and sigma/2, sqrt|eps|, id; padding at 1e18 A) and
+//     the bounding box of every 32 consecutive slots: tiles of a z-sorted
+//     column are thin slabs, which the culling cuts by z;
+//   - one block of two warps per 32 consecutive i slots of a column (lane
+//     k the slot's atom) walks, for each of the 9 neighbour columns (the
+//     self column, then opposite offsets in turn), the j tiles of the union
+//     of its (one or two) i blocks' windows, culls by box, shares the
+//     survivors out between its warps, queues each lane's pairs inside the
+//     cutoff and runs the pair math on full warps;
+//   - the whole 3x3 stencil, not the half stencil with Newton's third law:
+//     every ordered pair once, each lane the owner of its atom's share of
+//     the force (each atom sits in one i slot), which meets the other
+//     warp's in two atomic additions onto zero, so forces are bitwise
+//     deterministic; the energies carry 1/2 and the raw virial sums equal
+//     the half stencil's weighted ones;
+//   - energies and virial sums sum per warp in f64 and a finishing kernel
+//     adds the warps in a fixed order.
 // The VIRIAL template flag carries the virial sums; without it they cost
 // nothing.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "pair_terms.cuh"
+#include "tile_pairs.cuh"
 
 namespace {
 
-constexpr int SPLIT = 4;
-constexpr int STRIDE = 128;
-constexpr int REG_EXCL = 8;
-constexpr int MAX_THREADS = 1024;
-constexpr float FAR = 1e18f;
+constexpr int STRIDE = 128;       // window starts are in units of 128 slots
+constexpr int PREP_THREADS = 128;
+constexpr int FIN_THREADS = 256;
 
 }  // namespace
 
@@ -79,224 +75,220 @@ struct ColumnCfg {
 
 namespace {
 
-template <bool VIRIAL>
-__global__ void __launch_bounds__(MAX_THREADS)
+__device__ __host__ __forceinline__ int tiles_per_column(const ColumnCfg& cfg) {
+  return (cfg.C + tiles::TILE - 1) / tiles::TILE;
+}
+
+// One thread per extended slot, one warp per 32-slot tile: packed rows
+// with the z ghost shift added, and the tile's bounding box.
+__global__ void __launch_bounds__(PREP_THREADS)
+column_prep(const float* __restrict__ pos, const float* __restrict__ q,
+            const float* __restrict__ sig, const float* __restrict__ eps,
+            const int32_t* __restrict__ jslot, const float* __restrict__ jzshift,
+            const float* __restrict__ box, const __grid_constant__ ColumnCfg cfg,
+            float4* __restrict__ pq, float4* __restrict__ aux, float4* __restrict__ tbox) {
+  const int s = blockIdx.x * PREP_THREADS + threadIdx.x;  // ncol * CE, a multiple of 128
+  const int j = jslot[s];
+  const bool valid = j < cfg.natoms;
+  float4 p = make_float4(tiles::FAR, tiles::FAR, tiles::FAR, 0.f);
+  float4 a = make_float4(0.f, 0.f, __int_as_float(cfg.natoms), 0.f);
+  if (valid) {
+    p = make_float4(pos[3 * j], pos[3 * j + 1], pos[3 * j + 2] + jzshift[s] * box[2], q[j]);
+    a = make_float4(sig[j], eps[j], __int_as_float(j), 0.f);
+  }
+  pq[s] = p;
+  aux[s] = a;
+  float4 lo, hi;
+  tiles::warp_box(valid, p.x, p.y, p.z, lo, hi);
+  if ((threadIdx.x & 31) == 0) {
+    tbox[2 * (s / tiles::TILE)] = lo;
+    tbox[2 * (s / tiles::TILE) + 1] = hi;
+  }
+}
+
+template <bool VIRIAL, int ELEC>
+__global__ void __launch_bounds__(tiles::NSPLIT * 32)
 column_kernel(const float* __restrict__ pos, const float* __restrict__ q,
               const float* __restrict__ sig, const float* __restrict__ eps,
               const int32_t* __restrict__ excl, const int32_t* __restrict__ islot,
-              const int32_t* __restrict__ jslot, const float* __restrict__ jzshift,
               const int32_t* __restrict__ wstart, const float* __restrict__ box,
-              const ColumnCfg cfg, float* __restrict__ forces,
-              double* __restrict__ acc) {
-  extern __shared__ float smem[];
-  __shared__ double scratch[MAX_THREADS / 32];
-  const int W = cfg.W;
-  float* sx = smem;
-  float* sy = sx + W;
-  float* sz = sy + W;
-  float* sq = sz + W;
-  float* ss = sq + W;
-  float* se = ss + W;
-  int* sid = reinterpret_cast<int*>(se + W);
-  float* jacc = reinterpret_cast<float*>(sid + W);  // (W, 3)
-  float* fred = jacc + 3 * W;                       // (blockDim, 3)
-
+              const float4* __restrict__ pq, const float4* __restrict__ aux,
+              const float4* __restrict__ tbox, const __grid_constant__ ColumnCfg cfg,
+              float* __restrict__ forces, double* __restrict__ part,
+              unsigned long long* __restrict__ stats) {
+  __shared__ tiles::WarpSmem smem[tiles::NSPLIT];
+  constexpr int NP = VIRIAL ? 5 : 2;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gt = blockIdx.x;  // this block's i tile
+  const int tpc = tiles_per_column(cfg);
+  const int c = gt / tpc, ti = gt % tpc;
   const int n = cfg.natoms;
-  const int c = blockIdx.x / cfg.NB;
-  const int bi = blockIdx.x % cfg.NB;
-  if (wstart[(c * 9 + 4) * cfg.NB + bi] < 0) return;  // an all-padding block
-
-  const int t = threadIdx.x;
-  const int il = t % cfg.iblk;
-  const int sp = t / cfg.iblk;
-  int i = n;
-  if (sp < SPLIT) i = islot[c * cfg.C + bi * cfg.iblk + il];
+  const int k0 = ti * tiles::TILE;
+  const int i = k0 + lane < cfg.C ? islot[c * cfg.C + k0 + lane] : n;
   const bool active = i < n;
-  const int ne = cfg.nexcl;
+  double* wpart = part + NP * (tiles::NSPLIT * gt + w);
+  if (!__any_sync(tiles::FULL, active)) {
+    tiles::empty_part(wpart, NP);
+    return;
+  }
+  const float bx = box[0], by = box[1];
+  const int cx = c / cfg.ncy, cy = c % cfg.ncy;
+  tiles::WarpSmem& sm = smem[w];
+  int nbr = 0;  // lane o9 < 9: the neighbour column of offset o9
+  if (lane < 9) {
+    const int tx = cx + lane / 3 - 1, ty = cy + lane % 3 - 1;
+    sm.shift[lane] = make_float4(tx < 0 ? -bx : (tx >= cfg.ncx ? bx : 0.f),
+                                 ty < 0 ? -by : (ty >= cfg.ncy ? by : 0.f), 0.f, 0.f);
+    nbr = ((tx + cfg.ncx) % cfg.ncx) * cfg.ncy + (ty + cfg.ncy) % cfg.ncy;
+  }
+  __syncwarp();
   float xi = 0.f, yi = 0.f, zi = 0.f, qi = 0.f, si = 0.f, ei = 0.f;
-  int ex[REG_EXCL];
   if (active) {
     xi = pos[3 * i]; yi = pos[3 * i + 1]; zi = pos[3 * i + 2];
     qi = q[i]; si = sig[i]; ei = eps[i];
   }
-#pragma unroll
-  for (int e = 0; e < REG_EXCL; ++e)
-    ex[e] = (active && e < ne) ? excl[(size_t)i * ne + e] : -1;
-  const float bx = box[0], by = box[1], bz = box[2];
-  const int cx = c / cfg.ncy, cy = c % cfg.ncy;
-  const int L = W / SPLIT;
-
-  float fx = 0.f, fy = 0.f, fz = 0.f;
-  double elj = 0.0, eel = 0.0, wx = 0.0, wy = 0.0, wz = 0.0;
-  for (int o9 = 4; o9 < 9; ++o9) {
-    const bool directed = o9 != 4;
-    const int tx = cx + o9 / 3 - 1, ty = cy + o9 % 3 - 1;
-    const float shx = tx < 0 ? -bx : (tx >= cfg.ncx ? bx : 0.f);
-    const float shy = ty < 0 ? -by : (ty >= cfg.ncy ? by : 0.f);
-    const int cj = ((tx + cfg.ncx) % cfg.ncx) * cfg.ncy + (ty + cfg.ncy) % cfg.ncy;
-    const int base = cj * cfg.CE + wstart[(c * 9 + o9) * cfg.NB + bi] * STRIDE;
-    __syncthreads();  // the previous window has been consumed
-    for (int k = t; k < W; k += blockDim.x) {
-      const int j = jslot[base + k];
-      if (j < n) {
-        sx[k] = pos[3 * j] + shx;
-        sy[k] = pos[3 * j + 1] + shy;
-        sz[k] = pos[3 * j + 2] + jzshift[base + k] * bz;
-        sq[k] = q[j]; ss[k] = sig[j]; se[k] = eps[j];
-      } else {
-        sx[k] = sy[k] = sz[k] = FAR;
-        sq[k] = ss[k] = se[k] = 0.f;
-      }
-      sid[k] = j;
-      if (directed) jacc[3 * k] = jacc[3 * k + 1] = jacc[3 * k + 2] = 0.f;
-    }
-    __syncthreads();
-
-    if (active) {
-      float tlj = 0.f, tel = 0.f, vx = 0.f, vy = 0.f, vz = 0.f;
-      const int k0 = sp * L;
-      for (int r = 0; r < L; ++r) {
-        int kr = r + il;
-        kr = kr >= L ? kr % L : kr;
-        const int k = k0 + kr;
-        const float dx = xi - sx[k], dy = yi - sy[k], dz = zi - sz[k];
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        if (d2 > cfg.cutoff2) continue;
-        const int j = sid[k];
-        if (j == i) continue;
-        bool hit = false;
-#pragma unroll
-        for (int e = 0; e < REG_EXCL; ++e) hit |= ex[e] == j;
-        for (int e = REG_EXCL; e < ne; ++e) hit |= __ldg(excl + (size_t)i * ne + e) == j;
-        if (hit) continue;
-        float A = 0.f, B = 0.f;
-        if (cfg.lj_kind != 0) lb_coefficients(si, ss[k], ei, se[k], A, B);
-        const float g = pair_terms(cfg, d2, A, B, cfg.elec_factor * qi * sq[k], tlj, tel);
-        const float gx = g * dx, gy = g * dy, gz = g * dz;
-        fx -= gx;
-        fy -= gy;
-        fz -= gz;
-        if (directed) {
-          atomicAdd(jacc + 3 * k, gx);
-          atomicAdd(jacc + 3 * k + 1, gy);
-          atomicAdd(jacc + 3 * k + 2, gz);
-        }
-        if (VIRIAL) {
-          vx += gx * dx;
-          vy += gy * dy;
-          vz += gz * dz;
-        }
-      }
-      // energies carry 0.5 (self: both orderings) or 1 (directed: once);
-      // the raw virial sums 1 or 2
-      const double we = directed ? 1.0 : 0.5;
-      elj += we * (double)tlj;
-      eel += we * (double)tel;
-      if (VIRIAL) {
-        const double wv = 2.0 * we;
-        wx += wv * (double)vx;
-        wy += wv * (double)vy;
-        wz += wv * (double)vz;
-      }
-    }
-    if (directed) {
-      __syncthreads();
-      for (int k = t; k < W; k += blockDim.x) {
-        const int j = sid[k];
-        const float ax = jacc[3 * k], ay = jacc[3 * k + 1], az = jacc[3 * k + 2];
-        if (j < n && (ax != 0.f || ay != 0.f || az != 0.f)) {
-          atomicAdd(forces + 3 * j, ax);
-          atomicAdd(forces + 3 * j + 1, ay);
-          atomicAdd(forces + 3 * j + 2, az);
-        }
+  tiles::TileWarp<ColumnCfg, VIRIAL, ELEC> tw(cfg, pq, aux, excl, sm, active, i, xi, yi, zi,
+                                        qi, si, ei);
+  // the (one or two) i blocks this tile's slots fall in
+  const int b0 = k0 / cfg.iblk;
+  const int b1 = min(k0 + tiles::TILE - 1, cfg.C - 1) / cfg.iblk;
+  const int jtiles = cfg.CE / tiles::TILE;
+  for (int oo = 0; oo < 9; ++oo) {
+    // the self column, then offsets 0, 8, 1, 7, ...: opposite columns in turn
+    const int o9 = oo == 0 ? 4 : ((oo & 1) ? (oo - 1) / 2 : 8 - (oo - 1) / 2);
+    const int cj = __shfl_sync(tiles::FULL, nbr, o9);
+    const int* ws = wstart + (c * 9 + o9) * cfg.NB;
+    const int w0 = ws[b0];
+    const int w1 = b1 != b0 ? ws[b1] : -1;
+    int lo = INT_MAX, hi = 0;  // the union of the valid blocks' windows
+    if (w0 >= 0) { lo = w0 * STRIDE; hi = w0 * STRIDE + cfg.W; }
+    if (w1 >= 0) { lo = min(lo, w1 * STRIDE); hi = max(hi, w1 * STRIDE + cfg.W); }
+    if (hi == 0) continue;
+    const float4 sh = sm.shift[o9];
+    for (int t0 = lo / tiles::TILE; t0 < hi / tiles::TILE; t0 += tiles::TILE) {
+      unsigned keep = tw.cull(tbox, cj * jtiles + t0, min(tiles::TILE, hi / tiles::TILE - t0),
+                              sh);
+      while (keep) {
+        const int t = t0 + __ffs(keep) - 1;
+        keep &= keep - 1;
+        tw.visit(cj * cfg.CE + t * tiles::TILE, tiles::TILE, o9);
       }
     }
   }
-
-  // i forces: sum the SPLIT partials of each slot, one atomic per axis
-  fred[3 * t] = fx; fred[3 * t + 1] = fy; fred[3 * t + 2] = fz;
-  __syncthreads();
-  if (sp == 0 && active) {
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    for (int s = 0; s < SPLIT; ++s) {
-      const int u = s * cfg.iblk + il;
-      ax += fred[3 * u]; ay += fred[3 * u + 1]; az += fred[3 * u + 2];
-    }
-    atomicAdd(forces + 3 * i, ax);
-    atomicAdd(forces + 3 * i + 1, ay);
-    atomicAdd(forces + 3 * i + 2, az);
-  }
-  const double blj = block_sum(elj, scratch);
-  const double bel = block_sum(eel, scratch);
-  if (t == 0) {
-    atomicAdd(acc, blj);
-    atomicAdd(acc + 1, bel);
-  }
-  if (VIRIAL) {
-    const double bvx = block_sum(wx, scratch);
-    const double bvy = block_sum(wy, scratch);
-    const double bvz = block_sum(wz, scratch);
-    if (t == 0) {
-      atomicAdd(acc + 2, bvx);
-      atomicAdd(acc + 3, bvy);
-      atomicAdd(acc + 4, bvz);
-    }
-  }
+  tw.finish(forces, wpart, 0.5, stats);
 }
 
-__global__ void column_finish(const double* __restrict__ acc, int nout,
-                              float* __restrict__ out) {
-  if (threadIdx.x < nout) out[threadIdx.x] = (float)acc[threadIdx.x];
+void carve(const ColumnCfg& cfg, void* scratch, float4*& pq, float4*& aux, float4*& tbox,
+           double*& part) {
+  const long long slots = (long long)cfg.ncx * cfg.ncy * cfg.CE;
+  pq = static_cast<float4*>(scratch);
+  aux = pq + slots;
+  tbox = aux + slots;
+  part = reinterpret_cast<double*>(tbox + 2 * (slots / tiles::TILE));
 }
 
+// The pair kernel's instance for the virial flag and electrostatics kind.
 template <bool VIRIAL>
-cudaError_t launch(const float* pos, const float* q, const float* sig,
-                   const float* eps, const int32_t* excl, const int32_t* islot,
-                   const int32_t* jslot, const float* jzshift, const int32_t* wstart,
-                   const float* box, const ColumnCfg& cfg, float* forces, double* acc,
-                   cudaStream_t s) {
-  const int ncol = cfg.ncx * cfg.ncy;
-  const int threads = (cfg.iblk * SPLIT + 31) / 32 * 32;
-  const size_t smem = sizeof(float) * (10 * (size_t)cfg.W + 3 * (size_t)threads);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        column_kernel<VIRIAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+void launch_pairs(int ntiles, cudaStream_t s, const float* pos, const float* q,
+                  const float* sig, const float* eps, const int32_t* excl,
+                  const int32_t* islot, const int32_t* wstart, const float* box,
+                  const float4* pq, const float4* aux, const float4* tbox,
+                  const ColumnCfg& cfg, float* forces, double* part,
+                  unsigned long long* stats) {
+  constexpr int threads = tiles::NSPLIT * 32;
+  switch (cfg.elec_kind) {
+    case 0:
+      column_kernel<VIRIAL, 0><<<ntiles, threads, 0, s>>>(
+          pos, q, sig, eps, excl, islot, wstart, box, pq, aux, tbox, cfg, forces, part, stats);
+      break;
+    case 1:
+      column_kernel<VIRIAL, 1><<<ntiles, threads, 0, s>>>(
+          pos, q, sig, eps, excl, islot, wstart, box, pq, aux, tbox, cfg, forces, part, stats);
+      break;
+    case 2:
+      column_kernel<VIRIAL, 2><<<ntiles, threads, 0, s>>>(
+          pos, q, sig, eps, excl, islot, wstart, box, pq, aux, tbox, cfg, forces, part, stats);
+      break;
+    default:
+      column_kernel<VIRIAL, 3><<<ntiles, threads, 0, s>>>(
+          pos, q, sig, eps, excl, islot, wstart, box, pq, aux, tbox, cfg, forces, part, stats);
   }
-  column_kernel<VIRIAL><<<ncol * cfg.NB, threads, smem, s>>>(
-      pos, q, sig, eps, excl, islot, jslot, jzshift, wstart, box, cfg, forces, acc);
+}
+
+cudaError_t prep(const float* pos, const float* q, const float* sig, const float* eps,
+                 const int32_t* jslot, const float* jzshift, const float* box,
+                 const ColumnCfg& cfg, float4* pq, float4* aux, float4* tbox,
+                 cudaStream_t s) {
+  const int slots = cfg.ncx * cfg.ncy * cfg.CE;
+  column_prep<<<slots / PREP_THREADS, PREP_THREADS, 0, s>>>(pos, q, sig, eps, jslot, jzshift,
+                                                           box, cfg, pq, aux, tbox);
   return cudaGetLastError();
+}
+
+bool valid_cfg(const ColumnCfg& cfg) {
+  return cfg.iblk >= 1 && cfg.W >= STRIDE && cfg.W % STRIDE == 0 && cfg.CE % STRIDE == 0 &&
+         cfg.C >= cfg.iblk && (long long)cfg.ncx * cfg.ncy * cfg.CE <= tiles::SLOT_MASK;
 }
 
 }  // namespace
 
+// Scratch of a call, in bytes: packed rows (2 x ncol x CE float4), j tile
+// boxes (2 x ncol x CE / 32 float4) and the per-warp partials (5 doubles
+// per warp, NSPLIT warps per i tile).
+extern "C" long long tmd_column_scratch_bytes(ColumnCfg cfg) {
+  const long long slots = (long long)cfg.ncx * cfg.ncy * cfg.CE;
+  const long long itiles = (long long)cfg.ncx * cfg.ncy * tiles_per_column(cfg);
+  return 16 * (2 * slots + 2 * (slots / tiles::TILE)) + 8 * 5 * tiles::NSPLIT * itiles;
+}
+
 // pos (N,3) anchored positions, q/sig/eps (N), excl (N, nexcl) int32 (N =
 // empty), islot (ncol, C), jslot (ncol, CE) int32 (N = padding), jzshift
 // (ncol, CE) in units of Lz, wstart (ncol, 9, NB) int32 in units of 128
-// slots (-1 = skip), box (3). Scratch: acc (5) f64. Outputs: forces (N,3),
-// zeroed first; out (5) as [lj-family energy, electrostatic energy] and,
-// with `virial`, the weighted raw sums g * d_a^2 for a = x, y, z (the
-// caller applies -0.5). Returns cudaGetLastError().
+// slots (-1 = skip), box (3); scratch of tmd_column_scratch_bytes(cfg)
+// bytes (16-byte aligned). Outputs: forces (N,3), zeroed first; out (5) as
+// [lj-family energy, electrostatic energy] and, with `virial`, the
+// weighted raw sums g * d_a^2 for a = x, y, z (the caller applies -0.5);
+// stats (5 uint64, or null) gains the walk's counters (tile_pairs.cuh
+// Counters). Returns cudaGetLastError().
 extern "C" int tmd_column_energy_forces(
     const float* pos, const float* q, const float* sig, const float* eps,
     const int32_t* excl, const int32_t* islot, const int32_t* jslot,
     const float* jzshift, const int32_t* wstart, const float* box, ColumnCfg cfg,
-    int virial, float* forces, double* acc, float* out, void* stream) {
+    int virial, void* scratch, float* forces, float* out, unsigned long long* stats,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cfg.iblk < 1 || cfg.iblk * SPLIT > MAX_THREADS || cfg.W < STRIDE ||
-      cfg.W % STRIDE != 0 || cfg.W % SPLIT != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_cfg(cfg)) return (int)cudaErrorInvalidValue;
+  float4 *pq, *aux, *tbox;
+  double* part;
+  carve(cfg, scratch, pq, aux, tbox, part);
   cudaError_t err = cudaMemsetAsync(forces, 0, sizeof(float) * 3 * (size_t)cfg.natoms, s);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(acc, 0, sizeof(double) * 5, s);
+  err = prep(pos, q, sig, eps, jslot, jzshift, box, cfg, pq, aux, tbox, s);
   if (err != cudaSuccess) return (int)err;
-  err = virial ? launch<true>(pos, q, sig, eps, excl, islot, jslot, jzshift, wstart,
-                              box, cfg, forces, acc, s)
-               : launch<false>(pos, q, sig, eps, excl, islot, jslot, jzshift, wstart,
-                               box, cfg, forces, acc, s);
+  const int ntiles = cfg.ncx * cfg.ncy * tiles_per_column(cfg);
+  if (virial)
+    launch_pairs<true>(ntiles, s, pos, q, sig, eps, excl, islot, wstart, box, pq, aux, tbox, cfg,
+                       forces, part, stats);
+  else
+    launch_pairs<false>(ntiles, s, pos, q, sig, eps, excl, islot, wstart, box, pq, aux, tbox,
+                        cfg, forces, part, stats);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  column_finish<<<1, 32, 0, s>>>(acc, virial ? 5 : 2, out);
+  tiles::finish_parts<FIN_THREADS><<<1, FIN_THREADS, 0, s>>>(
+      part, tiles::NSPLIT * ntiles, virial ? 5 : 2, out);
   return (int)cudaGetLastError();
+}
+
+// The prep pass alone (tests): packed rows and j tile boxes into `scratch`.
+extern "C" int tmd_column_prep(const float* pos, const float* q, const float* sig,
+                               const float* eps, const int32_t* jslot, const float* jzshift,
+                               const float* box, ColumnCfg cfg, void* scratch, void* stream) {
+  if (!valid_cfg(cfg)) return (int)cudaErrorInvalidValue;
+  float4 *pq, *aux, *tbox;
+  double* part;
+  carve(cfg, scratch, pq, aux, tbox, part);
+  return (int)prep(pos, q, sig, eps, jslot, jzshift, box, cfg, pq, aux, tbox,
+                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* tmd_error_string(int err) {

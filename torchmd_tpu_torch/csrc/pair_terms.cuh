@@ -1,13 +1,17 @@
 // Per-pair nonbonded term math, shared by the dense pair kernel
-// (nonbonded.cu) and the cell-list pair kernel (cell.cu), plus the block
-// reduction their finishing passes use.
+// (nonbonded.cu) and the cell-list and column pair kernels (cell.cu,
+// column.cu, through tile_pairs.cuh), plus the block reduction their
+// finishing passes use.
 //
 // Counterpart of pair_terms in torchmd_tpu/ops/pallas_nonbonded.py: LJ
 // with the polynomial switch, repulsion A/r^12 or repulsioncg B/r^6 (one
 // of the three at a time), and Coulomb plain / reaction field / Ewald
 // erfc. `Cfg` is the kernel's config struct; it carries the fields
-// lj_kind, elec_kind, use_switch, switch_dist, inv_switch_width, krf, crf
-// and ewald_alpha with the meanings of PairCfg in nonbonded.cu.
+// lj_kind, use_switch, switch_dist, inv_switch_width, krf, crf and
+// ewald_alpha with the meanings of PairCfg in nonbonded.cu. The
+// electrostatics kind (cfg.elec_kind: 0 none, 1 Coulomb, 2 reaction field,
+// 3 Ewald erfc) is the template argument ELEC, so that a kernel instance
+// carries the code of its own kind only (the host entries dispatch on it).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,7 +32,7 @@ __device__ __forceinline__ void lb_coefficients(float si, float sj, float ei,
 // energy to eel, and returns g = (dE/dr) / r, so that the force on i is
 // -g * (r_i - r_j). d2 is the squared distance (inside the cutoff), qq
 // the charge product times the Coulomb constant.
-template <class Cfg>
+template <int ELEC, class Cfg>
 __device__ __forceinline__ float pair_terms(const Cfg& cfg, float d2, float A,
                                             float B, float qq, float& elj,
                                             float& eel) {
@@ -59,14 +63,21 @@ __device__ __forceinline__ float pair_terms(const Cfg& cfg, float d2, float A,
       g += -6.f * B * rinv6 * rinv2;
     }
   }
-  if (cfg.elec_kind != 0) {
-    if (cfg.elec_kind == 3) {
+  if (ELEC != 0) {
+    if (ELEC == 3) {
+      // erfc by Abramowitz & Stegun 7.1.26 (|error| < 1.5e-7, the TPU
+      // kernel's _erfc_approx): one exp(-x^2) serves the energy and the
+      // force
       const float x = cfg.ewald_alpha * dist;
-      const float erfc_t = erfcf(x);
+      const float ex2 = __expf(-x * x);
+      const float t = __fdividef(1.f, 1.f + 0.3275911f * x);
+      const float erfc_t =
+          t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f +
+          t * (-1.453152027f + t * 1.061405429f)))) * ex2;
       eel += qq * erfc_t * rinv;
       g += -qq * rinv * rinv *
-           (erfc_t * rinv + (2.f * cfg.ewald_alpha * 0.5641895835477563f) * expf(-x * x));
-    } else if (cfg.elec_kind == 2) {
+           (erfc_t * rinv + (2.f * cfg.ewald_alpha * 0.5641895835477563f) * ex2);
+    } else if (ELEC == 2) {
       eel += qq * (rinv + cfg.krf * d2 - cfg.crf);
       g += qq * (2.f * cfg.krf - rinv * rinv * rinv);
     } else {

@@ -15,7 +15,11 @@ barostat's -dE/ds_a) comes back too.
 
 `cell_energy_forces(data, cfg, clcfg, cl, pos, box)` runs the plain
 version for a CPU tensor and launches the kernel (`csrc/cell.cu`) for a
-CUDA tensor; on a CUDA tensor it launches or raises.
+CUDA tensor; on a CUDA tensor it launches or raises. The kernel walks
+32-atom tiles (`csrc/tile_pairs.cuh`): its prep pass orders each cell's
+atoms along a Morton curve of 4x4x4 sub-cells into packed rows with a
+bounding box per tile; `cell_tiles_reference` is that pass's plain
+version.
 """
 
 from __future__ import annotations
@@ -35,7 +39,12 @@ from .nonbonded import atom_rows, make_kernel_cfg, supported_terms
 # Kernel launches made by `cell_energy_forces` (one per call on CUDA).
 LAUNCHES = 0
 
-MAX_THREADS = 1024   # one thread per slot: capacity <= 1024 on the card
+MAX_CAPACITY = 1024  # csrc/cell.cu: slot ranks pack into 10 bits
+TILE = 32            # csrc/tile_pairs.cuh: atoms per tile
+SUB = 4              # csrc/cell.cu: sub-cells per cell edge (Morton order)
+FAR = 1e18           # csrc/tile_pairs.cuh: padding coordinate, empty-box bound
+NSTATS = 5           # csrc/tile_pairs.cuh Counters
+STATS = ("candidate_tile_pairs", "tile_pairs", "slot_pairs", "rounds", "lane_rounds")
 STENCIL = tuple(itertools.product((-1, 0, 1), repeat=3))
 
 
@@ -156,6 +165,91 @@ def cell_reference(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False):
     return pot, forces
 
 
+class Tiles(NamedTuple):
+    """The packed rows and tile boxes of a tile kernel's prep pass."""
+
+    pq: torch.Tensor     # (S, 4) f32: x, y, z, q per packed slot
+    aux: torch.Tensor    # (S, 4) f32: sigma/2, sqrt|eps|, id (int32 bits), 0
+    tbox: torch.Tensor   # (T, 2, 4) f32: lo and hi corner (w = 0) per tile
+
+    @property
+    def ids(self):
+        return self.aux[:, 2].contiguous().view(torch.int32)
+
+
+def pack_rows(xyz, ids, valid, q, sig, eps, natoms):
+    """Packed rows (pq, aux) of slots holding atoms `ids` at positions
+    `xyz` (S, 3) where `valid`; padding rows are (FAR, FAR, FAR, 0) and
+    (0, 0, id natoms, 0)."""
+    safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
+
+    def rows(a, fill):
+        return torch.where(valid, a.float()[safe], torch.full_like(a.float()[safe], fill))
+
+    pq = torch.cat([torch.where(valid[:, None], xyz.float(), torch.full_like(xyz.float(), FAR)),
+                    rows(q, 0.0)[:, None]], 1)
+    idf = torch.where(valid, ids, torch.full_like(ids, natoms)).to(torch.int32)
+    aux = torch.stack([rows(sig, 0.0), rows(eps, 0.0), idf.view(torch.float32),
+                       torch.zeros_like(pq[:, 0])], 1)
+    return pq, aux
+
+
+def tile_boxes(xyz, valid):
+    """(T, 2, 4) lo/hi corners of each run of TILE rows of `xyz` (S, 3),
+    over its `valid` rows; a tile without one gets lo = FAR, hi = -FAR."""
+    t = xyz.shape[0] // TILE
+    x = xyz[:t * TILE].reshape(t, TILE, 3)
+    v = valid[:t * TILE].reshape(t, TILE, 1)
+    lo = torch.where(v, x, torch.full_like(x, FAR)).amin(1)
+    hi = torch.where(v, x, torch.full_like(x, -FAR)).amax(1)
+    box = torch.stack([lo, hi], 1)
+    return torch.cat([box, torch.zeros_like(box[..., :1])], -1)
+
+
+def sub_cells(pos, clcfg, cell3, box):
+    """Morton index of each atom's sub-cell (SUB per cell edge) within its
+    cell `cell3` (N, 3), in csrc/cell.cu's f32 arithmetic."""
+    scale = torch.tensor(clcfg.ncells, dtype=torch.float32, device=pos.device) / box.float()
+    f = (pos.float() * scale - cell3.float()) * SUB
+    s = torch.clamp(f.to(torch.int32), 0, SUB - 1)
+    key = torch.zeros_like(s[:, 0])
+    for bit in range(2):
+        for ax in range(3):
+            key = key | (((s[:, ax] >> bit) & 1) << (3 * bit + ax))
+    return key
+
+
+def cell_tiles_reference(data: CellData, clcfg, cl, pos_w, box) -> Tiles:
+    """Plain version of the cell kernel's prep pass on anchored f32
+    positions `pos_w`: each cell's atoms in the order of their sub-cells'
+    Morton index (ties by slot), packed, and each TILE-slot tile's box.
+    Slots past a cell's count hold padding."""
+    n, dev = data.natoms, pos_w.device
+    ncells, cap = int(np.prod(clcfg.ncells)), clcfg.capacity
+    tpc = -(-cap // TILE)
+    counts = torch.clamp(cl.counts.long(), max=cap)
+    ar = torch.arange(cap, device=dev)
+    valid = ar[None, :] < counts[:, None]
+    ids = torch.where(valid, cl.slots.long(), torch.full_like(cl.slots.long(), n))
+    c = torch.arange(ncells, device=dev)
+    nx, ny, nz = clcfg.ncells
+    cell3 = torch.stack([c // (ny * nz), (c // nz) % ny, c % nz], 1)
+    pos_pad = torch.cat([pos_w.float(), torch.zeros_like(pos_w[:1]).float()])
+    key = sub_cells(pos_pad[ids].reshape(-1, 3), clcfg,
+                    cell3.repeat_interleave(cap, 0), box).reshape(ncells, cap)
+    key = torch.where(valid, key.long() * MAX_CAPACITY + ar, torch.full_like(key.long(), 1 << 40))
+    order = torch.argsort(key, dim=1)
+    ids_s = torch.gather(ids, 1, order).reshape(-1)
+    valid_s = valid.reshape(-1)
+    pq, aux = pack_rows(pos_pad[ids_s], ids_s, valid_s, data.q, data.sig, data.eps, n)
+    pad = tpc * TILE - cap
+    xyz = torch.cat([pq[:, :3].reshape(ncells, cap, 3),
+                     torch.zeros((ncells, pad, 3), device=dev)], 1).reshape(-1, 3)
+    vt = torch.cat([valid, torch.zeros((ncells, pad), dtype=torch.bool, device=dev)],
+                   1).reshape(-1)
+    return Tiles(pq, aux, tile_boxes(xyz, vt))
+
+
 # ----------------------------------------------------------------------
 # CUDA kernel
 # ----------------------------------------------------------------------
@@ -179,8 +273,12 @@ def _library():
     if _lib is None:
         lib = _build.load("cell")
         lib.tmd_cell_energy_forces.argtypes = ([_P] * 8 + [CellCfg, ctypes.c_int]
-                                               + [_P] * 4)
+                                               + [_P] * 5)
         lib.tmd_cell_energy_forces.restype = ctypes.c_int
+        lib.tmd_cell_prep.argtypes = [_P] * 7 + [CellCfg] + [_P] * 2
+        lib.tmd_cell_prep.restype = ctypes.c_int
+        lib.tmd_cell_scratch_bytes.argtypes = [CellCfg]
+        lib.tmd_cell_scratch_bytes.restype = ctypes.c_longlong
         lib.tmd_error_string.argtypes = [ctypes.c_int]
         lib.tmd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -218,8 +316,9 @@ def kernel_cfg(cfg, clcfg, natoms, nexcl) -> CellCfg:
                    ncz=ncz, nexcl=nexcl, **pair_fields(cfg))
 
 
-def _launch(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False):
-    global LAUNCHES
+def _checked_inputs(data: CellData, cfg, clcfg, cl, pos, box):
+    """Raise on what the kernel does not take; returns (kernel cfg,
+    anchored positions)."""
     from ..neighbors import anchored_positions
 
     if not supported_terms(cfg):
@@ -228,8 +327,8 @@ def _launch(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False):
     if data.lj_a is not None:
         raise NotImplementedError(
             "the cell kernel takes Lorentz-Berthelot rows, not NBFIX tables")
-    if clcfg.capacity > MAX_THREADS:
-        raise ValueError(f"cell capacity {clcfg.capacity} > {MAX_THREADS}")
+    if clcfg.capacity > MAX_CAPACITY:
+        raise ValueError(f"cell capacity {clcfg.capacity} > {MAX_CAPACITY}")
     n, dev, f32, i32 = data.natoms, pos.device, torch.float32, torch.int32
     ncells = int(np.prod(clcfg.ncells))
     nexcl = int(data.excl.shape[1])
@@ -240,18 +339,31 @@ def _launch(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False):
     _build.check_tensor(data.excl, "excl", i32, (n, nexcl), dev)
     _build.check_tensor(cl.slots, "slots", i32, (ncells, clcfg.capacity), dev)
     _build.check_tensor(cl.counts, "counts", i32, (ncells,), dev)
-
     pos_w = anchored_positions(pos, cl.ref_pos, box).contiguous()
-    forces = torch.empty((n, 3), dtype=f32, device=dev)
-    nparts = 5 if with_virial else 2
-    epart = torch.empty((ncells, nparts), dtype=torch.float64, device=dev)
-    energies = torch.empty(nparts, dtype=f32, device=dev)
+    return kernel_cfg(cfg, clcfg, n, nexcl), pos_w
+
+
+def _scratch(lib, kcfg, dev):
+    nbytes = int(lib.tmd_cell_scratch_bytes(kcfg))
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _launch(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False, stats=None):
+    global LAUNCHES
+    kcfg, pos_w = _checked_inputs(data, cfg, clcfg, cl, pos, box)
+    n, dev = data.natoms, pos.device
+    if stats is not None:
+        _build.check_tensor(stats, "stats", torch.int64, (NSTATS,), dev)
+    forces = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    energies = torch.empty(5 if with_virial else 2, dtype=torch.float32, device=dev)
     lib = _library()
+    scratch = _scratch(lib, kcfg, dev)
     err = lib.tmd_cell_energy_forces(
         pos_w.data_ptr(), data.q.data_ptr(), data.sig.data_ptr(),
         data.eps.data_ptr(), cl.slots.data_ptr(), cl.counts.data_ptr(),
-        data.excl.data_ptr(), box.data_ptr(), kernel_cfg(cfg, clcfg, n, nexcl),
-        int(with_virial), forces.data_ptr(), epart.data_ptr(), energies.data_ptr(),
+        data.excl.data_ptr(), box.data_ptr(), kcfg, int(with_virial),
+        scratch.data_ptr(), forces.data_ptr(), energies.data_ptr(),
+        None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
@@ -266,13 +378,36 @@ def _launch(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False):
     return out, forces
 
 
-def cell_energy_forces(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False):
+def cell_tiles(data: CellData, cfg, clcfg, cl, pos, box) -> Tiles:
+    """The kernel's prep pass alone on a CUDA tensor (for tests): its packed
+    rows and tile boxes, as `cell_tiles_reference` gives them (slots past
+    a cell's count are not written: compare the occupied ones)."""
+    kcfg, pos_w = _checked_inputs(data, cfg, clcfg, cl, pos, box)
+    lib = _library()
+    scratch = _scratch(lib, kcfg, pos.device)
+    err = lib.tmd_cell_prep(
+        pos_w.data_ptr(), data.q.data_ptr(), data.sig.data_ptr(), data.eps.data_ptr(),
+        cl.slots.data_ptr(), cl.counts.data_ptr(), box.data_ptr(), kcfg,
+        scratch.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cell prep launch failed: {lib.tmd_error_string(err).decode()}")
+    ncells, cap = int(np.prod(clcfg.ncells)), clcfg.capacity
+    rows = scratch.view(torch.float32)
+    slots, ntile = ncells * cap, ncells * (-(-cap // TILE))
+    return Tiles(rows[:4 * slots].view(slots, 4), rows[4 * slots:8 * slots].view(slots, 4),
+                 rows[8 * slots:8 * slots + 8 * ntile].view(ntile, 2, 4))
+
+
+def cell_energy_forces(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False,
+                       stats=None):
     """pos: (N, 3); box: (3,) diagonal tensor; `cl` a CellList built for
     `clcfg`. Returns ({term: 0-dim energy tensor}, forces (N, 3)) and, with
     `with_virial`, the per-axis pair virial (3,). A CPU tensor runs the
-    plain version; a CUDA tensor launches the kernel (f32 only) or raises."""
+    plain version; a CUDA tensor launches the kernel (f32 only) or raises.
+    `stats`, an int64 (NSTATS,) tensor on the card, gains the kernel's
+    walk counters (STATS)."""
     if pos.device.type == "cuda":
-        return _launch(data, cfg, clcfg, cl, pos, box, with_virial)
+        return _launch(data, cfg, clcfg, cl, pos, box, with_virial, stats)
     if pos.device.type == "cpu":
         return cell_reference(data, cfg, clcfg, cl, pos, box, with_virial)
     raise ValueError(f"no cell kernel for device {pos.device}")

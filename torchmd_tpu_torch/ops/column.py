@@ -25,7 +25,11 @@ The pair terms are those of the other pair kernels (LJ with the switch,
 repulsion or repulsioncg, Coulomb plain / reaction field / Ewald erfc),
 Lorentz-Berthelot only. `column_energy_forces(...)` runs the plain version
 for a CPU tensor and launches the kernel (`csrc/column.cu`) for a CUDA
-tensor; on a CUDA tensor it launches or raises.
+tensor; on a CUDA tensor it launches or raises. The kernel computes the
+same sum over the whole 3x3 stencil (every ordered pair once, energies
+at 1/2, no j-side forces) on 32-slot tiles (`csrc/tile_pairs.cuh`); its
+prep pass packs the extended slots with a bounding box per tile, and
+`column_tiles_reference` is that pass's plain version.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 from ..potentials import LJ_FAMILY, add_energy, pair_block_terms
 from ..units import ELEC_FACTOR
 from . import _build
-from .cell import pair_fields
+from .cell import NSTATS, TILE, Tiles, pack_rows, pair_fields, tile_boxes
 from .nonbonded import supported_terms
 
 # Kernel launches made by `column_energy_forces` (one per call on CUDA).
@@ -46,7 +50,6 @@ LAUNCHES = 0
 SELF_O9 = 4              # the half stencil: o9 = 4 (self) and 5..8 (directed)
 HALF_STENCIL = (4, 5, 6, 7, 8)
 STRIDE = 128             # window starts are in units of 128 slots
-SPLIT = 4                # csrc/column.cu: threads per i slot (window quarters)
 REFERENCE_PAIRS = 1 << 23  # pair slots per chunk of the plain version
 
 
@@ -136,6 +139,20 @@ def column_reference(data, cfg, ccfg, st, pos, box, with_virial=False):
     return pot, forces[:n]
 
 
+def column_tiles_reference(data, st, pos_w, box) -> Tiles:
+    """Plain version of the column kernel's prep pass on anchored f32
+    positions `pos_w`: every extended slot (ncol x CE, in order) packed
+    with its z ghost shift times the box added (padding at FAR), and the
+    box of each TILE consecutive slots."""
+    ids = st.jslot.reshape(-1).long()
+    valid = ids < data.natoms
+    pos = torch.cat([pos_w.float(), torch.zeros_like(pos_w[:1]).float()])
+    xyz = pos[ids].clone()
+    xyz[:, 2] = xyz[:, 2] + st.jzshift.reshape(-1).float() * box.float()[2]
+    pq, aux = pack_rows(xyz, ids, valid, data.q, data.sig, data.eps, data.natoms)
+    return Tiles(pq, aux, tile_boxes(pq[:, :3], valid))
+
+
 # ----------------------------------------------------------------------
 # CUDA kernel
 # ----------------------------------------------------------------------
@@ -159,8 +176,12 @@ def _library():
     if _lib is None:
         lib = _build.load("column")
         lib.tmd_column_energy_forces.argtypes = ([_P] * 10 + [ColumnCfg, ctypes.c_int]
-                                                 + [_P] * 4)
+                                                 + [_P] * 5)
         lib.tmd_column_energy_forces.restype = ctypes.c_int
+        lib.tmd_column_prep.argtypes = [_P] * 7 + [ColumnCfg] + [_P] * 2
+        lib.tmd_column_prep.restype = ctypes.c_int
+        lib.tmd_column_scratch_bytes.argtypes = [ColumnCfg]
+        lib.tmd_column_scratch_bytes.restype = ctypes.c_longlong
         lib.tmd_error_string.argtypes = [ctypes.c_int]
         lib.tmd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -178,8 +199,9 @@ def kernel_cfg(cfg, ccfg, natoms, nexcl) -> ColumnCfg:
         W=ccfg.W, NB=ccfg.NB, iblk=ccfg.IBLK, nexcl=nexcl, **pair_fields(cfg))
 
 
-def _launch(data, cfg, ccfg, st, pos, box, with_virial=False):
-    global LAUNCHES
+def _checked_inputs(data, cfg, ccfg, st, pos, box):
+    """Raise on what the kernel does not take; returns (kernel cfg,
+    anchored positions)."""
     from ..neighbors import anchored_positions
 
     if not supported_terms(cfg):
@@ -188,8 +210,8 @@ def _launch(data, cfg, ccfg, st, pos, box, with_virial=False):
     if data.lj_a is not None:
         raise NotImplementedError(
             "the column kernel takes Lorentz-Berthelot rows, not NBFIX tables")
-    if ccfg.IBLK * SPLIT > 1024 or ccfg.W % STRIDE or ccfg.W < STRIDE:
-        raise ValueError(f"column layout IBLK={ccfg.IBLK}, W={ccfg.W} not supported")
+    if ccfg.W % STRIDE or ccfg.W < STRIDE or ccfg.CE % STRIDE:
+        raise ValueError(f"column layout W={ccfg.W}, CE={ccfg.CE} not supported")
     n, dev, f32, i32 = data.natoms, pos.device, torch.float32, torch.int32
     ncol, nexcl = ccfg.ncol, int(data.excl.shape[1])
     _build.check_tensor(pos, "pos", f32, (n, 3), dev)
@@ -201,18 +223,32 @@ def _launch(data, cfg, ccfg, st, pos, box, with_virial=False):
     _build.check_tensor(st.jslot, "jslot", i32, (ncol, ccfg.CE), dev)
     _build.check_tensor(st.jzshift, "jzshift", f32, (ncol, ccfg.CE), dev)
     _build.check_tensor(st.wstart, "wstart", i32, (ncol, 9, ccfg.NB), dev)
-
     pos_w = anchored_positions(pos, st.ref_pos, box).contiguous()
-    forces = torch.empty((n, 3), dtype=f32, device=dev)
-    acc = torch.empty(5, dtype=torch.float64, device=dev)
-    out = torch.empty(5, dtype=f32, device=dev)
+    return kernel_cfg(cfg, ccfg, n, nexcl), pos_w
+
+
+def _scratch(lib, kcfg, dev):
+    nbytes = int(lib.tmd_column_scratch_bytes(kcfg))
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _launch(data, cfg, ccfg, st, pos, box, with_virial=False, stats=None):
+    global LAUNCHES
+    kcfg, pos_w = _checked_inputs(data, cfg, ccfg, st, pos, box)
+    n, dev = data.natoms, pos.device
+    if stats is not None:
+        _build.check_tensor(stats, "stats", torch.int64, (NSTATS,), dev)
+    forces = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    out = torch.empty(5, dtype=torch.float32, device=dev)
     lib = _library()
+    scratch = _scratch(lib, kcfg, dev)
     err = lib.tmd_column_energy_forces(
         pos_w.data_ptr(), data.q.data_ptr(), data.sig.data_ptr(), data.eps.data_ptr(),
         data.excl.data_ptr(), st.islot.data_ptr(), st.jslot.data_ptr(),
-        st.jzshift.data_ptr(), st.wstart.data_ptr(), box.data_ptr(),
-        kernel_cfg(cfg, ccfg, n, nexcl), int(with_virial), forces.data_ptr(),
-        acc.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        st.jzshift.data_ptr(), st.wstart.data_ptr(), box.data_ptr(), kcfg,
+        int(with_virial), scratch.data_ptr(), forces.data_ptr(), out.data_ptr(),
+        None if stats is None else stats.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"column kernel launch failed: {lib.tmd_error_string(err).decode()}")
@@ -226,22 +262,42 @@ def _launch(data, cfg, ccfg, st, pos, box, with_virial=False):
     return pot, forces
 
 
-def column_energy_forces(data, cfg, ccfg, st, pos, box, with_virial=False):
+def column_tiles(data, cfg, ccfg, st, pos, box) -> Tiles:
+    """The kernel's prep pass alone on a CUDA tensor (for tests): its packed
+    rows and j tile boxes, as `column_tiles_reference` gives them."""
+    kcfg, pos_w = _checked_inputs(data, cfg, ccfg, st, pos, box)
+    lib = _library()
+    scratch = _scratch(lib, kcfg, pos.device)
+    err = lib.tmd_column_prep(
+        pos_w.data_ptr(), data.q.data_ptr(), data.sig.data_ptr(), data.eps.data_ptr(),
+        st.jslot.data_ptr(), st.jzshift.data_ptr(), box.data_ptr(), kcfg,
+        scratch.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"column prep launch failed: {lib.tmd_error_string(err).decode()}")
+    rows = scratch.view(torch.float32)
+    slots = ccfg.ncol * ccfg.CE
+    ntile = slots // TILE
+    return Tiles(rows[:4 * slots].view(slots, 4), rows[4 * slots:8 * slots].view(slots, 4),
+                 rows[8 * slots:8 * slots + 8 * ntile].view(ntile, 2, 4))
+
+
+def column_energy_forces(data, cfg, ccfg, st, pos, box, with_virial=False, stats=None):
     """pos: (N, 3); box: (3,) diagonal tensor; `st` a ColumnState built for
     `ccfg`; `data` the per-atom rows of `ops.cell.prepare_cell_data`.
     Returns ({term: 0-dim energy tensor}, forces (N, 3)) and, with
     `with_virial`, the per-axis pair virial (3,). A CPU tensor runs the
     plain version; a CUDA tensor launches the kernel (f32 only) or
-    raises."""
+    raises. `stats`, an int64 (NSTATS,) tensor on the card, gains the
+    kernel's walk counters (`ops.cell.STATS`)."""
     if pos.device.type == "cuda":
-        return _launch(data, cfg, ccfg, st, pos, box, with_virial)
+        return _launch(data, cfg, ccfg, st, pos, box, with_virial, stats)
     if pos.device.type == "cpu":
         return column_reference(data, cfg, ccfg, st, pos, box, with_virial)
     raise ValueError(f"no column kernel for device {pos.device}")
 
 
-def visited_slot_pairs(ccfg, st) -> int:
-    """Pair slots the kernel visits: IBLK x W per valid (column, offset,
-    block) window."""
+def window_slot_pairs(ccfg, st) -> int:
+    """Slot pairs the layout's half-stencil windows hold: IBLK x W per
+    valid (column, offset, block) window (the walk before any culling)."""
     valid = int((st.wstart[:, list(HALF_STENCIL), :] >= 0).sum())
     return valid * ccfg.IBLK * ccfg.W

@@ -20,12 +20,16 @@ Integrator.step), f32, imports nothing of JAX or of the JAX package:
   - the staged probe of the dense pair kernel (python -m
     torchmd_tpu_torch.roofline, 4,676 atoms, tiles of 512): seven stage
     kernels and the elemental-throughput chains.
-The cell and column kernels walk 32-atom tiles (csrc/tile_pairs.cuh):
-bounding-box culling of tile pairs and a per-lane queue that runs the
-pair math on full warps; their timings print the walk's counters
-(candidate and surviving tile pairs, visited slot pairs, the share of
-active lanes in the pair math) beside the times of the lane-per-pair
-kernels they replaced (EARLIER_MS).
+The dense pair, cell and column kernels walk 32-atom tiles
+(csrc/tile_pairs.cuh): bounding-box culling of tile pairs and a per-lane
+queue that runs the pair math on full warps; their timings print the
+walk's counters (candidate and surviving tile pairs, visited slot pairs,
+the share of active lanes in the pair math) beside the times of the
+kernels they replaced (EARLIER_MS). The PME spread sums chunks of nearby
+atoms (the NVT path's cell-list order, the NPT path's column order) in
+shared-memory bricks before its global atomics; its checks print its
+counters (global atomics, chunks summed in a brick and straight to the
+mesh) in every order.
 
 Phases (each prints lines; any failure raises and exits non-zero):
   1. device: require CUDA, print the card's name and power limit;
@@ -33,7 +37,14 @@ Phases (each prints lines; any failure raises and exits non-zero):
      nvcc (one process per source, all at once), and print ptxas's
      registers, spills and shared memory for each kernel;
   3. kernels: each kernel (f32) against its plain PyTorch version (f64) on
-     the card at the Pallas bars, on several cases; then each kernel and
+     the card at the Pallas bars, on several cases (the dense pair kernel
+     also with a random mask, in a random atom order and without a cutoff,
+     and twice for bitwise-equal forces; the spread in the cell, column,
+     input and a random order, and in the cell and a random order on a
+     mesh whose Kz % 4 != 0, ODD_MESH; the dense-PME path, DENSE_PME_N^3
+     waters on Forces defaults, its spread in the input order against
+     plain and timed beside the pair kernel and a whole evaluation); then
+     each kernel and
      its plain version timed at f32 at the main paths' shapes (CUDA events
      around each of 30 calls queued behind a sleep kernel, median: device
      time), and each kernel's bound (the least time the card could take
@@ -41,8 +52,10 @@ Phases (each prints lines; any failure raises and exits non-zero):
   4. parity: thrombin's Forces on the kernel path against autograd of the
      port's compute_potentials at f32;
   5. dynamics: thrombin, a warm-up chunk, then 1,000 timed Langevin steps
-     with the launch counters reset just before and read just after; 10
-     NVE steps on the kernel path against the dense f64 torch-op path;
+     with the launch counters reset just before and read just after, a
+     profiler breakdown (device busy share, the pair and bonded kernels'
+     shares of a step's device time); 10 NVE steps on the kernel path
+     against the dense f64 torch-op path;
   6. waterbox: the water box, a warm-up chunk, then WATER_STEPS timed NVT
      steps with the counters reset just before and read just after;
      SETTLE error, snapped sites, the extended-energy change; NVE_STEPS
@@ -110,6 +123,13 @@ MAIN_SYSTEM = ("thrombin-ligand-amber", "structure.pdb")
 # tests/test_gromacs.py (6^3 on 3.25 A, 19.5 A box, cutoff 4 A, PME order 6).
 WATER_N, WATER_SPACING, WATER_CUTOFF = 25, 3.104, 8.5
 SMALL_WATER = (6, 3.25, 4.0)
+# the spread's check on a mesh whose Kz % 4 != 0 (the brick's flush by
+# scalar atomics): 45^3 for the 216-water box, 75^3 for the full box
+ODD_MESH = {"water216": 45, "water-full": 75}
+# the dense-PME path (PME from 4,096 atoms, the dense pair kernel below
+# 12,000: forces.PME_AUTO_N, CELL_AUTO_N): the bench's lattice at 14^3
+# waters, 10,976 sites in a 43.5 A box
+DENSE_PME_N = 14
 WATER_TERMS = ["bonds", "lj", "electrostatics"]
 WATER_WARMUP, WATER_STEPS, WATER_CHUNK = 100, 500, 100
 # 10 steps from one state at ~440 K, kernel path f32 against the plain
@@ -134,7 +154,16 @@ KERNEL_SOURCES = ("nonbonded", "bonded", "cell", "pme", "column", "roofline")
 # tile walk replaced, at the full box's state (lowest and highest of three
 # runs on an H100 80GB HBM3 at 700 W; PERF.md)
 EARLIER_MS = {"cell": (1.2551, 1.2651), "cell_virial": (1.3489, 1.3594),
-              "column": (1.4640, 1.4764)}
+              "column": (1.4640, 1.4764),
+              # the thread-per-row dense pair kernel on thrombin and the
+              # thread-per-atom spread at the full box
+              "pair": (0.1413, 0.1417), "pme_spread": (0.0433, 0.0464)}
+# the dense pair kernel's extra cases: thrombin with a seeded random mask
+# (the topology's exclusions and RANDOM_MASK_ZEROS of the other pairs,
+# symmetric) and in
+# a seeded random atom order (nothing left to cull), thrombin without a
+# cutoff (plain Coulomb and LJ over the whole square)
+RANDOM_MASK_ZEROS = 0.1
 # the staged probe of the dense pair kernel (scripts/bench_roofline.py)
 PROBE_N, PROBE_TILE = 4676, 512
 # mxred's forces within 1e-5 of the forces stage's, row by row over each
@@ -418,23 +447,57 @@ def _thrombin_pair_count(d32, cutoff, pos):
     return int(((d32.mask != 0) & (d2 <= cutoff * cutoff)).sum()) // 2
 
 
-def phase_kernels():
-    """The dense pair and bonded kernels on thrombin and alanine."""
+def _with_mask(data, mask, perm=None):
+    """NBData with another mask (and, with `perm`, its atoms reordered),
+    its tile exclusions made anew."""
+    from torchmd_tpu_torch.ops import nonbonded as kn
+
+    if perm is not None:
+        data = data._replace(q=data.q[perm], sig=data.sig[perm], eps=data.eps[perm],
+                             types=data.types[perm])
+        mask = mask[perm][:, perm]
+    mask = mask.contiguous()
+    start, tile, bits = kn.tile_exclusions(mask)
+    return data._replace(mask=mask, excl_start=start, excl_tile=tile, excl_bits=bits)
+
+
+def _pair_extra_cases(par, pos):
+    """(name, cfg edit, NBData edit (d -> d), position permutation or None)
+    for the dense pair kernel on thrombin beyond _kernel_cases."""
+    import torch
+
+    n = par.natoms
+    rs = np.random.RandomState(5)
+    zeros = np.triu(rs.rand(n, n) < RANDOM_MASK_ZEROS, 1)
+    kept = torch.as_tensor(~(zeros | zeros.T), device=DEVICE)
+    perm = torch.as_tensor(rs.permutation(n), device=DEVICE)
+    return [
+        # the topology's exclusions and random ones
+        ("thrombin-random-mask", None,
+         lambda d: _with_mask(d, (d.mask != 0) & kept), None),
+        ("thrombin-permuted", None, lambda d: _with_mask(d, d.mask, perm), perm),
+        ("thrombin-nocutoff", dict(cutoff=None, switch_dist=None, rfa=False),
+         lambda d: d, None),
+    ]
+
+
+def dense_pair_cases():
+    """Yield (name, inputs) of the dense pair kernel's checks on DEVICE:
+    _kernel_cases, then _pair_extra_cases made from thrombin's. inputs:
+    dict of par, ffp32, ffp64 (None for the extras), cfg, d32, d64
+    (NBData), p32, p64, b32, b64 (None without a box)."""
     import torch
 
     from torchmd_tpu_torch.forces import Forces
-    from torchmd_tpu_torch.ops import bonded as kb
     from torchmd_tpu_torch.ops import nonbonded as kn
     from torchmd_tpu_torch.potentials import make_ffparams
 
     dev = torch.device(DEVICE)
-    errs = {"pair": 0.0, "bonded": 0.0}
-    timing_inputs = None
+    thrombin = None
     for name, par, pos, box, kw, cfg_edit, lj_ab in _kernel_cases():
         kw = dict(kw)
         terms = kw.pop("terms", TERMS)
         forces = Forces(par, terms=terms, precision="single", device=dev, **kw)
-        cfg = forces.config._replace(**(cfg_edit or {}))
         ffp32 = forces.ffparams
         ffp64 = make_ffparams(par, dtype=torch.float64, device=dev)
         if lj_ab is not None:
@@ -442,43 +505,84 @@ def phase_kernels():
                 torch.as_tensor(t, dtype=torch.float32, device=dev) for t in lj_ab))
             ffp64 = ffp64._replace(lj_ab=tuple(
                 torch.as_tensor(t, dtype=torch.float64, device=dev) for t in lj_ab))
-        p32 = torch.as_tensor(pos, dtype=torch.float32, device=dev)
-        p64 = torch.as_tensor(pos, dtype=torch.float64, device=dev)
-        b32 = b64 = None
-        if box is not None:
-            b32 = torch.as_tensor(box, dtype=torch.float32, device=dev)
-            b64 = torch.as_tensor(box, dtype=torch.float64, device=dev)
+        inp = dict(par=par, ffp32=ffp32, ffp64=ffp64,
+                   cfg=forces.config._replace(**(cfg_edit or {})),
+                   d32=kn.prepare_nb_data(ffp32), d64=kn.prepare_nb_data(ffp64),
+                   p32=torch.as_tensor(pos, dtype=torch.float32, device=dev),
+                   p64=torch.as_tensor(pos, dtype=torch.float64, device=dev),
+                   b32=None if box is None else torch.as_tensor(box, dtype=torch.float32,
+                                                                device=dev),
+                   b64=None if box is None else torch.as_tensor(box, dtype=torch.float64,
+                                                                device=dev))
+        if name == "thrombin":
+            thrombin = inp
+        yield name, inp
+    t = thrombin
+    for name, cfg_edit, edit, perm in _pair_extra_cases(t["par"], t["p32"]):
+        yield name, dict(
+            t, ffp32=None, ffp64=None, cfg=t["cfg"]._replace(**(cfg_edit or {})),
+            d32=edit(t["d32"]), d64=edit(t["d64"]),
+            p32=t["p32"] if perm is None else t["p32"][perm],
+            p64=t["p64"] if perm is None else t["p64"][perm])
 
-        d32, d64 = kn.prepare_nb_data(ffp32), kn.prepare_nb_data(ffp64)
-        pot_k, f_k = kn.nonbonded_energy_forces(d32, cfg, p32, b32)
-        pot_p, f_p = kn.pair_terms_reference(d64, cfg, p64, b64)
+
+def phase_kernels():
+    """The dense pair and bonded kernels on thrombin and alanine; the pair
+    kernel also with a random mask, a random atom order and no cutoff, and
+    its forces twice, bit for bit."""
+    import torch
+
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+
+    errs = {"pair": 0.0, "bonded": 0.0}
+    timing_inputs = None
+    for name, c in dense_pair_cases():
+        pot_k, f_k = kn.nonbonded_energy_forces(c["d32"], c["cfg"], c["p32"], c["b32"])
+        pot_p, f_p = kn.pair_terms_reference(c["d64"], c["cfg"], c["p64"], c["b64"])
         torch.cuda.synchronize()
         e_pair = _compare(f"{name}/pair", pot_k, f_k, pot_p, f_p)
-
-        plan32 = kb.build_bonded_kernel_plan(ffp32, cfg)
-        plan64 = kb.build_bonded_kernel_plan(ffp64, cfg)
-        pot_k, f_k = kb.bonded_energy_forces(plan32, p32, b32)
-        pot_p, f_p = kb.bonded_reference(plan64, p64, b64)
-        torch.cuda.synchronize()
-        e_bond = _compare(f"{name}/bonded", pot_k, f_k, pot_p, f_p)
         errs["pair"] = max(errs["pair"], e_pair)
-        errs["bonded"] = max(errs["bonded"], e_bond)
-        log("kernels", case=name, natoms=par.natoms, pair_max_abs_err=e_pair,
-            bonded_max_abs_err=e_bond)
-        if name == "thrombin":
-            timing_inputs = (d32, cfg, p32, plan32)
-
+        fields = dict(excluded_tile_pairs=int(c["d32"].excl_tile.shape[0]))
+        if c["ffp32"] is not None:
+            plan32 = kb.build_bonded_kernel_plan(c["ffp32"], c["cfg"])
+            plan64 = kb.build_bonded_kernel_plan(c["ffp64"], c["cfg"])
+            pot_k, f_k = kb.bonded_energy_forces(plan32, c["p32"], c["b32"])
+            pot_p, f_p = kb.bonded_reference(plan64, c["p64"], c["b64"])
+            torch.cuda.synchronize()
+            fields["bonded_max_abs_err"] = _compare(f"{name}/bonded", pot_k, f_k, pot_p, f_p)
+            errs["bonded"] = max(errs["bonded"], fields["bonded_max_abs_err"])
+            if name == "thrombin":
+                timing_inputs = (c["d32"], c["cfg"], c["p32"], plan32)
+        log("kernels", case=name, natoms=c["par"].natoms, pair_max_abs_err=e_pair, **fields)
     d32, cfg, p32, plan32 = timing_inputs
+    runs = [kn.nonbonded_energy_forces(d32, cfg, p32) for _ in range(2)]
+    torch.cuda.synchronize()
+    require(torch.equal(runs[0][1], runs[1][1]) and all(
+        torch.equal(runs[0][0][k], runs[1][0][k]) for k in runs[0][0]),
+        "the pair kernel's forces or energies differ between two runs")
+    log("kernels", case="thrombin", pair_bitwise_repeat=True)
+
     rows = sum(f.count for f in plan32.families)
     npairs = _thrombin_pair_count(d32, CUTOFF, p32)
+    walk = tile_walk("pair", lambda stats: kn.nonbonded_energy_forces(
+        d32, cfg, p32, stats=stats))
+    flops = pair_flops(npairs, "rfa")
+    # the earlier kernel's bound: it read the (N, N) int8 mask
+    mask_bound = bound(tensor_bytes(p32, d32.q, d32.sig, d32.eps, d32.types, d32.mask, p32),
+                       flops)[0]
     out = {
         "pair": dict(
             ms=cuda_events_ms(lambda: kn.nonbonded_energy_forces(d32, cfg, p32)),
             plain_ms=cuda_events_ms(lambda: kn.pair_terms_reference(d32, cfg, p32)),
+            # what the kernel reads: rows and the tile exclusions
             bound=bound(tensor_bytes(p32, d32.q, d32.sig, d32.eps, d32.types,
-                                     d32.mask, p32),
-                        pair_flops(npairs, "rfa")),
-            work=f"pairs_in_cutoff={npairs}"),
+                                     d32.excl_start, d32.excl_tile, d32.excl_bits, p32),
+                        flops),
+            work=(f"pairs_in_cutoff={npairs} visited_slot_pairs={walk['slot_pairs']} "
+                  f"tile_pairs={walk['tile_pairs']} "
+                  f"active_lane_share={walk['active_lane_share']:.4f} "
+                  f"mask_bound_ms={mask_bound:.5f}")),
         "bonded": dict(
             ms=cuda_events_ms(lambda: kb.bonded_energy_forces(plan32, p32)),
             plain_ms=cuda_events_ms(lambda: kb.bonded_reference(plan32, p32)),
@@ -491,6 +595,7 @@ def phase_kernels():
         log("timing", kernel=k, shapes="thrombin", ms=f"{v['ms']:.4f}",
             plain_ms=f"{v['plain_ms']:.4f}", speedup=f"{v['plain_ms'] / v['ms']:.2f}",
             bound_ms=f"{v['bound'][0]:.5f}", bound_by=v["bound"][1], work=v["work"])
+    log_earlier("pair", out["pair"]["ms"])
     return out
 
 
@@ -524,6 +629,92 @@ def _water_pair_count(data, pos, box, cutoff, rows=2048):
     return (total - n - int(near.sum())) // 2
 
 
+def water_cases():
+    """(name, n, spacing, cutoff, jitter) of the kernel checks' water
+    boxes: the 216-water box and the full box."""
+    return (("water216",) + SMALL_WATER + (False,),
+            ("water-full", WATER_N, WATER_SPACING, WATER_CUTOFF, True))
+
+
+def water_case(n, spacing, cutoff, jitter):
+    """A water box's kernel inputs on DEVICE: dict of par, f32 and f64
+    Forces (the kernel path, the plain f64 path), raw positions, box_np,
+    b32, b64, p32 (sites snapped, f32) and p64 (the same, upcast), the f32
+    cell list cl."""
+    import torch
+
+    from torchmd_tpu_torch.vsites import apply_vsites
+
+    mol, par, L = build_water(n, spacing, jitter)
+    f32 = _water_forces(par, cutoff)
+    f64 = _water_forces(par, cutoff, "double", plain=True)
+    box_np = np.full((1, 3), L)
+    raw = torch.as_tensor(mol.coords[:, :, 0], dtype=torch.float64, device=DEVICE)
+    f32.prepare(raw.float()[None], box_np)
+    f64.prepare(raw[None], box_np)
+    b32 = torch.as_tensor(box_np[0], dtype=torch.float32, device=DEVICE)
+    b64 = b32.double()
+    # one set of inputs: the f32 positions, upcast for the plain version
+    p32 = apply_vsites(f64.vsites, raw, b64).float()
+    return dict(par=par, cutoff=cutoff, f32=f32, f64=f64, raw=raw, box_np=box_np, b32=b32,
+                b64=b64, p32=p32, p64=p32.double(), cl=f32._cell_kernel.build(p32, b32))
+
+
+def water_spread_orders(c):
+    """The spread's orders on a water_case: the NVT path's (the cell
+    list's slots), the NPT path's (the columns' i slots), the input order
+    and a random one, which leaves no chunk a brick can hold."""
+    import torch
+
+    cols = _water_forces(c["par"], c["cutoff"], column=True)
+    cols.prepare(c["raw"].float()[None], c["box_np"])
+    return {"cell": c["cl"].slots,
+            "column": cols._cell_kernel.build(c["p32"], c["b32"]).islot,
+            "none": None,
+            "random": torch.as_tensor(np.random.RandomState(6).permutation(c["par"].natoms),
+                                      dtype=torch.int32, device=DEVICE)}
+
+
+def spread_checks(name, c, orders, kmesh):
+    """The spread kernel on a water_case at `kmesh` against plain f64 in
+    each of `orders` (from water_spread_orders): max |d mesh| within
+    MESH_TOL of the mesh's maximum, every atom once in the order, every
+    charged atom spread, the cell order summed in bricks, the random and
+    the input order straight to the mesh. Logs a [spread_walk] line per
+    order; returns the largest error."""
+    import torch
+
+    from torchmd_tpu_torch.ops import pme as kp
+
+    rec32, rec64 = c["f32"]._ewald, c["f64"]._ewald
+    order, q32, natoms = rec32.ORDER, rec32.charges, c["par"].natoms
+    mesh_p = kp.spread_reference(c["p64"], rec64.charges, c["b64"], kmesh, order)
+    worst = 0.0
+    for oname, oidx in orders.items():
+        if oidx is not None:
+            ids = oidx.reshape(-1)
+            ids = ids[ids < natoms].long()
+            require(torch.equal(torch.sort(ids).values, torch.arange(natoms, device=ids.device)),
+                    (name, oname, "the order does not hold every atom once"))
+        stats = torch.zeros(len(kp.SPREAD_STATS), dtype=torch.int64, device=DEVICE)
+        mesh_k = kp.pme_spread(c["p32"], q32, c["b32"], kmesh, order, oidx, stats=stats)
+        torch.cuda.synchronize()
+        err = float((mesh_k.double() - mesh_p).abs().max())
+        require(err <= MESH_TOL * float(mesh_p.abs().max()), (name, kmesh, "spread", oname, err))
+        stats = dict(zip(kp.SPREAD_STATS, (int(v) for v in stats.tolist())))
+        log("spread_walk", case=name, mesh=kmesh[0], order_idx=oname, max_abs_err=err,
+            taps=natoms * order**3, **stats)
+        require(stats["charged_atoms"] == int((q32 != 0).sum()),
+                (name, kmesh, oname, "charged atoms spread", stats))
+        require(oname not in ("random", "none")
+                or (stats["direct_chunks"] > 0 and stats["brick_chunks"] == 0),
+                (name, kmesh, oname, "not straight to the mesh", stats))
+        require(oname != "cell" or stats["brick_chunks"] > 0,
+                (name, kmesh, "the cell order reached no brick", stats))
+        worst = max(worst, err)
+    return worst
+
+
 def phase_water_kernels():
     """The cell, PME spread and PME ik-gather kernels against their plain
     f64 versions on the 216-water box (order 6) and the full box (order
@@ -532,30 +723,16 @@ def phase_water_kernels():
 
     from torchmd_tpu_torch.ops import cell as kc
     from torchmd_tpu_torch.ops import pme as kp
-    from torchmd_tpu_torch.vsites import apply_vsites
 
     errs = {"cell": 0.0, "pme_spread": 0.0, "pme_gather": 0.0}
     out = {}
-    cases = (("water216",) + SMALL_WATER + (False,),
-             ("water-full", WATER_N, WATER_SPACING, WATER_CUTOFF, True))
-    for name, n, spacing, cutoff, jitter in cases:
-        mol, par, L = build_water(n, spacing, jitter)
-        f32 = _water_forces(par, cutoff)
-        f64 = _water_forces(par, cutoff, "double", plain=True)
-        box_np = np.full((1, 3), L)
-        raw = torch.as_tensor(mol.coords[:, :, 0], dtype=torch.float64, device=DEVICE)
-        f32.prepare(raw.float()[None], box_np)
-        f64.prepare(raw[None], box_np)
-        b32 = torch.as_tensor(box_np[0], dtype=torch.float32, device=DEVICE)
-        b64 = b32.double()
-        # one set of inputs: the f32 positions, upcast for the plain version
-        p32 = apply_vsites(f64.vsites, raw, b64).float()
-        p64 = p32.double()
-        kern, rec32, rec64 = f32._cell_kernel, f32._ewald, f64._ewald
-        cl = kern.build(p32, b32)
+    for name, n, spacing, cutoff, jitter in water_cases():
+        c = water_case(n, spacing, cutoff, jitter)
+        par, p32, p64, b32, b64, cl = (c[k] for k in ("par", "p32", "p64", "b32", "b64", "cl"))
+        kern, rec32, rec64 = c["f32"]._cell_kernel, c["f32"]._ewald, c["f64"]._ewald
         cl64 = cl._replace(ref_pos=cl.ref_pos.double())
         d32, cfg, clcfg = kern.data, kern.cfg, kern.clcfg
-        d64 = f64._cell_kernel.data
+        d64 = c["f64"]._cell_kernel.data
 
         pot_k, f_k = kc.cell_energy_forces(d32, cfg, clcfg, cl, p32, b32)
         pot_p, f_p = kc.cell_reference(d64, cfg, clcfg, cl64, p64, b64)
@@ -564,12 +741,10 @@ def phase_water_kernels():
 
         kmesh, order = rec32.cfg.kmax, rec32.ORDER
         q32, q64 = rec32.charges, rec64.charges
-        mesh_k = kp.pme_spread(p32, q32, b32, kmesh, order)
-        mesh_p = kp.spread_reference(p64, q64, b64, kmesh, order)
-        torch.cuda.synchronize()
-        e_spread = float((mesh_k.double() - mesh_p).abs().max())
-        require(e_spread <= MESH_TOL * float(mesh_p.abs().max()),
-                (name, "spread", e_spread))
+        spread_orders = water_spread_orders(c)
+        e_spread = spread_checks(name, c, spread_orders, kmesh)
+        e_spread = max(e_spread, spread_checks(
+            name, c, {k: spread_orders[k] for k in ("cell", "random")}, (ODD_MESH[name],) * 3))
 
         grids64 = rec64.ik_grids(p64, b64)
         grids32 = [g.float().contiguous() for g in grids64]
@@ -581,8 +756,7 @@ def phase_water_kernels():
             errs[k] = max(errs[k], e)
         log("water_kernels", case=name, natoms=par.natoms, ncells=clcfg.ncells,
             capacity=clcfg.capacity, mesh=kmesh, order=order,
-            cell_max_abs_err=e_cell, spread_max_abs_err=e_spread,
-            spread_mesh_max=float(mesh_p.abs().max()), gather_max_abs_err=e_gather)
+            cell_max_abs_err=e_cell, spread_max_abs_err=e_spread, gather_max_abs_err=e_gather)
         if name != "water-full":
             continue
 
@@ -608,12 +782,19 @@ def phase_water_kernels():
         log_earlier("cell", out["cell"]["ms"])
         taps = 3 * (4 * order + 5 * order * (order - 2)) + order**2
         mesh_bytes = 4 * int(np.prod(kmesh))
+        # the main paths' spread: in the NVT path's order
+        slots = spread_orders["cell"]
+        unordered_ms = cuda_events_ms(lambda: kp.pme_spread(p32, q32, b32, kmesh, order))
         out["pme_spread"] = dict(
-            ms=cuda_events_ms(lambda: kp.pme_spread(p32, q32, b32, kmesh, order)),
+            ms=cuda_events_ms(lambda: kp.pme_spread(p32, q32, b32, kmesh, order, slots)),
             plain_ms=cuda_events_ms(lambda: kp.spread_reference(p32, q32, b32, kmesh, order)),
+            # the function reads positions and charges and writes the mesh;
+            # the order only schedules it
             bound=bound(tensor_bytes(p32, q32) + mesh_bytes,
                         par.natoms * (taps + 2 * order**3)),
-            work=f"taps={par.natoms * order**3}")
+            work=(f"taps={par.natoms * order**3} order_idx=cell_slots "
+                  f"order_bytes={tensor_bytes(slots)} input_order_ms={unordered_ms:.4f}"))
+        log_earlier("pme_spread", out["pme_spread"]["ms"])
         out["pme_gather"] = dict(
             ms=cuda_events_ms(lambda: kp.pme_gather_ik(p32, q32, b32, grids32, order)),
             plain_ms=cuda_events_ms(
@@ -627,6 +808,50 @@ def phase_water_kernels():
             plain_ms=f"{v['plain_ms']:.4f}", speedup=f"{v['plain_ms'] / v['ms']:.2f}",
             bound_ms=f"{v['bound'][0]:.5f}", bound_by=v["bound"][1], work=v["work"])
     return out
+
+
+def phase_dense_pme():
+    """The dense-PME path on `Forces` defaults (the dense pair kernel and
+    PME with the spread in the input order): the bench's lattice at
+    DENSE_PME_N^3 waters. The spread against plain f64, then device ms of
+    the spread, the pair kernel and one whole force evaluation."""
+    import torch
+
+    from torchmd_tpu_torch.forces import CELL_AUTO_N, PME_AUTO_N, Forces
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.ops import pme as kp
+    from torchmd_tpu_torch.vsites import apply_vsites
+
+    mol, par, L = build_water(DENSE_PME_N, WATER_SPACING, True)
+    require(PME_AUTO_N <= par.natoms < CELL_AUTO_N, ("not the dense-PME range", par.natoms))
+    f = Forces(par, terms=WATER_TERMS, precision="single", cutoff=WATER_CUTOFF,
+               elec="ewald", device=DEVICE)
+    box_np = np.full((1, 3), L)
+    raw = torch.as_tensor(mol.coords[:, :, 0], dtype=torch.float32, device=DEVICE)
+    f.prepare(raw[None], box_np)
+    rec = f._ewald
+    require(f._cell_kernel is None and rec is not None, "Forces did not take the dense-PME path")
+    b32 = torch.as_tensor(box_np[0], dtype=torch.float32, device=DEVICE)
+    p32 = apply_vsites(f.vsites, raw.double(), b32.double()).float()
+    kmesh, order, q32 = rec.cfg.kmax, rec.ORDER, rec.charges
+    mesh_p = kp.spread_reference(p32.double(), q32.double(), b32.double(), kmesh, order)
+    stats = torch.zeros(len(kp.SPREAD_STATS), dtype=torch.int64, device=DEVICE)
+    mesh_k = kp.pme_spread(p32, q32, b32, kmesh, order, stats=stats)
+    torch.cuda.synchronize()
+    err = float((mesh_k.double() - mesh_p).abs().max())
+    require(err <= MESH_TOL * float(mesh_p.abs().max()), ("dense-PME spread", err))
+    stats = dict(zip(kp.SPREAD_STATS, (int(v) for v in stats.tolist())))
+    require(stats["charged_atoms"] == int((q32 != 0).sum()) and stats["brick_chunks"] == 0,
+            ("dense-PME spread counters", stats))
+    pot, frc = f.ef_one(raw, b32)
+    require(bool(torch.isfinite(frc).all()) and all(bool(torch.isfinite(v)) for v in pot.values()),
+            "dense-PME forces or energies not finite")
+    nb_data = kn.prepare_nb_data(f.ffparams)
+    log("dense_pme", natoms=par.natoms, box=f"{L:.3f}", mesh=kmesh, order=order,
+        spread_max_abs_err=err, **stats,
+        spread_ms=f"{cuda_events_ms(lambda: kp.pme_spread(p32, q32, b32, kmesh, order)):.4f}",
+        pair_ms=f"{cuda_events_ms(lambda: kn.nonbonded_energy_forces(nb_data, f.config, p32, b32)):.4f}",
+        ef_one_ms=f"{cuda_events_ms(lambda: f.ef_one(raw, b32)):.4f}")
 
 
 def _thrombin_forces(device, precision="single", kernel="auto"):
@@ -695,6 +920,8 @@ def phase_dynamics():
         require(n >= TIMED_STEPS, f"{k} kernel launched {n} < {TIMED_STEPS} times")
     require(np.all(np.isfinite(system.pos)), "non-finite positions")
     require(np.isfinite(Epot).all() and np.isfinite(T).all(), (Epot, T))
+    profile_water_step(integ, 1.0 / steps_per_s, steps=200, label="thrombin_profile",
+                       shares=("pair_", "bonded"))
 
     # NVE from one state: kernel path (f32) against the dense torch-op
     # path (f64), 10 steps
@@ -898,10 +1125,12 @@ def water_trajectory_check(par, par64, start_pos, start_vel, L):
     require(d_ctl > limit, f"the charge-scale control moved only {d_ctl} A")
 
 
-def profile_water_step(integ, step_s, steps=20, top=14, label="water_profile"):
-    """torch.profiler over `steps` water-box steps: device time per step by
-    kernel, and the device's busy share against the unprofiled step time
-    `step_s` of the timed run."""
+def profile_water_step(integ, step_s, steps=20, top=14, label="water_profile",
+                       shares=()):
+    """torch.profiler over `steps` steps of `integ`: device time per step
+    by kernel, the device's busy share against the unprofiled step time
+    `step_s` of the timed run, and the share of the step's device time of
+    the kernels whose names hold each of `shares`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -926,6 +1155,10 @@ def profile_water_step(integ, step_s, steps=20, top=14, label="water_profile"):
     for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
         log(f"{label}_kernel", us_per_step=f"{dev_us(e) / steps:.2f}",
             calls_per_step=f"{e.count / steps:.1f}", name=repr(e.key[:90]))
+    for part in shares:
+        us = sum(dev_us(e) for e in kernels if part in e.key) / steps
+        log(f"{label}_share", kernels=part, us_per_step=f"{us:.2f}",
+            share_of_device_time=f"{us / max(total_us, 1e-9):.3f}")
 
 def build_gas(precision="single"):
     """(par, positions, box edge) of the charged LJ gas of
@@ -1379,6 +1612,7 @@ def main():
     phase_build()
     times = phase_kernels()
     times.update(phase_water_kernels())
+    phase_dense_pme()
     times.update(phase_column_kernels())
     phase_parity()
     thr_launches = phase_dynamics()

@@ -9,8 +9,11 @@ tests pin that version (and the kernel inputs `prepare_nb_data` builds):
   - at f64 against `torchmd_tpu.potentials.nonbonded_energy_forces` with
     1e-7.
 Branches: RFA + switch + PBC, no box (plain Coulomb), Ewald erfc,
-repulsion, repulsioncg and NBFIX tables. The CUDA kernel itself is held to
-the plain version by chip_smoke.py and the `gpu`-marked test below.
+repulsion, repulsioncg and NBFIX tables. `prepare_nb_data`'s tile form of
+the exclusions (what the kernel reads instead of the mask) holds the
+mask's zeros bit for bit. The CUDA kernel itself is held to the plain
+version by chip_smoke.py and the `gpu`-marked tests below (chip_smoke's
+cases, bitwise-repeatable forces).
 """
 
 from __future__ import annotations
@@ -240,3 +243,88 @@ def test_cuda_kernel_matches_plain_version(name):
         assert abs(float(pot_k[k]) - w) <= 2e-5 * max(1.0, abs(w)), k
     f_k = f_k.double().cpu()
     assert float((f_k - f_p).abs().max()) <= 5e-5 * max(1.0, float(f_p.abs().max()))
+
+
+def _expand_exclusions(natoms, start, tile, bits):
+    """The (N, N) bool matrix of excluded pairs that `kn.tile_exclusions`
+    describes: bit k of bits[x, r] is pair (32 I + r, 32 tile[x] + k) for
+    the i tile I with start[I] <= x < start[I + 1]."""
+    nt = int(start.shape[0]) - 1
+    zero = torch.zeros((nt, kn.TILE, nt, kn.TILE), dtype=torch.bool)
+    ti = torch.repeat_interleave(torch.arange(nt), (start[1:] - start[:-1]).long())
+    set_bits = (bits.long()[:, :, None] >> torch.arange(kn.TILE)) & 1
+    zero[ti, :, tile.long(), :] = set_bits.bool()
+    return zero.view(nt * kn.TILE, nt * kn.TILE)[:natoms, :natoms]
+
+
+@pytest.mark.parametrize("system", ["thrombin-ligand-amber", "prod_alanine_dipeptide_amber",
+                                    "random"])
+def test_tile_exclusions_equal_the_mask(system):
+    """The kernel's exclusions (32-bit rows per tile pair that holds a
+    zero of the mask, each i tile's j tiles ascending) expand back to the
+    mask's zeros bit for bit: on thrombin, alanine dipeptide and a seeded
+    random symmetric mask (10 % off-diagonal zeros, 301 atoms, so that the
+    last tile is ragged)."""
+    if system == "random":
+        rs = np.random.RandomState(3)
+        zeros = np.triu(rs.rand(301, 301) < 0.1, 1)
+        mask = torch.as_tensor(~(zeros | zeros.T), dtype=torch.int8)
+        mask.fill_diagonal_(0)
+        start, tile, bits = kn.tile_exclusions(mask)
+    else:
+        mol, ff, _ = load_system(os.path.join(DATA_DIR, system))
+        par = Parameters(ff, mol, ALL_TERMS, precision="single")
+        data = kn.prepare_nb_data(make_ffparams(par, dtype=torch.float32))
+        mask, start, tile, bits = data.mask, data.excl_start, data.excl_tile, data.excl_bits
+    n = int(mask.shape[0])
+    nt = -(-n // kn.TILE)
+    assert start.dtype == tile.dtype == bits.dtype == torch.int32
+    assert tuple(start.shape) == (nt + 1,) and tuple(bits.shape) == (tile.shape[0], kn.TILE)
+    for t in range(nt):
+        row = tile[start[t]:start[t + 1]]
+        assert bool((row[1:] > row[:-1]).all()), t
+    assert torch.equal(_expand_exclusions(n, start, tile, bits), mask == 0)
+
+
+DENSE_CASES = ["thrombin", "alanine-pbc", "alanine-ewald", "alanine-repulsion",
+               "alanine-nbfix", "thrombin-random-mask", "thrombin-permuted",
+               "thrombin-nocutoff"]
+
+
+def _card_dense_case(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import chip_smoke
+
+    for case, inputs in chip_smoke.dense_pair_cases():
+        if case == name:
+            return inputs
+    raise KeyError(name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", DENSE_CASES)
+def test_cuda_dense_walk_matches_plain_f64(name):
+    """The culled tile walk against the plain f64 version at the Pallas
+    bars on chip_smoke.py's cases: the five systems of the kernel checks,
+    thrombin with a random mask, in a random atom order (nothing left to
+    cull: the culling never drops a pair) and without a cutoff."""
+    c = _card_dense_case(name)
+    pot_k, f_k = kn.nonbonded_energy_forces(c["d32"], c["cfg"], c["p32"], c["b32"])
+    pot_p, f_p = kn.pair_terms_reference(c["d64"], c["cfg"], c["p64"], c["b64"])
+    assert set(pot_k) == set(pot_p)
+    for k in pot_p:
+        w = float(pot_p[k])
+        assert abs(float(pot_k[k]) - w) <= 2e-5 * max(1.0, abs(w)), (k, float(pot_k[k]), w)
+    err = float((f_k.double() - f_p).abs().max())
+    assert err <= 5e-5 * max(1.0, float(f_p.abs().max())), err
+
+
+@pytest.mark.gpu
+def test_cuda_dense_walk_is_bitwise_repeatable():
+    """Partials sum in a fixed order: two runs give the same bits."""
+    c = _card_dense_case("thrombin")
+    (pot_a, f_a), (pot_b, f_b) = (kn.nonbonded_energy_forces(c["d32"], c["cfg"], c["p32"])
+                                  for _ in range(2))
+    assert torch.equal(f_a, f_b)
+    assert all(torch.equal(pot_a[k], pot_b[k]) for k in pot_a)

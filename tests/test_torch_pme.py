@@ -20,7 +20,12 @@ PME order 6 on a 40^3 mesh) with seeded jitter.
   - the per-axis scaling virial of `energy_forces_virial` (the MTK
     barostat's -dE/ds_a, analytic) equals `jax.grad` over s of the JAX
     `PmeRecip.energy(s pos, s box)` at f64 within 1e-9 relative, orders 4
-    and 6, with a net charge (the 1/V term) and the exclusion pairs.
+    and 6, with a net charge (the 1/V term) and the exclusion pairs;
+  - the orders the water box's steps hand the spread (the cell list's
+    slots on the NVT path, the columns' i slots on the NPT path) hold
+    every atom once, and `PmeRecip` gives the same energy and forces with
+    and without an order (`gpu`: the spread kernel against plain f64 in
+    every order, chip_smoke.py's water boxes).
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_water import CUTOFF, jittered, water_box
+from test_torch_water import CUTOFF, TERMS, jittered, shared_velocities, water_box
 
 from torchmd_tpu import ewald as jew
 from torchmd_tpu.ops import pallas_pme as ppme
@@ -228,3 +233,95 @@ def test_pme_kernels_on_cuda_match_plain():
                                    [g.double() for g in grids], 4)
     assert float((f_k.double() - f_p).abs().max()) <= 5e-5 * float(f_p.abs().max())
     assert (tpme.SPREAD_LAUNCHES, tpme.GATHER_LAUNCHES) == (n0[0] + 1, n0[1] + 1)
+
+
+def _assert_every_atom_once(order, natoms):
+    ids = order.reshape(-1)
+    ids = ids[ids < natoms].long()
+    assert torch.equal(torch.sort(ids).values, torch.arange(natoms))
+
+
+@pytest.mark.parametrize("column", [False, True], ids=["cell", "column"])
+def test_steps_hand_the_spread_every_atom_once(column, monkeypatch):
+    """One NVT step (cell path) and one NPT step (column path) of the
+    216-water box on the CPU: the order each hands the spread holds every
+    atom once (ids >= N are padding), and is the cell list's slots or the
+    columns' i slots."""
+    from test_torch_npt import _setup
+
+    from torchmd_tpu_torch import Forces, Integrator, MTKBarostat, System
+    from torchmd_tpu_torch.columns import ColumnKernel
+    from torchmd_tpu_torch.neighbors import CellKernel
+
+    _, tpar, coords, L = water_box()
+    seen = []
+    plain = tpme.spread_reference
+
+    def spy(pos, q, box, kmesh, order, order_idx=None):
+        seen.append(order_idx)
+        return plain(pos, q, box, kmesh, order, order_idx)
+
+    monkeypatch.setattr(tpme, "spread_reference", spy)
+    if column:
+        forces, _, integ, _ = _setup(Forces, System, Integrator, MTKBarostat, tpar, coords,
+                                     L, shared_velocities(tpar), device="cpu", column=True)
+    else:
+        forces = Forces(tpar, terms=TERMS, precision="double", cutoff=CUTOFF, kernel="cell",
+                        elec="pme", device="cpu", column=False)
+        s = System(coords.shape[0], 1, "double")
+        s.set_positions(coords)
+        s.set_box(np.full((3, 1), L))
+        s.set_velocities(shared_velocities(tpar))
+        forces.compute(s.pos, s.box, s.forces)
+        integ = Integrator(s, forces, 2.0, T=300.0, thermostat="nhc", constraints="settle")
+    assert isinstance(forces._cell_kernel, ColumnKernel if column else CellKernel)
+    seen.clear()
+    integ.step(niter=1)
+    orders = [o for o in seen if o is not None]
+    assert orders and len(orders) == len(seen)
+    width = forces._cell_kernel.ccfg.C if column else forces._cell_kernel.clcfg.capacity
+    for o in orders:
+        assert o.dtype == torch.int32 and o.shape[1] == width
+        _assert_every_atom_once(o, tpar.natoms)
+
+
+def test_pme_recip_is_the_same_with_and_without_an_order():
+    """The order changes only the spread kernel's schedule: on the plain
+    path PmeRecip's energy, forces and virial are the same bits."""
+    pos, box, _, trec = _pair(order=6)
+    p, b = torch.as_tensor(pos), torch.as_tensor(box)
+    order = torch.as_tensor(np.random.RandomState(1).permutation(pos.shape[0]),
+                            dtype=torch.int32)
+    for gather in ("exact", "ik"):
+        e0, f0, v0 = trec.energy_forces_virial(p, b, gather=gather)
+        e1, f1, v1 = trec.energy_forces_virial(p, b, gather=gather, order_idx=order)
+        assert torch.equal(e0, e1) and torch.equal(f0, f1) and torch.equal(v0, v1)
+    e2, f2 = trec.energy_forces(p, b, order_idx=order[None])
+    assert torch.equal(e2, e0) and torch.equal(f2, trec.energy_forces(p, b)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("odd_mesh", [False, True], ids=["mesh", "odd-mesh"])
+@pytest.mark.parametrize("which", [0, 1], ids=["water216-order6", "water-full-order4"])
+def test_cuda_spread_matches_plain_in_every_order(which, odd_mesh):
+    """The spread kernel against plain f64 within 1e-5 of the mesh maximum
+    on chip_smoke.py's water boxes (`chip_smoke.spread_checks`): in the
+    cell list's order (bricks), the columns', the input order and a random
+    one (straight to the mesh); with `odd_mesh`, in the cell and the
+    random order on a mesh whose Kz % 4 != 0 (45^3, 75^3: the brick's
+    scalar flush)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import chip_smoke
+
+    name, n, spacing, cutoff, jitter = chip_smoke.water_cases()[which]
+    c = chip_smoke.water_case(n, spacing, cutoff, jitter)
+    orders = chip_smoke.water_spread_orders(c)
+    kmesh = c["f32"]._ewald.cfg.kmax
+    if odd_mesh:
+        orders = {k: orders[k] for k in ("cell", "random")}
+        kmesh = (chip_smoke.ODD_MESH[name],) * 3
+        assert kmesh[2] % 4 != 0
+    n0 = tpme.SPREAD_LAUNCHES
+    chip_smoke.spread_checks(name, c, orders, kmesh)
+    assert tpme.SPREAD_LAUNCHES == n0 + len(orders)

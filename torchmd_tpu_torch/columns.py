@@ -367,6 +367,11 @@ class ColumnKernel:
         fn = _ops_column.column_reference if self.plain else _ops_column.column_energy_forces
         return fn(self.data, self.cfg, self.ccfg, st, pos, box, with_virial)
 
+    def spread_order(self, st: ColumnState):
+        """The atoms in space order for the PME spread: the columns' i
+        slots, z-sorted (each atom once; natoms = padding)."""
+        return st.islot
+
     def energy_forces(self, pos, box, st: ColumnState):
         return self._evaluate(pos, box, st, False)
 

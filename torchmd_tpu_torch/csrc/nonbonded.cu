@@ -1,50 +1,67 @@
-// Dense all-pairs nonbonded energy and forces on Hopper (sm_90a).
-// The per-pair term math is pair_terms.cuh, shared with cell.cu and
-// column.cu.
+// Dense all-pairs nonbonded energy and forces on Hopper (sm_90a): a culled
+// walk over 32-atom tiles in the caller's order, on the tile walk of
+// tile_pairs.cuh (shared with cell.cu and column.cu; the per-pair term
+// math is pair_terms.cuh).
 //
 // Replaces: torchmd_tpu/ops/pallas_nonbonded.py, pallas_nonbonded_energy_forces
 // with its kernels _kernel_tri (the Newton-half schedule) and _kernel (the
 // full square); the per-pair math is pair_terms. Same inputs (per-atom
-// charge, sigma/2 and sqrt|eps| rows or NBFIX A/B tables by type, an int8
-// exclusion mask), same outputs (0.5-weighted lj/electrostatics energies,
-// forces (N, 3)), same branches: LJ with the polynomial switch, repulsion
-// A/r^12, repulsioncg B/r^6, Coulomb plain / reaction field / Ewald erfc,
-// and a minimum-image wrap on a diagonal box where a 0 component means no
-// wrap on that axis.
+// charge, sigma/2 and sqrt|eps| rows or NBFIX A/B tables by type, the
+// exclusions of the int8 mask), same outputs (0.5-weighted
+// lj/electrostatics energies, forces (N, 3)), same branches: LJ with the
+// polynomial switch, repulsion A/r^12, repulsioncg B/r^6, Coulomb plain /
+// reaction field / Ewald erfc, a cutoff or none, and a minimum-image wrap
+// on a diagonal box where a 0 component means no wrap on that axis.
 //
-// What bounds it on this card: the full square is N^2 pair slots of ~60
-// f32 operations each (thrombin: 21.9 M slots, ~1.3 GFLOP a call) against
-// an N^2-byte int8 mask (21.9 MB, which stays resident in the 50 MB L2
-// from one step to the next). That is FP32-ALU bound, so the design keeps
-// the ALUs fed:
-//   - one thread per i atom, 128 i atoms per block; the block stages 128 j
-//     atoms (x, y, z, q, sigma/2, sqrt|eps|, type) and the 128x128 mask
-//     tile in shared memory, so the inner loop reads only shared memory
-//     and registers;
-//   - the mask is symmetric, so thread i reads mask[j, i]: neighbouring
-//     threads load neighbouring bytes;
-//   - a 4,676-atom system has only 37 i-tiles for 132 SMs, so grid.y
-//     splits the j range; each split writes its own force partial and a
-//     second kernel sums the splits in a fixed order. Forces are therefore
-//     deterministic and no atomics are used;
-//   - energies accumulate per j tile in f32 and across tiles in f64, then
-//     reduce per block; the finishing kernel sums the block partials.
-// Each thread sums its own full row (full square, 0.5 on the energies).
-// The Newton-half schedule is left to a later optimisation. The kernel has
-// one instance per electrostatics kind (pair_terms.cuh's ELEC): with the
-// kind a runtime branch the reaction-field loop ran 17 % slower (thrombin,
-// same H100; the other kinds' code shared its loop).
+// What bounds it on this card: the pairs inside the cutoff. A protein's
+// atoms in sequence order are already in space order: on thrombin (4,676
+// atoms, cutoff 7.3 A) 32-atom tiles span ~8 x 8 x 8 A, and 6,567 of the
+// 21,609 ordered tile pairs (30 %) have box gaps within the cutoff (6.6 M
+// slot pairs of the 21.9 M of the square, 565 k non-excluded ordered pairs
+// inside it). The function needs ~0.28 M unordered pairs' ~60 f32
+// operations each (~0.25 us of the FP32 peak) and ~0.2 MB of rows, forces
+// and exclusion words, so the kernel is bound by instruction throughput
+// and latency: culling, testing slots, the pair math, and its two
+// launches. Two launches a call:
+//   - pair_prep packs float4 rows (x, y, z, q and sigma/2, sqrt|eps|, id,
+//     type) and the bounding box of every 32-atom tile, and zeroes the
+//     walk's counters;
+//   - pair_walk: persistent warps take units of work from a counter; a unit
+//     is one i tile against up to UNIT candidate j tiles, every upt-th of
+//     the row, so that the dense j range around the i tile (neighbours in
+//     sequence) spreads over upt units. A warp culls its candidates by box
+//     (under the minimum image with PBC; nothing is culled without a
+//     cutoff), queues each lane's in-cutoff, non-excluded slots of every
+//     survivor and runs the pair math on full warps (tile_pairs.cuh's
+//     DenseWalk);
+//   - exclusions: the (N, N) mask is not read. prepare_nb_data turns it
+//     once per topology into a 32-bit word per i atom for each tile pair
+//     that holds an exclusion (CSR by i tile, j tiles ascending); a warp
+//     walks its survivors in ascending j and advances a cursor through its
+//     i tile's list, so excluded pairs are never queued;
+//   - each unit writes its force rows and energies to its own partials; the
+//     last unit of an i tile to arrive (an atomic counter after a fence)
+//     sums the tile's partials in unit order, and the last tile the tiles'
+//     energies in a fixed order: no float atomics, and forces and energies
+//     are bitwise deterministic.
+// Not built: Newton's third law (3,355 unordered tile pairs on thrombin
+// instead of 6,567 ordered ones), which needs a second owner of each force
+// row. Each (PBC, NBFIX, cutoff, electrostatics kind) has its own
+// instance, so that a loop carries only its own code.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "pair_terms.cuh"
+#include "tile_pairs.cuh"
 
 namespace {
 
-constexpr int TILE = 128;
-constexpr int FIN_THREADS = 256;
+constexpr int PREP_THREADS = 128;
+constexpr int WARPS = tiles::NSPLIT;  // warps per walk block
+constexpr int UNIT = 8;               // candidate j tiles per unit of work (<= 32)
+constexpr int BLOCKS_PER_SM = 8;      // persistent walk blocks per SM
+constexpr int ROW = 3 * tiles::TILE;  // force components of one tile
 
 }  // namespace
 
@@ -57,7 +74,6 @@ struct PairCfg {
   int use_cutoff;
   int use_switch;
   int pbc;        // read by the host entry only (template flag)
-  int nsplit;     // number of j-range splits (grid.y)
   float cutoff2;
   float switch_dist;
   float inv_switch_width;
@@ -69,183 +85,275 @@ struct PairCfg {
 
 namespace {
 
-__device__ __forceinline__ float wrap(float d, float b) {
-  return b > 0.f ? d - b * rintf(d / b) : d;
+__host__ __device__ __forceinline__ int num_tiles(int n) {
+  return (n + tiles::TILE - 1) / tiles::TILE;
 }
 
-template <bool PBC, bool NBFIX, int ELEC>
-__global__ void __launch_bounds__(TILE)
-pair_kernel(const float* __restrict__ pos, const float* __restrict__ q,
-            const float* __restrict__ sig, const float* __restrict__ eps,
-            const int32_t* __restrict__ types, const float* __restrict__ lj_a,
-            const float* __restrict__ lj_b, const int8_t* __restrict__ mask,
-            const float* __restrict__ box, const PairCfg cfg,
-            float* __restrict__ fpart, double* __restrict__ epart) {
-  __shared__ float sx[TILE], sy[TILE], sz[TILE], sq[TILE], ss[TILE], se[TILE];
-  __shared__ int st[TILE];
-  __shared__ int8_t smask[TILE * TILE];
-  __shared__ double scratch[TILE / 32];
+__host__ __device__ __forceinline__ int units_per_tile(int T) { return (T + UNIT - 1) / UNIT; }
 
-  const int n = cfg.natoms;
-  const int tid = threadIdx.x;
-  const int i = blockIdx.x * TILE + tid;
+// Scratch layout of one call.
+struct Scratch {
+  float4* pq;      // (T * 32) x, y, z, q
+  float4* aux;     // (T * 32) sigma/2, sqrt|eps|, id bits, type bits
+  float4* tbox;    // (2 T) tile boxes lo, hi
+  double* epart;   // (units, 2) per-unit energies
+  double* etile;   // (T, 2) per-tile energies
+  float* fpart;    // (units, 96) per-unit force rows
+  int* counters;   // (T + 2) arrivals per i tile, tiles finished, next unit
+};
+
+long long carve(const PairCfg& cfg, void* base, Scratch* s) {
+  const long long T = num_tiles(cfg.natoms);
+  const long long units = T * units_per_tile((int)T);
+  char* p = static_cast<char*>(base);
+  long long off = 0;
+  auto take = [&](long long bytes) {
+    char* q = p == nullptr ? nullptr : p + off;
+    off += (bytes + 15) / 16 * 16;
+    return q;
+  };
+  char* pq = take(16 * T * tiles::TILE);
+  char* aux = take(16 * T * tiles::TILE);
+  char* tbox = take(16 * 2 * T);
+  char* epart = take(8 * 2 * units);
+  char* etile = take(8 * 2 * T);
+  char* fpart = take(4 * (long long)ROW * units);
+  char* counters = take(4 * (T + 2));
+  if (s != nullptr) {
+    s->pq = reinterpret_cast<float4*>(pq);
+    s->aux = reinterpret_cast<float4*>(aux);
+    s->tbox = reinterpret_cast<float4*>(tbox);
+    s->epart = reinterpret_cast<double*>(epart);
+    s->etile = reinterpret_cast<double*>(etile);
+    s->fpart = reinterpret_cast<float*>(fpart);
+    s->counters = reinterpret_cast<int*>(counters);
+  }
+  return off;
+}
+
+// One warp per tile: packed rows, the tile's box; block 0 zeroes the
+// walk's counters.
+__global__ void __launch_bounds__(PREP_THREADS)
+pair_prep(const float* __restrict__ pos, const float* __restrict__ q,
+          const float* __restrict__ sig, const float* __restrict__ eps,
+          const int32_t* __restrict__ types, const __grid_constant__ PairCfg cfg,
+          float4* __restrict__ pq, float4* __restrict__ aux, float4* __restrict__ tbox,
+          int* __restrict__ counters) {
+  const int n = cfg.natoms, T = num_tiles(n);
+  if (blockIdx.x == 0)
+    for (int k = threadIdx.x; k <= T + 1; k += PREP_THREADS) counters[k] = 0;
+  const int t = blockIdx.x * (PREP_THREADS / 32) + (threadIdx.x >> 5);
+  if (t >= T) return;
+  const int lane = threadIdx.x & 31, i = t * tiles::TILE + lane;
   const bool active = i < n;
-
-  float bx = 0.f, by = 0.f, bz = 0.f;
-  if (PBC) { bx = box[0]; by = box[1]; bz = box[2]; }
-
-  float xi = 0.f, yi = 0.f, zi = 0.f, qi = 0.f, si = 0.f, ei = 0.f;
-  int ti = 0;
+  float4 p = make_float4(0.f, 0.f, 0.f, 0.f), a = make_float4(0.f, 0.f, 0.f, 0.f);
   if (active) {
-    xi = pos[3 * i]; yi = pos[3 * i + 1]; zi = pos[3 * i + 2];
-    qi = q[i]; si = sig[i]; ei = eps[i];
-    if (NBFIX) ti = types[i];
+    p = make_float4(pos[3 * i], pos[3 * i + 1], pos[3 * i + 2], q[i]);
+    a = make_float4(sig[i], eps[i], __int_as_float(i),
+                    __int_as_float(types != nullptr ? types[i] : 0));
   }
-
-  const int ntiles = (n + TILE - 1) / TILE;
-  const int per_split = (ntiles + cfg.nsplit - 1) / cfg.nsplit;
-  const int t_begin = blockIdx.y * per_split;
-  const int t_end = min(ntiles, t_begin + per_split);
-
-  float fx = 0.f, fy = 0.f, fz = 0.f;
-  double elj = 0.0, eel = 0.0;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int j0 = t * TILE;
-    const int jn = min(TILE, n - j0);
-    __syncthreads();  // the previous tile has been consumed
-    if (tid < jn) {
-      const int j = j0 + tid;
-      sx[tid] = pos[3 * j]; sy[tid] = pos[3 * j + 1]; sz[tid] = pos[3 * j + 2];
-      sq[tid] = q[j]; ss[tid] = sig[j]; se[tid] = eps[j];
-      if (NBFIX) st[tid] = types[j];
-    }
-    for (int r = 0; r < jn; ++r)
-      smask[r * TILE + tid] = active ? mask[(size_t)(j0 + r) * n + i] : (int8_t)0;
-    __syncthreads();
-
-    float tlj = 0.f, tel = 0.f;
-    for (int r = 0; r < jn; ++r) {
-      if (smask[r * TILE + tid] == 0) continue;
-      float dx = xi - sx[r], dy = yi - sy[r], dz = zi - sz[r];
-      if (PBC) { dx = wrap(dx, bx); dy = wrap(dy, by); dz = wrap(dz, bz); }
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      if (cfg.use_cutoff && d2 > cfg.cutoff2) continue;
-      float A = 0.f, B = 0.f;
-      if (cfg.lj_kind != 0) {
-        if (NBFIX) {
-          const int k = ti * cfg.ntypes + st[r];
-          A = __ldg(lj_a + k);
-          B = __ldg(lj_b + k);
-        } else {
-          lb_coefficients(si, ss[r], ei, se[r], A, B);
-        }
-      }
-      const float g = pair_terms<ELEC>(cfg, d2, A, B, cfg.elec_factor * qi * sq[r], tlj, tel);
-      fx -= g * dx;
-      fy -= g * dy;
-      fz -= g * dz;
-    }
-    elj += (double)tlj;
-    eel += (double)tel;
-  }
-
-  if (active) {
-    float* out = fpart + (size_t)blockIdx.y * 3 * n + 3 * i;
-    out[0] = fx; out[1] = fy; out[2] = fz;
-  }
-  const double blj = block_sum(elj, scratch);
-  const double bel = block_sum(eel, scratch);
-  if (tid == 0) {
-    const size_t b = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-    epart[2 * b] = 0.5 * blj;
-    epart[2 * b + 1] = 0.5 * bel;
+  pq[i] = p;
+  aux[i] = a;
+  float4 lo, hi;
+  tiles::warp_box(active, p.x, p.y, p.z, lo, hi);
+  if (lane == 0) {
+    tbox[2 * t] = lo;
+    tbox[2 * t + 1] = hi;
   }
 }
 
-// Sums the j-split force partials per atom component in split order, and
-// (block 0) the per-block energy partials.
-__global__ void __launch_bounds__(FIN_THREADS)
-pair_finish(const float* __restrict__ fpart, const double* __restrict__ epart,
-            int n, int nsplit, int nblocks, float* __restrict__ forces,
-            float* __restrict__ energies) {
-  __shared__ double scratch[FIN_THREADS / 32];
-  const int k = blockIdx.x * FIN_THREADS + threadIdx.x;
-  if (k < 3 * n) {
-    float s = 0.f;
-    for (int p = 0; p < nsplit; ++p) s += fpart[(size_t)p * 3 * n + k];
-    forces[k] = s;
-  }
-  if (blockIdx.x == 0) {
-    double a = 0.0, b = 0.0;
-    for (int p = threadIdx.x; p < nblocks; p += FIN_THREADS) {
-      a += epart[2 * p];
-      b += epart[2 * p + 1];
+// Persistent warps take units of work from a counter: a unit is one i
+// tile against up to UNIT candidate j tiles, every upt-th of them. The
+// last unit of an i tile to finish sums the tile's force rows in unit
+// order, the last tile the energies.
+template <bool PBC, bool NBFIX, bool CUTOFF, int ELEC>
+__global__ void __launch_bounds__(WARPS * 32)
+pair_walk(const float4* __restrict__ pq, const float4* __restrict__ aux,
+          const float4* __restrict__ tbox, const int32_t* __restrict__ xstart,
+          const int32_t* __restrict__ xtile, const uint32_t* __restrict__ xbits,
+          const float* __restrict__ lj_a, const float* __restrict__ lj_b,
+          const float* __restrict__ box, const __grid_constant__ PairCfg cfg,
+          float* __restrict__ fpart, double* __restrict__ epart, double* __restrict__ etile,
+          int* __restrict__ counters, float* __restrict__ forces,
+          float* __restrict__ energies, unsigned long long* __restrict__ stats) {
+  __shared__ tiles::WarpSmem smem[WARPS];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = cfg.natoms, T = num_tiles(n), upt = units_per_tile(T), units = T * upt;
+  while (true) {
+    int u = 0;
+    if (lane == 0) u = atomicAdd(counters + T + 1, 1);
+    u = __shfl_sync(tiles::FULL, u, 0);
+    if (u >= units) break;
+    // unit r of tile it: candidates r, r + upt, r + 2 upt, ... (<= UNIT),
+    // so that the dense j range around the i tile spreads over the units
+    const int it = u / upt, r = u - it * upt;
+    const int ncand = (T - r + upt - 1) / upt;
+    const int i = it * tiles::TILE + lane;
+    const float4 pi = pq[i], ai = aux[i];
+    tiles::TileWarp<PairCfg, false, ELEC, tiles::DenseWalk<PBC, NBFIX, CUTOFF>> tw(
+        cfg, pq, aux, nullptr, smem[w], i < n, i, pi.x, pi.y, pi.z, pi.w, ai.x, ai.y);
+    tw.dense_setup(__float_as_int(ai.w), lj_a, lj_b, cfg.ntypes, box);
+    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+    tw.load_box(tbox, r, upt, ncand, lo, hi);
+    unsigned keep = tw.cull_image(lo, hi, ncand);
+    int xp = xstart[it];
+    const int xend = xstart[it + 1];
+    while (keep) {
+      const int jt = r + (__ffs(keep) - 1) * upt;
+      keep &= keep - 1;
+      // this lane's exclusion word for tile jt: the cursor only moves on
+      while (xp < xend && __ldg(xtile + xp) < jt) ++xp;
+      unsigned xw = 0u;
+      if (xp < xend && __ldg(xtile + xp) == jt) xw = __ldg(xbits + (size_t)tiles::TILE * xp + lane);
+      if (jt == it) xw |= 1u << lane;
+      tw.take(jt * tiles::TILE, min(tiles::TILE, n - jt * tiles::TILE), 0, xw);
     }
-    a = block_sum(a, scratch);
-    b = block_sum(b, scratch);
-    if (threadIdx.x == 0) {
+    tw.drain(true);
+    float* row = fpart + (size_t)u * ROW;
+    row[3 * lane] = tw.fx;
+    row[3 * lane + 1] = tw.fy;
+    row[3 * lane + 2] = tw.fz;
+    tw.put_energies(epart + 2 * (size_t)u, 0.5, stats);
+
+    // the i tile's last unit sums its partials in unit order
+    __threadfence();
+    __syncwarp();
+    int last = 0;
+    if (lane == 0) last = atomicAdd(counters + it, 1) == upt - 1;
+    if (!__shfl_sync(tiles::FULL, last, 0)) continue;
+    __threadfence();
+    const float* tile_rows = fpart + (size_t)it * upt * ROW;
+    for (int k = lane; k < ROW && it * tiles::TILE + k / 3 < n; k += 32) {
+      float s = 0.f;
+      for (int v = 0; v < upt; ++v) s += __ldcg(tile_rows + (size_t)v * ROW + k);
+      forces[(size_t)it * ROW + k] = s;
+    }
+    // lane l sums units l, l + 32, ...; then a fixed shuffle tree
+    const double* ep = epart + 2 * (size_t)it * upt;
+    double a = 0.0, b = 0.0;
+    for (int v = lane; v < upt; v += 32) {
+      a += __ldcg(ep + 2 * v);
+      b += __ldcg(ep + 2 * v + 1);
+    }
+    a = tiles::warp_sum(a);
+    b = tiles::warp_sum(b);
+    if (lane == 0) {
+      etile[2 * it] = a;
+      etile[2 * it + 1] = b;
+    }
+    // the last tile sums the tiles' energies in a fixed order
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) last = atomicAdd(counters + T, 1) == T - 1;
+    if (!__shfl_sync(tiles::FULL, last, 0)) continue;
+    __threadfence();
+    a = b = 0.0;
+    for (int t = lane; t < T; t += 32) {
+      a += __ldcg(etile + 2 * t);
+      b += __ldcg(etile + 2 * t + 1);
+    }
+    a = tiles::warp_sum(a);
+    b = tiles::warp_sum(b);
+    if (lane == 0) {
       energies[0] = (float)a;
       energies[1] = (float)b;
     }
   }
 }
 
-template <bool PBC, bool NBFIX>
-void launch_pair(dim3 grid, cudaStream_t s, const float* pos, const float* q,
-                 const float* sig, const float* eps, const int32_t* types,
-                 const float* lj_a, const float* lj_b, const int8_t* mask,
-                 const float* box, const PairCfg& cfg, float* fpart,
-                 double* epart) {
-  // one instance per electrostatics kind (pair_terms.cuh)
+struct WalkArgs {
+  const float4 *pq, *aux, *tbox;
+  const int32_t *xstart, *xtile;
+  const uint32_t* xbits;
+  const float *lj_a, *lj_b, *box;
+  float* fpart;
+  double *epart, *etile;
+  int* counters;
+  float *forces, *energies;
+  unsigned long long* stats;
+};
+
+template <bool PBC, bool NBFIX, bool CUTOFF, int ELEC>
+void launch_walk(dim3 grid, cudaStream_t s, const PairCfg& cfg, const WalkArgs& a) {
+  pair_walk<PBC, NBFIX, CUTOFF, ELEC><<<grid, WARPS * 32, 0, s>>>(
+      a.pq, a.aux, a.tbox, a.xstart, a.xtile, a.xbits, a.lj_a, a.lj_b, a.box, cfg, a.fpart,
+      a.epart, a.etile, a.counters, a.forces, a.energies, a.stats);
+}
+
+// one instance per electrostatics kind (pair_terms.cuh)
+template <bool PBC, bool NBFIX, bool CUTOFF>
+void launch_elec(dim3 grid, cudaStream_t s, const PairCfg& cfg, const WalkArgs& a) {
   switch (cfg.elec_kind) {
-    case 0:
-      pair_kernel<PBC, NBFIX, 0><<<grid, TILE, 0, s>>>(pos, q, sig, eps, types, lj_a, lj_b,
-                                                       mask, box, cfg, fpart, epart);
-      break;
-    case 1:
-      pair_kernel<PBC, NBFIX, 1><<<grid, TILE, 0, s>>>(pos, q, sig, eps, types, lj_a, lj_b,
-                                                       mask, box, cfg, fpart, epart);
-      break;
-    case 2:
-      pair_kernel<PBC, NBFIX, 2><<<grid, TILE, 0, s>>>(pos, q, sig, eps, types, lj_a, lj_b,
-                                                       mask, box, cfg, fpart, epart);
-      break;
-    default:
-      pair_kernel<PBC, NBFIX, 3><<<grid, TILE, 0, s>>>(pos, q, sig, eps, types, lj_a, lj_b,
-                                                       mask, box, cfg, fpart, epart);
+    case 0: launch_walk<PBC, NBFIX, CUTOFF, 0>(grid, s, cfg, a); break;
+    case 1: launch_walk<PBC, NBFIX, CUTOFF, 1>(grid, s, cfg, a); break;
+    case 2: launch_walk<PBC, NBFIX, CUTOFF, 2>(grid, s, cfg, a); break;
+    default: launch_walk<PBC, NBFIX, CUTOFF, 3>(grid, s, cfg, a);
   }
+}
+
+template <bool PBC, bool NBFIX>
+void launch_cutoff(dim3 grid, cudaStream_t s, const PairCfg& cfg, const WalkArgs& a) {
+  if (cfg.use_cutoff) launch_elec<PBC, NBFIX, true>(grid, s, cfg, a);
+  else launch_elec<PBC, NBFIX, false>(grid, s, cfg, a);
+}
+
+// Persistent blocks of the walk: BLOCKS_PER_SM per SM of the current
+// device, no more than the units of work need.
+cudaError_t walk_grid(int T, dim3* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long units = (long long)T * units_per_tile(T);
+  long long blocks = (units + WARPS - 1) / WARPS;
+  if (blocks > (long long)BLOCKS_PER_SM * sms) blocks = (long long)BLOCKS_PER_SM * sms;
+  *grid = dim3((unsigned)(blocks < 1 ? 1 : blocks));
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// pos (N,3), q/sig/eps (N), types (N) or null, lj_a/lj_b (T,T) or null
-// (null: Lorentz-Berthelot from sig/eps), mask (N,N) int8, box (3) or null
-// (no PBC). Scratch: fpart (nsplit,N,3), epart (nblocks,2) f64 with
-// nblocks = ceil(N/128) * nsplit. Outputs: forces (N,3), energies (2) as
-// [lj-family, electrostatics]. Returns cudaGetLastError().
+// Scratch of a call, in bytes (16-byte aligned pieces).
+extern "C" long long tmd_pair_scratch_bytes(PairCfg cfg) { return carve(cfg, nullptr, nullptr); }
+
+// pos (N,3), q/sig/eps (N), types (N) int32, lj_a/lj_b (T,T) or null
+// (null: Lorentz-Berthelot from sig/eps), the exclusions as xstart
+// (ceil(N/32) + 1), xtile (X) and xbits (X, 32) (ops/nonbonded.py
+// tile_exclusions), box (3) or null (no PBC); scratch of
+// tmd_pair_scratch_bytes(cfg) bytes. Outputs: forces (N,3), energies (2)
+// as [lj-family, electrostatics]; stats (5 uint64, or null) gains the
+// walk's counters (tile_pairs.cuh Counters). Returns cudaGetLastError().
 extern "C" int tmd_pair_energy_forces(
     const float* pos, const float* q, const float* sig, const float* eps,
-    const int32_t* types, const float* lj_a, const float* lj_b,
-    const int8_t* mask, const float* box, PairCfg cfg, float* fpart,
-    double* epart, float* forces, float* energies, void* stream) {
+    const int32_t* types, const float* lj_a, const float* lj_b, const int32_t* xstart,
+    const int32_t* xtile, const uint32_t* xbits, const float* box, PairCfg cfg,
+    void* scratch, float* forces, float* energies, unsigned long long* stats,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = cfg.natoms;
-  const dim3 grid((n + TILE - 1) / TILE, cfg.nsplit);
-  const bool nbfix = lj_a != nullptr;
-  if (cfg.pbc) {
-    if (nbfix) launch_pair<true, true>(grid, s, pos, q, sig, eps, types, lj_a, lj_b, mask, box, cfg, fpart, epart);
-    else launch_pair<true, false>(grid, s, pos, q, sig, eps, types, lj_a, lj_b, mask, box, cfg, fpart, epart);
-  } else {
-    if (nbfix) launch_pair<false, true>(grid, s, pos, q, sig, eps, types, lj_a, lj_b, mask, box, cfg, fpart, epart);
-    else launch_pair<false, false>(grid, s, pos, q, sig, eps, types, lj_a, lj_b, mask, box, cfg, fpart, epart);
-  }
+  if (n < 1 || (long long)num_tiles(n) * tiles::TILE > tiles::SLOT_MASK)
+    return (int)cudaErrorInvalidValue;
+  Scratch sc;
+  carve(cfg, scratch, &sc);
+  const int T = num_tiles(n);
+  const int prep_blocks = (T + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32);
+  pair_prep<<<prep_blocks, PREP_THREADS, 0, s>>>(pos, q, sig, eps, types, cfg, sc.pq, sc.aux,
+                                                 sc.tbox, sc.counters);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int nblocks = (int)(grid.x * grid.y);
-  const int fin_blocks = max(1, (3 * n + FIN_THREADS - 1) / FIN_THREADS);
-  pair_finish<<<fin_blocks, FIN_THREADS, 0, s>>>(fpart, epart, n, cfg.nsplit,
-                                                 nblocks, forces, energies);
+  const WalkArgs a{sc.pq, sc.aux, sc.tbox, xstart, xtile, xbits, lj_a, lj_b, box,
+                   sc.fpart, sc.epart, sc.etile, sc.counters, forces, energies, stats};
+  dim3 grid;
+  err = walk_grid(T, &grid);
+  if (err != cudaSuccess) return (int)err;
+  const bool nbfix = lj_a != nullptr;
+  if (cfg.pbc) {
+    if (nbfix) launch_cutoff<true, true>(grid, s, cfg, a);
+    else launch_cutoff<true, false>(grid, s, cfg, a);
+  } else {
+    if (nbfix) launch_cutoff<false, true>(grid, s, cfg, a);
+    else launch_cutoff<false, false>(grid, s, cfg, a);
+  }
   return (int)cudaGetLastError();
 }
 

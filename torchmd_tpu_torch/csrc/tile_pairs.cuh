@@ -1,12 +1,14 @@
-// Warp-per-tile pair walk shared by the cell-list kernel (cell.cu) and the
-// column kernel (column.cu): the cluster-pair scheme of GROMACS and OpenMM
-// with a per-lane queue in front of the pair math.
+// Warp-per-tile pair walk shared by the cell-list kernel (cell.cu), the
+// column kernel (column.cu) and the dense pair kernel (nonbonded.cu): the
+// cluster-pair scheme of GROMACS and OpenMM with a per-lane queue in front
+// of the pair math.
 //
 // An i tile is up to 32 atoms that sit close together (one per lane, data
 // in registers), walked by NSPLIT warps of one block. They cull the same
 // candidate j tiles of 32 packed slots (float4 x, y, z, q and float4
-// sigma/2, sqrt|eps|, id bits, 0, written by the kernel's prep pass), each
-// with an image-shift code, and share the survivors out in turn:
+// sigma/2, sqrt|eps|, id bits, type bits, written by the kernel's prep
+// pass), each with an image-shift code, and share the survivors out in
+// turn:
 //   - cull: a j tile whose bounding box (plus its shift) lies farther than
 //     the cutoff from the i tile's box is skipped; the caller tests up to
 //     32 boxes at once, one per lane, and walks the ballot's survivors;
@@ -26,12 +28,22 @@
 //     survivors alternate between the warps, so that the lanes' backlogs
 //     grow alike and few rounds leave lanes idle.
 // Each lane works through its own atom's pairs, so the i forces stay in
-// registers; the NSPLIT (= 2) warps add theirs to the zeroed force rows
-// with atomicAdd, and two additions onto zero give the same bits in either
-// order: forces are bitwise deterministic. Exclusions are checked only for
-// queued pairs (inside the cutoff), against the lane's register copy of
-// its atom's first REG_EXCL entries; the pair math is branch-free (a self
-// or excluded pair runs with zero coefficients at d^2 = 1).
+// registers. How the atoms meet is the WALK argument:
+//   - StencilWalk (cell, column): the NSPLIT (= 2) warps add their forces
+//     to the zeroed force rows with atomicAdd, and two additions onto zero
+//     give the same bits in either order: forces are bitwise
+//     deterministic. Exclusions are checked only for queued pairs (inside
+//     the cutoff), against the lane's register copy of its atom's first
+//     REG_EXCL entries; the pair math is branch-free (a self or excluded
+//     pair runs with zero coefficients at d^2 = 1).
+//   - DenseWalk (dense): a warp walks a unit of candidates alone and calls
+//     `take` for each survivor; no shifts; a per-pair minimum image on a
+//     diagonal box (PBC; a 0 component does not wrap), which the cull
+//     takes as the minimum-image gap of the two boxes; NBFIX A/B tables by
+//     type; with no cutoff every slot is queued. Exclusions come per visit
+//     as a 32-bit word per lane (bit k: slot k is excluded for this lane's
+//     atom), applied when pairs are queued, so excluded pairs take no
+//     round. The caller writes the warp's force rows.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -94,7 +106,39 @@ struct Counters {
   unsigned candidates = 0, tiles = 0, slots = 0, rounds = 0, lanes = 0;
 };
 
-template <class Cfg, bool VIRIAL, int ELEC>
+// The cell and column kernels' walk: an image shift per visit, exclusions
+// from a per-atom table (cfg.nexcl wide).
+struct StencilWalk {
+  static constexpr bool DENSE = false, PBC = false, NBFIX = false, CUTOFF = true;
+};
+
+// The dense kernel's walk (nonbonded.cu): see the header note.
+template <bool PBC_, bool NBFIX_, bool CUTOFF_>
+struct DenseWalk {
+  static constexpr bool DENSE = true, PBC = PBC_, NBFIX = NBFIX_, CUTOFF = CUTOFF_;
+};
+
+// Minimum image of d on a box edge b (inverse ib); b = 0: no wrap.
+__device__ __forceinline__ float min_image(float d, float b, float ib) {
+  return b > 0.f ? d - b * rintf(d * ib) : d;
+}
+
+// Lower bound of |x_i - x_j| over x_i in [il, ih], x_j in [jl, jh] along
+// one axis, under the minimum image when b > 0. With a half-width sum h
+// below b / 2 the wrapped centre distance less h is exact; otherwise the
+// axis is not culled.
+__device__ __forceinline__ float axis_gap(float il, float ih, float jl, float jh, float b,
+                                          float ib) {
+  if (b > 0.f) {
+    const float h = 0.5f * ((ih - il) + (jh - jl));
+    if (h >= 0.5f * b) return 0.f;
+    const float c = min_image(0.5f * ((jl + jh) - (il + ih)), b, ib);
+    return fmaxf(0.f, fabsf(c) - h);
+  }
+  return fmaxf(0.f, fmaxf(jl - ih, il - jh));
+}
+
+template <class Cfg, bool VIRIAL, int ELEC, class WALK = StencilWalk>
 struct TileWarp {
   const Cfg& cfg;
   const float4* __restrict__ pq;
@@ -111,6 +155,11 @@ struct TileWarp {
   int ex[REG_EXCL];
   float4 ilo, ihi;
   float cull2;
+  // DenseWalk: the lane's LJ type and the NBFIX tables, the box
+  int ti = 0, ntypes = 0;
+  const float* __restrict__ lja = nullptr;
+  const float* __restrict__ ljb = nullptr;
+  float bx = 0.f, by = 0.f, bz = 0.f, ibx = 0.f, iby = 0.f, ibz = 0.f;
   float fx = 0.f, fy = 0.f, fz = 0.f;
   double elj = 0.0, eel = 0.0, wx = 0.0, wy = 0.0, wz = 0.0;
   int head = 0, tail = 0;
@@ -124,13 +173,43 @@ struct TileWarp {
     split = threadIdx.x >> 5;
     nact = __popc(__ballot_sync(FULL, active));
     if (active) { i = i_; xi = x; yi = y; zi = z; qi = q; si = s; ei = e; }
-    const int ne = cfg.nexcl;
+    if constexpr (!WALK::DENSE) {
+      const int ne = cfg.nexcl;
 #pragma unroll
-    for (int k = 0; k < REG_EXCL; ++k)
-      ex[k] = (active && k < ne) ? excl[(size_t)i * ne + k] : -1;
+      for (int k = 0; k < REG_EXCL; ++k)
+        ex[k] = (active && k < ne) ? excl[(size_t)i * ne + k] : -1;
+      // culling keeps a relative margin over f32 rounding of the box gaps
+      cull2 = cfg.cutoff2 * 1.00001f;
+    } else {
+      // and an absolute one over the rounding of the minimum image
+      const float rc = sqrtf(cfg.cutoff2) * 1.00001f + 1e-3f;
+      cull2 = rc * rc;
+    }
     warp_box(active, xi, yi, zi, ilo, ihi);
-    // culling keeps a relative margin over f32 rounding of the box gaps
-    cull2 = cfg.cutoff2 * 1.00001f;
+  }
+
+  // DenseWalk: this lane's LJ type, the NBFIX tables (null: Lorentz-
+  // Berthelot) and the box (null without PBC).
+  __device__ __forceinline__ void dense_setup(int type, const float* a, const float* b,
+                                              int nt, const float* box) {
+    ti = type; lja = a; ljb = b; ntypes = nt;
+    if (WALK::PBC) {
+      bx = box[0]; by = box[1]; bz = box[2];
+      ibx = bx > 0.f ? 1.f / bx : 0.f;
+      iby = by > 0.f ? 1.f / by : 0.f;
+      ibz = bz > 0.f ? 1.f / bz : 0.f;
+    }
+  }
+
+  // DenseWalk: the displacement xi - p under the walk's image rule.
+  __device__ __forceinline__ void displacement(float4 p, float& dx, float& dy,
+                                               float& dz) const {
+    dx = xi - p.x; dy = yi - p.y; dz = zi - p.z;
+    if (WALK::PBC) {
+      dx = min_image(dx, bx, ibx);
+      dy = min_image(dy, by, iby);
+      dz = min_image(dz, bz, ibz);
+    }
   }
 
   // Is the j box [lo, hi] + sh within the cutoff of the i tile's box?
@@ -152,16 +231,49 @@ struct TileWarp {
     return __ballot_sync(FULL, keep);
   }
 
+  // DenseWalk: this lane's candidate box of a chunk of up to 32 (box k
+  // of lane k < ncand at tbox[2 * (first + k stride)]).
+  __device__ __forceinline__ void load_box(const float4* __restrict__ tbox, int first,
+                                           int stride, int ncand, float4& lo,
+                                           float4& hi) const {
+    if (lane < ncand) {
+      lo = __ldg(tbox + 2 * (first + lane * stride));
+      hi = __ldg(tbox + 2 * (first + lane * stride) + 1);
+    }
+  }
+
+  // DenseWalk: the survivor mask of a chunk of up to 32 candidates, lane
+  // k < ncand holding box k (load_box), by the minimum-image gap; with no
+  // cutoff every candidate survives.
+  __device__ __forceinline__ unsigned cull_image(float4 lo, float4 hi, int ncand) {
+    bool keep = lane < ncand;
+    if (WALK::CUTOFF && keep) {
+      const float gx = axis_gap(ilo.x, ihi.x, lo.x, hi.x, bx, ibx);
+      const float gy = axis_gap(ilo.y, ihi.y, lo.y, hi.y, by, iby);
+      const float gz = axis_gap(ilo.z, ihi.z, lo.z, hi.z, bz, ibz);
+      keep = gx * gx + gy * gy + gz * gz <= cull2;
+    }
+    n.candidates += ncand;
+    return __ballot_sync(FULL, keep);
+  }
+
   // A survivor of the walk at packed slots [base, base + nj): if it is this
   // warp's turn, queue every slot inside the cutoff of this lane's atom,
   // then drain.
   __device__ __forceinline__ void visit(int base, int nj, int code) {
-    if (seen++ % NSPLIT != split) return;
+    if (seen++ % NSPLIT == split) take(base, nj, code, 0u);
+  }
+
+  // Queue every slot of [base, base + nj) inside the cutoff of this lane's
+  // atom (DenseWalk: all of them without a cutoff) whose bit in `xw` is
+  // clear, then drain.
+  __device__ __forceinline__ void take(int base, int nj, int code, unsigned xw) {
     if (nvis == MAX_VISITS) {  // the queued entries name visits: empty them
       drain(true);
       nvis = 0;
     }
-    const float4 sh = sm.shift[code];
+    float4 sh = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (!WALK::DENSE) sh = sm.shift[code];
     __syncwarp();
     if (lane == 0) sm.visits[nvis] = (code << CODE_SHIFT) | base;
     if (lane < nj) {
@@ -175,8 +287,16 @@ struct TileWarp {
       const float c2 = cfg.cutoff2;
       for (int k = 0; k < nj; ++k) {
         const float4 p = sm.j[k];
-        const float dx = xi - p.x, dy = yi - p.y, dz = zi - p.z;
-        if (dx * dx + dy * dy + dz * dz <= c2) {
+        bool in;
+        if constexpr (WALK::DENSE) {
+          float dx, dy, dz;
+          displacement(p, dx, dy, dz);
+          in = (!WALK::CUTOFF || dx * dx + dy * dy + dz * dz <= c2) && !((xw >> k) & 1u);
+        } else {
+          const float dx = xi - p.x, dy = yi - p.y, dz = zi - p.z;
+          in = dx * dx + dy * dy + dz * dz <= c2;
+        }
+        if (in) {
           sm.queue[tail & (QDEPTH - 1)][lane] = (unsigned short)(tag | k);
           ++tail;
         }
@@ -188,25 +308,44 @@ struct TileWarp {
     drain(false);
   }
 
-  // The pair math of one queued entry.
+  // The pair math of one queued entry: the walk gives the displacement and
+  // the coefficients, the tail is shared.
   __device__ __forceinline__ void pair(int e, float& tlj, float& tel, float& vx,
                                        float& vy, float& vz) {
     const int tv = sm.visits[e >> 5];
     const int p = (tv & SLOT_MASK) + (e & 31);
-    const float4 sh = sm.shift[tv >> CODE_SHIFT];
     const float4 pj = __ldg(pq + p);
     const float4 aj = __ldg(aux + p);
-    const int j = __float_as_int(aj.z);
-    bool hit = j == i;
+    float dx, dy, dz, d2, A = 0.f, B = 0.f, qq;
+    if constexpr (WALK::DENSE) {
+      // excluded and self pairs were never queued
+      displacement(pj, dx, dy, dz);
+      d2 = dx * dx + dy * dy + dz * dz;
+      if (cfg.lj_kind != 0) {
+        if (WALK::NBFIX) {
+          const int k = ti * ntypes + __float_as_int(aj.w);
+          A = __ldg(lja + k);
+          B = __ldg(ljb + k);
+        } else {
+          lb_coefficients(si, aj.x, ei, aj.y, A, B);
+        }
+      }
+      qq = cfg.elec_factor * qi * pj.w;
+    } else {
+      const float4 sh = sm.shift[tv >> CODE_SHIFT];
+      const int j = __float_as_int(aj.z);
+      bool hit = j == i;
 #pragma unroll
-    for (int k = 0; k < REG_EXCL; ++k) hit |= ex[k] == j;
-    for (int k = REG_EXCL; k < cfg.nexcl; ++k)
-      hit |= __ldg(excl + (size_t)i * cfg.nexcl + k) == j;
-    const float dx = xi - (pj.x + sh.x), dy = yi - (pj.y + sh.y), dz = zi - (pj.z + sh.z);
-    const float d2 = hit ? 1.f : dx * dx + dy * dy + dz * dz;
-    float A = 0.f, B = 0.f;
-    if (cfg.lj_kind != 0 && !hit) lb_coefficients(si, aj.x, ei, aj.y, A, B);
-    const float qq = hit ? 0.f : cfg.elec_factor * qi * pj.w;
+      for (int k = 0; k < REG_EXCL; ++k) hit |= ex[k] == j;
+      for (int k = REG_EXCL; k < cfg.nexcl; ++k)
+        hit |= __ldg(excl + (size_t)i * cfg.nexcl + k) == j;
+      dx = xi - (pj.x + sh.x);
+      dy = yi - (pj.y + sh.y);
+      dz = zi - (pj.z + sh.z);
+      d2 = hit ? 1.f : dx * dx + dy * dy + dz * dz;
+      if (cfg.lj_kind != 0 && !hit) lb_coefficients(si, aj.x, ei, aj.y, A, B);
+      qq = hit ? 0.f : cfg.elec_factor * qi * pj.w;
+    }
     const float g = pair_terms<ELEC>(cfg, d2, A, B, qq, tlj, tel);
     fx -= g * dx;
     fy -= g * dy;
@@ -258,6 +397,13 @@ struct TileWarp {
       atomicAdd(forces + 3 * i + 1, fy);
       atomicAdd(forces + 3 * i + 2, fz);
     }
+    put_energies(part, we, stats);
+  }
+
+  // The warp's energies (times `we`) and raw virial sums to part[0..np),
+  // and its counters to `stats`; after the last drain.
+  __device__ __forceinline__ void put_energies(double* __restrict__ part, double we,
+                                               unsigned long long* __restrict__ stats) {
     const double a = warp_sum(elj), b = warp_sum(eel);
     double v0 = 0.0, v1 = 0.0, v2 = 0.0;
     if (VIRIAL) { v0 = warp_sum(wx); v1 = warp_sum(wy); v2 = warp_sum(wz); }

@@ -246,9 +246,10 @@ class PmeRecip:
             vir = vir - (grad * dv).sum(0)
         return e, forces, vir
 
-    def _mesh_energy(self, pos, box, q):
-        """(reciprocal energy, rfftn of the mesh, B, c = k_e 2 pi / V)."""
-        mesh = self._spread_fn(pos, q, box, self.cfg.kmax, self.ORDER)
+    def _mesh_energy(self, pos, box, q, order_idx=None):
+        """(reciprocal energy, rfftn of the mesh, B, c = k_e 2 pi / V);
+        `order_idx`: the spread's order of the atoms in space (`ops.pme`)."""
+        mesh = self._spread_fn(pos, q, box, self.cfg.kmax, self.ORDER, order_idx)
         Sk = torch.fft.rfftn(mesh)
         B, w = self._bhalf(box)
         c = ELEC_FACTOR * (2.0 * math.pi) / (box[0] * box[1] * box[2])
@@ -279,28 +280,32 @@ class PmeRecip:
         return self._ik_grids(B.to(Sk.dtype) * Sk, box,
                               2.0 * c * int(np.prod(self.cfg.kmax)), pos.dtype)
 
-    def energy_forces(self, pos, box, gather=None):
+    def energy_forces(self, pos, box, gather=None, order_idx=None):
         """(energy, forces (N, 3)) with `gather` ("ik" or "exact"; default
-        the constructor's)."""
-        return self._evaluate(pos, box, gather, False)
+        the constructor's). `order_idx`, atom ids in an order close in
+        space with every atom once (a cell list's slots, the columns' i
+        slots), lets the spread kernel sum nearby atoms in shared memory;
+        the result does not depend on it."""
+        return self._evaluate(pos, box, gather, False, order_idx)
 
-    def energy_forces_virial(self, pos, box, gather=None):
+    def energy_forces_virial(self, pos, box, gather=None, order_idx=None):
         """(energy, forces (N, 3), per-axis virial (3,)): the virial is
         -dE/ds_a of E(s pos, s box). Scaling leaves the fractional
         coordinates, so the mesh and |S(k)|^2 and the b^2 factors, as they
         are; each mode's energy E_k = c w B(k) |S(k)|^2 moves through
         c ~ 1/V and exp(-k^2 / 4 alpha^2) / k^2 with k_a ~ 1/s_a:
         -dE/ds_a = sum_k E_k [1 - 2 k_a^2 (1/k^2 + 1/(4 alpha^2))], plus
-        the corrections' terms (`_corrections`)."""
-        return self._evaluate(pos, box, gather, True)
+        the corrections' terms (`_corrections`). `order_idx` as for
+        `energy_forces`."""
+        return self._evaluate(pos, box, gather, True, order_idx)
 
-    def _evaluate(self, pos, box, gather, with_virial):
+    def _evaluate(self, pos, box, gather, with_virial, order_idx=None):
         gather = self.gather if gather is None else gather
         if gather not in GATHERS:
             raise ValueError(f"gather={gather!r} (want one of {GATHERS})")
         box = self._box(box, pos)
         q = self.charges.to(pos.dtype)
-        e_recip, Sk, B, c = self._mesh_energy(pos, box, q)
+        e_recip, Sk, B, c = self._mesh_energy(pos, box, q, order_idx)
         scale = 2.0 * c * int(np.prod(self.cfg.kmax))
         BS = B.to(Sk.dtype) * Sk
         if gather == "ik":

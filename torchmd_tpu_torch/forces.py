@@ -219,12 +219,10 @@ class Forces:
         self._bonded_plan = plan
 
         nb = None
-        if self._cell_kernel is not None:
-            kern = self._cell_kernel
-
+        kern = self._cell_kernel
+        if kern is not None:
             def nb(pos, box, cl):
-                return kern.energy_forces(
-                    pos, box, kern.build(pos, box) if cl is None else cl)
+                return kern.energy_forces(pos, box, cl)
         elif self.has_nb and ffp.nb_mask is not None:
             if self.use_kernels:
                 nb_data = _ops_nonbonded.prepare_nb_data(ffp)
@@ -245,10 +243,14 @@ class Forces:
 
         def nb_ef_one(pos, box, cl=None):
             """Nonbonded pairs (with `cl`, a prebuilt cell list, on the
-            cell path) plus the PME reciprocal term."""
+            cell path) plus the PME reciprocal term, whose spread follows
+            the neighbour structure's order of the atoms."""
+            if kern is not None and cl is None:
+                cl = kern.build(pos, box)
             pot, frc = nb(pos, box, cl)
             if rec is not None:
-                er, ef = rec.energy_forces(pos, box)
+                er, ef = rec.energy_forces(
+                    pos, box, order_idx=None if kern is None else kern.spread_order(cl))
                 pot = dict(pot)
                 add_energy(pot, "electrostatics", er)
                 frc = frc + ef

@@ -470,7 +470,8 @@ class Integrator:
         pot, frc, vir = kern.energy_forces_virial(p2, box, cl)
         epot = sum(pot.values())
         if rec is not None:
-            e_r, f_r, v_r = rec.energy_forces_virial(p2, box, self._npt_gather())
+            e_r, f_r, v_r = rec.energy_forces_virial(p2, box, self._npt_gather(),
+                                                     order_idx=kern.spread_order(cl))
             epot, frc, vir = epot + e_r, frc + f_r, vir + v_r
         if vsg:
             vir = vir - (frc * (p2 - tangent)).sum(0)

@@ -243,6 +243,11 @@ class CellKernel:
             new.clcfg = new.clcfg.with_capacity(new._occupancy_capacity(pos0))
         return new
 
+    def spread_order(self, cl: CellList):
+        """The atoms in space order for the PME spread: the cell list's
+        slots (each atom once; natoms = empty)."""
+        return cl.slots
+
     def energy_forces(self, pos, box, cl: CellList):
         from .ops import cell as _ops_cell
 

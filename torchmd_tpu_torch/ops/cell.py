@@ -34,7 +34,7 @@ import torch
 from ..potentials import LJ_FAMILY, add_energy, nonbonded_block_energy_forces
 from ..units import ELEC_FACTOR
 from . import _build
-from .nonbonded import atom_rows, make_kernel_cfg, supported_terms
+from .nonbonded import STATS, atom_rows, make_kernel_cfg, supported_terms
 
 # Kernel launches made by `cell_energy_forces` (one per call on CUDA).
 LAUNCHES = 0
@@ -43,8 +43,7 @@ MAX_CAPACITY = 1024  # csrc/cell.cu: slot ranks pack into 10 bits
 TILE = 32            # csrc/tile_pairs.cuh: atoms per tile
 SUB = 4              # csrc/cell.cu: sub-cells per cell edge (Morton order)
 FAR = 1e18           # csrc/tile_pairs.cuh: padding coordinate, empty-box bound
-NSTATS = 5           # csrc/tile_pairs.cuh Counters
-STATS = ("candidate_tile_pairs", "tile_pairs", "slot_pairs", "rounds", "lane_rounds")
+NSTATS = len(STATS)  # csrc/tile_pairs.cuh Counters
 STENCIL = tuple(itertools.product((-1, 0, 1), repeat=3))
 
 

@@ -7,7 +7,10 @@ Counterpart of `torchmd_tpu/ops/pallas_nonbonded.py`. The kernel
 and sqrt|eps| rows, or NBFIX A/B tables, with the polynomial switch), or
 repulsion, or repulsioncg, plus Coulomb (plain, reaction field or Ewald
 erfc); exclusions from an int8 mask, the cutoff on d^2, and a diagonal
-minimum-image wrap where a 0 box component disables that axis.
+minimum-image wrap where a 0 box component disables that axis. It walks
+32-atom tiles in the caller's order, culled by box; the exclusions reach
+it as `tile_exclusions` of the mask, made once per topology in
+`prepare_nb_data`.
 
 `nonbonded_energy_forces(data, cfg, pos, box)` runs the plain version
 for a CPU tensor and launches the kernel for a CUDA tensor; on a CUDA
@@ -27,11 +30,15 @@ from ..potentials import (LJ_FAMILY, add_energy, nonbonded_block_energy_forces,
                           rfa_constants, wrap_displacement)
 from . import _build
 
-# Kernel launches made by `nonbonded_energy_forces` (one per call on CUDA).
+# Kernel launches made by `nonbonded_energy_forces` (one per call on CUDA;
+# a call is two launches on the card: the prep pass and the walk).
 LAUNCHES = 0
 
-TILE = 128                # i atoms per CUDA block (csrc/nonbonded.cu TILE)
+TILE = 32                 # atoms per tile (csrc/tile_pairs.cuh TILE)
 REFERENCE_ROWS = 2048     # row block of the plain version (bounds memory)
+# the tile walk's counters (csrc/tile_pairs.cuh Counters), of every pair
+# kernel on the walk
+STATS = ("candidate_tile_pairs", "tile_pairs", "slot_pairs", "rounds", "lane_rounds")
 
 
 def make_kernel_cfg(cfg, pbc) -> dict:
@@ -65,7 +72,8 @@ def supported_terms(cfg) -> bool:
 
 
 class NBData(NamedTuple):
-    """Per-atom rows and the mask, prepared once per topology."""
+    """Per-atom rows, the mask and its tile form, prepared once per
+    topology."""
 
     natoms: int
     q: torch.Tensor                     # (N,) charges
@@ -75,6 +83,10 @@ class NBData(NamedTuple):
     mask: torch.Tensor                  # (N, N) int8, 1 = interacting pair
     lj_a: Optional[torch.Tensor] = None  # (T, T) NBFIX A table
     lj_b: Optional[torch.Tensor] = None  # (T, T) NBFIX B table
+    # `tile_exclusions(mask)`: what the kernel reads of the mask
+    excl_start: Optional[torch.Tensor] = None  # (ceil(N/32) + 1,) int32
+    excl_tile: Optional[torch.Tensor] = None   # (X,) int32
+    excl_bits: Optional[torch.Tensor] = None   # (X, 32) int32
 
 
 def atom_rows(ffp, dtype=None) -> dict:
@@ -102,10 +114,37 @@ def atom_rows(ffp, dtype=None) -> dict:
                 types=types.to(torch.int32).contiguous(), lj_a=lj_a, lj_b=lj_b)
 
 
+def tile_exclusions(mask):
+    """The zeros of the (N, N) mask by 32-atom tile pair, for the kernel:
+    (start, tile, bits). Tile pair (I, J) holds a zero when mask[i, j] == 0
+    for some i of tile I and j of tile J; for each i tile I, the J of such
+    pairs ascend in tile[start[I]:start[I + 1]], and bits[x, r] has bit k
+    set when mask[32 I + r, 32 J + k] == 0 (int32, two's complement), for
+    J = tile[x]. Exact for any mask, the diagonal included."""
+    n = int(mask.shape[0])
+    nt = -(-n // TILE)
+    pad = nt * TILE
+    zero = torch.zeros((pad, pad), dtype=torch.bool, device=mask.device)
+    zero[:n, :n] = mask == 0
+    blocks = zero.view(nt, TILE, nt, TILE)
+    ti, tj = blocks.any(dim=3).any(dim=1).nonzero(as_tuple=True)
+    weights = torch.bitwise_left_shift(
+        torch.ones(TILE, dtype=torch.int64, device=mask.device),
+        torch.arange(TILE, device=mask.device))
+    words = (blocks[ti, :, tj, :].to(torch.int64) * weights).sum(-1)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    start = torch.zeros(nt + 1, dtype=torch.int64, device=mask.device)
+    start.index_add_(0, ti + 1, torch.ones_like(ti))
+    return (torch.cumsum(start, 0).to(torch.int32), tj.to(torch.int32).contiguous(),
+            words.to(torch.int32).contiguous())
+
+
 def prepare_nb_data(ffp, dtype=None) -> NBData:
     """Kernel inputs from FFParams, on ffp's device, at `dtype` (default:
     the dtype of ffp.charges)."""
-    return NBData(mask=ffp.nb_mask.to(torch.int8).contiguous(),
+    mask = ffp.nb_mask.to(torch.int8).contiguous()
+    start, tile, bits = tile_exclusions(mask)
+    return NBData(mask=mask, excl_start=start, excl_tile=tile, excl_bits=bits,
                   **atom_rows(ffp, dtype))
 
 
@@ -155,22 +194,23 @@ class PairCfg(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "natoms", "ntypes", "lj_kind", "elec_kind", "use_cutoff",
-        "use_switch", "pbc", "nsplit")] + [(name, ctypes.c_float) for name in (
+        "use_switch", "pbc")] + [(name, ctypes.c_float) for name in (
             "cutoff2", "switch_dist", "inv_switch_width", "krf", "crf",
             "ewald_alpha", "elec_factor")]
 
 
 _P = ctypes.c_void_p
 _lib = None
-_sm_count: dict = {}
 
 
 def _library():
     global _lib
     if _lib is None:
         lib = _build.load("nonbonded")
-        lib.tmd_pair_energy_forces.argtypes = [_P] * 9 + [PairCfg] + [_P] * 5
+        lib.tmd_pair_energy_forces.argtypes = [_P] * 11 + [PairCfg] + [_P] * 5
         lib.tmd_pair_energy_forces.restype = ctypes.c_int
+        lib.tmd_pair_scratch_bytes.argtypes = [PairCfg]
+        lib.tmd_pair_scratch_bytes.restype = ctypes.c_longlong
         lib.tmd_error_string.argtypes = [ctypes.c_int]
         lib.tmd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -180,15 +220,6 @@ def _library():
 def build():
     """Compile and load the kernel library (done at first launch anyway)."""
     _library()
-
-
-def _num_splits(natoms: int, device) -> int:
-    """j-range splits so that the grid holds about two blocks per SM."""
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    ntiles = -(-natoms // TILE)
-    return max(1, min(ntiles, -(-2 * _sm_count[idx] // ntiles)))
 
 
 def _energy_dict(kcfg, e_lj, e_el):
@@ -201,17 +232,44 @@ def _energy_dict(kcfg, e_lj, e_el):
     return out
 
 
-def _launch(data: NBData, cfg, pos, box):
+def pair_cfg(kcfg, natoms, ntypes) -> PairCfg:
+    """The kernel's PairCfg from a `make_kernel_cfg` dict."""
+    lj_kind = (1 if kcfg["lj"] else 2 if kcfg["repulsion"]
+               else 3 if kcfg["repulsioncg"] else 0)
+    elec_kind = 0
+    if kcfg["elec"]:
+        elec_kind = (3 if kcfg["ewald_alpha"] is not None
+                     else 2 if kcfg["rfa"] and kcfg["cutoff"] is not None else 1)
+    cutoff, switch = kcfg["cutoff"], kcfg["switch"]
+    use_switch = switch is not None and cutoff is not None
+    return PairCfg(
+        natoms=natoms, ntypes=ntypes, lj_kind=lj_kind, elec_kind=elec_kind,
+        use_cutoff=int(cutoff is not None), use_switch=int(use_switch),
+        pbc=int(kcfg["pbc"]),
+        cutoff2=cutoff ** 2 if cutoff is not None else 0.0,
+        switch_dist=switch if use_switch else 0.0,
+        inv_switch_width=1.0 / (cutoff - switch) if use_switch else 0.0,
+        krf=kcfg["krf"], crf=kcfg["crf"], ewald_alpha=kcfg["ewald_alpha"] or 0.0,
+        elec_factor=kcfg["elec_factor"])
+
+
+def _launch(data: NBData, cfg, pos, box, stats=None):
     global LAUNCHES
     if not supported_terms(cfg):
         raise NotImplementedError(
             "the pair kernel takes at most one of lj/repulsion/repulsioncg")
-    n, dev, f32 = data.natoms, pos.device, torch.float32
+    n, dev, f32, i32 = data.natoms, pos.device, torch.float32, torch.int32
     _build.check_tensor(pos, "pos", f32, (n, 3), dev)
     for name in ("q", "sig", "eps"):
         _build.check_tensor(getattr(data, name), name, f32, (n,), dev)
-    _build.check_tensor(data.types, "types", torch.int32, (n,), dev)
-    _build.check_tensor(data.mask, "mask", torch.int8, (n, n), dev)
+    _build.check_tensor(data.types, "types", i32, (n,), dev)
+    if data.excl_start is None:
+        raise ValueError("NBData without its tile exclusions: use prepare_nb_data")
+    nt = -(-n // TILE)
+    nx = int(data.excl_tile.shape[0])
+    _build.check_tensor(data.excl_start, "excl_start", i32, (nt + 1,), dev)
+    _build.check_tensor(data.excl_tile, "excl_tile", i32, (nx,), dev)
+    _build.check_tensor(data.excl_bits, "excl_bits", i32, (nx, TILE), dev)
     ntypes = 0
     if data.lj_a is not None:
         ntypes = int(data.lj_a.shape[0])
@@ -219,32 +277,13 @@ def _launch(data: NBData, cfg, pos, box):
         _build.check_tensor(data.lj_b, "lj_b", f32, (ntypes, ntypes), dev)
     if box is not None:
         _build.check_tensor(box, "box", f32, (3,), dev)
+    if stats is not None:
+        _build.check_tensor(stats, "stats", torch.int64, (len(STATS),), dev)
 
     kcfg = make_kernel_cfg(cfg, box is not None)
-    lj_kind = (1 if kcfg["lj"] else 2 if kcfg["repulsion"]
-               else 3 if kcfg["repulsioncg"] else 0)
-    elec_kind = 0
-    if kcfg["elec"]:
-        elec_kind = (3 if kcfg["ewald_alpha"] is not None
-                     else 2 if kcfg["rfa"] and kcfg["cutoff"] is not None else 1)
-    use_switch = kcfg["switch"] is not None and kcfg["cutoff"] is not None
-    nsplit = _num_splits(n, dev)
-    c = PairCfg(
-        natoms=n, ntypes=ntypes, lj_kind=lj_kind, elec_kind=elec_kind,
-        use_cutoff=int(kcfg["cutoff"] is not None), use_switch=int(use_switch),
-        pbc=int(box is not None), nsplit=nsplit,
-        cutoff2=(kcfg["cutoff"] ** 2 if kcfg["cutoff"] is not None else 0.0),
-        switch_dist=kcfg["switch"] if use_switch else 0.0,
-        inv_switch_width=(1.0 / (kcfg["cutoff"] - kcfg["switch"])
-                          if use_switch else 0.0),
-        krf=kcfg["krf"], crf=kcfg["crf"],
-        ewald_alpha=kcfg["ewald_alpha"] or 0.0,
-        elec_factor=kcfg["elec_factor"],
-    )
+    c = pair_cfg(kcfg, n, ntypes)
     lib = _library()
-    nblocks = -(-n // TILE) * nsplit
-    fpart = torch.empty((nsplit, n, 3), dtype=f32, device=dev)
-    epart = torch.empty((nblocks, 2), dtype=torch.float64, device=dev)
+    scratch = torch.empty(lib.tmd_pair_scratch_bytes(c), dtype=torch.uint8, device=dev)
     forces = torch.empty((n, 3), dtype=f32, device=dev)
     energies = torch.empty(2, dtype=f32, device=dev)
 
@@ -253,9 +292,9 @@ def _launch(data: NBData, cfg, pos, box):
 
     err = lib.tmd_pair_energy_forces(
         ptr(pos), ptr(data.q), ptr(data.sig), ptr(data.eps), ptr(data.types),
-        ptr(data.lj_a), ptr(data.lj_b), ptr(data.mask), ptr(box), c,
-        ptr(fpart), ptr(epart), ptr(forces), ptr(energies),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr(data.lj_a), ptr(data.lj_b), ptr(data.excl_start), ptr(data.excl_tile),
+        ptr(data.excl_bits), ptr(box), c, ptr(scratch), ptr(forces), ptr(energies),
+        ptr(stats), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"pair kernel launch failed: {lib.tmd_error_string(err).decode()}")
@@ -263,12 +302,14 @@ def _launch(data: NBData, cfg, pos, box):
     return _energy_dict(kcfg, energies[0], energies[1]), forces
 
 
-def nonbonded_energy_forces(data: NBData, cfg, pos, box=None):
+def nonbonded_energy_forces(data: NBData, cfg, pos, box=None, stats=None):
     """pos: (N, 3); box: (3,) diagonal tensor or None (no PBC). Returns
     ({term: 0-dim energy tensor}, forces (N, 3)). A CPU tensor runs the
-    plain version; a CUDA tensor launches the kernel (f32 only) or raises."""
+    plain version; a CUDA tensor launches the kernel (f32 only) or raises.
+    `stats`, an int64 (5,) card tensor, gains the walk's counters
+    (STATS)."""
     if pos.device.type == "cuda":
-        return _launch(data, cfg, pos, box)
+        return _launch(data, cfg, pos, box, stats)
     if pos.device.type == "cpu":
         return pair_terms_reference(data, cfg, pos, box)
     raise ValueError(f"no pair kernel for device {pos.device}")

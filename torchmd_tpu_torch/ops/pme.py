@@ -15,7 +15,11 @@ with dphi_a the three spectral-derivative grids of the convolved potential
 
 `pme_spread` / `pme_gather_ik` run the plain version for a CPU tensor and
 launch the kernel (`csrc/pme.cu`) for a CUDA tensor; on a CUDA tensor
-they launch or raise.
+they launch or raise. The spread takes an optional order of the atoms in
+space (`order_idx`, e.g. a cell list's slots), along which the kernel sums
+chunks of nearby atoms in shared memory first; without one the kernel
+adds each atom's taps straight to the mesh. The function does not depend
+on it.
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ SPREAD_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 
 ORDERS = (4, 6)
+CHUNK = 512      # order entries per spread block at most (csrc/pme.cu CHUNK)
+SPREAD_STATS = ("global_atomics", "brick_chunks", "direct_chunks",
+                "charged_atoms")  # the spread's counters (`stats=`)
 
 
 def bspline_weights(frac, n):
@@ -87,9 +94,11 @@ def tap_products(q, w):
 # Plain PyTorch versions
 # ----------------------------------------------------------------------
 
-def spread_reference(pos, q, box, kmesh, order):
+def spread_reference(pos, q, box, kmesh, order, order_idx=None):
     """Plain version of the spread kernel: one scatter-add of the N*p^3
-    tap products. Returns the (Kx, Ky, Kz) mesh at pos's dtype."""
+    tap products. Returns the (Kx, Ky, Kz) mesh at pos's dtype. The
+    atoms' order (`order_idx`) changes only the kernel's schedule: it is
+    not read here."""
     w, flat = spline_taps(pos, box, kmesh, order)
     mesh = torch.zeros(kmesh[0] * kmesh[1] * kmesh[2], dtype=pos.dtype,
                        device=pos.device)
@@ -115,7 +124,7 @@ class PmeCfg(ctypes.Structure):
     """Mirror of `struct PmeCfg` in csrc/pme.cu."""
 
     _fields_ = [(name, ctypes.c_int) for name in
-                ("natoms", "kx", "ky", "kz", "order")]
+                ("natoms", "kx", "ky", "kz", "order", "rows", "width", "nsub")]
 
 
 _P = ctypes.c_void_p
@@ -126,7 +135,7 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load("pme")
-        lib.tmd_pme_spread.argtypes = [_P] * 3 + [PmeCfg] + [_P] * 2
+        lib.tmd_pme_spread.argtypes = [_P] * 4 + [PmeCfg] + [_P] * 3
         lib.tmd_pme_spread.restype = ctypes.c_int
         lib.tmd_pme_gather_ik.argtypes = [_P] * 3 + [PmeCfg] + [_P] * 5
         lib.tmd_pme_gather_ik.restype = ctypes.c_int
@@ -157,19 +166,47 @@ def _check(err, what):
             f"{what} kernel launch failed: {_library().tmd_error_string(err).decode()}")
 
 
-def pme_spread(pos, q, box, kmesh, order):
-    """pos (N, 3), q (N,), box (3,) diagonal -> the (Kx, Ky, Kz) mesh. A
-    CPU tensor runs the plain version; a CUDA tensor launches the spread
-    kernel (f32 only) or raises."""
+def spread_rows(order_idx):
+    """(rows, width, nsub) of the spread's order: a (rows, width) table of
+    atom ids, or a flat one (one row), each row cut into nsub chunks of at
+    most CHUNK entries; (0, 0, 0) for the input order (None), where the
+    kernel takes a thread an atom."""
+    if order_idx is None:
+        return 0, 0, 0
+    if order_idx.dim() == 1:
+        rows, width = 1, int(order_idx.shape[0])
+    else:
+        rows, width = (int(v) for v in order_idx.shape)
+    return rows, width, max(1, -(-width // CHUNK))
+
+
+def pme_spread(pos, q, box, kmesh, order, order_idx=None, stats=None):
+    """pos (N, 3), q (N,), box (3,) diagonal -> the (Kx, Ky, Kz) mesh.
+    `order_idx`: None, or int32 atom ids, flat or (rows, width), in which
+    consecutive entries are atoms close in space and ids >= N are padding;
+    every atom must appear exactly once. A CPU tensor runs the plain
+    version (which ignores the order); a CUDA tensor launches the spread
+    kernel (f32 only) or raises. `stats`, an int64 (4,) card tensor, gains
+    the kernel's counters (SPREAD_STATS)."""
     global SPREAD_LAUNCHES
     if pos.device.type == "cpu":
-        return spread_reference(pos, q, box, kmesh, order)
+        return spread_reference(pos, q, box, kmesh, order, order_idx)
     if pos.device.type != "cuda":
         raise ValueError(f"no PME spread kernel for device {pos.device}")
     cfg = _checked_cfg(pos, q, box, kmesh, order)
+    if order_idx is not None:
+        if order_idx.dim() not in (1, 2):
+            raise ValueError(f"order_idx has shape {tuple(order_idx.shape)}, want 1-D or 2-D")
+        _build.check_tensor(order_idx, "order_idx", torch.int32, tuple(order_idx.shape),
+                            pos.device)
+    cfg.rows, cfg.width, cfg.nsub = spread_rows(order_idx)
+    if stats is not None:
+        _build.check_tensor(stats, "stats", torch.int64, (len(SPREAD_STATS),), pos.device)
     mesh = torch.empty(tuple(kmesh), dtype=torch.float32, device=pos.device)
     _check(_library().tmd_pme_spread(
-        pos.data_ptr(), q.data_ptr(), box.data_ptr(), cfg, mesh.data_ptr(),
+        pos.data_ptr(), q.data_ptr(), box.data_ptr(),
+        None if order_idx is None else order_idx.data_ptr(), cfg, mesh.data_ptr(),
+        None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(pos.device).cuda_stream), "PME spread")
     SPREAD_LAUNCHES += 1
     return mesh

@@ -25,11 +25,17 @@ The dense pair, cell and column kernels walk 32-atom tiles
 queue that runs the pair math on full warps; their timings print the
 walk's counters (candidate and surviving tile pairs, visited slot pairs,
 the share of active lanes in the pair math) beside the times of the
-kernels they replaced (EARLIER_MS). The PME spread sums chunks of nearby
-atoms (the NVT path's cell-list order, the NPT path's column order) in
-shared-memory bricks before its global atomics; its checks print its
-counters (global atomics, chunks summed in a brick and straight to the
-mesh) in every order.
+kernels they replaced (EARLIER_MS). The cell kernel reads NBFIX A/B
+tables by type pair, and the pair kernels take a term set with several
+LJ-family terms in one launch per such term. The PME spread sums chunks
+of nearby atoms (the NVT path's cell-list order, the NPT path's column
+order) in shared-memory bricks before its global atomics; its checks
+print its counters (global atomics, chunks summed in a brick and straight
+to the mesh) in every order. The ik gather takes a thread an atom and
+skips zero charges (its counters: charged and zero-charge atoms). The
+bonded kernel sums each block's rows over its atom window in shared
+memory and flushes it with 16-byte atomics; its check prints its
+counters.
 
 Phases (each prints lines; any failure raises and exits non-zero):
   1. device: require CUDA, print the card's name and power limit;
@@ -38,13 +44,18 @@ Phases (each prints lines; any failure raises and exits non-zero):
      registers, spills and shared memory for each kernel;
   3. kernels: each kernel (f32) against its plain PyTorch version (f64) on
      the card at the Pallas bars, on several cases (the dense pair kernel
-     also with a random mask, in a random atom order and without a cutoff,
-     and twice for bitwise-equal forces; the spread in the cell, column,
-     input and a random order, and in the cell and a random order on a
-     mesh whose Kz % 4 != 0, ODD_MESH; the dense-PME path, DENSE_PME_N^3
-     waters on Forces defaults, its spread in the input order against
-     plain and timed beside the pair kernel and a whole evaluation); then
-     each kernel and
+     also with a random mask, in a random atom order, without a cutoff,
+     with lj + repulsion (two launches), and twice for bitwise-equal
+     forces; the bonded kernel also with every block added straight to the
+     forces, its counters against the plan's;
+     the cell kernel also through Forces(nbfix=True) with an NBFIX row
+     (its NBFIX instance) and with lj + repulsion (two launches); the
+     spread in the cell, column, input and a random order, and in the cell
+     and a random order on a mesh whose Kz % 4 != 0, ODD_MESH; the gather
+     twice for bitwise-equal forces, zero rows for zero charges; the dense-PME
+     path, DENSE_PME_N^3 waters on Forces defaults, its spread in the
+     input order against plain and timed beside the pair kernel and a
+     whole evaluation); then each kernel and
      its plain version timed at f32 at the main paths' shapes (CUDA events
      around each of 30 calls queued behind a sleep kernel, median: device
      time), and each kernel's bound (the least time the card could take
@@ -157,7 +168,15 @@ EARLIER_MS = {"cell": (1.2551, 1.2651), "cell_virial": (1.3489, 1.3594),
               "column": (1.4640, 1.4764),
               # the thread-per-row dense pair kernel on thrombin and the
               # thread-per-atom spread at the full box
-              "pair": (0.1413, 0.1417), "pme_spread": (0.0433, 0.0464)}
+              "pair": (0.1413, 0.1417), "pme_spread": (0.0433, 0.0464),
+              # the thread-per-row bonded kernel with global atomics and a
+              # finishing launch on thrombin, the thread-per-atom ik gather
+              # at the full box (PR 4's and PR 5's calls)
+              "bonded": (0.0217, 0.0233), "pme_gather": (0.0136, 0.0139)}
+# the NBFIX row of the water box's cell-kernel check, for the oxygens' LJ
+# type: eps 0.2 kcal/mol and Rmin 3.6 A (Lorentz-Berthelot gives 0.185
+# and 3.546)
+WATER_NBFIX = (0.2, 3.6)
 # the dense pair kernel's extra cases: thrombin with a seeded random mask
 # (the topology's exclusions and RANDOM_MASK_ZEROS of the other pairs,
 # symmetric) and in
@@ -405,6 +424,8 @@ def _kernel_cases():
                  "repulsion"]
     _, rep_par = load_amber("prod_alanine_dipeptide_amber", "input.coor",
                             terms=rep_terms)
+    _, ljrep_par = load_amber("prod_alanine_dipeptide_amber", "input.coor",
+                              terms=TERMS + ["repulsion"])
     ala_pos = ala_mol.coords[:, :, 0]
     ala_box = ala_mol.box[:, 0]
     # NBFIX: Lorentz-Berthelot tables with one pair perturbed
@@ -425,6 +446,10 @@ def _kernel_cases():
          dict(cutoff=9.0, terms=rep_terms), None, None),
         ("alanine-nbfix", ala_par, ala_pos, ala_box,
          dict(cutoff=9.0, switch_dist=7.5, rfa=True), None, (A, B)),
+        # two LJ-family terms: two launches of the pair kernel
+        ("alanine-lj-repulsion", ljrep_par, ala_pos, ala_box,
+         dict(cutoff=9.0, switch_dist=7.5, rfa=True, terms=TERMS + ["repulsion"]), None,
+         None),
     ]
 
 
@@ -538,22 +563,30 @@ def phase_kernels():
     errs = {"pair": 0.0, "bonded": 0.0}
     timing_inputs = None
     for name, c in dense_pair_cases():
+        n0 = kn.LAUNCHES
         pot_k, f_k = kn.nonbonded_energy_forces(c["d32"], c["cfg"], c["p32"], c["b32"])
+        launches = kn.LAUNCHES - n0
         pot_p, f_p = kn.pair_terms_reference(c["d64"], c["cfg"], c["p64"], c["b64"])
         torch.cuda.synchronize()
         e_pair = _compare(f"{name}/pair", pot_k, f_k, pot_p, f_p)
+        require(launches == len(kn.launch_cfgs(c["cfg"])), (name, "pair launches", launches))
         errs["pair"] = max(errs["pair"], e_pair)
-        fields = dict(excluded_tile_pairs=int(c["d32"].excl_tile.shape[0]))
+        fields = dict(pair_launches=launches,
+                      excluded_tile_pairs=int(c["d32"].excl_tile.shape[0]))
         if c["ffp32"] is not None:
-            plan32 = kb.build_bonded_kernel_plan(c["ffp32"], c["cfg"])
             plan64 = kb.build_bonded_kernel_plan(c["ffp64"], c["cfg"])
-            pot_k, f_k = kb.bonded_energy_forces(plan32, c["p32"], c["b32"])
             pot_p, f_p = kb.bonded_reference(plan64, c["p64"], c["b64"])
             torch.cuda.synchronize()
-            fields["bonded_max_abs_err"] = _compare(f"{name}/bonded", pot_k, f_k, pot_p, f_p)
-            errs["bonded"] = max(errs["bonded"], fields["bonded_max_abs_err"])
-            if name == "thrombin":
-                timing_inputs = (c["d32"], c["cfg"], c["p32"], plan32)
+            # the shipped plan, and no window: every block straight to the forces
+            for wcap in (kb.WCAP, 0):
+                plan32 = kb.build_bonded_kernel_plan(c["ffp32"], c["cfg"], wcap=wcap)
+                pot_k, f_k = bonded_walk(name, plan32, c["p32"], c["b32"])
+                err = _compare(f"{name}/bonded/wcap={wcap}", pot_k, f_k, pot_p, f_p)
+                errs["bonded"] = max(errs["bonded"], err)
+                if wcap == kb.WCAP:
+                    fields["bonded_max_abs_err"] = err
+                    if name == "thrombin":
+                        timing_inputs = (c["d32"], c["cfg"], c["p32"], plan32)
         log("kernels", case=name, natoms=c["par"].natoms, pair_max_abs_err=e_pair, **fields)
     d32, cfg, p32, plan32 = timing_inputs
     runs = [kn.nonbonded_energy_forces(d32, cfg, p32) for _ in range(2)]
@@ -588,7 +621,8 @@ def phase_kernels():
             plain_ms=cuda_events_ms(lambda: kb.bonded_reference(plan32, p32)),
             bound=bound(rows * (16 + 12) + tensor_bytes(p32, p32),
                         sum(f.count * BONDED_ROW_FLOPS[f.kind] for f in plan32.families)),
-            work=f"rows={rows}"),
+            work=(f"rows={rows} rows_per_block={plan32.rows} blocks={len(plan32.windows)} "
+                  f"window_cap_atoms={plan32.wcap}")),
     }
     for k, v in out.items():
         v["max_abs_err"] = errs[k]
@@ -596,7 +630,33 @@ def phase_kernels():
             plain_ms=f"{v['plain_ms']:.4f}", speedup=f"{v['plain_ms'] / v['ms']:.2f}",
             bound_ms=f"{v['bound'][0]:.5f}", bound_by=v["bound"][1], work=v["work"])
     log_earlier("pair", out["pair"]["ms"])
+    log_earlier("bonded", out["bonded"]["ms"])
     return out
+
+
+def bonded_walk(case, plan, p32, b32):
+    """The bonded kernel once with a fresh counter tensor: logs its
+    counters (`[bonded_walk]`) and holds the rows and blocks to the plan's
+    windows (`ops.bonded.window_stats`); returns (energies, forces)."""
+    import torch
+
+    from torchmd_tpu_torch.ops import bonded as kb
+
+    stats = torch.zeros(len(kb.STATS), dtype=torch.int64, device=DEVICE)
+    n0 = kb.LAUNCHES
+    pot, frc = kb.bonded_energy_forces(plan, p32, b32, stats=stats)
+    torch.cuda.synchronize()
+    got = dict(zip(kb.STATS, (int(v) for v in stats.tolist())))
+    want = kb.window_stats(plan)
+    log("bonded_walk", case=case, rows_per_block=plan.rows, window_cap_atoms=plan.wcap,
+        widest_window=int(plan.windows[:, 1].max()), **got)
+    require(kb.LAUNCHES == n0 + 1, (case, "bonded launches"))
+    require(all(got[k] == v for k, v in want.items()), (case, "bonded counters", got, want))
+    # a windowed block flushes each touched 16-byte group once at most;
+    # a direct row makes 3 atomics per atom
+    require(got["global_atomics"] <= 3 * 4 * got["window_rows"] + 12 * got["direct_rows"],
+            (case, "bonded atomics", got))
+    return pot, frc
 
 
 def _water_forces(par, cutoff, precision="single", plain=False, gather=None,
@@ -715,10 +775,87 @@ def spread_checks(name, c, orders, kmesh):
     return worst
 
 
+def gather_checks(name, c, grids32, grids64):
+    """The ik gather kernel on a water_case against plain f64 at the
+    Pallas force bar, its forces bitwise equal over two runs, every charged
+    atom gathered and every zero-charge atom given its zero row. Logs a
+    [gather_walk] line; returns the force error."""
+    import torch
+
+    from torchmd_tpu_torch.ops import pme as kp
+
+    rec32, rec64 = c["f32"]._ewald, c["f64"]._ewald
+    order, q32, natoms = rec32.ORDER, rec32.charges, c["par"].natoms
+    f_p = kp.gather_ik_reference(c["p64"], rec64.charges, c["b64"], grids64, order)
+    stats = torch.zeros(len(kp.GATHER_STATS), dtype=torch.int64, device=DEVICE)
+    f_k = kp.pme_gather_ik(c["p32"], q32, c["b32"], grids32, order, stats=stats)
+    again = kp.pme_gather_ik(c["p32"], q32, c["b32"], grids32, order)
+    torch.cuda.synchronize()
+    err = _compare(f"{name}/pme_gather", {}, f_k, {}, f_p)
+    require(torch.equal(f_k, again), (name, "gather forces differ between two runs"))
+    stats = dict(zip(kp.GATHER_STATS, (int(v) for v in stats.tolist())))
+    charged = int((q32 != 0).sum())
+    log("gather_walk", case=name, mesh=grids32[0].shape[0], order=order, max_abs_err=err,
+        bitwise_repeat=True, **stats)
+    require(stats == {"charged_atoms": charged, "zero_charge_atoms": natoms - charged},
+            (name, "gather atoms", stats))
+    require(not bool(f_k[q32 == 0].any()), (name, "a zero-charge atom has a gather force"))
+    return err
+
+
+def pair_variants(name, c):
+    """The cell kernel through Forces defaults on a water_case's box: with
+    an NBFIX row (WATER_NBFIX, Forces(nbfix=True, kernel="cell"): the
+    kernel's NBFIX instance) and with lj + repulsion (one launch per
+    LJ-family term), each against the plain f64 path at the Pallas bars.
+    Logs a [pair_variants] line each; returns the largest force error."""
+    import copy
+
+    import torch
+
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.neighbors import CellKernel
+    from torchmd_tpu_torch.ops import cell as kc
+    from torchmd_tpu_torch.ops import nonbonded as kn
+
+    nbfix_par = copy.copy(c["par"])
+    ow = int(c["f64"].ffparams.mapped_atom_types[0])  # site 0 is an oxygen
+    nbfix_par.nbfix = np.array([(ow, ow) + WATER_NBFIX], np.float64)
+    worst = 0.0
+    for vname, par, kw in (("nbfix", nbfix_par, dict(nbfix=True, terms=WATER_TERMS)),
+                           ("lj+repulsion", c["par"], dict(terms=WATER_TERMS + ["repulsion"]))):
+        kw = dict(kw, cutoff=c["cutoff"], kernel="cell", device=DEVICE,
+                  elec="ewald" if par.natoms >= 4096 else "pme")
+        f32 = Forces(par, precision="single", **kw)
+        f64 = Forces(par, precision="double", plain=True, **kw)
+        f32.prepare(c["raw"].float()[None], c["box_np"])
+        f64.prepare(c["raw"][None], c["box_np"])
+        kern = f32._cell_kernel
+        require(type(kern) is CellKernel, (name, vname, type(kern).__name__))
+        require((kern.data.lj_a is not None) == (vname == "nbfix"), (name, vname, "tables"))
+        cl = kern.build(c["p32"], c["b32"])
+        n0 = kc.LAUNCHES
+        pot_k, f_k = kc.cell_energy_forces(kern.data, kern.cfg, kern.clcfg, cl, c["p32"], c["b32"])
+        launches = kc.LAUNCHES - n0
+        pot_p, f_p = kc.cell_reference(f64._cell_kernel.data, kern.cfg, kern.clcfg,
+                                       cl._replace(ref_pos=cl.ref_pos.double()), c["p64"],
+                                       c["b64"])
+        torch.cuda.synchronize()
+        err = _compare(f"{name}/cell/{vname}", pot_k, f_k, pot_p, f_p)
+        require(launches == len(kn.launch_cfgs(kern.cfg)), (name, vname, "launches", launches))
+        log("pair_variants", case=name, variant=vname, cell_launches=launches,
+            terms=",".join(sorted(pot_k)), max_abs_err=err,
+            **{f"E_{k}": float(v) for k, v in pot_k.items()})
+        worst = max(worst, err)
+        del f32, f64
+    return worst
+
+
 def phase_water_kernels():
     """The cell, PME spread and PME ik-gather kernels against their plain
     f64 versions on the 216-water box (order 6) and the full box (order
-    4); the timings and bounds at the full box."""
+    4), the cell kernel also with NBFIX tables and with lj + repulsion, the
+    spread in several orders; the timings and bounds at the full box."""
     import torch
 
     from torchmd_tpu_torch.ops import cell as kc
@@ -740,7 +877,7 @@ def phase_water_kernels():
         e_cell = _compare(f"{name}/cell", pot_k, f_k, pot_p, f_p)
 
         kmesh, order = rec32.cfg.kmax, rec32.ORDER
-        q32, q64 = rec32.charges, rec64.charges
+        q32 = rec32.charges
         spread_orders = water_spread_orders(c)
         e_spread = spread_checks(name, c, spread_orders, kmesh)
         e_spread = max(e_spread, spread_checks(
@@ -748,10 +885,8 @@ def phase_water_kernels():
 
         grids64 = rec64.ik_grids(p64, b64)
         grids32 = [g.float().contiguous() for g in grids64]
-        fg_k = kp.pme_gather_ik(p32, q32, b32, grids32, order)
-        fg_p = kp.gather_ik_reference(p64, q64, b64, grids64, order)
-        torch.cuda.synchronize()
-        e_gather = _compare(f"{name}/pme_gather", {}, fg_k, {}, fg_p)
+        e_gather = gather_checks(name, c, grids32, grids64)
+        e_cell = max(e_cell, pair_variants(name, c))
         for k, e in (("cell", e_cell), ("pme_spread", e_spread), ("pme_gather", e_gather)):
             errs[k] = max(errs[k], e)
         log("water_kernels", case=name, natoms=par.natoms, ncells=clcfg.ncells,
@@ -795,13 +930,16 @@ def phase_water_kernels():
             work=(f"taps={par.natoms * order**3} order_idx=cell_slots "
                   f"order_bytes={tensor_bytes(slots)} input_order_ms={unordered_ms:.4f}"))
         log_earlier("pme_spread", out["pme_spread"]["ms"])
+        charged = int((q32 != 0).sum())
         out["pme_gather"] = dict(
             ms=cuda_events_ms(lambda: kp.pme_gather_ik(p32, q32, b32, grids32, order)),
             plain_ms=cuda_events_ms(
                 lambda: kp.gather_ik_reference(p32, q32, b32, grids32, order)),
+            # the work of the charged atoms: a zero-charge atom's row is 0
             bound=bound(tensor_bytes(p32, q32, p32) + 3 * mesh_bytes,
-                        par.natoms * (taps + 7 * order**3)),
-            work=f"taps={par.natoms * order**3}")
+                        charged * (taps + 7 * order**3)),
+            work=f"taps={charged * order**3} charged_atoms={charged}")
+        log_earlier("pme_gather", out["pme_gather"]["ms"])
     for k, v in out.items():
         v["max_abs_err"] = errs[k]
         log("timing", kernel=k, shapes="water-full", ms=f"{v['ms']:.4f}",

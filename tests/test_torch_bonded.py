@@ -11,6 +11,13 @@ On the CPU the kernel wrapper runs the kernel's plain PyTorch version:
 Cases: alanine with PBC, the ligand with no box, a multi-term dihedral,
 and a seeded random topology with PBC, multi-term maps, CHARMM impropers
 and bonds beyond the cutoff.
+
+The kernel plan gives each block of rows its atom window (the span of
+the atoms its rows touch, which the kernel sums in shared memory): every
+row's atoms lie in it, and blocks whose window exceeds the cap are
+counted as adding straight to the forces (`gpu`: the kernel against the
+plain version on thrombin and alanine with and without the windows, its
+counters against the plan's).
 """
 
 from __future__ import annotations
@@ -270,8 +277,8 @@ def test_kernel_plan_layout():
                "dihedrals": len(np.asarray(jffp.dihedrals.map_term))}
     for f in plan.families:
         assert f.count == nassign[f.name]
-        assert f.row0 % kb.BLOCK == 0 and f.nblocks * kb.BLOCK >= f.count
-        rows = plan.idx[f.row0:f.row0 + f.nblocks * kb.BLOCK].numpy()
+        assert f.row0 % plan.rows == 0 and f.nblocks * plan.rows >= f.count
+        rows = plan.idx[f.row0:f.row0 + f.nblocks * plan.rows].numpy()
         lo = rows[:f.count, :kb.ARITY[f.kind]].min(axis=1)
         assert np.all(np.diff(lo) >= 0)
         assert np.all(rows[f.count:] == -1)
@@ -284,6 +291,62 @@ def test_kernel_plan_layout():
     np.testing.assert_allclose(
         plan.par[f.row0].numpy(),
         [a / scnb, b / scnb, ELEC_FACTOR * q[i] * q[j] / scee], rtol=1e-12)
+
+
+def _thrombin_kernel_inputs(dtype, device="cpu"):
+    """(port FFParams, cfg, positions) of thrombin through the port's own
+    front end (7 terms, cutoff 7.3 A, reaction field)."""
+    from torchmd_tpu_torch import Forces
+    from torchmd_tpu_torch.forcefields.ff_amber import AmberForcefield
+    from torchmd_tpu_torch.io import Molecule as TMolecule
+    from torchmd_tpu_torch.parameters import Parameters as TParameters
+
+    d = os.path.join(DATA_DIR, "thrombin-ligand-amber")
+    mol = TMolecule(os.path.join(d, "structure.prmtop"))
+    mol.read(os.path.join(d, "structure.pdb"))
+    par = TParameters(AmberForcefield(mol, os.path.join(d, "structure.prmtop")), mol, TERMS,
+                      precision="double" if dtype == torch.float64 else "single")
+    f = Forces(par, terms=TERMS, cutoff=7.3, rfa=True, device=device, kernel="dense")
+    pos = torch.as_tensor(mol.coords[:, :, 0], dtype=dtype, device=device)
+    return f.ffparams, f.config, pos
+
+
+@pytest.mark.parametrize("cap", ["median", "zero"])
+def test_kernel_plan_windows(cap):
+    """Thrombin's plan: every row's atoms lie in its block's window
+    [first, first + atoms), which is tight; the kernel's shared window is
+    the widest window up to the cap, and the blocks over a cap (the median
+    window, or 0: every block) are the ones counted as adding straight to
+    the forces. The plain version gives the same bits whatever the cap,
+    and with `out` adds into the caller's buffer."""
+    ffp, cfg, pos = _thrombin_kernel_inputs(torch.float64)
+    plan = kb.build_bonded_kernel_plan(ffp, cfg)
+    rows = plan.rows
+    idx = plan.idx.numpy().reshape(-1, rows, 4)
+    win = plan.windows.numpy()
+    assert win.shape == (idx.shape[0], 2)
+    for b in range(idx.shape[0]):
+        atoms = idx[b][idx[b] >= 0]
+        assert atoms.min() == win[b, 0] and atoms.max() == win[b, 0] + win[b, 1] - 1, b
+    assert plan.wcap == win[:, 1].max() <= kb.WCAP   # thrombin: every window fits
+    real = sum(f.count for f in plan.families)
+    assert kb.window_stats(plan) == {"window_rows": real, "direct_rows": 0,
+                                     "window_blocks": len(win), "direct_blocks": 0}
+    cap = int(np.median(win[:, 1])) if cap == "median" else 0
+    small = kb.build_bonded_kernel_plan(ffp, cfg, wcap=cap)
+    st = kb.window_stats(small)
+    over = win[:, 1] > cap
+    assert small.wcap == win[~over, 1].max(initial=0) <= cap
+    assert (st["window_blocks"], st["direct_blocks"]) == (int((~over).sum()), int(over.sum()))
+    assert st["window_rows"] + st["direct_rows"] == real and st["direct_rows"] > 0
+    with pytest.raises(ValueError, match="wcap"):
+        kb.build_bonded_kernel_plan(ffp, cfg, wcap=kb.WCAP + 1)
+    e0, f0 = kb.bonded_energy_forces(plan, pos)
+    e1, f1 = kb.bonded_energy_forces(small, pos)
+    assert torch.equal(f0, f1) and all(torch.equal(e0[k], e1[k]) for k in e0)
+    buf = torch.ones_like(pos)
+    e2, f2 = kb.bonded_energy_forces(plan, pos, out=buf)
+    assert f2 is buf and torch.allclose(f2, f0 + 1.0, rtol=0, atol=1e-9)
 
 
 def test_zero_force_constant_rows_leave_the_plan():
@@ -307,3 +370,31 @@ def test_zero_force_constant_rows_leave_the_plan():
     got, got_f = kb.bonded_energy_forces(plan, _t(pos, torch.float64),
                                          _t(box, torch.float64))
     _check(got, got_f, want, want_f, 1e-7, 1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wcap", [kb.WCAP, 0], ids=["window", "no-window"])
+@pytest.mark.parametrize("case", ["thrombin", "alanine-pbc"])
+def test_cuda_bonded_kernel_matches_plain(case, wcap):
+    """The bonded kernel against the plain f64 version at the Pallas bars
+    (5e-6 relative energy, 5e-5 of the largest force), its rows and
+    blocks counted as the plan sets them (`chip_smoke.bonded_walk`), its
+    energies bitwise equal over two runs, and with `out` adding into the
+    caller's buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import chip_smoke
+
+    c = dict(chip_smoke.dense_pair_cases())[case]
+    plan = kb.build_bonded_kernel_plan(c["ffp32"], c["cfg"], wcap=wcap)
+    want, want_f = kb.bonded_reference(kb.build_bonded_kernel_plan(c["ffp64"], c["cfg"]),
+                                       c["p64"], c["b64"])
+    got, got_f = chip_smoke.bonded_walk(case, plan, c["p32"], c["b32"])
+    _check({k: float(v) for k, v in got.items()}, got_f.cpu().double().numpy(),
+           {k: float(v) for k, v in want.items()}, want_f.cpu().numpy(), 5e-6, 5e-5)
+    again = kb.bonded_energy_forces(plan, c["p32"], c["b32"])[0]
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    buf = torch.ones_like(c["p32"])
+    _, added = kb.bonded_energy_forces(plan, c["p32"], c["b32"], out=buf)
+    assert added is buf
+    assert float((added - 1.0 - got_f).abs().max()) <= 1e-5 * float(got_f.abs().max())

@@ -19,7 +19,14 @@ Small size: the 216-water TIP4P/2005 box (864 sites, 19.5 A box, cutoff
     in `Integrator.step`, which redoes the chunk;
   - the per-axis pair virial (the MTK barostat's) of the plain version
     equals `neighbors.cell_nonbonded_energy_forces(..., with_virial=True)`
-    at f64 within 1e-9 relative, energies and forces unchanged by it.
+    at f64 within 1e-9 relative, energies and forces unchanged by it;
+  - with NBFIX A/B tables (Lorentz-Berthelot with one type pair
+    perturbed, as `test_torch_nonbonded._perturbed_tables` makes them) the
+    plain version equals the JAX f64 cell path per term within 1e-7;
+  - `Forces` with lj + repulsion on the cell route (one launch per
+    LJ-family term; plain versions here) equals the JAX `Forces` at f64
+    per term within 1e-7 (`gpu`: the cell kernel's NBFIX instance and two
+    launches for lj + repulsion against plain, through Forces).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_nonbonded import _perturbed_tables
 from test_torch_water import CUTOFF, TERMS, jittered, shared_velocities, water_box
 
 from torchmd_tpu import neighbors as jnb
@@ -49,19 +57,25 @@ CONFIGS = {
 }
 
 
-def _setup(name, precision="double"):
+def _setup(name, precision="double", nbfix=False):
+    """The 216-water box's JAX and port cell inputs; with `nbfix`, both
+    FFParams carry `_perturbed_tables` of the LJ rows."""
     jpar, tpar, coords, L = water_box()
     pos = jittered(coords, 7, 0.1)
     box = np.full(3, L)
     kw, edit = CONFIGS[name]
     jf = JaxForces(jpar, terms=TERMS, precision=precision, kernel="cell", **kw)
     cfg = jf.config._replace(**edit)
-    jk = jnb.CellKernel(jf.ffparams, cfg, jpar, box, pos0=pos)
     jdt = jnp.float64 if precision == "double" else jnp.float32
-    jpos, jbox = jnp.asarray(pos, jdt), jnp.asarray(box, jdt)
-    jcl = jk.build(jpos, jbox)
     tdt = torch.float64 if precision == "double" else torch.float32
     ffp = make_ffparams(tpar, dtype=tdt, device="cpu", dense_mask=False)
+    if nbfix:
+        A, B = _perturbed_tables(np.asarray(jf.ffparams.lj_params))
+        jf.ffparams = jf.ffparams._replace(lj_ab=(jnp.asarray(A, jdt), jnp.asarray(B, jdt)))
+        ffp = ffp._replace(lj_ab=(torch.as_tensor(A, dtype=tdt), torch.as_tensor(B, dtype=tdt)))
+    jk = jnb.CellKernel(jf.ffparams, cfg, jpar, box, pos0=pos)
+    jpos, jbox = jnp.asarray(pos, jdt), jnp.asarray(box, jdt)
+    jcl = jk.build(jpos, jbox)
     data = tcell.prepare_cell_data(ffp, interop.exclusion_table_from_numpy(jk.excl_table))
     port = (data, ForceTermConfig(**cfg._asdict()), interop.cell_config_from_numpy(jk.clcfg),
             interop.cell_list_from_numpy(jcl, dtype=tdt), torch.as_tensor(pos, dtype=tdt),
@@ -105,6 +119,43 @@ def test_plain_cell_virial_matches_jax_f64(name):
     assert np.abs(vir_t.numpy() - vir_j).max() <= 1e-9 * np.abs(vir_j).max()
     pot_0, f_0 = tcell.cell_reference(*port)
     assert torch.equal(f_0, f_t) and all(torch.equal(pot_0[k], pot_t[k]) for k in pot_t)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_plain_cell_nbfix_matches_jax_f64(name):
+    """NBFIX tables on the cell path: the plain version (and the wrapper,
+    which runs it on CPU tensors) against the JAX f64 cell path, which
+    applies the A/B tables by type pair."""
+    jf, cfg, jk, jcl, jpos, jbox, port, _ = _setup(name, nbfix=True)
+    assert port[0].lj_a is not None and port[0].lj_a.shape == (3, 3)
+    pot_j, f_j = jnb.cell_nonbonded_energy_forces(
+        jf.ffparams, cfg, jk.clcfg, jcl, jk.excl_table, jpos, jbox)
+    pot_t, f_t = tcell.cell_energy_forces(*port)
+    _assert_close(pot_t, f_t, pot_j, f_j, 1e-7, 1e-7)
+    # the tables change the answer: LJ differs from Lorentz-Berthelot's
+    pot_lb = tcell.cell_reference(*_setup(name)[6])[0]
+    assert abs(float(pot_lb["lj"]) - float(pot_t["lj"])) > 1e-3 * abs(float(pot_t["lj"]))
+
+
+def test_forces_lj_and_repulsion_on_the_cell_route_match_jax_f64():
+    """lj + repulsion through `Forces(kernel="cell")` on the kernel route
+    (two launches of the cell kernel's plain version, each term keyed by
+    itself) against the JAX `Forces` at f64, per term and forces."""
+    jpar, tpar, coords, L = water_box()
+    pos = jittered(coords, 7, 0.1)[None]
+    box = np.full((1, 3), L)
+    terms = TERMS + ["repulsion"]
+    kw = dict(terms=terms, precision="double", cutoff=CUTOFF, switch_dist=3.2, rfa=True,
+              kernel="cell")
+    jforces, tforces = np.zeros_like(pos), np.zeros_like(pos)
+    want = JaxForces(jpar, **kw).compute(pos, box, jforces, returnDetails=True)[0]
+    tf = Forces(tpar, device="cpu", **kw)
+    got = tf.compute(pos, box, tforces, returnDetails=True)[0]
+    assert isinstance(tf._cell_kernel, tnb.CellKernel) and tf.use_kernels
+    assert set(got) == set(want) and {"lj", "repulsion", "electrostatics"} <= set(got)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-7, abs=1e-7), k
+    assert np.abs(tforces - jforces).max() <= 1e-7 * max(1.0, np.abs(jforces).max())
 
 
 def test_plain_cell_f32_matches_pallas_interpret():
@@ -234,3 +285,45 @@ def test_cell_virial_kernel_on_cuda_matches_plain():
     _assert_close(pot_k, f_k.cpu(), pot_p, f_p.numpy(), 2e-5, 5e-5)
     err = (vir_k.cpu().double() - vir_p).abs()
     assert bool((err <= 2e-5 * torch.clamp(vir_p.abs(), min=1.0)).all()), (vir_k, vir_p)
+
+
+@pytest.mark.gpu
+def test_cell_kernel_nbfix_on_cuda_matches_plain():
+    """The cell kernel's NBFIX instance (tables by type pair) against the
+    plain f64 version on the 216-water box at the Pallas bars."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _, _, _, _, _, _, port, _ = _setup("ewald", nbfix=True)
+    data, cfg, clcfg, cl, pos, box = port
+    dev = torch.device("cuda")
+    data32 = tcell.CellData(**{k: (v.to(dev, torch.float32) if torch.is_tensor(v)
+                                   and v.is_floating_point() else
+                                   v.to(dev) if torch.is_tensor(v) else v)
+                               for k, v in data._asdict().items()})
+    cl32 = cl._replace(slots=cl.slots.to(dev), counts=cl.counts.to(dev),
+                       ref_pos=cl.ref_pos.to(dev, torch.float32),
+                       overflow=cl.overflow.to(dev))
+    n0 = tcell.LAUNCHES
+    pot_k, f_k = tcell.cell_energy_forces(data32, cfg, clcfg, cl32,
+                                          pos.to(dev, torch.float32),
+                                          box.to(dev, torch.float32))
+    pot_p, f_p = tcell.cell_reference(data, cfg, clcfg, cl, pos, box)
+    assert tcell.LAUNCHES == n0 + 1
+    _assert_close(pot_k, f_k.cpu(), pot_p, f_p.numpy(), 2e-5, 5e-5)
+
+
+@pytest.mark.gpu
+def test_forces_nbfix_and_lj_repulsion_on_cuda_match_plain():
+    """`Forces(nbfix=True, kernel="cell")` with an NBFIX row and `Forces`
+    with lj + repulsion build on the card (neither raises), take the cell
+    kernel, and match the plain f64 path at the Pallas bars
+    (`chip_smoke.pair_variants` on its 216-water box)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import chip_smoke
+
+    name, n, spacing, cutoff, jitter = chip_smoke.water_cases()[0]
+    c = chip_smoke.water_case(n, spacing, cutoff, jitter)
+    n0 = tcell.LAUNCHES
+    chip_smoke.pair_variants(name, c)
+    assert tcell.LAUNCHES == n0 + 3

@@ -11,9 +11,11 @@ tests pin that version (and the kernel inputs `prepare_nb_data` builds):
 Branches: RFA + switch + PBC, no box (plain Coulomb), Ewald erfc,
 repulsion, repulsioncg and NBFIX tables. `prepare_nb_data`'s tile form of
 the exclusions (what the kernel reads instead of the mask) holds the
-mask's zeros bit for bit. The CUDA kernel itself is held to the plain
-version by chip_smoke.py and the `gpu`-marked tests below (chip_smoke's
-cases, bitwise-repeatable forces).
+mask's zeros bit for bit. A term set with lj and repulsion takes one
+launch per LJ-family term (`launch_cfgs`): `Forces` on that route equals
+the JAX `Forces` at f64 per term. The CUDA kernel itself is held to the
+plain version by chip_smoke.py and the `gpu`-marked tests below
+(chip_smoke's cases, lj + repulsion, bitwise-repeatable forces).
 """
 
 from __future__ import annotations
@@ -144,6 +146,39 @@ def test_row_blocks_do_not_change_the_result(monkeypatch):
     for k in pot1:
         assert abs(float(pot1[k]) - float(pot2[k])) <= 1e-10 * abs(float(pot1[k]))
     assert float((f1 - f2).abs().max()) <= 1e-10
+
+
+def test_launch_cfgs_split_the_lj_family():
+    """One LJ-family term a launch: the first launch keeps the
+    electrostatics, each further LJ-family term launches alone."""
+    cfg = ForceTermConfig(terms=("bonds", "lj", "electrostatics", "repulsioncg", "repulsion"))
+    got = [c.terms for c in kn.launch_cfgs(cfg)]
+    assert got == [("bonds", "lj", "electrostatics"), ("repulsion",), ("repulsioncg",)]
+    one = cfg._replace(terms=("lj", "electrostatics"))
+    assert kn.launch_cfgs(one) == [one]
+    assert all(kn.supported_terms(c) for c in kn.launch_cfgs(cfg))
+
+
+def test_forces_lj_and_repulsion_on_the_kernel_route_match_jax_f64():
+    """Alanine with lj + repulsion through `Forces` on the kernel route
+    (the dense pair kernel's plain version, two launches) against the JAX
+    `Forces` at f64: per term and forces within 1e-7."""
+    from torchmd_tpu_torch import Forces
+
+    mol, ff, _ = load_system(os.path.join(DATA_DIR, "prod_alanine_dipeptide_amber"))
+    terms = ALL_TERMS + ["repulsion"]
+    par = Parameters(ff, mol, terms, precision="double")
+    pos, box = mol.coords[:, :, 0][None], mol.box[:, 0][None]
+    kw = dict(terms=terms, precision="double", cutoff=9.0, switch_dist=7.5, rfa=True)
+    jforces, tforces = np.zeros_like(pos), np.zeros_like(pos)
+    want = JaxForces(par, **kw).compute(pos, box, jforces, returnDetails=True)[0]
+    tf = Forces(par, device="cpu", **kw)
+    assert tf.use_kernels and tf._cell_kernel is None
+    got = tf.compute(pos, box, tforces, returnDetails=True)[0]
+    assert set(got) == set(want) and {"lj", "repulsion"} <= set(got)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-7, abs=1e-7), k
+    assert np.abs(tforces - jforces).max() <= 1e-7 * max(1.0, np.abs(jforces).max())
 
 
 def test_make_kernel_cfg_matches_jax():
@@ -328,3 +363,22 @@ def test_cuda_dense_walk_is_bitwise_repeatable():
                                   for _ in range(2))
     assert torch.equal(f_a, f_b)
     assert all(torch.equal(pot_a[k], pot_b[k]) for k in pot_a)
+
+
+@pytest.mark.gpu
+def test_cuda_lj_repulsion_matches_plain():
+    """lj + repulsion on the card: two launches of the dense pair kernel,
+    each term keyed by itself, against the plain f64 version at the
+    Pallas bars (chip_smoke's alanine-lj-repulsion case)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    c = _card_dense_case("alanine-lj-repulsion")
+    n0 = kn.LAUNCHES
+    pot_k, f_k = kn.nonbonded_energy_forces(c["d32"], c["cfg"], c["p32"], c["b32"])
+    assert kn.LAUNCHES == n0 + 2
+    pot_p, f_p = kn.pair_terms_reference(c["d64"], c["cfg"], c["p64"], c["b64"])
+    assert set(pot_k) == set(pot_p) == {"lj", "repulsion", "electrostatics"}
+    for k in pot_p:
+        assert abs(float(pot_k[k]) - float(pot_p[k])) <= 2e-5 * max(1.0, abs(float(pot_p[k]))), k
+    scale = max(1.0, float(f_p.abs().max()))
+    assert float((f_k.double() - f_p).abs().max()) <= 5e-5 * scale

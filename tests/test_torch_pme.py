@@ -25,7 +25,9 @@ PME order 6 on a 40^3 mesh) with seeded jitter.
     slots on the NVT path, the columns' i slots on the NPT path) hold
     every atom once, and `PmeRecip` gives the same energy and forces with
     and without an order (`gpu`: the spread kernel against plain f64 in
-    every order, chip_smoke.py's water boxes).
+    every order, chip_smoke.py's water boxes; the gather kernel against
+    plain f64, its forces bitwise equal over two runs, zero rows for the
+    zero-charge oxygens, orders 4 and 6).
 """
 
 from __future__ import annotations
@@ -298,6 +300,26 @@ def test_pme_recip_is_the_same_with_and_without_an_order():
         assert torch.equal(e0, e1) and torch.equal(f0, f1) and torch.equal(v0, v1)
     e2, f2 = trec.energy_forces(p, b, order_idx=order[None])
     assert torch.equal(e2, e0) and torch.equal(f2, trec.energy_forces(p, b)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", [0, 1], ids=["water216-order6", "water-full-order4"])
+def test_cuda_gather_matches_plain_and_repeats(which):
+    """The ik gather kernel against plain f64 at the Pallas force bar on
+    chip_smoke.py's water boxes (`chip_smoke.gather_checks`): twice with
+    the same bits, every charged atom gathered, the zero-charge oxygens
+    given zero rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import chip_smoke
+
+    name, n, spacing, cutoff, jitter = chip_smoke.water_cases()[which]
+    c = chip_smoke.water_case(n, spacing, cutoff, jitter)
+    grids64 = c["f64"]._ewald.ik_grids(c["p64"], c["b64"])
+    grids32 = [g.float().contiguous() for g in grids64]
+    n0 = tpme.GATHER_LAUNCHES
+    chip_smoke.gather_checks(name, c, grids32, grids64)
+    assert tpme.GATHER_LAUNCHES == n0 + 2
 
 
 @pytest.mark.gpu

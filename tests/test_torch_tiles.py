@@ -113,7 +113,9 @@ def test_cell_prep_rows_equal_the_gather(name):
     assert torch.equal(tiles.pq[valid, 3], ck.data.q[i])
     assert torch.equal(tiles.aux[valid, 0], ck.data.sig[i])
     assert torch.equal(tiles.aux[valid, 1], ck.data.eps[i])
-    assert bool((tiles.aux[:, 3] == 0).all())
+    # the LJ type's bits in w (the NBFIX instances read them), 0 on padding
+    assert torch.equal(tiles.aux[valid, 3].contiguous().view(torch.int32), ck.data.types[i])
+    assert bool((tiles.aux[~valid, 3] == 0).all())
     assert bool((tiles.pq[~valid, :3] == tcell.FAR).all())
 
 

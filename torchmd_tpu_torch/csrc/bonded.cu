@@ -8,23 +8,38 @@
 // torsions, and scaled 1-4 LJ + Coulomb with rows [A/scnb, B/scnb,
 // ELEC_FACTOR*qi*qj/scee]; optional diagonal-box wrap (0 = no wrap).
 //
-// What bounds it on this card: thrombin has ~46 k rows a step of a few
+// What bounds it on this card: thrombin has ~41 k rows a step of a few
 // dozen flops each, gathering 2-4 positions from a 56 KB array that stays
-// in L2 and scattering 2-4 force vectors. Arithmetic is negligible; the
-// kernel is bound by launch latency, the gathers' latency and the atomics.
-// The TPU version spends its effort on one-hot matmul gathers and folded
-// (nblk, 8, 128) layouts because a TPU has no fast gather or scatter; a
-// GPU has both, so the design is the direct one:
+// in L2 and scattering 2-4 force vectors. Arithmetic is negligible (the
+// bytes take 0.4 us); the kernel is bound by launches, the latency of one
+// wave of blocks (gathers, atan2/sincos) and the scatter: a global atomic
+// per force component is 369 k on thrombin. The TPU kernel gives each
+// tile of rows an atom window and accumulates into it
+// (_fam_kernel_window); here the same idea in shared memory:
 //   - one launch for every family: rows of a family are padded to whole
-//     256-row blocks, so each block belongs to one family and its branch
-//     is uniform; a small table in the kernel arguments maps blocks to
-//     families;
-//   - one thread per row gathers its atoms' positions from global memory
-//     (read-only cache) and applies the physics in registers;
-//   - per-atom contributions go to an f32 (N, 3) buffer by atomicAdd; the
-//     locality sort of the plan keeps a block's atoms close together;
-//   - energies reduce with warp shuffles into f64 per-block partials,
-//     which a one-block kernel sums per family.
+//     blocks of `blockDim.x` rows (ops/bonded.py ROWS, 128), so each block
+//     belongs to one family and its branch is uniform; a small table in
+//     the kernel arguments maps blocks to families;
+//   - atom windows: the plan gives each block the span [lo, lo + n) of the
+//     atoms its rows touch (at most 696 atoms on thrombin in blocks of 128
+//     rows); a block whose span fits the shared buffer (cfg.wcap atoms, 12
+//     bytes each) zeroes it, and each row adds its atoms' force
+//     contributions there with shared float atomics, once per atom and
+//     warp after the lanes with equal atom ids summed by shuffles (on an
+//     H100 the window with plain shared atomics ran no faster than the
+//     global ones, the combine 15 % faster); a block whose span does not
+//     fit adds them straight to the global forces;
+//   - flush: the window's 3 n floats are one contiguous run of the (N, 3)
+//     forces, so the block adds them with 16-byte global atomics on the
+//     aligned groups of 4 floats that hold a nonzero value, whatever the
+//     atom boundaries (scalar atomics at the buffer's end);
+//   - energies reduce with warp shuffles into f64 per-block partials; the
+//     first warp of the last block to finish (a ticket after
+//     __threadfence) sums them per family in a fixed order, so the
+//     energies are deterministic and no finishing launch is needed; it
+//     resets the ticket for the next call.
+// The forces are the zeroed buffer of the call (a memset and the kernel:
+// two device events) or the caller's buffer, added into (the kernel only).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -32,7 +47,8 @@
 
 namespace {
 
-constexpr int BLOCK = 256;
+constexpr int MAX_ROWS = 256;  // rows (threads) of a block at most
+constexpr int TAIL_LOADS = 12;  // per lane of the energy tail: 384 blocks at once
 constexpr int MAXFAM = 8;
 constexpr float TWO_PI = 6.283185307179586f;
 
@@ -42,6 +58,8 @@ constexpr float TWO_PI = 6.283185307179586f;
 struct BondedCfg {
   int natoms;
   int nfam;
+  int rows;                     // rows (threads) per block, <= MAX_ROWS
+  int wcap;                     // atoms of the shared window buffer
   int block_start[MAXFAM + 1];  // family f owns blocks [start[f], start[f+1])
   int kind[MAXFAM];             // 0 bond, 1 angle, 2 torsion, 3 nb14
   int flags[MAXFAM];            // bond: cutoff on; torsion: AMBER form;
@@ -75,11 +93,47 @@ __device__ __forceinline__ V3 scale(float s, V3 a) { return V3{s * a.x, s * a.y,
 __device__ __forceinline__ V3 add(V3 a, V3 b) { return V3{a.x + b.x, a.y + b.y, a.z + b.z}; }
 __device__ __forceinline__ V3 neg(V3 a) { return V3{-a.x, -a.y, -a.z}; }
 __device__ __forceinline__ float inv_norm(V3 a) { return rsqrtf(fmaxf(dot(a, a), 1e-32f)); }
-__device__ __forceinline__ void scatter(float* __restrict__ f, int a, V3 v) {
-  atomicAdd(f + 3 * a, v.x);
-  atomicAdd(f + 3 * a + 1, v.y);
-  atomicAdd(f + 3 * a + 2, v.z);
-}
+
+// Where a block's rows add their contributions: its shared window (atoms
+// lo, lo + 1, ...) or, for a block whose window does not fit, the global
+// forces.
+struct Sink {
+  float* win;
+  float* forces;
+  int lo;
+  bool shared;
+
+  __device__ __forceinline__ void add(int a, V3 v) const {
+    if (shared) {
+      // the lanes of a warp that add to one atom first sum their values
+      // (a tree over each group of equal atom ids), and the group's first
+      // lane adds the sum: the shared float atomics, a compare-and-swap
+      // loop that equal addresses serialise, were the limit
+      const unsigned act = __activemask();
+      const unsigned group = __match_any_sync(act, a);
+      const int lane = threadIdx.x & 31;
+      int rel = __popc(group & ((1u << lane) - 1u));
+      unsigned peers = group & (0xfffffffeu << lane);
+      while (__any_sync(act, peers)) {
+        const int src = (__ffs(peers) - 1) & 31;
+        const float x = __shfl_sync(act, v.x, src), y = __shfl_sync(act, v.y, src),
+                    z = __shfl_sync(act, v.z, src);
+        if (peers) v = V3{v.x + x, v.y + y, v.z + z};
+        peers &= __ballot_sync(act, !(rel & 1));
+        rel >>= 1;
+      }
+      if (__ffs(group) - 1 != lane) return;
+      float* p = win + 3 * (a - lo);
+      atomicAdd(p, v.x);
+      atomicAdd(p + 1, v.y);
+      atomicAdd(p + 2, v.z);
+    } else {
+      atomicAdd(forces + 3 * a, v.x);
+      atomicAdd(forces + 3 * a + 1, v.y);
+      atomicAdd(forces + 3 * a + 2, v.z);
+    }
+  }
+};
 
 __device__ __forceinline__ double block_sum(double v, double* scratch) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
@@ -94,17 +148,29 @@ __device__ __forceinline__ double block_sum(double v, double* scratch) {
 }
 
 template <bool PBC>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(MAX_ROWS)
 bonded_kernel(const float* __restrict__ pos, const int4* __restrict__ idx,
               const float* __restrict__ par, const float* __restrict__ box,
-              const BondedCfg cfg, float* __restrict__ forces,
-              double* __restrict__ epart) {
-  __shared__ double scratch[BLOCK / 32];
+              const int2* __restrict__ windows, const __grid_constant__ BondedCfg cfg,
+              float* __restrict__ forces, double* __restrict__ epart,
+              unsigned* __restrict__ ticket, float* __restrict__ energies,
+              unsigned long long* __restrict__ stats) {
+  extern __shared__ float window_smem[];  // 3 x cfg.wcap floats
+  __shared__ double scratch[MAX_ROWS / 32];
+  __shared__ int s_flushed;
+  __shared__ bool s_last;
   int fam = 0;
   while (fam + 1 < cfg.nfam && (int)blockIdx.x >= cfg.block_start[fam + 1]) ++fam;
   const int kind = cfg.kind[fam];
   const int flags = cfg.flags[fam];
-  const int row = blockIdx.x * BLOCK + threadIdx.x;
+  const int tid = threadIdx.x;
+  const int2 win = windows[blockIdx.x];  // lo, atoms
+  const Sink sink{window_smem, forces, win.x, win.y <= cfg.wcap};
+  if (sink.shared)
+    for (int k = tid; k < 3 * win.y; k += blockDim.x) window_smem[k] = 0.f;
+  if (tid == 0) s_flushed = 0;
+  __syncthreads();
+  const int row = blockIdx.x * blockDim.x + tid;
   const int4 ix = idx[row];
   const bool valid = ix.x >= 0;  // padding rows carry -1
   const float vf = valid ? 1.f : 0.f;
@@ -120,8 +186,8 @@ bonded_kernel(const float* __restrict__ pos, const int4* __restrict__ idx,
     float e = p0 * x * x, coeff = 2.f * p0 * x;
     if (flags && !(r <= cfg.cutoff[fam])) { e = 0.f; coeff = 0.f; }
     const V3 f = scale(coeff * rinv, d);
-    scatter(forces, ix.x, neg(f));
-    scatter(forces, ix.y, f);
+    sink.add(ix.x, neg(f));
+    sink.add(ix.y, f);
     e_main = e;
   } else if (valid && kind == 1) {  // harmonic angle, sin(theta) guards
     const V3 c = load_pos(pos, ix.y);
@@ -136,9 +202,9 @@ bonded_kernel(const float* __restrict__ pos, const int4* __restrict__ idx,
     const float a21 = coeff * n21 * n21, a23 = coeff * n23 * n23, ab = coeff * n21 * n23;
     const V3 f0 = add(scale(a21 * cos_t, r21), scale(-ab, r23));
     const V3 f2 = add(scale(a23 * cos_t, r23), scale(-ab, r21));
-    scatter(forces, ix.x, f0);
-    scatter(forces, ix.y, neg(add(f0, f2)));
-    scatter(forces, ix.z, f2);
+    sink.add(ix.x, f0);
+    sink.add(ix.y, neg(add(f0, f2)));
+    sink.add(ix.z, f2);
     e_main = p0 * dt * dt;
   } else if (valid && kind == 2) {  // AMBER or CHARMM torsion
     const V3 x1 = load_pos(pos, ix.y), x2 = load_pos(pos, ix.z);
@@ -172,10 +238,10 @@ bonded_kernel(const float* __restrict__ pos, const int4* __restrict__ idx,
     const float ff3 = coeff * normD * inB * inB;
     const V3 f0 = scale(ff0, A), f3 = scale(ff3, B);
     const V3 s = add(scale(ff1, f0), scale(-ff2, f3));
-    scatter(forces, ix.x, neg(f0));
-    scatter(forces, ix.y, add(f0, s));
-    scatter(forces, ix.z, add(f3, neg(s)));
-    scatter(forces, ix.w, neg(f3));
+    sink.add(ix.x, neg(f0));
+    sink.add(ix.y, add(f0, s));
+    sink.add(ix.z, add(f3, neg(s)));
+    sink.add(ix.w, neg(f3));
     e_main = e;
   } else if (kind == 3) {  // scaled 1-4 LJ + Coulomb
     const int a = valid ? ix.x : 0, b = valid ? ix.y : 0;
@@ -196,63 +262,135 @@ bonded_kernel(const float* __restrict__ pos, const int4* __restrict__ idx,
     }
     if (valid) {
       const V3 f = scale(coeff, d);
-      scatter(forces, a, neg(f));
-      scatter(forces, b, f);
+      sink.add(a, neg(f));
+      sink.add(b, f);
     }
   }
 
+  // flush: the window is the float run [3 lo, 3 (lo + n)) of the forces
+  __syncthreads();
+  if (sink.shared) {
+    const int f0 = 3 * win.x, f1 = 3 * (win.x + win.y), total = 3 * cfg.natoms;
+    int flushed = 0;
+    for (int g = (f0 >> 2) + tid; g <= (f1 - 1) >> 2; g += blockDim.x) {
+      float v[4];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int f = 4 * g + j;
+        v[j] = f >= f0 && f < f1 ? window_smem[f - f0] : 0.f;
+        any |= v[j] != 0.f;
+      }
+      if (!any) continue;
+      if (4 * g + 3 < total) {
+        atomicAdd(reinterpret_cast<float4*>(forces + 4 * g), make_float4(v[0], v[1], v[2], v[3]));
+        ++flushed;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (v[j] != 0.f) {
+            atomicAdd(forces + 4 * g + j, v[j]);
+            ++flushed;
+          }
+      }
+    }
+    if (flushed) atomicAdd(&s_flushed, flushed);
+  }
+  const int nvalid = __syncthreads_count(valid);
   const double bm = block_sum((double)e_main, scratch);
   const double ba = block_sum((double)e_aux, scratch);
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     epart[2 * blockIdx.x] = bm;
     epart[2 * blockIdx.x + 1] = ba;
-  }
-}
-
-// One block: energies[2f + k] = sum of the family's block partials.
-__global__ void __launch_bounds__(BLOCK)
-bonded_finish(const double* __restrict__ epart, const BondedCfg cfg,
-              float* __restrict__ energies) {
-  __shared__ double scratch[BLOCK / 32];
-  for (int f = 0; f < cfg.nfam; ++f) {
-    double a = 0.0, b = 0.0;
-    for (int p = cfg.block_start[f] + threadIdx.x; p < cfg.block_start[f + 1]; p += BLOCK) {
-      a += epart[2 * p];
-      b += epart[2 * p + 1];
+    if (stats != nullptr) {
+      // global atomics, rows summed in a window and straight to the forces,
+      // blocks of each kind
+      typedef unsigned long long u64;
+      const int arity = kind == 1 ? 3 : kind == 2 ? 4 : 2;  // atoms per row
+      atomicAdd(stats, sink.shared ? (u64)s_flushed : (u64)3 * arity * nvalid);
+      atomicAdd(stats + (sink.shared ? 1 : 2), (u64)nvalid);
+      atomicAdd(stats + (sink.shared ? 3 : 4), (u64)1);
     }
-    a = block_sum(a, scratch);
-    b = block_sum(b, scratch);
-    if (threadIdx.x == 0) {
+    __threadfence();
+    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last || tid >= 32) return;
+  // the last block's first warp: lane l loads the partials of blocks l,
+  // l + 32, ... at once (one round trip to L2 for up to 32 TAIL_LOADS
+  // blocks), sums each family's in block order, then a fixed shuffle tree
+  __threadfence();
+  double ea[TAIL_LOADS], eb[TAIL_LOADS];
+#pragma unroll
+  for (int k = 0; k < TAIL_LOADS; ++k) {
+    const int p = tid + 32 * k;
+    ea[k] = p < (int)gridDim.x ? __ldcg(epart + 2 * p) : 0.0;
+    eb[k] = p < (int)gridDim.x ? __ldcg(epart + 2 * p + 1) : 0.0;
+  }
+  for (int f = 0; f < cfg.nfam; ++f) {
+    const int p0 = cfg.block_start[f], p1 = cfg.block_start[f + 1];
+    double a = 0.0, b = 0.0;
+#pragma unroll
+    for (int k = 0; k < TAIL_LOADS; ++k) {
+      const int p = tid + 32 * k;
+      if (p >= p0 && p < p1) {
+        a += ea[k];
+        b += eb[k];
+      }
+    }
+    for (int p = tid + 32 * TAIL_LOADS; p < p1; p += 32) {  // larger plans
+      if (p >= p0) {
+        a += __ldcg(epart + 2 * p);
+        b += __ldcg(epart + 2 * p + 1);
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, off);
+      b += __shfl_xor_sync(0xffffffffu, b, off);
+    }
+    if (tid == 0) {
       energies[2 * f] = (float)a;
       energies[2 * f + 1] = (float)b;
     }
   }
+  if (tid == 0) *ticket = 0u;  // ready for the next call
 }
 
 }  // namespace
 
-// pos (N,3) f32; idx (R,4) int32 with R = block_start[nfam] * 256 rows,
+// pos (N,3) f32; idx (R,4) int32 with R = block_start[nfam] * rows rows,
 // -1 in unused slots and padding rows; par (R,3) f32; box (3) or null (no
-// PBC). Scratch epart (R/256, 2) f64. Outputs forces (N,3) f32 (zeroed
-// here) and energies (nfam, 2) f32 as [main, 1-4 electrostatics].
-// Returns cudaGetLastError().
+// PBC); windows (R / rows) int2 (first atom, atoms) of each block. Scratch
+// epart (R / rows, 2) f64 and ticket (1) uint32, 0 between calls. Outputs:
+// forces (N,3) f32, 16-byte aligned, zeroed here unless `add` (then the
+// call adds into them), energies (nfam, 2) f32 as [main, 1-4
+// electrostatics]; stats (5 uint64, or null) gains the global atomics, the
+// rows summed in a window and straight to the forces, and the blocks of
+// each kind. Returns cudaGetLastError().
 extern "C" int tmd_bonded_energy_forces(const float* pos, const int32_t* idx,
                                         const float* par, const float* box,
-                                        BondedCfg cfg, double* epart,
-                                        float* forces, float* energies,
-                                        void* stream) {
+                                        const int32_t* windows, BondedCfg cfg,
+                                        double* epart, unsigned* ticket, float* forces,
+                                        int add, float* energies,
+                                        unsigned long long* stats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(forces, 0, sizeof(float) * 3 * (size_t)cfg.natoms, s);
-  if (err != cudaSuccess) return (int)err;
+  if (cfg.rows < 32 || cfg.rows > MAX_ROWS || cfg.rows % 32 || cfg.wcap < 0 ||
+      12 * (size_t)cfg.wcap > 48 * 1024 || reinterpret_cast<uintptr_t>(forces) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (!add) {
+    cudaError_t err = cudaMemsetAsync(forces, 0, sizeof(float) * 3 * (size_t)cfg.natoms, s);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int nblocks = cfg.block_start[cfg.nfam];
   const int4* idx4 = reinterpret_cast<const int4*>(idx);
+  const int2* win = reinterpret_cast<const int2*>(windows);
+  const size_t smem = 12 * (size_t)cfg.wcap;
   if (box != nullptr)
-    bonded_kernel<true><<<nblocks, BLOCK, 0, s>>>(pos, idx4, par, box, cfg, forces, epart);
+    bonded_kernel<true><<<nblocks, cfg.rows, smem, s>>>(pos, idx4, par, box, win, cfg, forces,
+                                                        epart, ticket, energies, stats);
   else
-    bonded_kernel<false><<<nblocks, BLOCK, 0, s>>>(pos, idx4, par, box, cfg, forces, epart);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bonded_finish<<<1, BLOCK, 0, s>>>(epart, cfg, energies);
+    bonded_kernel<false><<<nblocks, cfg.rows, smem, s>>>(pos, idx4, par, box, win, cfg, forces,
+                                                         epart, ticket, energies, stats);
   return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,8 @@
 // with the atoms of its 27 neighbour cells (cell edge >= cutoff + skin),
 // the periodic image as a per-neighbour-cell shift of the anchored
 // positions, exclusions from a padded per-atom list, the cutoff on d^2, LJ
-// with the switch or repulsion or repulsioncg plus Coulomb plain /
+// with the switch or repulsion or repulsioncg (Lorentz-Berthelot from
+// per-atom rows, or NBFIX A/B tables by type pair) plus Coulomb plain /
 // reaction field / Ewald erfc. Energies carry 0.5 (every pair is seen
 // from both cells).
 //
@@ -20,7 +21,7 @@
 // O(N) bytes. So the walk is tile_pairs.cuh's:
 //   - a prep pass (one block per cell) orders each cell's atoms along a
 //     Morton curve over 4x4x4 sub-cells, writes them as packed float4 rows
-//     (x, y, z, q and sigma/2, sqrt|eps|, id) in that order, and the
+//     (x, y, z, q and sigma/2, sqrt|eps|, id, LJ type) in that order, and the
 //     bounding box of every 32-atom tile; the cell list itself is not
 //     touched;
 //   - one block of two warps per i tile walks the tiles of the 27
@@ -33,7 +34,8 @@
 //   - energies (and with VIRIAL the raw per-axis sums g * d_a^2) sum per
 //     warp in f64, and a finishing kernel adds the warps in a fixed order.
 // The VIRIAL instance (MTK barostat; pallas_cell.py's with_virial) returns
-// the raw sums: the caller applies the -0.5.
+// the raw sums: the caller applies the -0.5. The NBFIX instances read A/B
+// from the (ntypes, ntypes) tables by the packed rows' types.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,6 +58,7 @@ struct CellCfg {
   int capacity;
   int ncx, ncy, ncz;
   int nexcl;      // width of the exclusion table
+  int ntypes;     // side of the NBFIX tables (0: Lorentz-Berthelot rows)
   int lj_kind;    // 0 none, 1 lj, 2 repulsion, 3 repulsioncg
   int elec_kind;  // 0 none, 1 coulomb, 2 reaction field, 3 ewald
   int use_switch;
@@ -93,9 +96,9 @@ __device__ __forceinline__ int sub_cell(float x, float scale, int cell) {
 __global__ void __launch_bounds__(PREP_THREADS)
 cell_prep(const float* __restrict__ pos, const float* __restrict__ q,
           const float* __restrict__ sig, const float* __restrict__ eps,
-          const int32_t* __restrict__ slots, const int32_t* __restrict__ counts,
-          const float* __restrict__ box, const __grid_constant__ CellCfg cfg,
-          float4* __restrict__ pq,
+          const int32_t* __restrict__ types, const int32_t* __restrict__ slots,
+          const int32_t* __restrict__ counts, const float* __restrict__ box,
+          const __grid_constant__ CellCfg cfg, float4* __restrict__ pq,
           float4* __restrict__ aux, float4* __restrict__ tbox) {
   extern __shared__ float4 prep_smem[];
   const int cap = cfg.capacity;
@@ -123,7 +126,8 @@ cell_prep(const float* __restrict__ pos, const float* __restrict__ q,
     const int i = slots[c * cap + k];
     const float4 p = make_float4(pos[3 * i], pos[3 * i + 1], pos[3 * i + 2], q[i]);
     pq[c * cap + rank] = p;
-    aux[c * cap + rank] = make_float4(sig[i], eps[i], __int_as_float(i), 0.f);
+    aux[c * cap + rank] = make_float4(sig[i], eps[i], __int_as_float(i),
+                                      __int_as_float(types != nullptr ? types[i] : 0));
     sorted[rank] = p;
   }
   __syncthreads();
@@ -149,11 +153,12 @@ __device__ __forceinline__ int wrap_cell(int c, int nc, float box, float& shift)
   return c;
 }
 
-template <bool VIRIAL, int ELEC>
+template <bool VIRIAL, int ELEC, bool NBFIX>
 __global__ void __launch_bounds__(tiles::NSPLIT * 32)
 cell_kernel(const float4* __restrict__ pq, const float4* __restrict__ aux,
             const float4* __restrict__ tbox, const int32_t* __restrict__ counts,
-            const int32_t* __restrict__ excl, const float* __restrict__ box,
+            const int32_t* __restrict__ excl, const float* __restrict__ lj_a,
+            const float* __restrict__ lj_b, const float* __restrict__ box,
             const __grid_constant__ CellCfg cfg, float* __restrict__ forces,
             double* __restrict__ part,
             unsigned long long* __restrict__ stats) {
@@ -190,9 +195,10 @@ cell_kernel(const float4* __restrict__ pq, const float4* __restrict__ aux,
   const bool active = ti * tiles::TILE + lane < cnt_i;
   float4 pi = make_float4(0.f, 0.f, 0.f, 0.f), ai = make_float4(0.f, 0.f, 0.f, 0.f);
   if (active) { pi = pq[slot]; ai = aux[slot]; }
-  tiles::TileWarp<CellCfg, VIRIAL, ELEC> tw(cfg, pq, aux, excl, sm, active,
-                                      __float_as_int(ai.z), pi.x, pi.y, pi.z, pi.w,
-                                      ai.x, ai.y);
+  tiles::TileWarp<CellCfg, VIRIAL, ELEC, tiles::StencilWalk<NBFIX>> tw(
+      cfg, pq, aux, excl, sm, active, __float_as_int(ai.z), pi.x, pi.y, pi.z, pi.w, ai.x,
+      ai.y);
+  if (NBFIX) tw.setup(__float_as_int(ai.w), lj_a, lj_b, cfg.ntypes, nullptr);
   for (int oo = 0; oo < 27; ++oo) {
     // the self cell, then offsets 0, 26, 1, 25, ...: opposite cells in turn
     const int o = oo == 0 ? 13 : ((oo & 1) ? (oo - 1) / 2 : 26 - (oo - 1) / 2);
@@ -233,47 +239,53 @@ void carve(const CellCfg& cfg, void* scratch, float4*& pq, float4*& aux, float4*
   part = reinterpret_cast<double*>(tbox + 2 * ncells * tpc);
 }
 
-// The pair kernel's instance for the virial flag and electrostatics kind.
-template <bool VIRIAL>
-void launch_pairs(int ntiles, cudaStream_t s, const float4* pq, const float4* aux,
-                  const float4* tbox, const int32_t* counts, const int32_t* excl,
-                  const float* box, const CellCfg& cfg, float* forces, double* part,
-                  unsigned long long* stats) {
-  constexpr int threads = tiles::NSPLIT * 32;
+// Inputs of the pair kernel.
+struct PairArgs {
+  const float4 *pq, *aux, *tbox;
+  const int32_t *counts, *excl;
+  const float *lj_a, *lj_b, *box;
+  float* forces;
+  double* part;
+  unsigned long long* stats;
+};
+
+template <bool VIRIAL, int ELEC, bool NBFIX>
+void launch_kernel(int ntiles, cudaStream_t s, const CellCfg& cfg, const PairArgs& a) {
+  cell_kernel<VIRIAL, ELEC, NBFIX><<<ntiles, tiles::NSPLIT * 32, 0, s>>>(
+      a.pq, a.aux, a.tbox, a.counts, a.excl, a.lj_a, a.lj_b, a.box, cfg, a.forces, a.part,
+      a.stats);
+}
+
+// The pair kernel's instance for the virial flag, the electrostatics kind
+// and the NBFIX tables.
+template <bool VIRIAL, bool NBFIX>
+void launch_pairs(int ntiles, cudaStream_t s, const CellCfg& cfg, const PairArgs& a) {
   switch (cfg.elec_kind) {
-    case 0:
-      cell_kernel<VIRIAL, 0><<<ntiles, threads, 0, s>>>(pq, aux, tbox, counts, excl, box, cfg,
-                                                        forces, part, stats);
-      break;
-    case 1:
-      cell_kernel<VIRIAL, 1><<<ntiles, threads, 0, s>>>(pq, aux, tbox, counts, excl, box, cfg,
-                                                        forces, part, stats);
-      break;
-    case 2:
-      cell_kernel<VIRIAL, 2><<<ntiles, threads, 0, s>>>(pq, aux, tbox, counts, excl, box, cfg,
-                                                        forces, part, stats);
-      break;
-    default:
-      cell_kernel<VIRIAL, 3><<<ntiles, threads, 0, s>>>(pq, aux, tbox, counts, excl, box, cfg,
-                                                        forces, part, stats);
+    case 0: launch_kernel<VIRIAL, 0, NBFIX>(ntiles, s, cfg, a); break;
+    case 1: launch_kernel<VIRIAL, 1, NBFIX>(ntiles, s, cfg, a); break;
+    case 2: launch_kernel<VIRIAL, 2, NBFIX>(ntiles, s, cfg, a); break;
+    default: launch_kernel<VIRIAL, 3, NBFIX>(ntiles, s, cfg, a);
   }
 }
 
 cudaError_t prep(const float* pos, const float* q, const float* sig, const float* eps,
-                 const int32_t* slots, const int32_t* counts, const float* box,
-                 const CellCfg& cfg, float4* pq, float4* aux, float4* tbox, cudaStream_t s) {
+                 const int32_t* types, const int32_t* slots, const int32_t* counts,
+                 const float* box, const CellCfg& cfg, float4* pq, float4* aux, float4* tbox,
+                 cudaStream_t s) {
   const int ncells = cfg.ncx * cfg.ncy * cfg.ncz;
   const size_t smem = (sizeof(float4) + sizeof(int)) * (size_t)cfg.capacity;
-  cell_prep<<<ncells, PREP_THREADS, smem, s>>>(pos, q, sig, eps, slots, counts, box, cfg,
-                                               pq, aux, tbox);
+  cell_prep<<<ncells, PREP_THREADS, smem, s>>>(pos, q, sig, eps, types, slots, counts, box,
+                                               cfg, pq, aux, tbox);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// pos (N,3) anchored positions, q/sig/eps (N), slots (ncells, capacity)
-// int32 with slot k < counts[c] occupied, counts (ncells) int32, excl
-// (N, nexcl) int32 (N = empty), box (3); scratch of
+// pos (N,3) anchored positions, q/sig/eps (N), types (N) int32 LJ types,
+// slots (ncells, capacity) int32 with slot k < counts[c] occupied, counts
+// (ncells) int32, excl (N, nexcl) int32 (N = empty), lj_a/lj_b the
+// (ntypes, ntypes) NBFIX tables or null (Lorentz-Berthelot from sig/eps),
+// box (3); scratch of
 // tmd_cell_scratch_bytes(cfg) bytes (16-byte aligned). Outputs: forces
 // (N,3), zeroed first so an atom that a capacity overflow dropped from its
 // cell reads 0 (the caller redoes an overflowed step); energies (np) as
@@ -282,9 +294,9 @@ cudaError_t prep(const float* pos, const float* q, const float* sig, const float
 // (tile_pairs.cuh Counters). Returns cudaGetLastError().
 extern "C" int tmd_cell_energy_forces(
     const float* pos, const float* q, const float* sig, const float* eps,
-    const int32_t* slots, const int32_t* counts, const int32_t* excl,
-    const float* box, CellCfg cfg, int virial, void* scratch, float* forces,
-    float* energies, unsigned long long* stats, void* stream) {
+    const int32_t* types, const int32_t* slots, const int32_t* counts, const int32_t* excl,
+    const float* lj_a, const float* lj_b, const float* box, CellCfg cfg, int virial,
+    void* scratch, float* forces, float* energies, unsigned long long* stats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ncells = cfg.ncx * cfg.ncy * cfg.ncz;
   if (cfg.capacity < 1 || cfg.capacity > MAX_CAPACITY ||
@@ -295,13 +307,18 @@ extern "C" int tmd_cell_energy_forces(
   carve(cfg, scratch, pq, aux, tbox, part);
   cudaError_t err = cudaMemsetAsync(forces, 0, sizeof(float) * 3 * (size_t)cfg.natoms, s);
   if (err != cudaSuccess) return (int)err;
-  err = prep(pos, q, sig, eps, slots, counts, box, cfg, pq, aux, tbox, s);
+  err = prep(pos, q, sig, eps, types, slots, counts, box, cfg, pq, aux, tbox, s);
   if (err != cudaSuccess) return (int)err;
   const int ntiles = ncells * ((cfg.capacity + tiles::TILE - 1) / tiles::TILE);
-  if (virial)
-    launch_pairs<true>(ntiles, s, pq, aux, tbox, counts, excl, box, cfg, forces, part, stats);
-  else
-    launch_pairs<false>(ntiles, s, pq, aux, tbox, counts, excl, box, cfg, forces, part, stats);
+  const PairArgs a{pq, aux, tbox, counts, excl, lj_a, lj_b, box, forces, part, stats};
+  const bool nbfix = lj_a != nullptr;
+  if (virial) {
+    if (nbfix) launch_pairs<true, true>(ntiles, s, cfg, a);
+    else launch_pairs<true, false>(ntiles, s, cfg, a);
+  } else {
+    if (nbfix) launch_pairs<false, true>(ntiles, s, cfg, a);
+    else launch_pairs<false, false>(ntiles, s, cfg, a);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   tiles::finish_parts<FIN_THREADS><<<1, FIN_THREADS, 0, s>>>(
@@ -311,13 +328,14 @@ extern "C" int tmd_cell_energy_forces(
 
 // The prep pass alone (tests): packed rows and tile boxes into `scratch`.
 extern "C" int tmd_cell_prep(const float* pos, const float* q, const float* sig,
-                             const float* eps, const int32_t* slots, const int32_t* counts,
-                             const float* box, CellCfg cfg, void* scratch, void* stream) {
+                             const float* eps, const int32_t* types, const int32_t* slots,
+                             const int32_t* counts, const float* box, CellCfg cfg,
+                             void* scratch, void* stream) {
   if (cfg.capacity < 1 || cfg.capacity > MAX_CAPACITY) return (int)cudaErrorInvalidValue;
   float4 *pq, *aux, *tbox;
   double* part;
   carve(cfg, scratch, pq, aux, tbox, part);
-  return (int)prep(pos, q, sig, eps, slots, counts, box, cfg, pq, aux, tbox,
+  return (int)prep(pos, q, sig, eps, types, slots, counts, box, cfg, pq, aux, tbox,
                    static_cast<cudaStream_t>(stream));
 }
 

@@ -192,7 +192,7 @@ pair_walk(const float4* __restrict__ pq, const float4* __restrict__ aux,
     const float4 pi = pq[i], ai = aux[i];
     tiles::TileWarp<PairCfg, false, ELEC, tiles::DenseWalk<PBC, NBFIX, CUTOFF>> tw(
         cfg, pq, aux, nullptr, smem[w], i < n, i, pi.x, pi.y, pi.z, pi.w, ai.x, ai.y);
-    tw.dense_setup(__float_as_int(ai.w), lj_a, lj_b, cfg.ntypes, box);
+    tw.setup(__float_as_int(ai.w), lj_a, lj_b, cfg.ntypes, box);
     float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
     tw.load_box(tbox, r, upt, ncand, lo, hi);
     unsigned keep = tw.cull_image(lo, hi, ncand);

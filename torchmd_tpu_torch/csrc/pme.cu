@@ -39,8 +39,17 @@
 // mesh, the lanes of a warp take atoms 8 apart, so that the sites of one
 // molecule do not meet in one instruction. The caller's memset zeroes the
 // mesh in the same stream. Blocks meet in the mesh's global atomics, so
-// the spread's sums are run-order dependent in the last bits; the gather
-// (one thread per atom, 256 a block) is deterministic.
+// the spread's sums are run-order dependent in the last bits.
+//
+// The gather takes a thread an atom in the input order, reads its P^3
+// taps of the three grids straight from L2 and writes its row: no
+// atomics, so the forces are deterministic. A zero-charge atom (a TIP4P
+// oxygen) gets its zero row without work. A block per chunk of the
+// spread's order, loading the chunk's footprint of the three grids into
+// shared memory once and summing each atom's taps there, ran 28-40 %
+// slower on the 62,500-site box (an H100: each tap is reused only ~3.5
+// times at order 4, and the block's list, brick load and sum phases run
+// one after another at one block a cell), so the gather has no order.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -452,15 +461,29 @@ __global__ void __launch_bounds__(THREADS)
 pme_gather_kernel(const float* __restrict__ pos, const float* __restrict__ q,
                   const float* __restrict__ box, const PmeCfg cfg,
                   const float* __restrict__ gx, const float* __restrict__ gy,
-                  const float* __restrict__ gz, float* __restrict__ forces) {
+                  const float* __restrict__ gz, float* __restrict__ forces,
+                  unsigned long long* __restrict__ stats) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
+  const float qi = i < cfg.natoms ? q[i] : 0.f;
+  if (stats != nullptr) {
+    // charged atoms gathered, zero-charge atoms skipped
+    const int charged = __syncthreads_count(qi != 0.f);
+    const int atoms = __syncthreads_count(i < cfg.natoms);
+    if (threadIdx.x == 0) {
+      atomicAdd(stats, (unsigned long long)charged);
+      atomicAdd(stats + 1, (unsigned long long)(atoms - charged));
+    }
+  }
   if (i >= cfg.natoms) return;
+  if (qi == 0.f) {
+    forces[3 * i] = forces[3 * i + 1] = forces[3 * i + 2] = 0.f;
+    return;
+  }
   float wx[P], wy[P], wz[P];
   int ix[P], iy[P], iz[P];
   axis_taps<P>(pos[3 * i], box[0], cfg.kx, wx, ix);
   axis_taps<P>(pos[3 * i + 1], box[1], cfg.ky, wy, iy);
   axis_taps<P>(pos[3 * i + 2], box[2], cfg.kz, wz, iz);
-  const float qi = q[i];
   float fx = 0.f, fy = 0.f, fz = 0.f;
 #pragma unroll
   for (int a = 0; a < P; ++a) {
@@ -542,16 +565,21 @@ extern "C" int tmd_pme_spread(const float* pos, const float* q, const float* box
 }
 
 // pos (N,3), q (N), box (3), gx/gy/gz the (kx,ky,kz) ik derivative grids;
-// forces (N,3). Returns cudaGetLastError().
+// forces (N,3); stats (2 uint64, or null) gains the charged atoms gathered
+// and the zero-charge atoms skipped. Returns cudaGetLastError().
 extern "C" int tmd_pme_gather_ik(const float* pos, const float* q, const float* box,
                                  PmeCfg cfg, const float* gx, const float* gy,
-                                 const float* gz, float* forces, void* stream) {
+                                 const float* gz, float* forces, unsigned long long* stats,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cfg.natoms == 0) return 0;
   const int blocks = (cfg.natoms + THREADS - 1) / THREADS;
-  if (cfg.order == 4) pme_gather_kernel<4><<<blocks, THREADS, 0, s>>>(pos, q, box, cfg, gx, gy, gz, forces);
-  else if (cfg.order == 6) pme_gather_kernel<6><<<blocks, THREADS, 0, s>>>(pos, q, box, cfg, gx, gy, gz, forces);
-  else return (int)cudaErrorInvalidValue;
+  if (cfg.order == 4)
+    pme_gather_kernel<4><<<blocks, THREADS, 0, s>>>(pos, q, box, cfg, gx, gy, gz, forces, stats);
+  else if (cfg.order == 6)
+    pme_gather_kernel<6><<<blocks, THREADS, 0, s>>>(pos, q, box, cfg, gx, gy, gz, forces, stats);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -35,7 +35,9 @@
 //     deterministic. Exclusions are checked only for queued pairs (inside
 //     the cutoff), against the lane's register copy of its atom's first
 //     REG_EXCL entries; the pair math is branch-free (a self or excluded
-//     pair runs with zero coefficients at d^2 = 1).
+//     pair runs with zero coefficients at d^2 = 1). StencilWalk<true> (the
+//     cell kernel's NBFIX instances) reads A/B from the tables by type
+//     pair, as the dense walk does.
 //   - DenseWalk (dense): a warp walks a unit of candidates alone and calls
 //     `take` for each survivor; no shifts; a per-pair minimum image on a
 //     diagonal box (PBC; a 0 component does not wrap), which the cull
@@ -107,9 +109,11 @@ struct Counters {
 };
 
 // The cell and column kernels' walk: an image shift per visit, exclusions
-// from a per-atom table (cfg.nexcl wide).
+// from a per-atom table (cfg.nexcl wide); NBFIX A/B tables by type or
+// Lorentz-Berthelot rows.
+template <bool NBFIX_ = false>
 struct StencilWalk {
-  static constexpr bool DENSE = false, PBC = false, NBFIX = false, CUTOFF = true;
+  static constexpr bool DENSE = false, PBC = false, NBFIX = NBFIX_, CUTOFF = true;
 };
 
 // The dense kernel's walk (nonbonded.cu): see the header note.
@@ -138,7 +142,7 @@ __device__ __forceinline__ float axis_gap(float il, float ih, float jl, float jh
   return fmaxf(0.f, fmaxf(jl - ih, il - jh));
 }
 
-template <class Cfg, bool VIRIAL, int ELEC, class WALK = StencilWalk>
+template <class Cfg, bool VIRIAL, int ELEC, class WALK = StencilWalk<>>
 struct TileWarp {
   const Cfg& cfg;
   const float4* __restrict__ pq;
@@ -155,7 +159,7 @@ struct TileWarp {
   int ex[REG_EXCL];
   float4 ilo, ihi;
   float cull2;
-  // DenseWalk: the lane's LJ type and the NBFIX tables, the box
+  // the lane's LJ type and the NBFIX tables (WALK::NBFIX), the box (DenseWalk)
   int ti = 0, ntypes = 0;
   const float* __restrict__ lja = nullptr;
   const float* __restrict__ ljb = nullptr;
@@ -188,10 +192,10 @@ struct TileWarp {
     warp_box(active, xi, yi, zi, ilo, ihi);
   }
 
-  // DenseWalk: this lane's LJ type, the NBFIX tables (null: Lorentz-
-  // Berthelot) and the box (null without PBC).
-  __device__ __forceinline__ void dense_setup(int type, const float* a, const float* b,
-                                              int nt, const float* box) {
+  // This lane's LJ type, the NBFIX tables (null: Lorentz-Berthelot) and,
+  // for DenseWalk, the box (null without PBC).
+  __device__ __forceinline__ void setup(int type, const float* a, const float* b, int nt,
+                                        const float* box) {
     ti = type; lja = a; ljb = b; ntypes = nt;
     if (WALK::PBC) {
       bx = box[0]; by = box[1]; bz = box[2];
@@ -343,7 +347,15 @@ struct TileWarp {
       dy = yi - (pj.y + sh.y);
       dz = zi - (pj.z + sh.z);
       d2 = hit ? 1.f : dx * dx + dy * dy + dz * dz;
-      if (cfg.lj_kind != 0 && !hit) lb_coefficients(si, aj.x, ei, aj.y, A, B);
+      if (cfg.lj_kind != 0 && !hit) {
+        if (WALK::NBFIX) {
+          const int k = ti * ntypes + __float_as_int(aj.w);
+          A = __ldg(lja + k);
+          B = __ldg(ljb + k);
+        } else {
+          lb_coefficients(si, aj.x, ei, aj.y, A, B);
+        }
+      }
       qq = hit ? 0.f : cfg.elec_factor * qi * pj.w;
     }
     const float g = pair_terms<ELEC>(cfg, d2, A, B, qq, tlj, tel);

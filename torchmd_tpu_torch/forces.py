@@ -23,7 +23,9 @@ The path follows the device:
     column grid, Lorentz-Berthelot LJ, one LJ-family term); True asks for
     it on any device (its plain version off the card); False keeps the
     cell kernel. The cell kernel serves wherever the column kernel
-    cannot (NBFIX tables, f64, narrow grids);
+    cannot (NBFIX tables, which it reads by type pair; several LJ-family
+    terms, one launch per such term, as the dense pair kernel takes them;
+    f64; narrow grids);
   - `kernel="dense"` selects the torch-op path on any device: analytic
     dense nonbonded (`potentials`) and analytic bonded (`bonded`);
   - `plain=True` runs every kernel's plain PyTorch version on any device
@@ -173,10 +175,6 @@ class Forces:
                 raise ValueError(
                     "the CUDA kernels run in single precision; use "
                     "precision='single', kernel='dense' or plain=True")
-            if not _ops_nonbonded.supported_terms(self.config):
-                raise NotImplementedError(
-                    "the pair kernels take one of lj/repulsion/repulsioncg "
-                    "at a time; use kernel='dense'")
         self.has_nb = any(t in self.energies for t in NONBONDED_TERMS)
         self.cell_requested = kernel == "cell" and self.has_nb
         self.cell_auto = (kernel == "auto" and self.has_nb
@@ -205,17 +203,20 @@ class Forces:
         if self.use_kernels:
             plan = _ops_bonded.build_bonded_kernel_plan(ffp, config)
 
-            def bonded_ef_one(pos, box):
+            def bonded_ef_one(pos, box, out=None):
+                """Bonded terms; with `out`, their forces added into it
+                (the kernel adds into the caller's buffer)."""
                 if plan is None:
-                    return {}, torch.zeros_like(pos)
-                return _ops_bonded.bonded_energy_forces(plan, pos, box)
+                    return {}, torch.zeros_like(pos) if out is None else out
+                return _ops_bonded.bonded_energy_forces(plan, pos, box, out=out)
         else:
             plan = _bonded.build_bonded_plan(ffp, config)
 
-            def bonded_ef_one(pos, box):
+            def bonded_ef_one(pos, box, out=None):
                 if plan is None:
-                    return {}, torch.zeros_like(pos)
-                return _bonded.bonded_energy_forces(ffp, plan, pos, box, config)
+                    return {}, torch.zeros_like(pos) if out is None else out
+                pot, frc = _bonded.bonded_energy_forces(ffp, plan, pos, box, config)
+                return pot, frc if out is None else out + frc
         self._bonded_plan = plan
 
         nb = None
@@ -257,14 +258,15 @@ class Forces:
             return pot, frc
 
         def ef_one(pos, box, cl=None):
-            """All terms of one conformation: (per-term energies, forces)."""
-            pot, frc = bonded_ef_one(pos, box)
-            if nb is not None:
-                nb_pot, nb_frc = nb_ef_one(pos, box, cl)
-                pot = dict(pot)
-                for k, v in nb_pot.items():
-                    add_energy(pot, k, v)
-                frc = frc + nb_frc
+            """All terms of one conformation: (per-term energies, forces).
+            The bonded forces add into the nonbonded ones' buffer."""
+            if nb is None:
+                return bonded_ef_one(pos, box)
+            nb_pot, frc = nb_ef_one(pos, box, cl)
+            pot, frc = bonded_ef_one(pos, box, out=frc)
+            pot = dict(pot)
+            for k, v in nb_pot.items():
+                add_energy(pot, k, v)
             return pot, frc
 
         self.bonded_ef_one = bonded_ef_one

@@ -3,11 +3,13 @@ PyTorch version, and the wrapper that picks between them by device.
 
 Counterpart of `torchmd_tpu/ops/pallas_bonded.py`. The plan carries over
 `build_pallas_bonded_plan`: multi-term maps expanded per assignment (no
-segment sum at run time), rows sorted by their lowest atom index (here it
-keeps a block's atomics on nearby addresses), and 1-4 rows baked as
-[A/scnb, B/scnb, ELEC_FACTOR*qi*qj/scee]. Energy keys follow
-`pallas_bonded_energy_forces`: 1-4 energies add into "lj" and
-"electrostatics".
+segment sum at run time), rows sorted by their lowest atom index, 1-4
+rows baked as [A/scnb, B/scnb, ELEC_FACTOR*qi*qj/scee], and each block of
+rows its atom window, the span of atoms its rows touch (the TPU plan's
+tile `starts`/`klens`, here in atoms): the kernel sums a block's force
+contributions over its window in shared memory and adds the window to the
+forces once. Energy keys follow `pallas_bonded_energy_forces`: 1-4
+energies add into "lj" and "electrostatics".
 
 Bond, angle and torsion rows whose force constant is exactly 0 add 0
 energy and 0 force, so the plan leaves them out (the SETTLE triangles of
@@ -17,7 +19,8 @@ launch.
 
 `bonded_energy_forces(plan, pos, box)` runs the plain version for a CPU
 tensor and launches the kernel for a CUDA tensor; on a CUDA tensor it
-launches or raises.
+launches or raises. With `out=` it adds the forces into the caller's
+buffer instead of a zeroed one of its own.
 """
 
 from __future__ import annotations
@@ -37,8 +40,12 @@ from . import _build
 # Kernel launches made by `bonded_energy_forces` (one per call on CUDA).
 LAUNCHES = 0
 
-BLOCK = 256   # rows per CUDA block (csrc/bonded.cu BLOCK)
+ROWS = 128    # rows per CUDA block, a thread each (csrc/bonded.cu takes 32..256)
+WCAP = 2048   # atoms a block's shared window holds at most (12 bytes each)
 MAXFAM = 8    # csrc/bonded.cu MAXFAM
+# the kernel's counters (`stats=`)
+STATS = ("global_atomics", "window_rows", "direct_rows", "window_blocks",
+         "direct_blocks")
 KINDS = {"bond": 0, "angle": 1, "torsion": 2, "nb14": 3}
 ARITY = {"bond": 2, "angle": 3, "torsion": 4, "nb14": 2}
 
@@ -59,12 +66,38 @@ class BondedKernelPlan(NamedTuple):
     idx: Optional[torch.Tensor]   # (R, 4) int32, -1 in unused slots / padding
     par: Optional[torch.Tensor]   # (R, 3) per-row parameters
     zero_terms: tuple = ()   # terms whose every row has a zero force constant
+    rows: int = ROWS         # rows per block
+    windows: Optional[torch.Tensor] = None  # (R / rows, 2) int32 first atom, atoms
+    wcap: int = 0            # atoms of the kernel's shared window: the widest
+                             # window up to WCAP; wider blocks add straight
+    ticket: Optional[torch.Tensor] = None   # (1,) int32 of the kernel, 0 between calls
 
 
-def build_bonded_kernel_plan(ffp, cfg, dtype=None) -> Optional[BondedKernelPlan]:
-    """Row plan on ffp's device at `dtype` (default ffp's). None when no
-    bonded term is active; a plan with no families when every active row
-    has a zero force constant."""
+def block_windows(idx, rows):
+    """(first atom, atoms) of the span of the atoms each block of `rows`
+    rows of `idx` (R, 4), -1 unused, touches."""
+    blk = idx.reshape(-1, rows * idx.shape[1])
+    lo = np.where(blk < 0, np.iinfo(np.int32).max, blk).min(1)
+    hi = blk.max(1)
+    return np.stack([lo, hi - lo + 1], 1).astype(np.int32)
+
+
+def window_stats(plan) -> dict:
+    """The kernel's row and block counters (STATS but the atomics) as the
+    plan sets them: rows and blocks summed in a shared window (span at most
+    plan.wcap atoms) and added straight to the forces."""
+    win = plan.windows.cpu().numpy()
+    real = (plan.idx[:, 0] >= 0).cpu().numpy().reshape(len(win), plan.rows).sum(1)
+    shared = win[:, 1] <= plan.wcap
+    return {"window_rows": int(real[shared].sum()), "direct_rows": int(real[~shared].sum()),
+            "window_blocks": int(shared.sum()), "direct_blocks": int((~shared).sum())}
+
+
+def build_bonded_kernel_plan(ffp, cfg, dtype=None, wcap=WCAP) -> Optional[BondedKernelPlan]:
+    """Row plan on ffp's device at `dtype` (default ffp's), in blocks of
+    ROWS rows; blocks whose window spans more than `wcap` atoms add
+    straight to the forces. None when no bonded term is active; a plan
+    with no families when every active row has a zero force constant."""
     dtype = ffp.charges.dtype if dtype is None else dtype
     natoms = int(ffp.charges.shape[0])
     fams, idx_rows, par_rows, zero_terms = [], [], [], []
@@ -87,16 +120,16 @@ def build_bonded_kernel_plan(ffp, cfg, dtype=None) -> Optional[BondedKernelPlan]
             return
         # locality sort: a block's rows then touch nearby atoms
         order = np.argsort(idx.min(axis=1), kind="stable")
-        nblocks = -(-count // BLOCK)
-        i4 = np.full((nblocks * BLOCK, 4), -1, np.int32)
+        nblocks = -(-count // ROWS)
+        i4 = np.full((nblocks * ROWS, 4), -1, np.int32)
         i4[:count, :idx.shape[1]] = idx[order]
-        p3 = np.zeros((nblocks * BLOCK, 3), np.float64)
+        p3 = np.zeros((nblocks * ROWS, 3), np.float64)
         p3[:count, :par.shape[1]] = par[order]
         fams.append(KernelFamily(kind, name, count, row, nblocks, int(flags),
                                  float(cutoff)))
         idx_rows.append(i4)
         par_rows.append(p3)
-        row += nblocks * BLOCK
+        row += nblocks * ROWS
 
     if "bonds" in cfg.terms and ffp.bonds is not None:
         idx, par = per_assignment(ffp.bonds)
@@ -132,19 +165,27 @@ def build_bonded_kernel_plan(ffp, cfg, dtype=None) -> Optional[BondedKernelPlan]
     if len(fams) > MAXFAM:
         raise ValueError(f"at most {MAXFAM} bonded families, got {len(fams)}")
     dev = ffp.charges.device
+    idx = np.concatenate(idx_rows)
+    windows = block_windows(idx, ROWS)
+    if not 0 <= wcap <= WCAP:
+        raise ValueError(f"wcap={wcap}: the shared window holds 0..{WCAP} atoms")
+    fit = windows[:, 1][windows[:, 1] <= wcap]
     return BondedKernelPlan(
         natoms=natoms, families=tuple(fams),
-        idx=torch.as_tensor(np.concatenate(idx_rows), device=dev),
+        idx=torch.as_tensor(idx, device=dev),
         par=torch.as_tensor(np.concatenate(par_rows), dtype=dtype, device=dev),
-        zero_terms=tuple(zero_terms),
+        zero_terms=tuple(zero_terms), rows=ROWS,
+        windows=torch.as_tensor(windows, device=dev),
+        wcap=int(fit.max(initial=0)),
+        ticket=torch.zeros(1, dtype=torch.int32, device=dev),
     )
 
 
 def _energy_dict(plan, energies, zero):
     """{term: energy} from per-family (main, aux) energies; 1-4 LJ and
-    electrostatics add into "lj" and "electrostatics"; `zero` for the
-    terms with no rows."""
-    pot: dict = {name: zero for name in plan.zero_terms}
+    electrostatics add into "lj" and "electrostatics"; `zero()` for the
+    terms with no rows (made only for them: on the card it is a launch)."""
+    pot: dict = {name: zero() for name in plan.zero_terms}
     for f, fam in enumerate(plan.families):
         if fam.kind == "nb14":
             if fam.flags & 1:
@@ -251,10 +292,12 @@ def _family_physics(fam, pos, idx, p, box):
     return e_lj, e_el, [-f, f]
 
 
-def bonded_reference(plan: BondedKernelPlan, pos, box=None):
+def bonded_reference(plan: BondedKernelPlan, pos, box=None, out=None):
     """Plain PyTorch version of the bonded kernel, at the dtype and on the
-    device of `pos`. Returns ({term: energy}, forces (N, 3))."""
-    forces = torch.zeros((plan.natoms, 3), dtype=pos.dtype, device=pos.device)
+    device of `pos`. Returns ({term: energy}, forces (N, 3)); with `out`,
+    the forces are added into it and it is returned."""
+    forces = (torch.zeros((plan.natoms, 3), dtype=pos.dtype, device=pos.device)
+              if out is None else out)
     energies = []
     for fam in plan.families:
         rows = slice(fam.row0, fam.row0 + fam.count)
@@ -264,7 +307,7 @@ def bonded_reference(plan: BondedKernelPlan, pos, box=None):
         for slot, f in enumerate(contribs):
             forces.index_add_(0, idx[:, slot], f)
         energies.append((e_main, e_aux))
-    return _energy_dict(plan, energies, pos.new_zeros(())), forces
+    return _energy_dict(plan, energies, lambda: pos.new_zeros(())), forces
 
 
 # ----------------------------------------------------------------------
@@ -277,6 +320,8 @@ class BondedCfg(ctypes.Structure):
     _fields_ = [
         ("natoms", ctypes.c_int),
         ("nfam", ctypes.c_int),
+        ("rows", ctypes.c_int),
+        ("wcap", ctypes.c_int),
         ("block_start", ctypes.c_int * (MAXFAM + 1)),
         ("kind", ctypes.c_int * MAXFAM),
         ("flags", ctypes.c_int * MAXFAM),
@@ -292,7 +337,8 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load("bonded")
-        lib.tmd_bonded_energy_forces.argtypes = [_P] * 4 + [BondedCfg] + [_P] * 4
+        lib.tmd_bonded_energy_forces.argtypes = ([_P] * 5 + [BondedCfg] + [_P] * 3
+                                                 + [ctypes.c_int] + [_P] * 3)
         lib.tmd_bonded_energy_forces.restype = ctypes.c_int
         lib.tmd_error_string.argtypes = [ctypes.c_int]
         lib.tmd_error_string.restype = ctypes.c_char_p
@@ -306,55 +352,67 @@ def build():
 
 
 def _kernel_cfg(plan: BondedKernelPlan) -> BondedCfg:
-    c = BondedCfg(natoms=plan.natoms, nfam=len(plan.families))
+    c = BondedCfg(natoms=plan.natoms, nfam=len(plan.families), rows=plan.rows,
+                  wcap=plan.wcap)
     for f, fam in enumerate(plan.families):
-        c.block_start[f] = fam.row0 // BLOCK
+        c.block_start[f] = fam.row0 // plan.rows
         c.kind[f] = KINDS[fam.kind]
         c.flags[f] = fam.flags
         c.cutoff[f] = fam.cutoff
     last = plan.families[-1]
-    c.block_start[len(plan.families)] = last.row0 // BLOCK + last.nblocks
+    c.block_start[len(plan.families)] = last.row0 // plan.rows + last.nblocks
     return c
 
 
-def _launch(plan: BondedKernelPlan, pos, box):
+def _launch(plan: BondedKernelPlan, pos, box, out, stats):
     global LAUNCHES
     n, dev, f32 = plan.natoms, pos.device, torch.float32
     nrows = plan.idx.shape[0]
+    nblocks = nrows // plan.rows
     _build.check_tensor(pos, "pos", f32, (n, 3), dev)
     _build.check_tensor(plan.idx, "idx", torch.int32, (nrows, 4), dev)
     _build.check_tensor(plan.par, "par", f32, (nrows, 3), dev)
+    _build.check_tensor(plan.windows, "windows", torch.int32, (nblocks, 2), dev)
+    _build.check_tensor(plan.ticket, "ticket", torch.int32, (1,), dev)
     if plan.idx.data_ptr() % 16:
         raise ValueError("idx must be 16-byte aligned (read as int4 rows)")
     if box is not None:
         _build.check_tensor(box, "box", f32, (3,), dev)
+    if stats is not None:
+        _build.check_tensor(stats, "stats", torch.int64, (len(STATS),), dev)
+    forces = out if out is not None else torch.empty((n, 3), dtype=f32, device=dev)
+    _build.check_tensor(forces, "out", f32, (n, 3), dev)
+    if forces.data_ptr() % 16:
+        raise ValueError("the forces must be 16-byte aligned (flushed by 16-byte atomics)")
     lib = _library()
-    nblocks = nrows // BLOCK
     epart = torch.empty((nblocks, 2), dtype=torch.float64, device=dev)
-    forces = torch.empty((n, 3), dtype=f32, device=dev)
     energies = torch.empty((len(plan.families), 2), dtype=f32, device=dev)
     err = lib.tmd_bonded_energy_forces(
         pos.data_ptr(), plan.idx.data_ptr(), plan.par.data_ptr(),
-        None if box is None else box.data_ptr(), _kernel_cfg(plan),
-        epart.data_ptr(), forces.data_ptr(), energies.data_ptr(),
+        None if box is None else box.data_ptr(), plan.windows.data_ptr(), _kernel_cfg(plan),
+        epart.data_ptr(), plan.ticket.data_ptr(), forces.data_ptr(), int(out is not None),
+        energies.data_ptr(), None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"bonded kernel launch failed: {lib.tmd_error_string(err).decode()}")
     LAUNCHES += 1
-    return _energy_dict(plan, energies, energies.new_zeros(())), forces
+    return _energy_dict(plan, energies, lambda: energies.new_zeros(())), forces
 
 
-def bonded_energy_forces(plan: BondedKernelPlan, pos, box=None):
+def bonded_energy_forces(plan: BondedKernelPlan, pos, box=None, out=None, stats=None):
     """pos: (N, 3); box: (3,) diagonal tensor or None (no PBC). Returns
     ({term: 0-dim energy tensor}, forces (N, 3)). A CPU tensor runs the
     plain version; a CUDA tensor launches the kernel (f32 only) or raises.
-    A plan with no rows launches nothing."""
+    A plan with no rows launches nothing. `out`, an (N, 3) tensor of pos's
+    dtype and device: the forces are added into it, and it is returned.
+    `stats`, an int64 (5,) card tensor, gains the kernel's counters
+    (STATS)."""
     if not plan.families:
         return ({name: pos.new_zeros(()) for name in plan.zero_terms},
-                torch.zeros_like(pos))
+                torch.zeros_like(pos) if out is None else out)
     if pos.device.type == "cuda":
-        return _launch(plan, pos, box)
+        return _launch(plan, pos, box, out, stats)
     if pos.device.type == "cpu":
-        return bonded_reference(plan, pos, box)
+        return bonded_reference(plan, pos, box, out)
     raise ValueError(f"no bonded kernel for device {pos.device}")

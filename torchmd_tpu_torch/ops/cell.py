@@ -8,14 +8,17 @@ the pairs of each cell's atoms with the atoms of its 27 neighbouring cells
 a per-neighbour-cell shift of the anchored positions, exclusions from a
 padded per-atom list, the cutoff on d^2, and the pair terms of the dense
 kernel (LJ with the switch, repulsion or repulsioncg, Coulomb plain /
-reaction field / Ewald erfc). Energies carry the 0.5 symmetric factor
+reaction field / Ewald erfc), Lorentz-Berthelot from per-atom rows or
+NBFIX A/B tables by type pair. Energies carry the 0.5 symmetric factor
 (every pair is seen from both of its cells); forces are per atom. With
 `with_virial=True` the per-axis pair virial -0.5 sum g d_a^2 (the MTK
 barostat's -dE/ds_a) comes back too.
 
 `cell_energy_forces(data, cfg, clcfg, cl, pos, box)` runs the plain
 version for a CPU tensor and launches the kernel (`csrc/cell.cu`) for a
-CUDA tensor; on a CUDA tensor it launches or raises. The kernel walks
+CUDA tensor; on a CUDA tensor it launches or raises. A term set with more
+than one LJ-family term takes one launch per such term
+(`nonbonded.over_launches`), on either device. The kernel walks
 32-atom tiles (`csrc/tile_pairs.cuh`): its prep pass orders each cell's
 atoms along a Morton curve of 4x4x4 sub-cells into packed rows with a
 bounding box per tile; `cell_tiles_reference` is that pass's plain
@@ -34,7 +37,7 @@ import torch
 from ..potentials import LJ_FAMILY, add_energy, nonbonded_block_energy_forces
 from ..units import ELEC_FACTOR
 from . import _build
-from .nonbonded import STATS, atom_rows, make_kernel_cfg, supported_terms
+from .nonbonded import STATS, atom_rows, make_kernel_cfg, over_launches, supported_terms
 
 # Kernel launches made by `cell_energy_forces` (one per call on CUDA).
 LAUNCHES = 0
@@ -168,7 +171,7 @@ class Tiles(NamedTuple):
     """The packed rows and tile boxes of a tile kernel's prep pass."""
 
     pq: torch.Tensor     # (S, 4) f32: x, y, z, q per packed slot
-    aux: torch.Tensor    # (S, 4) f32: sigma/2, sqrt|eps|, id (int32 bits), 0
+    aux: torch.Tensor    # (S, 4) f32: sigma/2, sqrt|eps|, id, LJ type (int32 bits)
     tbox: torch.Tensor   # (T, 2, 4) f32: lo and hi corner (w = 0) per tile
 
     @property
@@ -176,10 +179,11 @@ class Tiles(NamedTuple):
         return self.aux[:, 2].contiguous().view(torch.int32)
 
 
-def pack_rows(xyz, ids, valid, q, sig, eps, natoms):
+def pack_rows(xyz, ids, valid, q, sig, eps, natoms, types=None):
     """Packed rows (pq, aux) of slots holding atoms `ids` at positions
     `xyz` (S, 3) where `valid`; padding rows are (FAR, FAR, FAR, 0) and
-    (0, 0, id natoms, 0)."""
+    (0, 0, id natoms, type 0). `types` (N,) int: the LJ types in aux's w
+    (the cell kernel's NBFIX tables read them), else 0."""
     safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
 
     def rows(a, fill):
@@ -188,8 +192,11 @@ def pack_rows(xyz, ids, valid, q, sig, eps, natoms):
     pq = torch.cat([torch.where(valid[:, None], xyz.float(), torch.full_like(xyz.float(), FAR)),
                     rows(q, 0.0)[:, None]], 1)
     idf = torch.where(valid, ids, torch.full_like(ids, natoms)).to(torch.int32)
+    tw = torch.zeros_like(idf)
+    if types is not None:
+        tw = torch.where(valid, types.to(torch.int32)[safe], tw)
     aux = torch.stack([rows(sig, 0.0), rows(eps, 0.0), idf.view(torch.float32),
-                       torch.zeros_like(pq[:, 0])], 1)
+                       tw.view(torch.float32)], 1)
     return pq, aux
 
 
@@ -240,7 +247,8 @@ def cell_tiles_reference(data: CellData, clcfg, cl, pos_w, box) -> Tiles:
     order = torch.argsort(key, dim=1)
     ids_s = torch.gather(ids, 1, order).reshape(-1)
     valid_s = valid.reshape(-1)
-    pq, aux = pack_rows(pos_pad[ids_s], ids_s, valid_s, data.q, data.sig, data.eps, n)
+    pq, aux = pack_rows(pos_pad[ids_s], ids_s, valid_s, data.q, data.sig, data.eps, n,
+                        data.types)
     pad = tpc * TILE - cap
     xyz = torch.cat([pq[:, :3].reshape(ncells, cap, 3),
                      torch.zeros((ncells, pad, 3), device=dev)], 1).reshape(-1, 3)
@@ -257,7 +265,7 @@ class CellCfg(ctypes.Structure):
     """Mirror of `struct CellCfg` in csrc/cell.cu."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
-        "natoms", "capacity", "ncx", "ncy", "ncz", "nexcl", "lj_kind",
+        "natoms", "capacity", "ncx", "ncy", "ncz", "nexcl", "ntypes", "lj_kind",
         "elec_kind", "use_switch")] + [(name, ctypes.c_float) for name in (
             "cutoff2", "switch_dist", "inv_switch_width", "krf", "crf",
             "ewald_alpha", "elec_factor")]
@@ -271,10 +279,10 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load("cell")
-        lib.tmd_cell_energy_forces.argtypes = ([_P] * 8 + [CellCfg, ctypes.c_int]
+        lib.tmd_cell_energy_forces.argtypes = ([_P] * 11 + [CellCfg, ctypes.c_int]
                                                + [_P] * 5)
         lib.tmd_cell_energy_forces.restype = ctypes.c_int
-        lib.tmd_cell_prep.argtypes = [_P] * 7 + [CellCfg] + [_P] * 2
+        lib.tmd_cell_prep.argtypes = [_P] * 8 + [CellCfg] + [_P] * 2
         lib.tmd_cell_prep.restype = ctypes.c_int
         lib.tmd_cell_scratch_bytes.argtypes = [CellCfg]
         lib.tmd_cell_scratch_bytes.restype = ctypes.c_longlong
@@ -309,10 +317,10 @@ def pair_fields(cfg) -> dict:
         elec_factor=kcfg["elec_factor"])
 
 
-def kernel_cfg(cfg, clcfg, natoms, nexcl) -> CellCfg:
+def kernel_cfg(cfg, clcfg, natoms, nexcl, ntypes=0) -> CellCfg:
     ncx, ncy, ncz = clcfg.ncells
     return CellCfg(natoms=natoms, capacity=clcfg.capacity, ncx=ncx, ncy=ncy,
-                   ncz=ncz, nexcl=nexcl, **pair_fields(cfg))
+                   ncz=ncz, nexcl=nexcl, ntypes=ntypes, **pair_fields(cfg))
 
 
 def _checked_inputs(data: CellData, cfg, clcfg, cl, pos, box):
@@ -322,10 +330,7 @@ def _checked_inputs(data: CellData, cfg, clcfg, cl, pos, box):
 
     if not supported_terms(cfg):
         raise NotImplementedError(
-            "the cell kernel takes at most one of lj/repulsion/repulsioncg")
-    if data.lj_a is not None:
-        raise NotImplementedError(
-            "the cell kernel takes Lorentz-Berthelot rows, not NBFIX tables")
+            "a cell kernel launch takes at most one of lj/repulsion/repulsioncg")
     if clcfg.capacity > MAX_CAPACITY:
         raise ValueError(f"cell capacity {clcfg.capacity} > {MAX_CAPACITY}")
     n, dev, f32, i32 = data.natoms, pos.device, torch.float32, torch.int32
@@ -335,11 +340,17 @@ def _checked_inputs(data: CellData, cfg, clcfg, cl, pos, box):
     _build.check_tensor(box, "box", f32, (3,), dev)
     for name in ("q", "sig", "eps"):
         _build.check_tensor(getattr(data, name), name, f32, (n,), dev)
+    _build.check_tensor(data.types, "types", i32, (n,), dev)
     _build.check_tensor(data.excl, "excl", i32, (n, nexcl), dev)
+    ntypes = 0
+    if data.lj_a is not None:
+        ntypes = int(data.lj_a.shape[0])
+        _build.check_tensor(data.lj_a, "lj_a", f32, (ntypes, ntypes), dev)
+        _build.check_tensor(data.lj_b, "lj_b", f32, (ntypes, ntypes), dev)
     _build.check_tensor(cl.slots, "slots", i32, (ncells, clcfg.capacity), dev)
     _build.check_tensor(cl.counts, "counts", i32, (ncells,), dev)
     pos_w = anchored_positions(pos, cl.ref_pos, box).contiguous()
-    return kernel_cfg(cfg, clcfg, n, nexcl), pos_w
+    return kernel_cfg(cfg, clcfg, n, nexcl, ntypes), pos_w
 
 
 def _scratch(lib, kcfg, dev):
@@ -357,10 +368,13 @@ def _launch(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False, stats=N
     energies = torch.empty(5 if with_virial else 2, dtype=torch.float32, device=dev)
     lib = _library()
     scratch = _scratch(lib, kcfg, dev)
+    tables = (None, None) if data.lj_a is None else (data.lj_a.data_ptr(),
+                                                     data.lj_b.data_ptr())
     err = lib.tmd_cell_energy_forces(
         pos_w.data_ptr(), data.q.data_ptr(), data.sig.data_ptr(),
-        data.eps.data_ptr(), cl.slots.data_ptr(), cl.counts.data_ptr(),
-        data.excl.data_ptr(), box.data_ptr(), kcfg, int(with_virial),
+        data.eps.data_ptr(), data.types.data_ptr(), cl.slots.data_ptr(),
+        cl.counts.data_ptr(), data.excl.data_ptr(), *tables, box.data_ptr(), kcfg,
+        int(with_virial),
         scratch.data_ptr(), forces.data_ptr(), energies.data_ptr(),
         None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -386,7 +400,8 @@ def cell_tiles(data: CellData, cfg, clcfg, cl, pos, box) -> Tiles:
     scratch = _scratch(lib, kcfg, pos.device)
     err = lib.tmd_cell_prep(
         pos_w.data_ptr(), data.q.data_ptr(), data.sig.data_ptr(), data.eps.data_ptr(),
-        cl.slots.data_ptr(), cl.counts.data_ptr(), box.data_ptr(), kcfg,
+        data.types.data_ptr(), cl.slots.data_ptr(), cl.counts.data_ptr(), box.data_ptr(),
+        kcfg,
         scratch.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cell prep launch failed: {lib.tmd_error_string(err).decode()}")
@@ -403,10 +418,15 @@ def cell_energy_forces(data: CellData, cfg, clcfg, cl, pos, box, with_virial=Fal
     `clcfg`. Returns ({term: 0-dim energy tensor}, forces (N, 3)) and, with
     `with_virial`, the per-axis pair virial (3,). A CPU tensor runs the
     plain version; a CUDA tensor launches the kernel (f32 only) or raises.
-    `stats`, an int64 (NSTATS,) tensor on the card, gains the kernel's
-    walk counters (STATS)."""
+    Either runs once per LJ-family term (`over_launches`). `stats`, an
+    int64 (NSTATS,) tensor on the card, gains the kernel's walk counters
+    (STATS)."""
     if pos.device.type == "cuda":
-        return _launch(data, cfg, clcfg, cl, pos, box, with_virial, stats)
-    if pos.device.type == "cpu":
-        return cell_reference(data, cfg, clcfg, cl, pos, box, with_virial)
-    raise ValueError(f"no cell kernel for device {pos.device}")
+        def one(c):
+            return _launch(data, c, clcfg, cl, pos, box, with_virial, stats)
+    elif pos.device.type == "cpu":
+        def one(c):
+            return cell_reference(data, c, clcfg, cl, pos, box, with_virial)
+    else:
+        raise ValueError(f"no cell kernel for device {pos.device}")
+    return over_launches(cfg, one)

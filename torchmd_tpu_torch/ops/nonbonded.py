@@ -14,7 +14,9 @@ it as `tile_exclusions` of the mask, made once per topology in
 
 `nonbonded_energy_forces(data, cfg, pos, box)` runs the plain version
 for a CPU tensor and launches the kernel for a CUDA tensor; on a CUDA
-tensor it launches or raises.
+tensor it launches or raises. A launch takes one LJ-family term: a term
+set with several takes one launch per such term (`launch_cfgs`), on
+either device.
 """
 
 from __future__ import annotations
@@ -66,9 +68,35 @@ def make_kernel_cfg(cfg, pbc) -> dict:
 
 
 def supported_terms(cfg) -> bool:
-    """The kernel sums the LJ family into one energy, so at most one of
-    lj/repulsion/repulsioncg may be active."""
+    """One launch of a pair kernel sums the LJ family into one energy, so
+    at most one of lj/repulsion/repulsioncg may be active in it (the
+    wrappers split a larger set with `launch_cfgs`)."""
     return sum(t in cfg.terms for t in LJ_FAMILY) <= 1
+
+
+def launch_cfgs(cfg) -> list:
+    """The term sets of the pair kernels' launches for `cfg`: the first
+    keeps electrostatics and the first LJ-family term, and each further
+    LJ-family term takes a launch of its own with electrostatics off."""
+    lj = [t for t in LJ_FAMILY if t in cfg.terms]
+    if len(lj) <= 1:
+        return [cfg]
+    first = tuple(t for t in cfg.terms if t not in lj[1:])
+    return [cfg._replace(terms=first)] + [cfg._replace(terms=(t,)) for t in lj[1:]]
+
+
+def over_launches(cfg, call):
+    """`call(c)` -> (energies, forces[, virial]) for each c of
+    `launch_cfgs(cfg)`: energies keyed by their own terms, forces and
+    virials added."""
+    outs = [call(c) for c in launch_cfgs(cfg)]
+    if len(outs) == 1:
+        return outs[0]
+    pot: dict = {}
+    for out in outs:
+        for k, v in out[0].items():
+            add_energy(pot, k, v)
+    return (pot,) + tuple(sum(parts[1:], parts[0]) for parts in zip(*(o[1:] for o in outs)))
 
 
 class NBData(NamedTuple):
@@ -257,7 +285,7 @@ def _launch(data: NBData, cfg, pos, box, stats=None):
     global LAUNCHES
     if not supported_terms(cfg):
         raise NotImplementedError(
-            "the pair kernel takes at most one of lj/repulsion/repulsioncg")
+            "a pair kernel launch takes at most one of lj/repulsion/repulsioncg")
     n, dev, f32, i32 = data.natoms, pos.device, torch.float32, torch.int32
     _build.check_tensor(pos, "pos", f32, (n, 3), dev)
     for name in ("q", "sig", "eps"):
@@ -306,10 +334,14 @@ def nonbonded_energy_forces(data: NBData, cfg, pos, box=None, stats=None):
     """pos: (N, 3); box: (3,) diagonal tensor or None (no PBC). Returns
     ({term: 0-dim energy tensor}, forces (N, 3)). A CPU tensor runs the
     plain version; a CUDA tensor launches the kernel (f32 only) or raises.
-    `stats`, an int64 (5,) card tensor, gains the walk's counters
-    (STATS)."""
+    Either runs once per LJ-family term (`over_launches`). `stats`, an
+    int64 (5,) card tensor, gains the walk's counters (STATS)."""
     if pos.device.type == "cuda":
-        return _launch(data, cfg, pos, box, stats)
-    if pos.device.type == "cpu":
-        return pair_terms_reference(data, cfg, pos, box)
-    raise ValueError(f"no pair kernel for device {pos.device}")
+        def one(c):
+            return _launch(data, c, pos, box, stats)
+    elif pos.device.type == "cpu":
+        def one(c):
+            return pair_terms_reference(data, c, pos, box)
+    else:
+        raise ValueError(f"no pair kernel for device {pos.device}")
+    return over_launches(cfg, one)

@@ -19,7 +19,7 @@ they launch or raise. The spread takes an optional order of the atoms in
 space (`order_idx`, e.g. a cell list's slots), along which the kernel sums
 chunks of nearby atoms in shared memory first; without one the kernel
 adds each atom's taps straight to the mesh. The function does not depend
-on it.
+on it. The gather takes a thread an atom and skips zero charges.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ ORDERS = (4, 6)
 CHUNK = 512      # order entries per spread block at most (csrc/pme.cu CHUNK)
 SPREAD_STATS = ("global_atomics", "brick_chunks", "direct_chunks",
                 "charged_atoms")  # the spread's counters (`stats=`)
+GATHER_STATS = ("charged_atoms", "zero_charge_atoms")  # the gather's counters (`stats=`)
 
 
 def bspline_weights(frac, n):
@@ -137,7 +138,7 @@ def _library():
         lib = _build.load("pme")
         lib.tmd_pme_spread.argtypes = [_P] * 4 + [PmeCfg] + [_P] * 3
         lib.tmd_pme_spread.restype = ctypes.c_int
-        lib.tmd_pme_gather_ik.argtypes = [_P] * 3 + [PmeCfg] + [_P] * 5
+        lib.tmd_pme_gather_ik.argtypes = [_P] * 3 + [PmeCfg] + [_P] * 6
         lib.tmd_pme_gather_ik.restype = ctypes.c_int
         lib.tmd_error_string.argtypes = [ctypes.c_int]
         lib.tmd_error_string.restype = ctypes.c_char_p
@@ -212,11 +213,12 @@ def pme_spread(pos, q, box, kmesh, order, order_idx=None, stats=None):
     return mesh
 
 
-def pme_gather_ik(pos, q, box, grids, order):
+def pme_gather_ik(pos, q, box, grids, order, stats=None):
     """pos (N, 3), q (N,), box (3,), grids: the three (Kx, Ky, Kz)
     derivative grids -> forces (N, 3). A CPU tensor runs the plain
     version; a CUDA tensor launches the gather kernel (f32 only) or
-    raises."""
+    raises. `stats`, an int64 (2,) card tensor, gains the kernel's
+    counters (GATHER_STATS)."""
     global GATHER_LAUNCHES
     if pos.device.type == "cpu":
         return gather_ik_reference(pos, q, box, grids, order)
@@ -226,10 +228,13 @@ def pme_gather_ik(pos, q, box, grids, order):
     cfg = _checked_cfg(pos, q, box, kmesh, order)
     for a, g in enumerate(grids):
         _build.check_tensor(g, f"grid {a}", torch.float32, kmesh, pos.device)
+    if stats is not None:
+        _build.check_tensor(stats, "stats", torch.int64, (len(GATHER_STATS),), pos.device)
     forces = torch.empty((pos.shape[0], 3), dtype=torch.float32, device=pos.device)
     _check(_library().tmd_pme_gather_ik(
         pos.data_ptr(), q.data_ptr(), box.data_ptr(), cfg,
         *(g.data_ptr() for g in grids), forces.data_ptr(),
+        None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(pos.device).cuda_stream), "PME gather")
     GATHER_LAUNCHES += 1
     return forces

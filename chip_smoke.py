@@ -17,6 +17,10 @@ Integrator.step), f32, imports nothing of JAX or of the JAX package:
     iso, seed 3, the defaults of Forces): the column pair kernel with its
     per-axis virial and the PME spread kernel (PME forces by the exact
     gather on the NPT path);
+  - thrombin through the CLI (`torchmd_tpu_torch.run.main`, the flags of
+    `python -m torchmd_tpu_torch.run`, in-process): the dense pair and
+    bonded kernels, with monitor rows, trajectory and checkpoints, and
+    with an external torch potential (`--external`, an nn.Module);
   - the staged probe of the dense pair kernel (python -m
     torchmd_tpu_torch.roofline, 4,676 atoms, tiles of 512): seven stage
     kernels and the elemental-throughput chains.
@@ -87,7 +91,22 @@ Phases (each prints lines; any failure raises and exits non-zero):
      SETTLE and site errors, no cell launch), a profiler breakdown, and a
      10-step kernel (f32) against plain (f64) check of positions and box
      beside the one-ulp floor and a 1 % charge control;
-  9. roofline: every probe stage (f32) against its plain version (f64) at
+  9. cli: thrombin through `torchmd_tpu_torch.run.main` as the dynamics
+     phase runs it (2 fs, Langevin 300 K, f32), CLI_STEPS steps with a
+     monitor row every CLI_PERIOD steps and the trajectory and a
+     checkpoint every CLI_SAVE, the counters reset just before and read
+     just after (each kernel launched at least once a step); the monitor
+     rows finite, the trajectory's shape, the xyz and checkpoint files;
+     the run resumed from its step-CLI_SAVE checkpoint within
+     CLI_RESUME_TOL of the continuous run; a `[cli]` line of the CLI's
+     steps/s beside the dynamics phase's (the API's) and their ratio;
+ 10. external: thrombin's Forces with `TorchExternal` over an nn.Module
+     (a restraint plus a two-layer MLP, seed EXTERNAL_SEED) against
+     Forces() plus the module's energy and -autograd forces at the Pallas
+     bars, one evaluation's device time with and without it, then
+     EXTERNAL_STEPS CLI steps with an `--external` config (finite, each
+     kernel launched at least once a step);
+ 11. roofline: every probe stage (f32) against its plain version (f64) at
      the probe's full size, on its inputs and on the same rows without
      pairs nearer than 2 A, each row's force held to the size of its terms
      (force_scale); four planted faults (the plain version with k_rf
@@ -194,6 +213,45 @@ NPT_WARMUP, NPT_STEPS, NPT_CHUNK = 100, 500, 100
 NPT_VOLUME_RANGE = (0.7, 1.4)     # final volume over the lattice's
 # the kernel's per-axis virial: 3 multiplies and 3 adds per pair
 VIRIAL_FLOPS = 6
+# the CLI phase: thrombin through `python -m torchmd_tpu_torch.run`'s main,
+# CLI_STEPS steps with a monitor row every CLI_PERIOD and the trajectory
+# and a checkpoint every CLI_SAVE; the run resumed from its CLI_SAVE
+# checkpoint ends within CLI_RESUME_TOL A of the continuous run (the
+# bonded kernel's float atomics make runs differ in the last bits)
+CLI_STEPS, CLI_PERIOD, CLI_SAVE, CLI_RESUME_TOL = 1000, 100, 500, 1e-3
+# the external phase: a restraint to the start plus a two-layer MLP of
+# EXTERNAL_WIDTH over each atom's distance to the centroid, f32, weights
+# from EXTERNAL_SEED; EXTERNAL_STEPS CLI steps with it
+EXTERNAL_WIDTH, EXTERNAL_SEED, EXTERNAL_K, EXTERNAL_STEPS = 32, 7, 0.05, 200
+EXTERNAL_POTENTIAL = """
+import numpy as np
+import torch
+
+
+class Potential(torch.nn.Module):
+    \"\"\"k |pos - ref|^2 plus a two-layer MLP over each atom's distance
+    to the centroid.\"\"\"
+
+    def __init__(self, ref, k, width, seed):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.register_buffer("ref", torch.as_tensor(ref, dtype=torch.float32))
+        self.k = k
+        self.l1 = torch.nn.Linear(1, width)
+        self.l2 = torch.nn.Linear(width, 1)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+
+    def forward(self, pos, box):
+        d = (pos - pos.mean(0)).norm(dim=1, keepdim=True)
+        mlp = self.l2(torch.tanh(self.l1(d))).sum()
+        return self.k * ((pos - self.ref) ** 2).sum() + mlp
+
+
+def make_potential(embeddings, ref=None, k=0.05, width=32, seed=7):
+    return Potential(np.load(ref), float(k), int(width), int(seed))
+"""
 # the LJ gas of tests/test_columns.py: 1,500 atoms in 60 A, cutoff 9 A,
 # reaction field, charges 0.05 e x N(0, 1)
 GAS_N, GAS_L, GAS_CUTOFF = 1500, 60.0, 9.0
@@ -1077,7 +1135,7 @@ def phase_dynamics():
     dev = float(np.abs(final["kernels"] - final["dense"]).max())
     log("nve", steps=10, max_pos_dev_A=dev)
     require(dev <= 1e-3, f"NVE kernel vs dense positions differ by {dev} A")
-    return launches
+    return launches, steps_per_s
 
 
 def _water_integrator(par, mol_pos, vel, L, precision="single", plain=False,
@@ -1738,6 +1796,207 @@ def phase_roofline():
     return out, launches["stages"]
 
 
+def _cli_argv(log_dir, steps, extra=()):
+    """The CLI's arguments for thrombin at the dynamics phase's settings."""
+    d = os.path.join(DATA, MAIN_SYSTEM[0])
+    return ["--topology", os.path.join(d, "structure.prmtop"),
+            "--forcefield", os.path.join(d, "structure.prmtop"),
+            "--coordinates", os.path.join(d, MAIN_SYSTEM[1]),
+            "--forceterms", *TERMS, "--cutoff", str(CUTOFF), "--rfa",
+            "--timestep", str(TIMESTEP), "--temperature", str(TEMP),
+            "--langevin-temperature", str(TEMP), "--langevin-gamma", str(GAMMA),
+            "--precision", "single", "--steps", str(steps),
+            "--output-period", str(CLI_PERIOD), "--seed", "1",
+            "--device", DEVICE, "--log-dir", log_dir, *extra]
+
+
+def _api_chunked_steps_per_s(log_dir):
+    """Steps/s of the system the CLI's setup builds, stepped as the CLI
+    steps it (CLI_STEPS // CLI_PERIOD calls of Integrator.step(CLI_PERIOD),
+    timed from the first) with no output, no wrap and no writer thread."""
+    from torchmd_tpu_torch import run as cli
+    from torchmd_tpu_torch.integrator import Integrator
+    from torchmd_tpu_torch.profiling import StepTimer
+
+    mol, system, forces = cli.setup(cli.get_args(_cli_argv(log_dir, CLI_STEPS)))
+    integ = Integrator(system, forces, TIMESTEP, gamma=GAMMA, T=TEMP, seed=1)
+    forces.compute(system.pos, system.box, system.forces)
+    timer = StepTimer(TIMESTEP, device=DEVICE)
+    with timer.measure(CLI_STEPS):
+        for _ in range(CLI_STEPS // CLI_PERIOD):
+            integ.step(niter=CLI_PERIOD)
+    return timer.steps_per_sec
+
+
+def phase_cli(api_steps_per_s):
+    """Thrombin through `torchmd_tpu_torch.run.main` (the CLI), in-process:
+    CLI_STEPS steps with monitor rows, trajectory, xyz and checkpoints,
+    the counters reset just before and read just after, timed between two
+    runs of the same steps through the API in the CLI's chunks; then the
+    run resumed from its CLI_SAVE-step checkpoint, twice, against the
+    continuous one."""
+    import csv
+    import shutil
+
+    from torchmd_tpu_torch import checkpoint
+    from torchmd_tpu_torch import run as cli
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+
+    nframes = CLI_STEPS // CLI_PERIOD
+    with tempfile.TemporaryDirectory() as td:
+        full = os.path.join(td, "full")
+        mid = os.path.join(td, f"step{CLI_SAVE}.chk")
+        save = checkpoint.save_checkpoint
+
+        def keep_mid(path, system, integrator, iteration):
+            # the CLI overwrites output.chk at every checkpoint: keep the
+            # step-CLI_SAVE one for the resume
+            save(path, system, integrator, iteration)
+            if iteration * CLI_PERIOD == CLI_SAVE:
+                shutil.copy(path, mid)
+
+        chunked = [_api_chunked_steps_per_s(os.path.join(td, "api0"))]
+        checkpoint.save_checkpoint = keep_mid
+        try:
+            argv = _cli_argv(full, CLI_STEPS, ["--save-period", str(CLI_SAVE),
+                                               "--checkpoint-period", str(CLI_SAVE)])
+            kn.LAUNCHES = kb.LAUNCHES = 0
+            summary = cli.main(argv)
+            launches = {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+        finally:
+            checkpoint.save_checkpoint = save
+        chunked.append(_api_chunked_steps_per_s(os.path.join(td, "api1")))
+        sync = cli.main(_cli_argv(os.path.join(td, "sync"), CLI_STEPS,
+                                  ["--async-output", "0"]))["steps_per_sec"]
+        sps = summary["steps_per_sec"]
+        api_chunked = sum(chunked) / len(chunked)
+        log("cli", steps=summary["steps"], seconds=f"{summary['elapsed_s']:.4f}",
+            cli_steps_per_s=f"{sps:.2f}", ns_per_day=f"{summary['ns_per_day']:.3f}",
+            api_steps_per_s=f"{api_steps_per_s:.2f}",
+            cli_over_api=f"{sps / api_steps_per_s:.3f}",
+            api_chunked_steps_per_s="/".join(f"{c:.2f}" for c in chunked),
+            cli_over_api_chunked=f"{sps / api_chunked:.3f}",
+            cli_sync_output_steps_per_s=f"{sync:.2f}",
+            pair_launches=launches["pair"], bonded_launches=launches["bonded"])
+        for k, n in launches.items():
+            require(n >= CLI_STEPS, f"CLI: {k} kernel launched {n} < {CLI_STEPS} times")
+        with open(os.path.join(full, "monitor_0.csv")) as fh:
+            rows = list(csv.DictReader(fh))
+        require(len(rows) == nframes, f"CLI monitor rows {len(rows)} != {nframes}")
+        require(all(np.isfinite(float(r[k])) for r in rows
+                    for k in ("epot", "ekin", "etot", "T")), "CLI monitor not finite")
+        traj = np.load(os.path.join(full, "output_0.npy"))
+        natoms = traj.shape[0]
+        require(traj.shape[1:] == (3, nframes) and np.all(np.isfinite(traj)),
+                f"CLI trajectory {traj.shape}")
+        for name in ("output_0.xyz", "output.chk", "input.yaml"):
+            require(os.path.exists(os.path.join(full, name)), f"CLI wrote no {name}")
+        require(os.path.exists(mid), f"no step-{CLI_SAVE} checkpoint")
+
+        ends = []
+        for k in range(2):
+            out = os.path.join(td, f"resumed{k}")
+            cli.main(_cli_argv(out, CLI_STEPS, ["--save-period", str(CLI_SAVE),
+                                                "--resume", mid]))
+            ends.append(np.load(os.path.join(out, "output_0.npy")))
+        later = nframes - CLI_SAVE // CLI_PERIOD
+        require(all(e.shape[2] == later for e in ends), "resumed trajectory frames")
+        dev = np.abs(ends[0] - traj[:, :, -later:]).max(axis=(0, 1))
+        floor = np.abs(ends[1] - ends[0]).max(axis=(0, 1))
+        log("cli_resume", from_step=CLI_SAVE,
+            steps="/".join(str(CLI_SAVE + CLI_PERIOD * (f + 1)) for f in range(later)),
+            resumed_vs_continuous_A="/".join(f"{d:.3e}" for d in dev),
+            resumed_vs_resumed_A="/".join(f"{d:.3e}" for d in floor),
+            tol_A=CLI_RESUME_TOL)
+        # the first frame after the resume: a wrong state or noise stream
+        # moves atoms by ~0.1 A within CLI_PERIOD steps; the last bits of
+        # the bonded kernel's sums have not grown to CLI_RESUME_TOL yet
+        require(dev[0] <= CLI_RESUME_TOL,
+                f"resumed CLI run differs by {dev[0]} A after {CLI_PERIOD} steps")
+        # at the end: as close as two resumed runs are to each other
+        require(dev[-1] <= max(CLI_RESUME_TOL, 10.0 * floor[-1]),
+                f"resumed CLI run differs by {dev[-1]} A at the end (two resumed "
+                f"runs: {floor[-1]} A)")
+    return launches, natoms
+
+
+def phase_external():
+    """Thrombin's Forces with an external torch potential on the card
+    (`TorchExternal` over an nn.Module: a restraint plus a two-layer MLP):
+    per-term energies and forces against Forces() plus the module's own
+    energy and -autograd forces, the device time per evaluation with and
+    without it, then EXTERNAL_STEPS CLI steps with an --external config."""
+    import torch
+    import yaml
+
+    from torchmd_tpu_torch.external import External
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+
+    mol, par, plain = _thrombin_forces(DEVICE)
+    with tempfile.TemporaryDirectory() as td:
+        potential, ref = os.path.join(td, "potential.py"), os.path.join(td, "ref.npy")
+        with open(potential, "w") as fh:
+            fh.write(EXTERNAL_POTENTIAL)
+        np.save(ref, mol.coords[:, :, 0])
+        spec = {"ref": ref, "k": EXTERNAL_K, "width": EXTERNAL_WIDTH,
+                "seed": EXTERNAL_SEED}
+        ext = External(potential, np.zeros((1, mol.numAtoms), int), device=DEVICE, **spec)
+        withext = Forces(par, terms=TERMS, precision="single", cutoff=CUTOFF, rfa=RFA,
+                         device=DEVICE, external=ext)
+        rs = np.random.RandomState(EXTERNAL_SEED)
+        pos = (mol.coords[:, :, 0] + 0.05 * rs.randn(mol.numAtoms, 3))[None]
+        d0 = plain.compute(pos, None, returnDetails=True)[0]
+        f0 = plain.last_forces[0]
+        d1 = withext.compute(pos, None, returnDetails=True)[0]
+        f1 = withext.last_forces[0]
+        p = torch.as_tensor(pos[0], dtype=torch.float32, device=DEVICE).requires_grad_(True)
+        zero_box = torch.zeros(3, dtype=torch.float32, device=DEVICE)
+        e_ext = ext.energy_fn(p, zero_box)
+        (g,) = torch.autograd.grad(e_ext, p)
+        want = dict(d0, external=float(e_ext.detach()))
+        e_err = max(abs(d1[k] - want[k]) / max(1.0, abs(want[k])) for k in want)
+        f_want = f0 - g
+        f_err = float((f1 - f_want).abs().max()) / max(1.0, float(f_want.abs().max()))
+        log("external", terms=len(want), e_ext=f"{want['external']:.4f}",
+            e_rel_err=f"{e_err:.3e}", f_rel_err=f"{f_err:.3e}")
+        require(set(d1) == set(want), (sorted(d1), sorted(want)))
+        require(e_err <= E_TOL, f"external: per-term energies off by {e_err}")
+        require(f_err <= F_TOL, f"external: forces off by {f_err}")
+
+        x = torch.as_tensor(pos[0], dtype=torch.float32, device=DEVICE)
+        ms_plain = cuda_events_ms(lambda: plain.ef_one(x, None))
+        ms_ext = cuda_events_ms(lambda: withext.ef_one(x, None))
+        ms_fn = cuda_events_ms(lambda: ext.calculate(x[None], None))
+        log("external_time", ef_one_ms=f"{ms_plain:.4f}", ef_one_external_ms=f"{ms_ext:.4f}",
+            external_alone_ms=f"{ms_fn:.4f}", added_ms=f"{ms_ext - ms_plain:.4f}")
+
+        emb = os.path.join(td, "emb.npy")
+        np.save(emb, np.zeros(mol.numAtoms, int))
+        conf = os.path.join(td, "external.yaml")
+        with open(conf, "w") as fh:
+            yaml.dump({"external": {"module": "torchmd_tpu_torch.external",
+                                    "file": potential, "embeddings": emb, **spec}}, fh)
+        from torchmd_tpu_torch import run as cli
+
+        out = os.path.join(td, "cli")
+        kn.LAUNCHES = kb.LAUNCHES = 0
+        summary = cli.main(["--conf", conf] + _cli_argv(
+            out, EXTERNAL_STEPS, ["--save-period", str(EXTERNAL_STEPS)]))
+        launches = {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+        traj = np.load(os.path.join(out, "output_0.npy"))
+        log("external_cli", steps=summary["steps"],
+            steps_per_s=f"{summary['steps_per_sec']:.2f}",
+            pair_launches=launches["pair"], bonded_launches=launches["bonded"],
+            max_abs_pos=f"{float(np.abs(traj).max()):.3f}")
+        require(np.all(np.isfinite(traj)), "external CLI run not finite")
+        for k, n in launches.items():
+            require(n >= EXTERNAL_STEPS, f"external CLI: {k} launched {n} times")
+    return {"ms": ms_plain, "ms_external": ms_ext}
+
+
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -1753,10 +2012,15 @@ def main():
     phase_dense_pme()
     times.update(phase_column_kernels())
     phase_parity()
-    thr_launches = phase_dynamics()
+    thr_launches, api_steps_per_s = phase_dynamics()
     water_launches, _ = phase_waterbox()
     npt_launches, _ = phase_npt()
+    cli_launches, _ = phase_cli(api_steps_per_s)
+    phase_external()
     times["roofline"], probe_launches = phase_roofline()
+    # the dense pair and bonded kernels' main paths: the API's dynamics
+    # and the CLI's run
+    thr_launches = {k: thr_launches[k] + cli_launches[k] for k in thr_launches}
 
     import torch
 

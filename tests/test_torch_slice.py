@@ -147,14 +147,14 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("kwargs", [
     dict(kernel="verlet"), dict(elec="ewald", cutoff=9.0),
     dict(constraints="hbonds"), dict(thermostat="csvr", T=300.0),
-    dict(external=object()),
+    dict(mts=2),
 ])
 def test_later_slices_raise_not_implemented(kwargs):
     """Options of later slices raise NotImplementedError: Verlet lists,
     the exact Ewald sum (elec='ewald' below the PME size), SHAKE, CSVR and
-    external potentials."""
+    r-RESPA (external potentials are ported: tests/test_torch_external.py)."""
     mol, par, _ = _system("ligand")
-    integ_kw = {k: kwargs.pop(k) for k in ("constraints", "thermostat", "T")
+    integ_kw = {k: kwargs.pop(k) for k in ("constraints", "thermostat", "T", "mts")
                 if k in kwargs}
     with pytest.raises(NotImplementedError, match="slice|not ported"):
         forces = Forces(par, terms=ALL_TERMS, precision="double", device="cpu",
@@ -165,11 +165,14 @@ def test_later_slices_raise_not_implemented(kwargs):
 
 
 def test_kernel_path_on_cuda_needs_single_precision():
-    """The CUDA kernels are f32: asking for them at f64 raises at
-    construction instead of falling back to another path."""
+    """The CUDA kernels are f32: asking for the cell kernel at f64 on the
+    card raises at construction instead of falling back to another path
+    (kernel='auto' at f64 selects the torch-op path by rule, as the JAX
+    package does: tests/test_torch_run.py::test_f64_path_selection)."""
     _, par, _ = _system("ligand")
     with pytest.raises(ValueError, match="single precision"):
-        Forces(par, terms=ALL_TERMS, precision="double", device="cuda")
+        Forces(par, terms=ALL_TERMS, precision="double", device="cuda",
+               kernel="cell", cutoff=9.0)
 
 
 @pytest.mark.gpu

@@ -32,6 +32,12 @@ Angstrom, `L` the cubic box edge):
                        constraints="settle")
     Ekin, Epot, T = integ.step(niter=100)
 
+From the command line (the reference CLI: YAML `--conf`, force terms,
+Langevin or Nose-Hoover, replicas, minimisation, an external NNP config,
+checkpoints; `--device cpu` for the CPU):
+
+    python -m torchmd_tpu_torch.run --conf tests/systems/argon/conf.yaml
+
 NPT (MTK barostat, 1 bar, on the column kernel on the card):
 
     integ = Integrator(system, forces, 2.0, T=300, thermostat="nhc",
@@ -45,10 +51,17 @@ __all__ = [
     "systems", "potentials", "bonded", "forces", "integrator", "interop",
     "ops", "io", "forcefields", "parameters", "units", "neighbors", "ewald",
     "vsites", "constraints", "thermostats", "columns", "barostat",
+    "external", "run", "utils", "wrapper", "checkpoint", "observables",
+    "minimizers", "profiling", "native", "neighbourlist", "npzmol", "mycalc",
+    "calculators",
     # convenience re-exports (lazy)
     "Molecule", "ForceField", "AmberForcefield", "GromacsForcefield",
+    "YamlForcefield", "CharmmForcefield", "npzMolecule",
     "Parameters", "System", "Forces", "Integrator", "maxwell_boltzmann",
-    "ffparams_from_numpy", "MTKBarostat",
+    "ffparams_from_numpy", "MTKBarostat", "TorchExternal", "External",
+    "Wrapper", "LogWriter", "save_checkpoint", "load_checkpoint", "pressure",
+    "minimize_bfgs", "minimize_lbfgs", "minimize_fire", "minimize_cg",
+    "StepTimer", "MyCalc",
 ]
 
 _LAZY = {
@@ -64,6 +77,22 @@ _LAZY = {
     "maxwell_boltzmann": ("torchmd_tpu_torch.integrator", "maxwell_boltzmann"),
     "ffparams_from_numpy": ("torchmd_tpu_torch.interop", "ffparams_from_numpy"),
     "MTKBarostat": ("torchmd_tpu_torch.barostat", "MTKBarostat"),
+    "YamlForcefield": ("torchmd_tpu_torch.forcefields.ff_yaml", "YamlForcefield"),
+    "CharmmForcefield": ("torchmd_tpu_torch.forcefields.ff_charmm", "CharmmForcefield"),
+    "npzMolecule": ("torchmd_tpu_torch.io", "npzMolecule"),
+    "TorchExternal": ("torchmd_tpu_torch.external", "TorchExternal"),
+    "External": ("torchmd_tpu_torch.external", "External"),
+    "Wrapper": ("torchmd_tpu_torch.wrapper", "Wrapper"),
+    "LogWriter": ("torchmd_tpu_torch.utils", "LogWriter"),
+    "save_checkpoint": ("torchmd_tpu_torch.checkpoint", "save_checkpoint"),
+    "load_checkpoint": ("torchmd_tpu_torch.checkpoint", "load_checkpoint"),
+    "pressure": ("torchmd_tpu_torch.observables", "pressure"),
+    "minimize_bfgs": ("torchmd_tpu_torch.minimizers", "minimize_bfgs"),
+    "minimize_lbfgs": ("torchmd_tpu_torch.minimizers", "minimize_lbfgs"),
+    "minimize_fire": ("torchmd_tpu_torch.minimizers", "minimize_fire"),
+    "minimize_cg": ("torchmd_tpu_torch.minimizers", "minimize_cg"),
+    "StepTimer": ("torchmd_tpu_torch.profiling", "StepTimer"),
+    "MyCalc": ("torchmd_tpu_torch.mycalc", "MyCalc"),
 }
 
 

@@ -90,24 +90,32 @@ class ForceField:
 
     @staticmethod
     def create(mol, prm):
-        """AMBER and GROMACS files; YAML and CHARMM files raise
-        NotImplementedError (their readers come with a later slice)."""
+        """A reader by extension: YAML, CHARMM (.prm/.rtf or a list of
+        them), GROMACS (.top/.itp) or AMBER (.prmtop/.frcmod/.dat, or a
+        list of them); None for external-potential-only runs."""
         from .ff_amber import AmberForcefield
+        from .ff_charmm import CharmmForcefield
         from .ff_gromacs import GromacsForcefield
+        from .ff_yaml import YamlForcefield
 
         if prm is None:
             # No parameter file: valid for external-potential-only runs
             # (e.g. npz + NNP with empty force terms)
             return NullForcefield(mol)
-        files = list(prm) if isinstance(prm, (list, tuple)) else [prm]
-        exts = {os.path.splitext(str(p))[-1].lower() for p in files}
-        if exts & {".prmtop", ".frcmod", ".dat"}:
-            # AMBER file set (base .dat + frcmod overlays, tleap-style)
-            return AmberForcefield(mol, prm)
-        if not isinstance(prm, (list, tuple)) and exts & {".top", ".itp"}:
+        if isinstance(prm, (list, tuple)):
+            exts = {os.path.splitext(str(p))[-1].lower() for p in prm}
+            if exts & {".prmtop", ".frcmod", ".dat"}:
+                # AMBER file set (base .dat + frcmod overlays, tleap-style)
+                return AmberForcefield(mol, prm)
+            # CHARMM prm (+ rtf) file set
+            return CharmmForcefield(mol, prm)
+        ext = os.path.splitext(str(prm))[-1].lower()
+        if ext in (".yaml", ".yml"):
+            return YamlForcefield(mol, prm)
+        if ext in (".top", ".itp"):
             return GromacsForcefield(mol, prm)
-        if exts & {".yaml", ".yml", ".prm", ".rtf"}:
-            raise NotImplementedError(
-                f"{sorted(exts)} force fields are not ported yet (ff_yaml and "
-                "ff_charmm come with a later slice of the port)")
+        if ext == ".prm" or ext == ".rtf":
+            return CharmmForcefield(mol, [prm])
+        if ext in (".prmtop", ".frcmod", ".dat"):
+            return AmberForcefield(mol, prm)
         raise ValueError(f"Unrecognized force-field file: {prm}")

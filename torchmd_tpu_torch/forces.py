@@ -29,7 +29,17 @@ The path follows the device:
   - `kernel="dense"` selects the torch-op path on any device: analytic
     dense nonbonded (`potentials`) and analytic bonded (`bonded`);
   - `plain=True` runs every kernel's plain PyTorch version on any device
-    (the f64 reference path on the card).
+    (the f64 reference path on the card);
+  - at f64 on the card (`precision="double"`), `kernel="auto"` takes the
+    torch-op path of the same configuration, as the JAX package gives its
+    Pallas kernels only f32 (`torchmd_tpu/forces.py:229`, `:258`): the
+    CUDA kernels run in single precision. `kernel="cell"` at f64 on the
+    card raises. `Forces.path` records the choice (`select_path`).
+
+`external=` takes an external potential (`external.TorchExternal`, or
+any object with the reference's `calculate` protocol): `ef_one`
+evaluates it after the internal terms, reports its `"external"` energy
+and adds its forces into the same buffer.
 
 `gather` picks the PME force gather ("ik" or "exact", `ewald.PmeRecip`;
 default ik for CUDA f32, exact otherwise).
@@ -59,6 +69,7 @@ from .potentials import (
     add_energy,
     make_ffparams,
 )
+from .external import batch_box, external_ef
 from .systems import resolve_device, to_numpy, torch_dtype
 from .vsites import vsite_groups_to, wrap_energy_forces
 
@@ -81,6 +92,46 @@ def _box_to_diag(box, nreplicas) -> np.ndarray:
     if box.ndim == 2:
         return box
     return np.tile(box.reshape(1, 3), (nreplicas, 1))
+
+
+def select_path(kernel, plain, device, dtype) -> str:
+    """"kernels" (the kernel wrappers of `ops`: the CUDA kernels on the
+    card, their plain PyTorch versions on the CPU) or "torch-ops" (the
+    analytic torch-op path, `potentials` and `bonded`, or the cell list's
+    plain version). The CUDA kernels are f32 only, so f64 on the card
+    takes the torch-op path; `kernel="cell"` asks for the cell kernel
+    and raises there."""
+    if kernel == "dense" or plain:
+        return "torch-ops"
+    if torch.device(device).type == "cuda" and dtype != torch.float32:
+        if kernel == "cell":
+            raise ValueError(
+                "kernel='cell' at f64 on the card: the cell kernel runs in "
+                "single precision only; use precision='single', kernel='auto' "
+                "(f64 takes the torch-op path) or plain=True")
+        return "torch-ops"
+    return "kernels"
+
+
+def _with_external(internal, ext):
+    """`internal` (pos, box, cl) -> (pot, forces), then the external
+    potential: its energy as the "external" term, its forces added into
+    the same buffer. An external with only the batched `calculate(pos[R,
+    N, 3], box)` protocol is called with one replica."""
+    ext_ef = external_ef(ext)
+
+    def ef_one(pos, box, cl=None):
+        pot, frc = internal(pos, box, cl)
+        if ext_ef is not None:
+            e, f = ext_ef(pos, batch_box(box, pos[None])[0])
+        else:
+            e, f = (torch.as_tensor(to_numpy(x), dtype=pos.dtype, device=pos.device)
+                    for x in ext.calculate(pos[None], None if box is None else box[None]))
+        pot = dict(pot)
+        pot["external"] = e.reshape(())
+        return pot, frc.add_(f.reshape(pos.shape))
+
+    return ef_one
 
 
 class Forces:
@@ -122,10 +173,6 @@ class Forces:
             raise RuntimeError(
                 "You cannot enable 1-4 interactions without enabling dihedrals"
             )
-        if external is not None:
-            raise NotImplementedError(
-                "external potentials are not ported yet (external.py comes "
-                "with a later slice of the port)")
         if elec not in ("auto", "ewald", "pme"):
             raise ValueError(f"Unknown elec mode: {elec}")
         if elec != "auto" and cutoff is None:
@@ -169,12 +216,8 @@ class Forces:
             dihedrals_amber=_amber(parameters.dihedral_params),
             impropers_amber=_amber(parameters.improper_params),
         )
-        self.use_kernels = kernel != "dense" and not self.plain
-        if self.use_kernels and self.device.type == "cuda":
-            if self.dtype != torch.float32:
-                raise ValueError(
-                    "the CUDA kernels run in single precision; use "
-                    "precision='single', kernel='dense' or plain=True")
+        self.path = select_path(kernel, self.plain, self.device, self.dtype)
+        self.use_kernels = self.path == "kernels"
         self.has_nb = any(t in self.energies for t in NONBONDED_TERMS)
         self.cell_requested = kernel == "cell" and self.has_nb
         self.cell_auto = (kernel == "auto" and self.has_nb
@@ -273,7 +316,11 @@ class Forces:
         self.nb_ef_one = nb_ef_one if nb is not None else None
         # virtual sites: evaluate at the snapped geometry, spread the site
         # forces onto the hosts
-        self.ef_one = wrap_energy_forces(self.vsites, ef_one) if self.vsites else ef_one
+        if self.vsites:
+            ef_one = wrap_energy_forces(self.vsites, ef_one)
+        if self.external is not None:
+            ef_one = _with_external(ef_one, self.external)
+        self.ef_one = ef_one
 
     # ------------------------------------------------------------------
     def ensure_ewald(self, box):
@@ -433,7 +480,9 @@ class Forces:
                 pots.append(pot)
                 frcs.append(frc)
         zero = torch.zeros((), dtype=self.dtype, device=self.device)
-        keys = list(pots[0].keys()) + ["external"]
+        keys = list(pots[0].keys())
+        if "external" not in keys:
+            keys.append("external")
         pot = {k: torch.stack([p.get(k, zero) for p in pots]) for k in keys}
 
         if calculateForces:

@@ -238,6 +238,11 @@ class Integrator:
             raise NotImplementedError(
                 "Monte Carlo barostats are not ported yet; use MTKBarostat")
         systems, forces = self.systems, self.forces
+        ext = getattr(forces, "external", None)
+        if ext is not None and getattr(ext, "energy_fn", None) is None:
+            raise NotImplementedError(
+                "an external potential with only `calculate` gives no virial: "
+                "the MTK barostat needs its energy_fn")
         box0 = np.asarray(systems.box_diag, np.float64)
         if np.any(box0 <= 0):
             raise ValueError("MTK barostat requires a periodic box")
@@ -458,7 +463,8 @@ class Integrator:
         replica (torchmd_tpu/integrator.py:1410-1460): the neighbour
         kernel's pair terms and PME analytically at the snapped geometry,
         with the site correction -sum F (r - dr/ds) before the site forces
-        move onto the hosts; the cheap terms by autograd over (pos, s)."""
+        move onto the hosts; the cheap terms and an external's energy_fn
+        by autograd over (pos, s)."""
         from .potentials import compute_potentials
         from .vsites import apply_vsites, apply_vsites_scaling, spread_vsite_forces
 
@@ -476,15 +482,19 @@ class Integrator:
         if vsg:
             vir = vir - (frc * (p2 - tangent)).sum(0)
             frc = spread_vsite_forces(vsg, pos, frc, box)
-        if self._cheap_terms():
+        ext = getattr(forces.external, "energy_fn", None)
+        if self._cheap_terms() or ext is not None:
             with torch.enable_grad():
                 p = pos.detach().requires_grad_(True)
                 s = torch.ones(3, dtype=pos.dtype, device=pos.device, requires_grad=True)
                 ps, bs = p * s, box * s
                 if vsg:
                     ps = apply_vsites(vsg, ps, bs)
-                terms = compute_potentials(forces.ffparams, ps, bs, forces.config,
-                                           nonbonded=False)
+                terms = (compute_potentials(forces.ffparams, ps, bs, forces.config,
+                                            nonbonded=False)
+                         if self._cheap_terms() else {})
+                if ext is not None:
+                    terms["external"] = ext(ps, bs).reshape(())
                 if terms:
                     e_ch = sum(terms.values())
                     gp, gs = torch.autograd.grad(e_ch, (p, s), allow_unused=True)

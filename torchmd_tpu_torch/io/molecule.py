@@ -20,12 +20,6 @@ import os
 import numpy as np
 
 
-def _queued(fmt):
-    raise NotImplementedError(
-        f"{fmt} files are not read or written by the port yet; a later slice "
-        "brings the xtc/trr/dcd/npz/mol2 readers")
-
-
 class Molecule:
     def __init__(self, filename: str | None = None):
         self.numAtoms = 0
@@ -67,8 +61,8 @@ class Molecule:
             self._read_prmtop(filename)
         elif ext == ".pdb":
             self._read_pdb(filename)
-        elif ext in (".xtc", ".trr", ".npz", ".mol2"):
-            _queued(ext)
+        elif ext == ".xtc":
+            self._read_xtc(filename)
         elif ext == ".coor":
             from .namd import read_coor
 
@@ -78,10 +72,21 @@ class Molecule:
             from .namd import read_xsc
 
             self.box = read_xsc(filename).reshape(3, 1)
+        elif ext == ".npz":
+            self._read_npz(filename)
+        elif ext == ".mol2":
+            self._read_mol2(filename)
         elif ext in (".top", ".itp"):
             self._read_gmxtop(filename)
         elif ext == ".gro":
             self._read_gro(filename)
+        elif ext == ".trr":
+            from .trr import read_trr
+
+            d = read_trr(filename)
+            self._set_coords(d["coords"])
+            if np.any(d["box"]):
+                self.box = d["box"]
         else:
             raise ValueError(f"Unsupported file extension: {filename}")
         return self
@@ -144,6 +149,29 @@ class Molecule:
                 self.charge = np.zeros(self.numAtoms, dtype=np.float64)
             self.bonds = d["bonds"]
         self.crystalinfo = d["crystalinfo"] or self.crystalinfo
+        self._set_coords(d["coords"])
+
+    def _read_xtc(self, filename):
+        from .xtc import read_xtc
+
+        d = read_xtc(filename)
+        self._set_coords(d["coords"])
+        self.box = d["box"]
+
+    def _read_npz(self, filename):
+        from .npz import read_npz
+
+        d = read_npz(filename)
+        self.numAtoms = len(d["z"])
+        self.z = d["z"]
+        self.embedding = d["embedding"]
+        self.masses = d["masses"]
+        self.element = d["element"]
+        self.atomtype = d["atomtype"]
+        self.charge = d["charge"]
+        self.bonds = d["bonds"]
+        self.box = d["box"]
+        self.name = self.element.copy()
         self._set_coords(d["coords"])
 
     def _read_gmxtop(self, filename):
@@ -215,6 +243,18 @@ class Molecule:
         if d["velocities"] is not None:
             self.velocities = d["velocities"]
 
+    def _read_mol2(self, filename):
+        from .mol2 import read_mol2
+
+        d = read_mol2(filename)
+        self.numAtoms = len(d["name"])
+        self.name = d["name"]
+        self.atomtype = d["atomtype"]
+        self.element = d["element"]
+        self.charge = d["charge"]
+        self.bonds = d["bonds"]
+        self._set_coords(d["coords"])
+
     def _set_coords(self, coords):
         coords = np.asarray(coords, dtype=np.float64)
         if coords.ndim == 2:
@@ -253,12 +293,39 @@ class Molecule:
                         fh.write(
                             f"{e} {xyz[0]:.6f} {xyz[1]:.6f} {xyz[2]:.6f}\n"
                         )
-        elif ext in (".dcd", ".xtc", ".trr"):
-            _queued(ext)
+        elif ext == ".dcd":
+            from .dcd import DCDWriter
+
+            frames = range(self.nframes) if frame is None else [frame]
+            with DCDWriter(str(filename), self.numAtoms) as w:
+                for fidx in frames:
+                    box = (
+                        self.box[:, min(fidx, self.box.shape[1] - 1)]
+                        if np.any(self.box) else None
+                    )
+                    w.write_frame(self.coords[:, :, fidx], box)
+        elif ext == ".xtc":
+            from .xtc import write_xtc
+
+            coords = (
+                self.coords if frame is None
+                else self.coords[:, :, frame:frame + 1]
+            )
+            write_xtc(str(filename), coords,
+                      self.box if np.any(self.box) else None)
         elif ext == ".gro":
             from .gro import write_gro
 
             write_gro(filename, self, frame=frame or 0)
+        elif ext == ".trr":
+            from .trr import write_trr
+
+            coords = (
+                self.coords if frame is None
+                else self.coords[:, :, frame:frame + 1]
+            )
+            write_trr(str(filename), coords,
+                      self.box if np.any(self.box) else None)
         else:
             raise ValueError(f"Unsupported output extension: {filename}")
         return self

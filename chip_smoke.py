@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Drives the port's three main paths through the entry points a user calls
+Drives the port's main paths through the entry points a user calls
 (Molecule -> ForceField -> Parameters -> Forces -> System ->
 Integrator.step), f32, imports nothing of JAX or of the JAX package:
 
@@ -21,6 +21,13 @@ Integrator.step), f32, imports nothing of JAX or of the JAX package:
     `python -m torchmd_tpu_torch.run`, in-process): the dense pair and
     bonded kernels, with monitor rows, trajectory and checkpoints, and
     with an external torch potential (`--external`, an nn.Module);
+  - thrombin's production protocol through the CLI: bench.py's 4 fs with
+    the X-H bonds constrained (SHAKE/RATTLE), hydrogen masses x3 and CSVR
+    at 300 K, on the dense pair and bonded kernels, and with its C-alpha
+    atoms restrained;
+  - the water box's NVT phase with a Monte Carlo barostat (1 bar, an
+    attempt every 25 steps): the cell, spread and gather kernels under
+    volume moves;
   - the staged probe of the dense pair kernel (python -m
     torchmd_tpu_torch.roofline, 4,676 atoms, tiles of 512): seven stage
     kernels and the elemental-throughput chains.
@@ -106,7 +113,29 @@ Phases (each prints lines; any failure raises and exits non-zero):
      bars, one evaluation's device time with and without it, then
      EXTERNAL_STEPS CLI steps with an `--external` config (finite, each
      kernel launched at least once a step);
- 11. roofline: every probe stage (f32) against its plain version (f64) at
+ 11. production: thrombin through `run.main` at 4 fs (`--constraints
+     hbonds --hmr 3 --thermostat csvr`), PROD_STEPS steps with the
+     counters reset just before and read just after (each of #1 and #3
+     launched at least once a step), the 2,319 constraints, the mean T of
+     the last half within PROD_T_TOL K of 300 K, SHAKE's residual at the
+     end (the plain f64 one of the card's positions within
+     PROD_SHAKE_ULPS f32 ulps, the card's reading within 2 ulps of it);
+     the same system through the API, a timed chunk and a profile beside
+     the 2 fs run's (`[production_vs_2fs]`: steps/s, ns/day, device
+     events per step), 10 NVE steps against the plain f64 path (1e-3 A);
+     a C-alpha HarmonicPositionalRestraint on the card against f64 on the
+     CPU at the Pallas bars, then RESTRAINT_STEPS steps with it;
+ 12. mc_barostat: the NVT water box with MonteCarloBarostat, an attempt
+     after each MC_CHUNK steps for MC_STEPS steps, counters reset just
+     before and read just after; the first attempt's two states' per-term
+     energies against the plain f64 path at the Pallas bar, the attempt's
+     energies their sums; SETTLE after the moves, the volume within
+     MC_VOLUME_RANGE, the attempt's ms and steps/s with attempts; aniso
+     (x, z) and membrane moves on the 216-water box, each moving only
+     the axes its mode names;
+ 13. cmap: a 5-atom chain with a CMAP cross-term, Forces on the card (f32)
+     against the CPU (f64) at the Pallas bars;
+ 14. roofline: every probe stage (f32) against its plain version (f64) at
      the probe's full size, on its inputs and on the same rows without
      pairs nearer than 2 A, each row's force held to the size of its terms
      (force_scale); four planted faults (the plain version with k_rf
@@ -252,6 +281,31 @@ class Potential(torch.nn.Module):
 def make_potential(embeddings, ref=None, k=0.05, width=32, seed=7):
     return Potential(np.load(ref), float(k), int(width), int(seed))
 """
+# the production phase: thrombin through the CLI at bench.py's 4 fs with
+# its X-H bonds constrained (SHAKE/RATTLE), hydrogen masses x PROD_HMR on
+# the System and CSVR at TEMP (tau 100 steps); PROD_STEPS steps, a monitor
+# row every PROD_PERIOD. Gates: PROD_XH constraints; the mean T of the
+# rows after PROD_STEPS / 2 within PROD_T_TOL K of TEMP; SHAKE's residual
+# at the end, taken at f64 from the card's f32 positions, within
+# PROD_SHAKE_ULPS f32 ulps of the largest coordinate (50 Jacobi sweeps
+# converge below f32 rounding: on the CPU the alanine box's residual after
+# 100 4 fs steps is 1.7e-13 A at f64 and 0.93 ulp at f32), and the card's
+# f32 reading of it within 2 ulps of that
+PROD_TIMESTEP, PROD_STEPS, PROD_PERIOD, PROD_HMR = 4.0, 1000, 50, 3.0
+PROD_XH, PROD_T_TOL, PROD_SHAKE_ULPS = 2319, 15.0, 10.0
+# the restrained leg: C-alpha atoms held to the start by k RESTRAINT_K
+# kcal/mol/A^2, RESTRAINT_STEPS steps of the production protocol
+RESTRAINT_K, RESTRAINT_STEPS = 1.0, 200
+# the Monte Carlo phase: the NVT water box plus MonteCarloBarostat(MC_PRESSURE
+# bar, TEMP, groups = waters, seed MC_SEED), an attempt after each MC_CHUNK
+# steps for MC_STEPS steps; then aniso (scale_axes x, z) and membrane moves
+# on the 216-water box, MC_SMALL_ATTEMPTS each with dV_max MC_SMALL_DV of V
+MC_PRESSURE, MC_SEED, MC_STEPS, MC_CHUNK = 1.0, 5, 500, 25
+MC_VOLUME_RANGE = (0.7, 1.4)
+MC_SMALL_ATTEMPTS, MC_SMALL_CHUNK, MC_SMALL_DV = 30, 10, 0.002
+# the CMAP check: a 5-atom chain with one cross-term on a CMAP_N x CMAP_N
+# grid of a smooth periodic surface (the system tests/test_cmap.py writes)
+CMAP_N = 24
 # the LJ gas of tests/test_columns.py: 1,500 atoms in 60 A, cutoff 9 A,
 # reaction field, charges 0.05 e x N(0, 1)
 GAS_N, GAS_L, GAS_CUTOFF = 1500, 60.0, 9.0
@@ -1116,8 +1170,8 @@ def phase_dynamics():
         require(n >= TIMED_STEPS, f"{k} kernel launched {n} < {TIMED_STEPS} times")
     require(np.all(np.isfinite(system.pos)), "non-finite positions")
     require(np.isfinite(Epot).all() and np.isfinite(T).all(), (Epot, T))
-    profile_water_step(integ, 1.0 / steps_per_s, steps=200, label="thrombin_profile",
-                       shares=("pair_", "bonded"))
+    profile = profile_water_step(integ, 1.0 / steps_per_s, steps=200,
+                                 label="thrombin_profile", shares=("pair_", "bonded"))
 
     # NVE from one state: kernel path (f32) against the dense torch-op
     # path (f64), 10 steps
@@ -1135,7 +1189,7 @@ def phase_dynamics():
     dev = float(np.abs(final["kernels"] - final["dense"]).max())
     log("nve", steps=10, max_pos_dev_A=dev)
     require(dev <= 1e-3, f"NVE kernel vs dense positions differ by {dev} A")
-    return launches, steps_per_s
+    return launches, steps_per_s, profile
 
 
 def _water_integrator(par, mol_pos, vel, L, precision="single", plain=False,
@@ -1326,7 +1380,8 @@ def profile_water_step(integ, step_s, steps=20, top=14, label="water_profile",
     """torch.profiler over `steps` steps of `integ`: device time per step
     by kernel, the device's busy share against the unprofiled step time
     `step_s` of the timed run, and the share of the step's device time of
-    the kernels whose names hold each of `shares`."""
+    the kernels whose names hold each of `shares`. Returns (device ms per
+    step, device events per step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1355,6 +1410,7 @@ def profile_water_step(integ, step_s, steps=20, top=14, label="water_profile",
         us = sum(dev_us(e) for e in kernels if part in e.key) / steps
         log(f"{label}_share", kernels=part, us_per_step=f"{us:.2f}",
             share_of_device_time=f"{us / max(total_us, 1e-9):.3f}")
+    return total_us / 1e3, launches
 
 def build_gas(precision="single"):
     """(par, positions, box edge) of the charged LJ gas of
@@ -1997,6 +2053,385 @@ def phase_external():
     return {"ms": ms_plain, "ms_external": ms_ext}
 
 
+def _production_argv(log_dir, steps, extra=(), precision="single"):
+    """The CLI's arguments for thrombin's production protocol: 4 fs, X-H
+    bonds by SHAKE/RATTLE, hydrogen masses x PROD_HMR, CSVR at TEMP."""
+    d = os.path.join(DATA, MAIN_SYSTEM[0])
+    return ["--topology", os.path.join(d, "structure.prmtop"),
+            "--forcefield", os.path.join(d, "structure.prmtop"),
+            "--coordinates", os.path.join(d, MAIN_SYSTEM[1]),
+            "--forceterms", *TERMS, "--cutoff", str(CUTOFF), "--rfa",
+            "--timestep", str(PROD_TIMESTEP), "--constraints", "hbonds",
+            "--hmr", str(PROD_HMR), "--thermostat", "csvr",
+            "--temperature", str(TEMP), "--langevin-temperature", str(TEMP),
+            "--precision", precision, "--steps", str(steps),
+            "--output-period", str(PROD_PERIOD), "--seed", "1",
+            "--device", DEVICE, "--log-dir", log_dir, *extra]
+
+
+def _production_api(log_dir, precision="single", external=None, thermostat=True):
+    """(mol, system, forces, integrator) of the production protocol built
+    as the CLI builds it (`run.setup`), stepped through the API."""
+    from torchmd_tpu_torch import run as cli
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.integrator import Integrator
+
+    mol, system, forces = cli.setup(cli.get_args(_production_argv(log_dir, PROD_STEPS,
+                                                                  precision=precision)))
+    if external is not None:
+        forces = Forces(forces.par, terms=TERMS, precision=precision, cutoff=CUTOFF,
+                        rfa=RFA, device=DEVICE, external=external)
+    forces.compute(system.pos, system.box, system.forces)
+    kw = dict(T=TEMP, thermostat="csvr", seed=1) if thermostat else {}
+    integ = Integrator(system, forces, PROD_TIMESTEP, constraints="hbonds", **kw)
+    return mol, system, forces, integ
+
+
+def phase_production(api_steps_per_s, thr_profile):
+    """Thrombin's production protocol: PROD_STEPS steps through the CLI
+    with the counters reset just before and read just after; the same
+    system through the API (the constraint count, a timed chunk, a profile
+    beside the 2 fs path's, 10 NVE steps against the plain f64 path); the
+    SHAKE residual and T of the CLI run; then a C-alpha restraint on the
+    card against the f64 CPU version and RESTRAINT_STEPS steps with it."""
+    import csv
+
+    import torch
+
+    from torchmd_tpu_torch import run as cli
+    from torchmd_tpu_torch.constraints import build_constraint_spec, max_constraint_error
+    from torchmd_tpu_torch.external import external_ef
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.restraints import HarmonicPositionalRestraint
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "cli")
+        kn.LAUNCHES = kb.LAUNCHES = 0
+        summary = cli.main(_production_argv(out, PROD_STEPS,
+                                            ["--save-period", str(PROD_STEPS)]))
+        launches = {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+        with open(os.path.join(out, "monitor_0.csv")) as fh:
+            rows = list(csv.DictReader(fh))
+        traj = np.load(os.path.join(out, "output_0.npy"))
+
+        mol, system, forces, integ = _production_api(os.path.join(td, "api"))
+    cs = integ.constraints
+    require(cs is not None and cs.settle is None and cs.ncon == PROD_XH,
+            f"production constraints: {None if cs is None else cs.ncon} != {PROD_XH}")
+    require(len(rows) == PROD_STEPS // PROD_PERIOD, f"production monitor rows {len(rows)}")
+    energies = np.array([[float(r[k]) for k in ("epot", "ekin", "etot", "T")] for r in rows])
+    require(np.all(np.isfinite(energies)) and np.all(np.isfinite(traj)),
+            "production run not finite")
+    late = [float(r["T"]) for r in rows if int(r["iter"]) > PROD_STEPS // 2]
+    t_late = float(np.mean(late))
+    require(abs(t_late - TEMP) <= PROD_T_TOL,
+            f"production: mean T {t_late} K over the last half, not {TEMP} +- {PROD_T_TOL}")
+    for k, n in launches.items():
+        require(n >= PROD_STEPS, f"production: {k} kernel launched {n} < {PROD_STEPS} times")
+
+    # SHAKE's residual at the end: the card's f32 reading and the plain f64
+    # one of the same positions
+    last = traj[:, :, -1]
+    ulp = float(np.spacing(np.float32(np.abs(last).max())))
+    err32 = float(max_constraint_error(cs.shake, torch.as_tensor(last, device=DEVICE)))
+    cs64 = build_constraint_spec(forces.par, system.masses, "hbonds").shake
+    err64 = float(max_constraint_error(cs64, torch.as_tensor(last, dtype=torch.float64)))
+    log("production_cli", steps=summary["steps"], seconds=f"{summary['elapsed_s']:.4f}",
+        steps_per_s=f"{summary['steps_per_sec']:.2f}",
+        ns_per_day=f"{summary['ns_per_day']:.3f}", timestep_fs=PROD_TIMESTEP,
+        constraints=cs.ncon, T_last_half=f"{t_late:.3f}",
+        shake_residual_f64_A=f"{err64:.3e}", shake_residual_card_f32_A=f"{err32:.3e}",
+        f32_ulp_A=f"{ulp:.3e}", pair_launches=launches["pair"],
+        bonded_launches=launches["bonded"])
+    require(err64 <= PROD_SHAKE_ULPS * ulp,
+            f"SHAKE residual {err64} A > {PROD_SHAKE_ULPS} ulps ({ulp} A)")
+    require(abs(err32 - err64) <= 2.0 * ulp, f"card SHAKE reading {err32} vs f64 {err64}")
+
+    # the API: a timed chunk at 4 fs beside the 2 fs run, and a profile
+    integ.step(niter=WARMUP_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    integ.step(niter=TIMED_STEPS)
+    torch.cuda.synchronize()
+    sps4 = TIMED_STEPS / (time.perf_counter() - t0)
+    prof4 = profile_water_step(integ, 1.0 / sps4, steps=50, label="production_profile",
+                               shares=("pair_", "bonded", "index_add"))
+    log("production_vs_2fs", api_4fs_steps_per_s=f"{sps4:.2f}",
+        api_4fs_ns_per_day=f"{sps4 * PROD_TIMESTEP * 1e-6 * 86400:.3f}",
+        api_2fs_steps_per_s=f"{api_steps_per_s:.2f}",
+        api_2fs_ns_per_day=f"{api_steps_per_s * TIMESTEP * 1e-6 * 86400:.3f}",
+        cli_4fs_steps_per_s=f"{summary['steps_per_sec']:.2f}",
+        device_events_per_step_4fs=f"{prof4[1]:.1f}",
+        device_events_per_step_2fs=f"{thr_profile[1]:.1f}",
+        device_ms_per_step_4fs=f"{prof4[0]:.4f}", device_ms_per_step_2fs=f"{thr_profile[0]:.4f}")
+
+    # NVE from one state, CSVR off: kernel path (f32) against the plain
+    # f64 torch-op path (f64 on the card takes it), 10 steps
+    start_pos, start_vel = system.pos[0].copy(), system.vel.copy()
+    final = {}
+    with tempfile.TemporaryDirectory() as td:
+        for precision in ("single", "double"):
+            _, s, f, nve = _production_api(td, precision, thermostat=False)
+            s.set_positions(start_pos)
+            s.set_velocities(start_vel)
+            f.compute(s.pos, s.box, s.forces)
+            nve.step(niter=10)
+            final[precision] = s.pos.astype(np.float64)
+            require(precision == "single" or f.path == "torch-ops", f"f64 path {f.path}")
+            del f, nve
+    dev = float(np.abs(final["single"] - final["double"]).max())
+    log("production_nve", steps=10, max_pos_dev_A=dev)
+    require(dev <= 1e-3, f"4 fs NVE kernel vs plain f64 positions differ by {dev} A")
+
+    # the restrained leg: C-alpha atoms at k RESTRAINT_K to the start
+    ca = np.flatnonzero(np.asarray(mol.name) == "CA")
+    ref = mol.coords[ca, :, 0]
+    restraint = HarmonicPositionalRestraint(ref, RESTRAINT_K, atom_idx=ca)
+    rs = np.random.RandomState(8)
+    pos = mol.coords[:, :, 0] + 0.1 * rs.randn(mol.numAtoms, 3)
+    ef = external_ef(restraint)
+    e32, f32 = ef(torch.as_tensor(pos, dtype=torch.float32, device=DEVICE),
+                  torch.zeros(3, dtype=torch.float32, device=DEVICE))
+    e64, f64 = ef(torch.as_tensor(pos, dtype=torch.float64), None)
+    e_err = abs(float(e32) - float(e64)) / max(1.0, abs(float(e64)))
+    f_err = float((f32.cpu().double() - f64).abs().max()) / max(1.0, float(f64.abs().max()))
+    with tempfile.TemporaryDirectory() as td:
+        _, rsys, rforces, rinteg = _production_api(td, external=restraint)
+    d = rforces.compute(pos[None], None, returnDetails=True)[0]
+    ext_err = abs(d["external"] - float(e64)) / max(1.0, abs(float(e64)))
+    kn.LAUNCHES = kb.LAUNCHES = 0
+    ek, ep, T = rinteg.step(niter=RESTRAINT_STEPS)
+    torch.cuda.synchronize()
+    drift = float(np.abs(rsys.pos[0, ca] - ref).max())
+    log("production_restraint", atoms=len(ca), k=RESTRAINT_K, energy=f"{float(e64):.4f}",
+        e_rel_err=f"{e_err:.3e}", f_rel_err=f"{f_err:.3e}",
+        forces_external_rel_err=f"{ext_err:.3e}", steps=RESTRAINT_STEPS,
+        T=f"{T[0]:.3f}", Epot=f"{ep[0]:.4f}", max_ca_displacement_A=f"{drift:.3f}",
+        pair_launches=kn.LAUNCHES, bonded_launches=kb.LAUNCHES)
+    require(len(ca) > 0, "no C-alpha atoms")
+    require(e_err <= E_TOL and ext_err <= E_TOL, f"restraint energy off by {e_err}, {ext_err}")
+    require(f_err <= F_TOL, f"restraint forces off by {f_err}")
+    require(np.all(np.isfinite(rsys.pos)) and np.isfinite([ek[0], ep[0], T[0]]).all(),
+            "restrained run not finite")
+    require(min(kn.LAUNCHES, kb.LAUNCHES) >= RESTRAINT_STEPS, "restrained run launches")
+    log("production_phase", seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return launches
+
+
+def _mc_attempts(integ, baro, system, forces, chunk, count):
+    """`count` rounds of `chunk` steps and an attempt: (accepted count, the
+    ms of each attempt on the host clock, the first attempt's (positions,
+    box, baro.last) before it ran, the boxes before and after each)."""
+    import torch
+
+    accepted, ms, first, boxes = 0, [], None, []
+    for _ in range(count):
+        integ.step(niter=chunk)
+        before = (system.pos.copy(), system.box_diag.copy())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = baro.attempt(system, forces)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        accepted += int(acc.sum())
+        boxes.append((before[1][0], system.box_diag[0].copy(), bool(acc[0])))
+        if first is None:
+            first = before + (dict(baro.last),)
+    return accepted, ms, first, boxes
+
+
+def phase_mc_barostat():
+    """The Monte Carlo barostat on the NVT water box (the cell kernel, the
+    PME spread and gather): an attempt after every MC_CHUNK steps, the
+    counters reset just before and read just after; the first attempt's
+    two energies against the plain f64 path; SETTLE and the volume after
+    the accepted moves; then aniso and membrane moves on the 216 box."""
+    import torch
+
+    from torchmd_tpu_torch.barostat import (MonteCarloAnisotropicBarostat,
+                                            MonteCarloBarostat,
+                                            MonteCarloMembraneBarostat)
+    from torchmd_tpu_torch.constraints import max_settle_error
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.ops import cell as kc
+    from torchmd_tpu_torch.ops import pme as kp
+    from torchmd_tpu_torch.systems import System
+
+    t_phase = time.perf_counter()
+    mol, par, L = build_water(WATER_N, WATER_SPACING, True)
+    vel = maxwell_boltzmann(par.masses, TEMP, 1, seed=3, device=DEVICE, dtype=torch.float32)
+    system, forces, integ = _water_integrator(par, mol.coords, vel, L)
+    group = np.repeat(np.arange(par.natoms // 4), 4)
+    baro = MonteCarloBarostat(MC_PRESSURE, TEMP, group_id=group, seed=MC_SEED)
+    integ.step(niter=MC_CHUNK)  # builds the kernels and the cell list
+    torch.cuda.synchronize()
+    kc.LAUNCHES = kp.SPREAD_LAUNCHES = kp.GATHER_LAUNCHES = 0
+    t0 = time.perf_counter()
+    accepted, ms, first, _ = _mc_attempts(integ, baro, system, forces, MC_CHUNK,
+                                          MC_STEPS // MC_CHUNK)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"cell": kc.LAUNCHES, "pme_spread": kp.SPREAD_LAUNCHES,
+                "pme_gather": kp.GATHER_LAUNCHES}
+    V = float(np.prod(system.box_diag[0]))
+    pos = torch.as_tensor(system.pos[0], dtype=torch.float64, device=DEVICE)
+    settle_err = float(max_settle_error(integ.constraints.settle, pos))
+
+    # the first attempt's two states: the kernel path's per-term energies
+    # against the plain f64 path's at the Pallas bar, and the attempt's
+    # energies equal to the kernel path's sum of them
+    par64 = build_water(WATER_N, WATER_SPACING, True, "double")[1]
+    f64 = _water_forces(par64, WATER_CUTOFF, "double", plain=True)
+    pos0, box0, last = first
+    p_new = baro._scale_positions(torch.as_tensor(pos0, dtype=torch.float64, device=DEVICE),
+                                  torch.as_tensor(last["scale"], device=DEVICE)[:, None, :])
+    errs, sums = [], []
+    for key, p, b in (("e_old", pos0, box0), ("e_new", p_new, box0 * last["scale"])):
+        dk = forces.compute(p, b, returnDetails=True)[0]
+        dp = f64.compute(p, b, returnDetails=True)[0]
+        errs += [abs(dk[k] - dp[k]) / max(1.0, abs(dp[k])) for k in dp]
+        sums.append(abs(float(last[key][0]) - sum(dk.values()))
+                    / max(1.0, max(abs(v) for v in dk.values())))
+    e_old, e_new = (float(last[k][0]) for k in ("e_old", "e_new"))
+    del f64
+    log("mc_barostat", natoms=par.natoms, steps=MC_STEPS, attempts=len(ms),
+        accepted=accepted, dv_max_A3=f"{baro.dv_max:.3f}",
+        steps_per_s_with_attempts=f"{MC_STEPS / dt:.2f}",
+        attempt_ms_median=f"{float(np.median(ms)):.3f}",
+        attempt_ms_min_max=f"{min(ms):.3f}/{max(ms):.3f}",
+        volume_ratio=f"{V / L**3:.5f}", settle_max_err_A=f"{settle_err:.3e}",
+        first_e_old=f"{e_old:.4f}", first_e_new=f"{e_new:.4f}",
+        term_rel_err_vs_plain_f64=f"{max(errs):.3e}", attempt_vs_terms=f"{max(sums):.3e}",
+        **{f"{k}_launches": v for k, v in launches.items()})
+    require(max(errs) <= E_TOL, f"MC states' energies off the plain f64 path by {max(errs)}")
+    require(max(sums) <= E_TOL, f"MC attempt's energies off its terms by {max(sums)}")
+    require(settle_err <= 1e-3, f"SETTLE error {settle_err} A after the MC moves")
+    require(MC_VOLUME_RANGE[0] <= V / L**3 <= MC_VOLUME_RANGE[1], f"volume ratio {V / L**3}")
+    require(np.all(np.isfinite(system.pos)), "MC run not finite")
+    for k, n in launches.items():
+        require(n >= MC_STEPS, f"MC: {k} kernel launched {n} < {MC_STEPS} times")
+    del system, forces, integ
+
+    # aniso (x and z) and membrane moves on the 216-water box
+    n, spacing, cutoff = SMALL_WATER
+    mol, par, L = build_water(n, spacing, False)
+    group = np.repeat(np.arange(par.natoms // 4), 4)
+    for mode, Baro, kw in (("aniso", MonteCarloAnisotropicBarostat,
+                            dict(scale_axes=(True, False, True))),
+                           ("membrane", MonteCarloMembraneBarostat, {})):
+        forces = _water_forces(par, cutoff)
+        s = System(par.natoms, 1, "single")
+        s.set_positions(mol.coords)
+        s.set_box(np.full(3, L))
+        s.set_velocities(maxwell_boltzmann(par.masses, TEMP, 1, seed=4, device=DEVICE,
+                                           dtype=torch.float32))
+        forces.compute(s.pos, s.box, s.forces)
+        small = Integrator(s, forces, TIMESTEP, T=TEMP, thermostat="nhc", tau=WATER_TAU,
+                           constraints="settle")
+        b = Baro(MC_PRESSURE, TEMP, group_id=group, seed=MC_SEED,
+                 dv_max=MC_SMALL_DV * L**3, **kw)
+        acc, ms_small, _, boxes = _mc_attempts(small, b, s, forces, MC_SMALL_CHUNK,
+                                               MC_SMALL_ATTEMPTS)
+        moved = [np.flatnonzero(after != before) for before, after, ok in boxes if ok]
+        if mode == "aniso":
+            ok = all(len(m) == 1 and m[0] in (0, 2) for m in moved)
+        else:
+            ok = all(after[0] == after[1] for _, after, _ in boxes) and all(
+                list(m) in ([0, 1], [2]) for m in moved)
+        log("mc_mode", mode=mode, attempts=MC_SMALL_ATTEMPTS, accepted=acc,
+            axes_moved="/".join("".join("xyz"[i] for i in m) for m in moved),
+            box=s.box_diag[0].tolist(), attempt_ms_median=f"{float(np.median(ms_small)):.3f}")
+        require(acc > 0, f"MC {mode}: no move accepted")
+        require(ok, f"MC {mode}: a move changed axes its mode does not name")
+        require(np.all(np.isfinite(s.pos)), f"MC {mode} run not finite")
+    log("mc_phase", seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return launches
+
+
+CMAP_PRM = """* a CMAP test parameter set
+*
+
+ATOMS
+MASS 1 A1 12.011
+
+BONDS
+A1 A1 300.0 1.5
+
+ANGLES
+A1 A1 A1 50.0 109.5
+
+DIHEDRALS
+A1 A1 A1 A1 0.20 3 0.0
+
+NONBONDED
+A1 0.0 -0.10 1.95
+
+CMAP
+A1 A1 A1 A1 A1 A1 A1 A1 {n}
+
+{grid}
+END
+"""
+
+
+def phase_cmap():
+    """CMAP on the card: a 5-atom chain with one cross-term (a CHARMM .prm
+    with a CMAP section on a smooth periodic surface), Forces on the card
+    at f32 (the bonded kernel, CMAP by autograd) against the CPU at f64:
+    per-term energies and forces at the Pallas bars."""
+    from torchmd_tpu_torch.forcefields.ff_charmm import CharmmForcefield
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.io import Molecule
+    from torchmd_tpu_torch.parameters import Parameters
+
+    ang = -np.pi + 2.0 * np.pi * np.arange(CMAP_N) / CMAP_N
+    phi, psi = ang[:, None], ang[None, :]
+    grid = (np.cos(phi) + 0.7 * np.sin(psi) + 0.3 * np.cos(phi + psi)
+            + 0.2 * np.sin(2.0 * psi - phi))
+    text = CMAP_PRM.format(n=CMAP_N, grid="\n".join(
+        "\n".join(" ".join(f"{v:.10f}" for v in row[k:k + 5]) for k in range(0, CMAP_N, 5))
+        for row in grid))
+    terms = ["bonds", "angles", "dihedrals", "cmap"]
+    mol = Molecule()
+    mol.numAtoms = 5
+    mol.atomtype = np.array(["A1"] * 5, dtype=object)
+    mol.charge = np.zeros(5)
+    mol.masses = np.full(5, 12.011)
+    mol.bonds = np.array([[i, i + 1] for i in range(4)])
+    mol.angles = np.array([[i, i + 1, i + 2] for i in range(3)])
+    mol.dihedrals = np.array([[i, i + 1, i + 2, i + 3] for i in range(2)])
+    mol.crossterms = np.array([[0, 1, 2, 3, 1, 2, 3, 4]])
+    base = np.array([[0.0, 0.0, 0.0], [1.5, 0.0, 0.0], [2.2, 1.3, 0.0],
+                     [3.6, 1.5, 1.0], [4.0, 2.6, 1.8]])
+    with tempfile.TemporaryDirectory() as td:
+        prm = os.path.join(td, "cmap.prm")
+        with open(prm, "w") as fh:
+            fh.write(text)
+        out = {}
+        for label, precision, device in (("card", "single", DEVICE),
+                                         ("cpu", "double", "cpu")):
+            par = Parameters(CharmmForcefield(mol, prm), mol, terms, precision=precision)
+            out[label] = Forces(par, terms=terms, precision=precision, device=device)
+    rs = np.random.RandomState(11)
+    worst_e = worst_f = 0.0
+    for _ in range(4):
+        pos = (base + 0.15 * rs.randn(5, 3))[None]
+        dk = out["card"].compute(pos, None, returnDetails=True)[0]
+        fk = out["card"].last_forces[0].double().cpu()
+        dp = out["cpu"].compute(pos, None, returnDetails=True)[0]
+        fp = out["cpu"].last_forces[0]
+        require(set(dk) == set(dp) and dp["cmap"] != 0.0, (sorted(dk), sorted(dp)))
+        worst_e = max(worst_e, max(abs(dk[k] - dp[k]) / max(1.0, abs(dp[k])) for k in dp))
+        worst_f = max(worst_f, float((fk - fp).abs().max()) / max(1.0, float(fp.abs().max())))
+    log("cmap", grid=CMAP_N, path=out["card"].path, cmap_energy=f"{dp['cmap']:.6f}",
+        e_rel_err=f"{worst_e:.3e}", f_rel_err=f"{worst_f:.3e}")
+    require(out["card"].path == "kernels", f"CMAP card path {out['card'].path}")
+    require(worst_e <= E_TOL, f"CMAP energies on the card off by {worst_e}")
+    require(worst_f <= F_TOL, f"CMAP forces on the card off by {worst_f}")
+
+
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -2012,15 +2447,21 @@ def main():
     phase_dense_pme()
     times.update(phase_column_kernels())
     phase_parity()
-    thr_launches, api_steps_per_s = phase_dynamics()
+    thr_launches, api_steps_per_s, thr_profile = phase_dynamics()
     water_launches, _ = phase_waterbox()
     npt_launches, _ = phase_npt()
     cli_launches, _ = phase_cli(api_steps_per_s)
     phase_external()
+    prod_launches = phase_production(api_steps_per_s, thr_profile)
+    mc_launches = phase_mc_barostat()
+    phase_cmap()
     times["roofline"], probe_launches = phase_roofline()
-    # the dense pair and bonded kernels' main paths: the API's dynamics
-    # and the CLI's run
-    thr_launches = {k: thr_launches[k] + cli_launches[k] for k in thr_launches}
+    # the dense pair and bonded kernels' main paths: the API's dynamics,
+    # the CLI's run and the production protocol's; the cell, spread and
+    # gather kernels': the NVT water box's and the Monte Carlo phase's
+    thr_launches = {k: thr_launches[k] + cli_launches[k] + prod_launches[k]
+                    for k in thr_launches}
+    water_launches = {k: water_launches[k] + mc_launches.get(k, 0) for k in water_launches}
 
     import torch
 

@@ -129,7 +129,7 @@ class _ZeroForces:
     def __init__(self, masses):
         self.device = torch.device("cpu")
         self.dtype = torch.float64
-        self.par = type("P", (), {"masses": masses})()
+        self.par = type("P", (), {"masses": masses, "bond_params": None})()
 
     def ef_one(self, pos, box):
         return {"zero": pos.new_zeros(())}, torch.zeros_like(pos)
@@ -167,12 +167,19 @@ def test_step_reuses_device_state_and_sees_host_edits():
 
 
 def test_unported_options_raise():
+    """r-RESPA, atom batching and per-replica T still raise; CSVR and
+    SHAKE/RATTLE are ported (a free gas has no bonds to constrain)."""
     natoms = 2
     system = System(natoms, 1, "double")
     f = _ZeroForces(np.full((natoms, 1), 1.0))
-    for kw in (dict(thermostat="csvr", T=300.0), dict(constraints="hbonds"),
-               dict(mts=2), dict(batch=np.zeros(natoms, int))):
+    for kw in (dict(mts=2), dict(batch=np.zeros(natoms, int)),
+               dict(T=np.array([300.0]), gamma=1.0)):
         with pytest.raises(NotImplementedError):
             tint.Integrator(system, f, 1.0, **kw)
+    from torchmd_tpu_torch.thermostats import CSVR
+
+    assert isinstance(tint.Integrator(system, f, 1.0, thermostat="csvr",
+                                      T=300.0)._thermostat, CSVR)
+    assert tint.Integrator(system, f, 1.0, constraints="hbonds").constraints is None
     with pytest.raises(ValueError, match="no coupling"):
         tint.Integrator(system, f, 1.0, T=300.0)

@@ -207,7 +207,7 @@ def test_mtk_constants_and_validation_match_jax():
     class MonteCarlo:
         is_dynamic = False
 
-    with pytest.raises(NotImplementedError, match="Monte Carlo"):
+    with pytest.raises(ValueError, match="Monte Carlo barostats attach at the run-loop"):
         integrator(T=300.0, thermostat="nhc", barostat=MonteCarlo())
     with pytest.raises(NotImplementedError, match="dense"):
         integrator(T=300.0, thermostat="nhc", barostat=MTKBarostat(*BARO), kernel="dense")

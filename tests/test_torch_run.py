@@ -12,8 +12,13 @@
   - FIRE minimisation equals the JAX run (1e-6 A), L-BFGS reaches the
     JAX run's final energy;
   - `--help` runs where `jax` and `torchmd_tpu` cannot be imported;
-  - flags of unported modules raise NotImplementedError, `--device`
-    accepts cuda[:k] and cpu only;
+  - the production protocol's flags against the JAX CLI: `--constraints
+    hbonds|allbonds|settle` with `--hmr 3` on the water case (NVE),
+    `--thermostat csvr` and `--pressure` with each Monte Carlo
+    `--barostat-mode` on argon, both packages fed the same thermostat and
+    barostat draws: positions and boxes within 1e-8 A;
+  - flags of unported modules (r-RESPA, GB) raise NotImplementedError,
+    `--device` accepts cuda[:k] and cpu only;
   - the f64 path selection of `Forces` (`Forces.path`, `select_path`),
     and on a card the f64 Forces against the CPU's.
 """
@@ -72,7 +77,7 @@ NO_NOISE = ["--precision", "double", "--device", "cpu", "--langevin-temperature"
 def _monitor(path):
     with open(path) as fh:
         rows = list(csv.DictReader(fh))
-    return {k: np.array([float(r[k]) for r in rows]) for k in ("iter", "epot", "ekin")}
+    return {k: np.array([float(r[k]) for r in rows]) for k in ("iter", "epot", "ekin", "T")}
 
 
 def _run_pair(argv, tmp_path, carry=True):
@@ -267,10 +272,73 @@ def test_help_without_jax(tmp_path):
     assert "--external" in out.stdout and "--device" in out.stdout
 
 
+PRODUCTION = {
+    "water-hbonds-hmr": ("water", ["--constraints", "hbonds", "--hmr", "3"]),
+    "water-allbonds": ("water", ["--constraints", "allbonds"]),
+    "water-settle-hmr": ("water", ["--constraints", "settle", "--hmr", "3",
+                                   "--timestep", "2"]),
+    "argon-csvr": ("argon", ["--thermostat", "csvr", "--langevin-temperature", "120",
+                             "--thermostat-tau", "50"]),
+    "argon-mc-iso": ("argon", ["--pressure", "300", "--barostat-mode", "iso"]),
+    "argon-mc-aniso": ("argon", ["--pressure", "300", "--barostat-mode", "aniso"]),
+    "argon-mc-membrane": ("argon", ["--pressure", "300", "--barostat-mode", "membrane",
+                                    "--surface-tension", "20"]),
+}
+
+
+def _shared_draws(monkeypatch):
+    """The same barostat and CSVR draws in both packages: one U(0, 1)
+    sequence read in the order each package draws (the JAX package's
+    randint as floor(u * n)), CSVR's normal and gamma fixed."""
+    import jax
+    import jax.numpy as jnp
+
+    from test_torch_mc_barostat import _patch_jax_draws, _patch_port_draws
+    from torchmd_tpu_torch.barostat import MonteCarloBarostat
+
+    u = np.random.RandomState(5).rand(1000)
+    jit, tit = iter(u), iter(u)
+    monkeypatch.setattr(jax.random, "uniform",
+                        lambda key, shape=(), *a, **k: jnp.full(shape, next(jit)))
+    monkeypatch.setattr(jax.random, "randint", lambda key, shape, lo, hi: jnp.full(
+        shape, lo + int(next(jit) * (hi - lo)), jnp.int32))
+    monkeypatch.setattr(MonteCarloBarostat, "uniform", lambda self, n: np.full(n, next(tit)))
+    _patch_jax_draws(monkeypatch)
+    _patch_port_draws(monkeypatch)
+
+
+@pytest.mark.parametrize("case", sorted(PRODUCTION))
+def test_production_flags_match_jax(case, tmp_path, monkeypatch):
+    base, extra = PRODUCTION[case]
+    argv = (CASES[base] + ["--precision", "double", "--device", "cpu", "--seed", "3"]
+            + (["--langevin-temperature", "0"] if "--langevin-temperature" not in extra
+               else []) + extra)
+    jargs = jrun.get_args(argv + ["--log-dir", str(tmp_path / "jax")])
+    targs = trun.get_args(argv + ["--log-dir", str(tmp_path / "torch")])
+    jmol, jsys, jf = jrun.setup(jargs)
+    tmol, tsys, tf = trun.setup(targs)
+    tsys.set_velocities(np.asarray(jsys.vel))
+    if "--hmr" in extra:
+        # the System carries the repartitioned masses, the parameters the
+        # force field's (the JAX CLI writes them into its parameters)
+        np.testing.assert_allclose(tsys.masses, np.asarray(jf.par.masses), rtol=1e-15)
+        assert not np.allclose(np.asarray(tf.par.masses), tsys.masses)
+    _shared_draws(monkeypatch)
+    jrun.dynamics(jargs, jmol, jsys, jf)
+    trun.dynamics(targs, tmol, tsys, tf)
+    np.testing.assert_allclose(tsys.box, np.asarray(jsys.box), rtol=1e-12)
+    np.testing.assert_allclose(tsys.pos, np.asarray(jsys.pos), rtol=0, atol=1e-8)
+    if "--pressure" in extra:
+        assert not np.allclose(tsys.box_diag, 77.395)  # a move was accepted
+    jm = _monitor(tmp_path / "jax" / "monitor_0.csv")
+    tm = _monitor(tmp_path / "torch" / "monitor_0.csv")
+    for key in ("epot", "ekin", "T"):
+        scale = np.maximum(1.0, np.abs(jm[key]))
+        assert np.all(np.abs(tm[key] - jm[key]) <= 1e-7 * scale), (key, tm[key], jm[key])
+
+
 @pytest.mark.parametrize("extra, item", [
-    (["--constraints", "hbonds"], "16"), (["--hmr", "3.0"], "16"),
-    (["--thermostat", "csvr"], "17"), (["--pressure", "1.0"], "17"),
-    (["--mts", "2"], "17"), (["--gbsa"], "20")])
+    (["--mts", "2"], "17"), (["--mts-recip", "2"], "17"), (["--gbsa"], "20")])
 def test_unported_flags_raise(extra, item, tmp_path):
     args = trun.get_args(ARGON + ["--device", "cpu", "--log-dir", str(tmp_path)] + extra)
     with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -146,15 +146,17 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("kwargs", [
     dict(kernel="verlet"), dict(elec="ewald", cutoff=9.0),
-    dict(constraints="hbonds"), dict(thermostat="csvr", T=300.0),
+    dict(batch=np.zeros(1, int)), dict(T=np.array([300.0]), gamma=1.0),
     dict(mts=2),
 ])
 def test_later_slices_raise_not_implemented(kwargs):
     """Options of later slices raise NotImplementedError: Verlet lists,
-    the exact Ewald sum (elec='ewald' below the PME size), SHAKE, CSVR and
-    r-RESPA (external potentials are ported: tests/test_torch_external.py)."""
+    the exact Ewald sum (elec='ewald' below the PME size), atom batching,
+    per-replica temperatures and r-RESPA (external potentials, SHAKE and
+    CSVR are ported: tests/test_torch_external.py,
+    tests/test_torch_constraints.py, tests/test_torch_mc_barostat.py)."""
     mol, par, _ = _system("ligand")
-    integ_kw = {k: kwargs.pop(k) for k in ("constraints", "thermostat", "T", "mts")
+    integ_kw = {k: kwargs.pop(k) for k in ("batch", "T", "gamma", "mts")
                 if k in kwargs}
     with pytest.raises(NotImplementedError, match="slice|not ported"):
         forces = Forces(par, terms=ALL_TERMS, precision="double", device="cpu",

@@ -116,12 +116,18 @@ def test_settle_matches_jax():
 
 
 def test_settle_spec_counts_constraints_and_rejects_shake():
+    """The water box's constraint specs equal the JAX package's: SETTLE
+    alone under "settle" (every hydrogen bond sits in a rigid water, so
+    no SHAKE pair is left), SHAKE pairs under "hbonds"."""
     jpar, tpar, _, _ = water_box()
     masses = np.asarray(jpar.masses)
     spec = tcon.build_constraint_spec(tpar, masses, mode="settle")
     assert spec.ncon == jcon.build_constraint_spec(jpar, masses, mode="settle").ncon
-    with pytest.raises(NotImplementedError, match="SHAKE"):
-        tcon.build_constraint_spec(tpar, masses, mode="hbonds")
+    assert spec.shake is None
+    hb = tcon.build_constraint_spec(tpar, masses, mode="hbonds")
+    jhb = jcon.build_constraint_spec(jpar, masses, mode="hbonds")
+    assert hb.settle is None and hb.ncon == jhb.ncon
+    np.testing.assert_array_equal(hb.shake.pairs.numpy(), np.asarray(jhb.shake.pairs))
 
 
 # ----------------------------------------------------------------------
@@ -191,8 +197,7 @@ def test_nose_hoover_chain_matches_jax():
         np.testing.assert_allclose(taux[k].numpy(), np.asarray(jaux[k]), rtol=1e-12)
     np.testing.assert_allclose(tn.conserved(taux).numpy(),
                                np.asarray(jn.conserved(jaux)), rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="CSVR"):
-        tthermo.make_thermostat("csvr", 300.0, 200.0, ndof)
+    assert isinstance(tthermo.make_thermostat("csvr", 300.0, 200.0, ndof), tthermo.CSVR)
 
 
 # ----------------------------------------------------------------------

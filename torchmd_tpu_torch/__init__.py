@@ -43,6 +43,29 @@ NPT (MTK barostat, 1 bar, on the column kernel on the card):
     integ = Integrator(system, forces, 2.0, T=300, thermostat="nhc",
                        constraints="settle",
                        barostat=MTKBarostat(1.0, 300.0, tau_fs=2000.0))
+
+The production protocol (a protein at 4 fs: X-H bonds by SHAKE/RATTLE,
+hydrogen masses x3 on the System, CSVR; a Monte Carlo barostat between
+chunks; Calpha atoms restrained through the external slot):
+
+    from torchmd_tpu_torch import (HarmonicPositionalRestraint,
+                                   MonteCarloBarostat, Wrapper,
+                                   repartition_hydrogen_masses)
+
+    system.set_masses(repartition_hydrogen_masses(par.masses, mol.bonds, 3.0))
+    ca = np.flatnonzero(mol.name == "CA")
+    forces = Forces(par, terms=terms, cutoff=9.0, elec="ewald",
+                    external=HarmonicPositionalRestraint(coords[ca], 1.0, ca))
+    integ = Integrator(system, forces, 4.0, T=300, thermostat="csvr",
+                       constraints="hbonds")
+    baro = MonteCarloBarostat(1.0, 300.0, group_id=Wrapper(
+        mol.numAtoms, mol.bonds).group_id)
+    for _ in range(100):
+        integ.step(niter=25)
+        baro.attempt(system, forces)
+
+or `python -m torchmd_tpu_torch.run ... --timestep 4 --constraints hbonds
+--hmr 3 --thermostat csvr --pressure 1`.
 """
 
 __version__ = "0.1.0"
@@ -51,6 +74,7 @@ __all__ = [
     "systems", "potentials", "bonded", "forces", "integrator", "interop",
     "ops", "io", "forcefields", "parameters", "units", "neighbors", "ewald",
     "vsites", "constraints", "thermostats", "columns", "barostat",
+    "cmap", "restraints",
     "external", "run", "utils", "wrapper", "checkpoint", "observables",
     "minimizers", "profiling", "native", "neighbourlist", "npzmol", "mycalc",
     "calculators",
@@ -61,7 +85,10 @@ __all__ = [
     "ffparams_from_numpy", "MTKBarostat", "TorchExternal", "External",
     "Wrapper", "LogWriter", "save_checkpoint", "load_checkpoint", "pressure",
     "minimize_bfgs", "minimize_lbfgs", "minimize_fire", "minimize_cg",
-    "StepTimer", "MyCalc",
+    "StepTimer", "MyCalc", "MonteCarloBarostat", "MonteCarloAnisotropicBarostat",
+    "MonteCarloMembraneBarostat", "repartition_hydrogen_masses",
+    "HarmonicPositionalRestraint", "FlatBottomRestraint",
+    "AnisotropicPositionalRestraint", "combine_externals",
 ]
 
 _LAZY = {
@@ -93,6 +120,19 @@ _LAZY = {
     "minimize_cg": ("torchmd_tpu_torch.minimizers", "minimize_cg"),
     "StepTimer": ("torchmd_tpu_torch.profiling", "StepTimer"),
     "MyCalc": ("torchmd_tpu_torch.mycalc", "MyCalc"),
+    "MonteCarloBarostat": ("torchmd_tpu_torch.barostat", "MonteCarloBarostat"),
+    "MonteCarloAnisotropicBarostat": ("torchmd_tpu_torch.barostat",
+                                      "MonteCarloAnisotropicBarostat"),
+    "MonteCarloMembraneBarostat": ("torchmd_tpu_torch.barostat",
+                                   "MonteCarloMembraneBarostat"),
+    "repartition_hydrogen_masses": ("torchmd_tpu_torch.constraints",
+                                    "repartition_hydrogen_masses"),
+    "HarmonicPositionalRestraint": ("torchmd_tpu_torch.restraints",
+                                    "HarmonicPositionalRestraint"),
+    "FlatBottomRestraint": ("torchmd_tpu_torch.restraints", "FlatBottomRestraint"),
+    "AnisotropicPositionalRestraint": ("torchmd_tpu_torch.restraints",
+                                       "AnisotropicPositionalRestraint"),
+    "combine_externals": ("torchmd_tpu_torch.external", "combine_externals"),
 }
 
 

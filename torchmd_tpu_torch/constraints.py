@@ -1,15 +1,31 @@
-"""Rigid-water constraints (SETTLE) on torch tensors.
+"""Holonomic constraints on torch tensors: SHAKE/RATTLE bonds, SETTLE
+rigid waters, and hydrogen mass repartitioning.
 
-Counterpart of the SETTLE part of `torchmd_tpu.constraints`: analytic
-position constraints for rigid 3-site waters (Miyamoto & Kollman 1992) and
-the exact 3x3 RATTLE velocity solve, in the gather form (rows picked by
-index, written back out of place). Every function works on
-(..., natoms, 3) tensors, so a leading replica axis passes through.
+Counterpart of `torchmd_tpu.constraints`:
 
-`build_constraint_spec` accepts mode="settle" for systems whose only
-light-atom bonds sit inside rigid waters. SHAKE/RATTLE (the "hbonds" and
-"allbonds" modes, and hydrogen bonds outside waters under "settle") come
-with a later slice of the port and raise NotImplementedError.
+  - SHAKE (positions) and RATTLE (velocities) as the JAX package runs
+    them: parallel Jacobi sweeps over every constraint at once, a fixed
+    iteration count (default 50) and under-relaxation 0.5, with the
+    constraint gradients linearised on the pre-step geometry `pos_ref`.
+    Each sweep is one gather, a few elementwise ops and one `index_add_`
+    on the device; the index tensors are built once and nothing is read
+    back to the host inside the loop;
+  - SETTLE: analytic position constraints for rigid 3-site waters
+    (Miyamoto & Kollman 1992) and the exact 3x3 RATTLE velocity solve, in
+    the gather form (rows picked by index, written back out of place).
+
+Every function works on (..., natoms, 3) tensors, so a leading replica
+axis passes through.
+
+Which atoms are "light" (hydrogens, <= 3.5 amu) is read from the force
+field's masses, `parameters.masses`, never from the masses the dynamics
+uses: hydrogen mass repartitioning (`repartition_hydrogen_masses`) gives
+the System its own masses and leaves the parameters alone. The JAX
+package picks the light atoms from the repartitioned masses, so at an
+HMR factor of 4 its hydrogens (4.03 amu) stop being light and methyl
+carbons (2.94 amu) start: on thrombin it constrains 588 bonds, mostly
+C-C, instead of the 2,319 X-H bonds. SHAKE's inverse masses and SETTLE's
+masses are the dynamical (repartitioned) ones.
 """
 
 from __future__ import annotations
@@ -18,6 +34,125 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+H_MASS_CUT = 3.5  # amu: atoms at most this heavy count as hydrogens
+
+
+class ConstraintSet(NamedTuple):
+    """SHAKE/RATTLE bond constraints, with the index tensors of the sweeps."""
+
+    pairs: torch.Tensor   # (C, 2) int64 atom indices
+    r0: torch.Tensor      # (C,) target distances
+    invm: torch.Tensor    # (natoms, 1) inverse dynamical masses
+    iterations: int
+    relax: float          # under-relaxation factor of the Jacobi sweeps
+    ij: torch.Tensor      # (2C,) int64: the i column, then the j column
+    wsign: torch.Tensor   # (2C, 1): -1/m_i for the i rows, +1/m_j for the j rows
+
+
+def _light(parameters, h_mass_cut=H_MASS_CUT):
+    """Light-atom mask from the force field's masses (see the module
+    docstring for why not the dynamical ones)."""
+    return np.asarray(parameters.masses, np.float64).reshape(-1) <= h_mass_cut
+
+
+def _constrained_bonds(parameters, mode, h_mass_cut=H_MASS_CUT):
+    """(pairs (C, 2), r0 (C,)) numpy of the bonds `mode` constrains:
+    "hbonds" those with a light atom (by the force field's masses),
+    "allbonds" every bond (with the reference water model's zero-k H-H
+    spacer bonds this makes water rigid)."""
+    if parameters.bond_params is None:
+        return np.zeros((0, 2), np.int64), np.zeros(0)
+    idx, r0 = _bond_tables(parameters)
+    if mode == "allbonds":
+        keep = np.ones(len(idx), dtype=bool)
+    elif mode == "hbonds":
+        light = _light(parameters, h_mass_cut)
+        keep = light[idx[:, 0]] | light[idx[:, 1]]
+    else:
+        raise ValueError(f"Unknown constraint mode: {mode}")
+    return idx[keep], r0[keep]
+
+
+def build_constraints(parameters, masses, mode="hbonds", iterations=50,
+                      relax=0.5, h_mass_cut=H_MASS_CUT, device="cpu",
+                      dtype=torch.float64) -> Optional[ConstraintSet]:
+    """SHAKE/RATTLE constraints of the bonds `mode` names
+    (`_constrained_bonds`); `masses` are the dynamical masses, which give
+    the inverse masses. None when no bond qualifies."""
+    if mode in (None, "none", False):
+        return None
+    pairs, r0 = _constrained_bonds(parameters, mode, h_mass_cut)
+    return _constraint_set(pairs, r0, masses, iterations, relax, device, dtype)
+
+
+def _constraint_set(pairs, r0, masses, iterations, relax, device, dtype):
+    if len(pairs) == 0:
+        return None
+    pairs = np.asarray(pairs, np.int64)
+    m = np.asarray(masses, dtype=np.float64).reshape(-1)
+    invm = np.where(m > 0, 1.0 / np.maximum(m, 1e-12), 0.0)
+    w = np.concatenate([-invm[pairs[:, 0]], invm[pairs[:, 1]]])[:, None]
+    return ConstraintSet(
+        pairs=torch.as_tensor(pairs, device=device),
+        r0=torch.as_tensor(np.asarray(r0, np.float64), dtype=dtype, device=device),
+        invm=torch.as_tensor(invm.reshape(-1, 1), dtype=dtype, device=device),
+        iterations=int(iterations), relax=float(relax),
+        ij=torch.as_tensor(np.concatenate([pairs[:, 0], pairs[:, 1]]), device=device),
+        wsign=torch.as_tensor(w, dtype=dtype, device=device))
+
+
+def _sweep_terms(cs: ConstraintSet, x):
+    """(C, 3)-shaped i - j differences of `x` (one gather of 2C rows)."""
+    c = cs.r0.shape[0]
+    xx = x[..., cs.ij, :]
+    return xx[..., :c, :] - xx[..., c:, :]
+
+
+def _jacobi(cs: ConstraintSet, x, d, denom, residual):
+    """`cs.iterations` Jacobi sweeps x_i -= k d_c w_i, x_j += k d_c w_j
+    with k = relax * residual(x) / denom, on a copy of `x`."""
+    x = x.clone()
+    step = d * (cs.relax / denom)[..., None]
+    step = torch.cat([step, step], dim=-2) * cs.wsign
+    for _ in range(cs.iterations):
+        r = residual(x)
+        x.index_add_(-2, cs.ij, torch.cat([r, r], dim=-1)[..., None] * step)
+    return x
+
+
+def shake_positions(cs: ConstraintSet, pos_new, pos_ref):
+    """Project `pos_new` back onto the constraint manifold, using the
+    pre-step geometry `pos_ref` for the constraint gradients (standard
+    SHAKE linearisation)."""
+    ref = _sweep_terms(cs, pos_ref)
+    i, j = cs.pairs[:, 0], cs.pairs[:, 1]
+    denom = 2.0 * torch.linalg.vecdot(ref, ref) * (cs.invm[i] + cs.invm[j])[:, 0]
+    r0sq = cs.r0 * cs.r0
+
+    def residual(p):
+        d = _sweep_terms(cs, p)
+        return torch.linalg.vecdot(d, d) - r0sq
+
+    return _jacobi(cs, pos_new, ref, denom, residual)
+
+
+def rattle_velocities(cs: ConstraintSet, pos, vel):
+    """Remove the velocity components along the constraints (RATTLE)."""
+    d = _sweep_terms(cs, pos)
+    i, j = cs.pairs[:, 0], cs.pairs[:, 1]
+    denom = torch.linalg.vecdot(d, d) * (cs.invm[i] + cs.invm[j])[:, 0]
+
+    def residual(v):
+        return torch.linalg.vecdot(_sweep_terms(cs, v), d)
+
+    return _jacobi(cs, vel, d, denom, residual)
+
+
+def max_constraint_error(cs: ConstraintSet, pos):
+    """Largest |distance - r0| over the SHAKE constraints."""
+    d = torch.linalg.norm(_sweep_terms(cs, pos), dim=-1)
+    return (d - cs.r0).abs().max()
 
 
 class SettleSet(NamedTuple):
@@ -34,6 +169,7 @@ class SettleSet(NamedTuple):
 
 
 class Constraints(NamedTuple):
+    shake: Optional[ConstraintSet]
     settle: Optional[SettleSet]
     ncon: int
 
@@ -45,16 +181,16 @@ def _bond_tables(parameters):
     return idx, bpar[bmap[:, 1], 1]
 
 
-def find_waters(parameters, masses, h_mass_cut=3.5):
+def find_waters(parameters, h_mass_cut=H_MASS_CUT):
     """(W, 3) [O, H1, H2] index triplets of rigid-water candidates: a heavy
-    atom bonded to exactly two light atoms that have no other heavy bond.
-    Returns (triplets, r_oh per water, r_hh per water) from the equilibrium
-    bond lengths / H-O-H angle."""
+    atom bonded to exactly two light atoms (by the force field's masses)
+    that have no other heavy bond. Returns (triplets, r_oh per water, r_hh
+    per water) from the equilibrium bond lengths / H-O-H angle."""
     none = np.zeros((0, 3), np.int64), np.zeros(0), np.zeros(0)
     if parameters.bond_params is None:
         return none
     idx, r0_all = _bond_tables(parameters)
-    light = np.asarray(masses, np.float64).reshape(-1) <= h_mass_cut
+    light = _light(parameters, h_mass_cut)
 
     neigh: dict = {}
     bond_r0: dict = {}
@@ -103,9 +239,11 @@ def find_waters(parameters, masses, h_mass_cut=3.5):
     return np.asarray(waters, np.int64), np.asarray(r_ohs), np.asarray(r_hhs)
 
 
-def build_settle(parameters, masses, h_mass_cut=3.5, device="cpu",
+def build_settle(parameters, masses, h_mass_cut=H_MASS_CUT, device="cpu",
                  dtype=torch.float64) -> Optional[SettleSet]:
-    triplets, r_oh, r_hh = find_waters(parameters, masses, h_mass_cut)
+    """SETTLE for the rigid waters of `find_waters`, with the dynamical
+    `masses`."""
+    triplets, r_oh, r_hh = find_waters(parameters, h_mass_cut)
     if len(triplets) == 0:
         return None
     masses = np.asarray(masses, np.float64).reshape(-1)
@@ -256,45 +394,75 @@ def max_settle_error(ss: SettleSet, pos):
     return torch.stack(errs).max()
 
 
-def build_constraint_spec(parameters, masses, mode="settle", device="cpu",
+def build_constraint_spec(parameters, masses, mode="hbonds", iterations=50,
+                          relax=0.5, h_mass_cut=H_MASS_CUT, device="cpu",
                           dtype=torch.float64) -> Optional[Constraints]:
-    """mode 'settle': analytic rigid waters. Hydrogen bonds outside rigid
-    waters (SHAKE) and the 'hbonds'/'allbonds' modes raise
-    NotImplementedError."""
+    """mode: 'hbonds' | 'allbonds' (SHAKE/RATTLE) | 'settle' (analytic
+    rigid waters and SHAKE on the remaining hydrogen bonds). `masses` are
+    the dynamical masses. `ncon` counts SHAKE pairs and three per water."""
     if mode in (None, "none", False):
         return None
-    if mode != "settle":
-        raise NotImplementedError(
-            f"constraints={mode!r} (SHAKE/RATTLE) is not ported yet; a later "
-            "slice of the port brings it")
-    ss = build_settle(parameters, masses, device=device, dtype=dtype)
-    if parameters.bond_params is not None:
-        idx, _ = _bond_tables(parameters)
-        light = np.asarray(masses, np.float64).reshape(-1) <= 3.5
-        in_water = np.zeros(len(light), bool)
-        if ss is not None:
-            for k in (ss.oidx, ss.h1, ss.h2):
-                in_water[k.cpu().numpy()] = True
-        hbond = light[idx[:, 0]] | light[idx[:, 1]]
-        if np.any(hbond & ~(in_water[idx[:, 0]] & in_water[idx[:, 1]])):
-            raise NotImplementedError(
-                "hydrogen bonds outside rigid waters need SHAKE, which is not "
-                "ported yet; a later slice of the port brings it")
-    if ss is None:
+    ss = None
+    if mode == "settle":
+        ss = build_settle(parameters, masses, h_mass_cut, device=device, dtype=dtype)
+    pairs, r0 = _constrained_bonds(parameters, "hbonds" if mode == "settle" else mode,
+                                   h_mass_cut)
+    if ss is not None and len(pairs):
+        # SHAKE only the hydrogen bonds that are not part of a rigid water
+        win = np.zeros(len(np.asarray(parameters.masses).reshape(-1)), bool)
+        for k in (ss.oidx, ss.h1, ss.h2):
+            win[k.cpu().numpy()] = True
+        keep = ~(win[pairs[:, 0]] & win[pairs[:, 1]])
+        pairs, r0 = pairs[keep], r0[keep]
+    cs = _constraint_set(pairs, r0, masses, iterations, relax, device, dtype)
+    if ss is None and cs is None:
         return None
-    return Constraints(settle=ss, ncon=3 * int(ss.oidx.shape[0]))
+    ncon = (0 if cs is None else int(cs.pairs.shape[0])) + (
+        0 if ss is None else 3 * int(ss.oidx.shape[0]))
+    return Constraints(shake=cs, settle=ss, ncon=ncon)
 
 
 def apply_position_constraints(c: Constraints, pos_new, pos_ref):
-    return settle_positions(c.settle, pos_new, pos_ref)
+    if c.shake is not None:
+        pos_new = shake_positions(c.shake, pos_new, pos_ref)
+    if c.settle is not None:
+        pos_new = settle_positions(c.settle, pos_new, pos_ref)
+    return pos_new
 
 
 def apply_velocity_constraints(c: Constraints, pos, vel):
-    return settle_velocities(c.settle, pos, vel)
+    if c.shake is not None:
+        vel = rattle_velocities(c.shake, pos, vel)
+    if c.settle is not None:
+        vel = settle_velocities(c.settle, pos, vel)
+    return vel
+
+
+def repartition_hydrogen_masses(masses, bonds, factor=4.0, h_mass_cut=H_MASS_CUT):
+    """Hydrogen mass repartitioning: scale each hydrogen's mass by `factor`
+    and take the added mass from its bonded heavy atom. The total mass
+    (and equilibrium thermodynamics) are unchanged; the fastest vibrations
+    slow down, which with constrained hydrogen bonds allows 4 fs steps.
+    Returns a new masses array; give it to the System (`set_masses`), not
+    to the parameters, whose masses say which atoms are hydrogens."""
+    m = np.asarray(masses, np.float64).reshape(-1).copy()
+    light = m <= h_mass_cut
+    added = m * (factor - 1.0)
+    for a, b in np.asarray(bonds, np.int64).reshape(-1, 2):
+        a, b = int(a), int(b)
+        if light[a] and not light[b]:
+            m[b] -= added[a]
+        elif light[b] and not light[a]:
+            m[a] -= added[b]
+    m[light] *= factor
+    if np.any(m <= 0):
+        raise ValueError(
+            "HMR factor too large: a heavy atom's mass went non-positive")
+    return m
 
 
 def constraint_virial(c: Constraints, masses, delta, drift, pos):
-    """Per-axis virial sum_i f_i,a r_i,a of the position constraint's
+    """Per-axis virial sum_i f_i,a r_i,a of SETTLE's position constraint
     forces f = 2 m delta / drift^2 (the MTK barostat's; drift (R, 1, 3)),
     with each water's hydrogens taken relative to its oxygen: the forces
     of one water sum to zero, so this equals the sum over absolute

@@ -17,7 +17,8 @@ the device of the positions, with forces -dE/dpos by `torch.autograd`,
 or by their `energy_forces_fn(pos, box) -> (energy, forces)` where they
 have one. `Forces` evaluates the external after the internal terms and
 adds its forces into the same buffer; an all-zero box reaches the
-external as zeros (no PBC).
+external as zeros (no PBC). `combine_externals` sums several sources
+(restraints and a user's external) into one.
 """
 
 from __future__ import annotations
@@ -89,6 +90,30 @@ def external_ef(external):
         return e.detach(), -g
 
     return _ef
+
+
+def combine_externals(sources):
+    """One `TorchExternal` for several sources (restraints, a user's
+    external): energies and forces summed, each source's forces by its
+    own `energy_forces_fn` or autograd (the JAX CLI's `_combined_ef`,
+    torchmd_tpu/run.py:309-330). Every source needs `energy_fn`: a
+    host-side external with only `calculate` cannot join."""
+    sources = list(sources)
+    for src in sources:
+        if getattr(src, "energy_fn", None) is None:
+            raise NotImplementedError(
+                "topology restraints cannot compose with a host-side "
+                "external potential (no energy_fn)")
+    efs = [external_ef(src) for src in sources]
+
+    def energy_fn(pos, box):
+        return sum(src.energy_fn(pos, box) for src in sources)
+
+    def energy_forces_fn(pos, box):
+        parts = [ef(pos, box) for ef in efs]
+        return sum(e for e, _ in parts), sum(f for _, f in parts)
+
+    return TorchExternal(energy_fn, energy_forces_fn=energy_forces_fn)
 
 
 class External:

@@ -89,10 +89,11 @@ class ForceField:
     """Factory selecting a force-field reader by file extension."""
 
     @staticmethod
-    def create(mol, prm):
+    def create(mol, prm, defines=None):
         """A reader by extension: YAML, CHARMM (.prm/.rtf or a list of
-        them), GROMACS (.top/.itp) or AMBER (.prmtop/.frcmod/.dat, or a
-        list of them); None for external-potential-only runs."""
+        them), GROMACS (.top/.itp, with the preprocessor `defines`) or
+        AMBER (.prmtop/.frcmod/.dat, or a list of them); None for
+        external-potential-only runs."""
         from .ff_amber import AmberForcefield
         from .ff_charmm import CharmmForcefield
         from .ff_gromacs import GromacsForcefield
@@ -113,7 +114,7 @@ class ForceField:
         if ext in (".yaml", ".yml"):
             return YamlForcefield(mol, prm)
         if ext in (".top", ".itp"):
-            return GromacsForcefield(mol, prm)
+            return GromacsForcefield(mol, prm, defines=defines)
         if ext == ".prm" or ext == ".rtf":
             return CharmmForcefield(mol, [prm])
         if ext in (".prmtop", ".frcmod", ".dat"):

@@ -69,6 +69,7 @@ from .potentials import (
     add_energy,
     make_ffparams,
 )
+from .cmap import cmap_energy
 from .external import batch_box, external_ef
 from .systems import resolve_device, to_numpy, torch_dtype
 from .vsites import vsite_groups_to, wrap_energy_forces
@@ -228,11 +229,6 @@ class Forces:
         self.ffparams = make_ffparams(parameters, exclusions, dtype=self.dtype,
                                       device=self.device, nbfix=nbfix,
                                       dense_mask=not self._nb_mask_deferred)
-        ffp = self.ffparams
-        if (("bonds" in self.energies and ffp.bonds_g96 is not None)
-                or ("angles" in self.energies and ffp.angles_g96 is not None)):
-            raise NotImplementedError(
-                "GROMOS-96 bonded forms are not ported to the Forces path yet")
         self.vsites = None
         if getattr(parameters, "vsites", None):
             self.vsites = vsite_groups_to(parameters.vsites, self.device, self.dtype)
@@ -261,6 +257,7 @@ class Forces:
                 pot, frc = _bonded.bonded_energy_forces(ffp, plan, pos, box, config)
                 return pot, frc if out is None else out + frc
         self._bonded_plan = plan
+        bonded_ef_one = self._with_autograd_terms(bonded_ef_one)
 
         nb = None
         kern = self._cell_kernel
@@ -321,6 +318,44 @@ class Forces:
         if self.external is not None:
             ef_one = _with_external(ef_one, self.external)
         self.ef_one = ef_one
+
+    def _autograd_tables(self):
+        """(term, energy function, table) of the bonded terms that ride on
+        the bonded stage of every path by autograd, as in the JAX package
+        (`torchmd_tpu/forces.py:286-338`): CMAP and the GROMOS-96 bond and
+        angle forms, tiny terms that no kernel computes."""
+        ffp = self.ffparams
+        return [(name, fn, table) for name, fn, table in (
+            ("cmap", cmap_energy, ffp.cmap),
+            ("bonds", _potentials.g96_bond_energy, ffp.bonds_g96),
+            ("angles", _potentials.g96_angle_energy, ffp.angles_g96))
+            if name in self.energies and table is not None]
+
+    def autograd_terms(self, pos, box) -> dict:
+        """Per-term energies of `_autograd_tables` for one conformation."""
+        return {name: fn(table, pos, box) for name, fn, table in self._autograd_tables()}
+
+    def has_autograd_terms(self) -> bool:
+        return bool(self._autograd_tables())
+
+    def _with_autograd_terms(self, bonded_ef_one):
+        """`bonded_ef_one` plus `autograd_terms`: their energies added to
+        the per-term dict, their forces by `torch.autograd`."""
+        if not self.has_autograd_terms():
+            return bonded_ef_one
+
+        def wrapped(pos, box, out=None):
+            pot, frc = bonded_ef_one(pos, box, out=out)
+            with torch.enable_grad():
+                p = pos.detach().requires_grad_(True)
+                terms = self.autograd_terms(p, box)
+                (g,) = torch.autograd.grad(sum(terms.values()), p)
+            pot = dict(pot)
+            for k, v in terms.items():
+                add_energy(pot, k, v.detach())
+            return pot, frc - g
+
+        return wrapped
 
     # ------------------------------------------------------------------
     def ensure_ewald(self, box):

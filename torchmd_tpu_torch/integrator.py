@@ -1,14 +1,15 @@
-"""Velocity-Verlet dynamics on a torch device: Langevin or Nose-Hoover
-chain, SETTLE rigid waters, virtual sites, and the cell-list path.
+"""Velocity-Verlet dynamics on a torch device: Langevin, Nose-Hoover chain
+or CSVR, SHAKE/RATTLE bonds and SETTLE rigid waters, virtual sites, and
+the cell-list path.
 
 Numerics follow the reference integrator (torchmd/integrator.py:61-125)
 and the JAX package's scan bodies (torchmd_tpu/integrator.py:565-600 and,
 for the cell-list path, :871-899). Per step
 
-    NHC half -> first half-kick + drift -> SETTLE positions (and the
-    velocity correction) -> virtual sites snapped -> cell list rebuilt ->
-    forces (with PME) -> Langevin kick -> second half-kick -> SETTLE
-    velocities -> NHC half
+    NHC half -> first half-kick + drift -> SHAKE and SETTLE positions (and
+    the velocity correction) -> virtual sites snapped -> cell list rebuilt
+    -> forces (with PME) -> Langevin kick -> second half-kick -> RATTLE and
+    SETTLE velocities -> NHC half (or the CSVR rescale)
 
 with dt = timestep_fs / TIMEFACTOR, gamma in ps^-1 converted by
 PICOSEC2TIMEU, and the noise coefficient sqrt(2 gamma kB T dt / m).
@@ -19,8 +20,12 @@ velocities, forces, kinetic and potential energy and the cell list's
 overflow flag come back in one packed copy. The cell list is rebuilt on
 the device at every step (no host decision); a cell that overflows its
 capacity sets a sticky flag, and the chunk is redone from its starting
-state with a grown capacity. Thermostat noise comes from an explicit
-`torch.Generator`.
+state with a grown capacity. Thermostat noise (Langevin's and CSVR's
+draws) comes from an explicit `torch.Generator`. The masses are the
+System's when it has any (hydrogen mass repartitioning sets them there)
+and the force field's otherwise; which atoms are hydrogens for the
+constraints is always read from the force field's
+(`constraints.build_constraint_spec`).
 
 `barostat=MTKBarostat(...)` runs NPT: the explicit reversible MTK
 splitting of the JAX package's kernel NPT scan
@@ -45,8 +50,13 @@ and box scale as r + r expm1(u), not r exp(u), and the constraint virial
 takes each water's hydrogens relative to its oxygen, not absolute
 positions (`constraints.constraint_virial`); on the 62,500-site box in f32
 the absolute form's cancellation moved the box as much as a 1 % charge
-error. The dense, r-RESPA and spatial NPT scans and the Monte Carlo
-barostats are not ported yet.
+error. MTK with SHAKE pairs raises NotImplementedError: the constraint
+virial covers SETTLE only (ROADMAP item 17). The dense, r-RESPA and
+spatial NPT scans are not ported yet. The Monte Carlo barostats
+(`barostat.MonteCarloBarostat` and its variants) are not integrator
+options: they attach to the run loop, `barostat.attempt(system, forces)`
+between chunks, and `Integrator(barostat=<MC>)` raises ValueError, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -128,11 +138,13 @@ class Integrator:
     same constructor, same `step(niter) -> (Ekin, Epot, T)` contract with
     numpy outputs. The state lives on the device of `forces`.
 
-    `constraints="settle"` holds rigid waters (T then counts 3N_real - n_con
-    degrees of freedom); `thermostat="nhc"` couples a Nose-Hoover chain
-    (`tau` fs, default 100 timesteps; `thermostat_energy()` is its part of
-    the conserved energy). Massless atoms must be virtual sites of the
-    force field."""
+    `constraints="hbonds"|"allbonds"` holds bonds by SHAKE/RATTLE and
+    `"settle"` rigid waters by SETTLE and the other hydrogen bonds by
+    SHAKE (T then counts 3N_real - n_con degrees of freedom);
+    `thermostat="nhc"` couples a Nose-Hoover chain, `"csvr"` the Bussi
+    rescale (`tau` fs, default 100 timesteps; `thermostat_energy()` is the
+    chain's part of the conserved energy, 0 for CSVR). Massless atoms must
+    be virtual sites of the force field."""
 
     def __init__(self, systems, forces, timestep, device=None, gamma=None,
                  T=None, batch=None, seed=1, generator=None, mesh=None,
@@ -235,8 +247,17 @@ class Integrator:
         from .thermostats import NoseHooverChain, make_thermostat
 
         if not getattr(barostat, "is_dynamic", False):
+            raise ValueError(
+                "Monte Carlo barostats attach at the run-loop level "
+                "(call barostat.attempt(system, forces) between chunks, "
+                "as run.py does); only dynamic barostats (MTKBarostat) "
+                "integrate inside the step loop")
+        if self.constraints is not None and self.constraints.shake is not None:
             raise NotImplementedError(
-                "Monte Carlo barostats are not ported yet; use MTKBarostat")
+                "MTK with SHAKE constraints is not ported yet (ROADMAP item 17): "
+                "the constraint virial covers SETTLE only; use "
+                "constraints='settle' on a system whose only hydrogen bonds "
+                "sit in rigid waters, or a Monte Carlo barostat")
         systems, forces = self.systems, self.forces
         ext = getattr(forces, "external", None)
         if ext is not None and getattr(ext, "energy_fn", None) is None:
@@ -368,7 +389,7 @@ class Integrator:
         overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         for _ in range(niter):
             if thermo is not None:
-                vel, aux = thermo.pre(vel, aux, m, dt)
+                vel, aux = thermo.pre(vel, aux, m, dt, generator=self.generator)
             pos_new, vel = _first_vv(pos, vel, frc, m, dt)
             if cs is not None:
                 pos_c = apply_position_constraints(cs, pos_new, pos)
@@ -388,7 +409,7 @@ class Integrator:
             if cs is not None:
                 vel = apply_velocity_constraints(cs, pos, vel)
             if thermo is not None:
-                vel, aux = thermo.post(vel, aux, m, dt)
+                vel, aux = thermo.post(vel, aux, m, dt, generator=self.generator)
         return SimState(pos, vel, frc), epot, aux, overflow
 
     def step(self, niter=1):
@@ -424,9 +445,10 @@ class Integrator:
         """Thermostat contribution to the conserved (extended) energy per
         replica: add to Ekin + Epot to monitor NHC drift (zero for
         Langevin or no thermostat)."""
+        e = np.zeros(self.systems.nreplicas)
         if self._thermostat is None:
-            return np.zeros(self.systems.nreplicas)
-        return self._thermostat.conserved(self._thermo_aux).cpu().numpy().astype(np.float64)
+            return e
+        return e + to_numpy(self._thermostat.conserved(self._thermo_aux)).astype(np.float64)
 
     # ------------------------------------------------------------------
     # MTK NPT on the cell or column kernel path
@@ -454,9 +476,11 @@ class Integrator:
     def _cheap_terms(self):
         """True when the bonded terms have work: the kernel path's plan
         drops rows with a zero force constant (the water box's SETTLE
-        bonds), and an empty plan leaves nothing to differentiate."""
+        bonds), and an empty plan and no CMAP or GROMOS-96 term leave
+        nothing to differentiate."""
         plan = self.forces._bonded_plan
-        return plan is not None and bool(getattr(plan, "families", True))
+        return ((plan is not None and bool(getattr(plan, "families", True)))
+                or self.forces.has_autograd_terms())
 
     def _npt_ef_vir(self, pos, box, cl):
         """(Epot, forces, per-axis virial -dU(s pos, s box)/ds) of one
@@ -564,7 +588,7 @@ class Integrator:
         overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         for _ in range(niter):
             v_eps, aux_b = baro_half(v_eps, aux_b)
-            vel, aux_p = thermo.pre(vel, aux_p, m, dt)
+            vel, aux_p = thermo.pre(vel, aux_p, m, dt, generator=self.generator)
             v_eps = eps_kick(v_eps, vel, vir, box)
             x = ((v_eps + v_eps.sum(-1, keepdim=True) / ndof) * dt2)[:, None, :]
             vel = kick(vel, frc, x)
@@ -590,7 +614,7 @@ class Integrator:
                 vir = vir + constraint_virial(cs, m, delta, drift, pos)
             vel = kick(vel, frc, x)
             v_eps = eps_kick(v_eps, vel, vir, box)
-            vel, aux_p = thermo.post(vel, aux_p, m, dt)
+            vel, aux_p = thermo.post(vel, aux_p, m, dt, generator=self.generator)
             v_eps, aux_b = baro_half(v_eps, aux_b)
             if cs is not None:
                 vel = apply_velocity_constraints(cs, pos, vel)

@@ -3,8 +3,9 @@
 `ffparams_from_numpy(d, device, dtype)` takes the JAX package's `FFParams`
 with every leaf as a numpy array (for example
 `jax.tree_util.tree_map(np.asarray, ffp)`), or a mapping with the same
-field names, and returns the port's `FFParams` on `device`. Integer
-leaves become int64, boolean leaves stay bool, float leaves take `dtype`.
+field names, and returns the port's `FFParams` on `device` (its CMAP
+coefficient table too). Integer leaves become int64, boolean leaves stay
+bool, float leaves take `dtype`.
 The functions below do the same for the periodic slices' structures: the
 exclusion table, the cell and column configurations, the cell list, PME,
 SETTLE, virtual sites, the Nose-Hoover chain state and the MTK barostat's
@@ -39,8 +40,8 @@ def _field(d, name):
 
 
 def ffparams_from_numpy(d, device="cpu", dtype=torch.float64) -> FFParams:
-    if _field(d, "cmap") is not None:
-        raise NotImplementedError("CMAP tables are not ported yet")
+    from .cmap import CMapTable
+
     out = {}
     for name in FFParams._fields:
         v = _field(d, name)
@@ -51,6 +52,9 @@ def ffparams_from_numpy(d, device="cpu", dtype=torch.float64) -> FFParams:
                                     for f in TermTable._fields))
         elif name == "lj_ab":
             out[name] = tuple(_tensor(t, device, dtype) for t in v)
+        elif name == "cmap":
+            out[name] = CMapTable(*(_tensor(_field(v, f), device, dtype)
+                                    for f in CMapTable._fields))
         else:
             out[name] = _tensor(v, device, dtype)
     return FFParams(**out)

@@ -21,7 +21,10 @@ import numpy as np
 
 
 class Molecule:
-    def __init__(self, filename: str | None = None):
+    def __init__(self, filename: str | None = None, defines=None):
+        # GROMACS preprocessor defines for .top/.itp reads (NAME -> None or
+        # a value), e.g. an .mdp's `define = -DPOSRES`
+        self.defines = defines
         self.numAtoms = 0
         self.name = np.zeros(0, dtype=object)
         self.resname = np.zeros(0, dtype=object)
@@ -181,7 +184,7 @@ class Molecule:
         from ..forcefields.ff_gromacs import load_gmx_top
         from .periodictable import element_from_name
 
-        top, arr = load_gmx_top(filename)
+        top, arr = load_gmx_top(filename, defines=self.defines)
         self.numAtoms = arr["natoms"]
         self.atomtype = arr["atomtype"]
         self.charge = arr["charge"]

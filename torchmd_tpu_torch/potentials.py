@@ -65,6 +65,7 @@ class FFParams(NamedTuple):
     lj_ab: Optional[tuple] = None    # (A_table, B_table), (ntypes, ntypes)
     bonds_g96: Optional[TermTable] = None
     angles_g96: Optional[TermTable] = None
+    cmap: Optional["CMapTable"] = None  # torchmd_tpu_torch.cmap.CMapTable
 
 
 class ForceTermConfig(NamedTuple):
@@ -297,6 +298,10 @@ def compute_potentials(par: FFParams, pos, box, cfg: ForceTermConfig,
     if "impropers" in cfg.terms and par.impropers is not None:
         pot["impropers"] = torsion_energy(par.impropers, pos, box,
                                           cfg.impropers_amber)
+    if "cmap" in cfg.terms and par.cmap is not None:
+        from .cmap import cmap_energy
+
+        pot["cmap"] = cmap_energy(par.cmap, pos, box)
     if "1-4" in cfg.terms and par.nb14 is not None:
         e_lj, e_elec = nb14_energies(
             par.nb14, pos, box, par.charges,
@@ -467,13 +472,8 @@ def make_ffparams(parameters, exclusions=("bonds", "angles", "1-4"),
     """Freeze a host-side `torchmd_tpu.parameters.Parameters` assembly
     into tensors on `device`. `exclusions` selects the bonded neighbour
     classes masked out of the all-pairs nonbonded sum; `nbfix=True` bakes
-    CHARMM NBFIX overrides into (ntypes, ntypes) A/B tables."""
-    if getattr(parameters, "cmap_params", None) is not None and len(
-            parameters.cmap_params.get("idx", [])):
-        raise NotImplementedError(
-            "CMAP cross-terms are not ported yet (a later slice of the "
-            "port brings cmap.py)")
-
+    CHARMM NBFIX overrides into (ntypes, ntypes) A/B tables; CMAP grids
+    become their bicubic coefficient table (`cmap.make_cmap_table`)."""
     def tensor(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
 
@@ -504,7 +504,15 @@ def make_ffparams(parameters, exclusions=("bonds", "angles", "1-4"),
             B_tab[i, j] = B_tab[j, i] = 2.0 * feps * frmin**6
         lj_ab = (tensor(A_tab), tensor(B_tab))
 
+    cmap = None
+    cmap_par = getattr(parameters, "cmap_params", None)
+    if cmap_par is not None and len(cmap_par.get("idx", [])):
+        from .cmap import make_cmap_table
+
+        cmap = make_cmap_table(cmap_par, dtype=dtype, device=device)
+
     return FFParams(
+        cmap=cmap,
         charges=tensor(parameters.charges),
         masses=tensor(parameters.masses),
         mapped_atom_types=tensor(parameters.mapped_atom_types, torch.int64),

@@ -9,15 +9,21 @@ outputs (per-replica monitor_{k}.csv, {output}_{k}.npy or .dcd
 trajectory, final .xyz), `--checkpoint-period` / `--resume`, and
 `--profile` (a torch.profiler Chrome trace in the log directory).
 
+The production protocol: `--constraints hbonds|allbonds|settle`
+(SHAKE/RATTLE, SETTLE), `--hmr` (hydrogen mass repartitioning: the
+System gets the repartitioned masses, the parameters keep the force
+field's, which say what the hydrogens are), `--thermostat nhc|csvr`,
+`--pressure` with `--barostat-mode iso|aniso|membrane` (a Monte Carlo
+move after each output period) or `mtk*` (MTK dynamics), and an `.mdp`
+`define` (e.g. -DPOSRES: the topology's position, distance and dihedral
+restraints join the run as external potentials, referenced to the
+starting coordinates, summed with an `--external` one).
+
 `--device`: None or `cuda[:k]` run on the CUDA card, `cpu` on the CPU;
 anything else raises ValueError. Without a card and without `--device
 cpu` the run raises, as the port's entry points do. Flags whose modules
 are not ported yet raise NotImplementedError naming their ROADMAP item:
-`--constraints hbonds|allbonds` and `--hmr` (16); `--thermostat csvr`,
-`--pressure` with a Monte Carlo `--barostat-mode` (iso, aniso,
-membrane), `--mts` and `--mts-recip` (17); GROMACS restraints and `.mdp`
-`define`s (18); `--gbsa` (20). Langevin, `--thermostat nhc`,
-`--constraints settle` and `--pressure` with `--barostat-mode mtk*` run.
+`--mts` and `--mts-recip` (17), `--gbsa` (20).
 """
 
 from __future__ import annotations
@@ -55,10 +61,11 @@ def get_args(arguments=None):
     parser.add_argument("--thermostat", default="langevin",
                         choices=["langevin", "nhc", "csvr"],
                         help="NVT thermostat: langevin (reference numerics), "
-                             "nhc (Nose-Hoover chain), csvr (Bussi rescale, not "
-                             "ported yet); nhc uses --langevin-temperature as target")
+                             "nhc (Nose-Hoover chain), csvr (Bussi rescale); "
+                             "nhc/csvr use --langevin-temperature as target")
     parser.add_argument("--thermostat-tau", default=None, type=float,
-                        help="NHC time constant in fs (default 100 * timestep)")
+                        help="NHC/CSVR time constant in fs "
+                             "(default 100 * timestep)")
     parser.add_argument("--solvent-dielectric", default=78.5, type=float,
                         help="Reaction-field solvent dielectric (with --rfa)")
     parser.add_argument("--mts", default=None, type=int,
@@ -116,19 +123,22 @@ def get_args(arguments=None):
     parser.add_argument("--npz_file", default=None, type=str,
                         help="Input file.npz with coord and z")
     parser.add_argument("--constraints", default=None, type=str,
-                        help="Bond constraints: settle (analytic rigid waters); "
-                             "hbonds | allbonds (SHAKE/RATTLE) are not ported yet")
+                        help="Bond constraints: hbonds | allbonds (SHAKE/"
+                             "RATTLE) | settle (analytic rigid waters + "
+                             "SHAKE on other H bonds)")
     parser.add_argument("--hmr", default=None, type=float,
-                        help="Hydrogen mass repartitioning factor (not ported yet)")
+                        help="Hydrogen mass repartitioning factor (e.g. 3.0;"
+                             " combine with --constraints for 4 fs steps)")
     parser.add_argument("--pressure", default=None, type=float,
-                        help="NPT target pressure in bar")
+                        help="NPT target pressure in bar (MC barostat)")
     parser.add_argument("--barostat-mode", default="iso",
                         choices=["iso", "aniso", "membrane", "mtk",
                                  "mtk-aniso", "mtk-membrane"],
-                        help="NPT barostat: mtk[-aniso|-membrane] (Martyna-"
-                             "Tobias-Klein extended-system dynamics with NHC); "
-                             "the iso/aniso/membrane Monte Carlo moves are not "
-                             "ported yet")
+                        help="NPT barostat: iso/aniso/membrane MC volume "
+                             "moves, or mtk[-aniso|-membrane] (Martyna-"
+                             "Tobias-Klein extended-system dynamics; uses "
+                             "--thermostat nhc|csvr and, for mtk-membrane, "
+                             "--surface-tension)")
     parser.add_argument("--surface-tension", default=0.0, type=float,
                         help="Membrane barostat surface tension in "
                              "bar*Angstrom (1 bar*A = 10 mN/m)")
@@ -181,24 +191,24 @@ def _unported(flag, item):
 
 def check_ported(args):
     """Raise NotImplementedError for flags whose modules the port lacks."""
-    constraints = getattr(args, "constraints", None)
-    if constraints not in (None, "none", "settle"):
-        _unported(f"--constraints {constraints}", 16)
-    if getattr(args, "hmr", None):
-        _unported("--hmr", 16)
-    if getattr(args, "thermostat", "langevin") == "csvr":
-        _unported("--thermostat csvr", 17)
-    mode = getattr(args, "barostat_mode", "iso") or "iso"
-    if getattr(args, "pressure", None) is not None and not mode.startswith("mtk"):
-        _unported(f"--pressure with --barostat-mode {mode} (Monte Carlo)", 17)
     if getattr(args, "mts", None):
         _unported("--mts", 17)
     if getattr(args, "mts_recip", None):
         _unported("--mts-recip", 17)
-    if getattr(args, "gmx_defines", None):
-        _unported("an .mdp `define` (GROMACS restraints)", 18)
     if getattr(args, "gbsa", False):
         _unported("--gbsa", 20)
+
+
+def gmx_defines(args):
+    """An .mdp's `define = -DNAME[=value] ...` as the GROMACS reader's
+    defines (NAME -> value or None); the JAX CLI's TMD_GMX_DEFINES scope
+    (torchmd_tpu/run.py:215-238), given to the readers directly, since
+    the port reads no environment."""
+    out = {}
+    for tok in getattr(args, "gmx_defines", None) or ():
+        name, _, val = str(tok).partition("=")
+        out[name] = val if val else None
+    return out
 
 
 def _load_molecule(args):
@@ -212,7 +222,7 @@ def _load_molecule(args):
     topo = args.topology if args.topology is not None else args.structure
     if topo is None:
         raise RuntimeError("Provide --topology, --structure or --npz_file")
-    mol = Molecule(topo)
+    mol = Molecule(topo, defines=gmx_defines(args))
     if args.topology is None and mol.crystalinfo is not None:
         # PDB CRYST1 record carries the box when no topology file is given.
         abc = [mol.crystalinfo[k] for k in ("a", "b", "c")]
@@ -259,16 +269,22 @@ def setup(args, batch_comp=False):
     batch_comp = batch_comp or is_npz
 
     print("Force terms: ", args.forceterms)
-    ff = ForceField.create(mol, args.forcefield)
+    ff = ForceField.create(mol, args.forcefield, defines=gmx_defines(args))
     parameters = Parameters(ff, mol, args.forceterms, precision=args.precision,
                             device=str(device))
-    if any(getattr(parameters, k, None) for k in ("gmx_posres", "gmx_distres",
-                                                  "gmx_dihres")):
-        _unported("GROMACS restraints in the topology", 18)
+    masses = np.asarray(parameters.masses, np.float64)
+    if getattr(args, "hmr", None):
+        from .constraints import repartition_hydrogen_masses
+
+        # the System carries the dynamical masses; the parameters keep the
+        # force field's, from which the constraints pick the hydrogens
+        masses = repartition_hydrogen_masses(
+            masses, mol.bonds, factor=args.hmr).reshape(masses.shape)
 
     system = System(mol.numAtoms, args.replicas, args.precision, str(device))
     system.set_positions(mol.coords)
     system.set_box(mol.box)
+    system.set_masses(masses)
     file_vel = getattr(mol, "velocities", None)
     if getattr(args, "use_file_velocities", False) and file_vel is not None:
         # continuation: .gro velocities are A/ps; internal velocities are
@@ -278,11 +294,29 @@ def setup(args, batch_comp=False):
         v = np.asarray(file_vel, dtype=np.float64) * (TIMEFACTOR / 1000.0)
         vel0 = np.repeat(v[None], args.replicas, axis=0)
     else:
-        vel0 = maxwell_boltzmann(parameters.masses, args.temperature, args.replicas,
+        vel0 = maxwell_boltzmann(masses, args.temperature, args.replicas,
                                  seed=args.seed, device=device)
     system.set_velocities(vel0)
 
     external = _instantiate_external(args, mol, batch_comp, device)
+    restraints = []
+    if getattr(parameters, "gmx_posres", None) is not None:
+        # GROMACS restraints (present when their #ifdef, typically POSRES,
+        # was defined): referenced to the starting coordinates (GROMACS's
+        # -r default); disre-fc comes through the .mdp translation
+        from .restraints import (make_gromacs_dihres, make_gromacs_distres,
+                                 make_gromacs_posres)
+
+        restraints = [r for r in (
+            make_gromacs_posres(parameters, mol.coords[:, :, 0]),
+            make_gromacs_distres(parameters, fc_kj_nm2=getattr(args, "disre_fc", 1000.0)),
+            make_gromacs_dihres(parameters),
+        ) if r is not None]
+    if restraints:
+        from .external import combine_externals
+
+        external = combine_externals(
+            restraints + ([external] if external is not None else []))
     forces = Forces(
         parameters,
         terms=args.forceterms,
@@ -331,7 +365,7 @@ def dynamics(args, mol, system, forces):
     mode = getattr(args, "barostat_mode", "iso") or "iso"
     mtk = None
     thermo_name = getattr(args, "thermostat", "langevin")
-    if getattr(args, "pressure", None) is not None:
+    if getattr(args, "pressure", None) is not None and mode.startswith("mtk"):
         from .barostat import MTKBarostat
 
         T_b = args.langevin_temperature or args.temperature
@@ -359,6 +393,24 @@ def dynamics(args, mol, system, forces):
         barostat=mtk,
     )
     wrapper = Wrapper(mol.numAtoms, mol.bonds if len(mol.bonds) else None)
+
+    barostat = None
+    if getattr(args, "pressure", None) is not None and mtk is None:
+        from .barostat import (MonteCarloAnisotropicBarostat, MonteCarloBarostat,
+                               MonteCarloMembraneBarostat)
+
+        T_b = args.langevin_temperature or args.temperature
+        if mode == "aniso":
+            barostat = MonteCarloAnisotropicBarostat(
+                args.pressure, T_b, group_id=wrapper.group_id, seed=args.seed)
+        elif mode == "membrane":
+            barostat = MonteCarloMembraneBarostat(
+                args.pressure, T_b,
+                surface_tension=getattr(args, "surface_tension", 0.0) or 0.0,
+                group_id=wrapper.group_id, seed=args.seed)
+        else:
+            barostat = MonteCarloBarostat(
+                args.pressure, T_b, group_id=wrapper.group_id, seed=args.seed)
 
     outputname, outputext = os.path.splitext(args.output)
     use_dcd = getattr(args, "traj_format", "npy") == "dcd"
@@ -448,6 +500,8 @@ def dynamics(args, mol, system, forces):
         with profile_ctx, timer.measure(max(0, stop - start_iter + 1) * args.output_period):
             for i in range(start_iter, stop + 1):
                 Ekin, Epot, T = integrator.step(niter=args.output_period)
+                if barostat is not None:
+                    barostat.attempt(system, forces)
                 wrapper.wrap(system.pos, system.box)
                 payload = (
                     i, system.pos.copy(), system.box.copy(),

@@ -28,6 +28,20 @@ Integrator.step), f32, imports nothing of JAX or of the JAX package:
   - the water box's NVT phase with a Monte Carlo barostat (1 bar, an
     attempt every 25 steps): the cell, spread and gather kernels under
     volume moves;
+  - thrombin's production protocol with r-RESPA (`--mts 2`): the bonded
+    kernel twice an outer step in its own buffer, the dense pair kernel
+    once;
+  - scripts/bench_mts.py's box in the port (8,000 flexible SPC/Fw
+    waters, 24,000 atoms, cutoff 8.5 A, reaction field, NVE on the
+    defaults of Forces: the column kernel's no-virial reaction-field
+    instance): mts 1 at 0.5 fs, mts 4 at 2 fs, plain VV at 2 fs, and the
+    drift at other outer and inner steps;
+  - the water box's NVT phase with the reciprocal tier (`mts_recip=2`):
+    the cell kernel every step, the PME spread and gather every other;
+  - the solvated alanine dipeptide of the repo's ACEMD input under MTK
+    with SHAKE through the CLI: the dense MTK scan on the exact Ewald sum
+    (torch ops, no CUDA kernel);
+  - thrombin on Verlet lists (`Forces(kernel="verlet")`, torch ops);
   - the staged probe of the dense pair kernel (python -m
     torchmd_tpu_torch.roofline, 4,676 atoms, tiles of 512): seven stage
     kernels and the elemental-throughput chains.
@@ -135,7 +149,40 @@ Phases (each prints lines; any failure raises and exits non-zero):
      the axes its mode names;
  13. cmap: a 5-atom chain with a CMAP cross-term, Forces on the card (f32)
      against the CPU (f64) at the Pallas bars;
- 14. roofline: every probe stage (f32) against its plain version (f64) at
+ 14. mts_thrombin: the production protocol with `--mts MTS_N` through the
+     CLI, MTS_STEPS outer steps with the counters reset just before and
+     read just after, held to the schedule's launches exactly (pair once
+     an outer step, bonded MTS_N times, each once more at every chunk's
+     entry and at the start), mean T and SHAKE's residual as the
+     production phase gates them; MTS_TIMED steps through the API and a
+     profile (`[mts_vs_production]`: steps/s, device events per step);
+ 15. mts_water: the SPC/Fw box, a CSVR warm-up; the column kernel's
+     no-virial reaction-field instance on its end state against the plain
+     f64 version (`column_rf` in the kernels line); then NVE runs over
+     MTS_WATER_FS fs from that state (MTS_WATER_RUNS: the bench's mts 1
+     at 0.5 fs, mts 4 at 2 fs, VV at 2 fs, and mts 2 at 1 fs, mts 8 at
+     2 fs, VV at 1 fs), each run's ns/day, drift (a line fitted through
+     the energy every MTS_WATER_SAMPLE_FS fs), rms about it and launches;
+     mts 4 finite, launched as its schedule says, faster in ns/day than
+     mts 1, and mts 1's and mts 4's drifts and rms within
+     MTS_WATER_DRIFT_MAX and MTS_WATER_RMS_MAX;
+ 16. recip_tier: the 62.5k-site box's NVT phase with mts_recip=RECIP_R,
+     RECIP_STEPS steps, launches held to the schedule (cell kernel every
+     step; spread and gather every RECIP_R steps plus once a chunk),
+     steps/s beside the NVT phase's, a profile; NVE legs with and without
+     the tier;
+ 17. alanine_mtk: the alanine box under MTK (1 bar, NHC 300 K) with X-H
+     SHAKE, HMR x3 and 4 fs through the CLI, ALA_STEPS steps (volume
+     within NPT_VOLUME_RANGE); through the API ALA_CHECK_STEPS steps at
+     f32 against the f64 torch-op path on the card (ALA_POS_TOL A), no
+     kernel counter moved; the SHAKE virial at f32 against f64 (relative
+     positions, ALA_VIRIAL_TOL of its magnitude; the absolute form's
+     error beside it);
+ 18. verlet: thrombin on Verlet lists, per-term energies and forces
+     against the dense pair kernel's at the Pallas bars, VERLET_STEPS
+     timed Langevin steps, rebuilds and capacity, steps/s beside the
+     dynamics phase's;
+ 19. roofline: every probe stage (f32) against its plain version (f64) at
      the probe's full size, on its inputs and on the same rows without
      pairs nearer than 2 A, each row's force held to the size of its terms
      (force_scale); four planted faults (the plain version with k_rf
@@ -328,6 +375,69 @@ gas
 [ molecules ]
 AR {n}
 """
+
+# r-RESPA on thrombin through the CLI: the production flags plus --mts
+# MTS_N (bonded terms on MTS_N substeps of each 4 fs step), MTS_STEPS outer
+# steps in chunks of PROD_PERIOD, then MTS_TIMED steps through the API
+# and a profile beside the production phase's
+MTS_N, MTS_STEPS, MTS_TIMED = 2, 1000, 200
+# scripts/bench_mts.py's water in the port: MTS_WATER_N^3 flexible SPC/Fw
+# waters on the 3.104 A lattice, cutoff 8.5 A, reaction field, NVE on the
+# defaults of Forces; after MTS_WATER_WARM steps of CSVR at 0.5 fs from
+# the lattice at MTS_WATER_T K, the runs (label, mts, outer step fs; mts
+# None is plain VV) each over MTS_WATER_FS fs from that state, the total
+# energy sampled every MTS_WATER_SAMPLE_FS fs
+MTS_WATER_N, MTS_WATER_CUTOFF, MTS_WATER_FS, MTS_WATER_T = 20, 8.5, 200.0, 300.0
+MTS_WATER_WARM, MTS_WATER_SAMPLE_FS = 1000, 10.0
+MTS_WATER_RUNS = (("mts1_0.5fs", 1, 0.5), ("mts4_2fs", 4, 2.0), ("vv_2fs", None, 2.0),
+                  ("mts2_1fs", 2, 1.0), ("mts8_2fs", 8, 2.0), ("vv_1fs", None, 1.0))
+# bounds on |drift| (the slope of the fitted line, kcal/mol/atom/ns) and
+# on the rms of the energy about that line (kcal/mol), ~3x what the phase
+# read on an H100 80GB HBM3 at 700 W (mts 1: -0.61 and 1.81; mts 4: 3.78
+# and 204.7, where 200 fs of that rms leave the slope ~30 of fit noise)
+MTS_WATER_DRIFT_MAX = {"mts1_0.5fs": 3.0, "mts4_2fs": 100.0}
+MTS_WATER_RMS_MAX = {"mts1_0.5fs": 6.0, "mts4_2fs": 600.0}
+SPCFW_TOP = """
+[ defaults ]
+  1      2         yes       0.5     0.8333
+
+[ atomtypes ]
+  OW   8     15.99940 -0.82   A     3.16557e-01  6.50629e-01
+  HW   1     1.00800   0.41   A     0.0          0.0
+
+[ moleculetype ]
+  SOL  2
+
+[ atoms ]
+  1  OW   1     SOL     OW   1    -0.82  15.9994
+  2  HW   1     SOL     HW1  1     0.41   1.008
+  3  HW   1     SOL     HW2  1     0.41   1.008
+
+[ bonds ]
+  1 2 1 0.1012 443153.38
+  1 3 1 0.1012 443153.38
+
+[ angles ]
+  2 1 3 1 113.24 317.5656
+
+[ system ]
+SPC/Fw water
+
+[ molecules ]
+SOL {nw}
+"""
+# the 62.5k-site box's NVT phase with the reciprocal tier (PME every
+# RECIP_R outer steps), RECIP_STEPS steps in WATER_CHUNK chunks; NVE legs
+# of RECIP_NVE_STEPS steps with and without the tier from one state
+RECIP_R, RECIP_STEPS, RECIP_NVE_STEPS = 2, 500, 200
+# the alanine dipeptide box under MTK with SHAKE through the CLI (its
+# ACEMD input: 688 atoms, cutoff 9 A, switching from 7.5 A), the exact
+# Ewald sum, X-H bonds constrained, hydrogens x3, 4 fs, NHC at 300 K, 1 bar
+ALA_SYSTEM = "prod_alanine_dipeptide_amber"
+ALA_STEPS, ALA_PERIOD, ALA_CUTOFF, ALA_SWITCH = 1000, 50, 9.0, 7.5
+ALA_CHECK_STEPS, ALA_POS_TOL, ALA_VIRIAL_TOL = 10, 1e-3, 1e-5
+# Verlet lists on thrombin: VERLET_STEPS Langevin steps at 2 fs, timed
+VERLET_WARMUP, VERLET_STEPS = 20, 200
 
 # Bounds. Published H100 SXM peaks (NVIDIA datasheet, at 700 W):
 HBM_BYTES_PER_S = 3.35e12
@@ -2217,7 +2327,7 @@ def phase_production(api_steps_per_s, thr_profile):
             "restrained run not finite")
     require(min(kn.LAUNCHES, kb.LAUNCHES) >= RESTRAINT_STEPS, "restrained run launches")
     log("production_phase", seconds=f"{time.perf_counter() - t_phase:.2f}")
-    return launches
+    return launches, sps4, prof4
 
 
 def _mc_attempts(integ, baro, system, forces, chunk, count):
@@ -2432,6 +2542,496 @@ def phase_cmap():
     require(worst_f <= F_TOL, f"CMAP forces on the card off by {worst_f}")
 
 
+def phase_mts_thrombin(prod_sps, prod_profile):
+    """Thrombin's production protocol with r-RESPA (`--mts MTS_N`) through
+    the CLI: MTS_STEPS outer steps with the counters reset just before and
+    read just after (the bonded kernel MTS_N times an outer step in its
+    own buffer plus once a chunk and once at the start, the pair kernel
+    once an outer step plus once at the start), the mean T of the last
+    half and SHAKE's residual; then the same system through the API, a
+    timed chunk and a profile beside the production phase's."""
+    import csv
+
+    import torch
+
+    from torchmd_tpu_torch import run as cli
+    from torchmd_tpu_torch.constraints import build_constraint_spec, max_constraint_error
+    from torchmd_tpu_torch.integrator import Integrator
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+
+    t_phase = time.perf_counter()
+    extra = ["--mts", str(MTS_N), "--save-period", str(MTS_STEPS)]
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "cli")
+        kn.LAUNCHES = kb.LAUNCHES = 0
+        summary = cli.main(_production_argv(out, MTS_STEPS, extra))
+        launches = {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+        with open(os.path.join(out, "monitor_0.csv")) as fh:
+            rows = list(csv.DictReader(fh))
+        traj = np.load(os.path.join(out, "output_0.npy"))
+        mol, system, forces, _ = _production_api(os.path.join(td, "api"))
+    chunks = MTS_STEPS // PROD_PERIOD
+    want = {"pair": MTS_STEPS + 1, "bonded": MTS_N * MTS_STEPS + chunks + 1}
+    energies = np.array([[float(r[k]) for k in ("epot", "ekin", "T")] for r in rows])
+    t_late = float(np.mean([float(r["T"]) for r in rows if int(r["iter"]) > MTS_STEPS // 2]))
+    last = traj[:, :, -1]
+    ulp = float(np.spacing(np.float32(np.abs(last).max())))
+    cs64 = build_constraint_spec(forces.par, system.masses, "hbonds").shake
+    err64 = float(max_constraint_error(cs64, torch.as_tensor(last, dtype=torch.float64)))
+    log("mts_thrombin_cli", mts=MTS_N, steps=summary["steps"],
+        seconds=f"{summary['elapsed_s']:.4f}", steps_per_s=f"{summary['steps_per_sec']:.2f}",
+        ns_per_day=f"{summary['ns_per_day']:.3f}", T_last_half=f"{t_late:.3f}",
+        shake_residual_f64_A=f"{err64:.3e}", f32_ulp_A=f"{ulp:.3e}",
+        pair_launches=launches["pair"], bonded_launches=launches["bonded"],
+        pair_expected=want["pair"], bonded_expected=want["bonded"])
+    require(len(rows) == chunks and np.all(np.isfinite(energies)) and np.all(np.isfinite(traj)),
+            "r-RESPA thrombin run not finite")
+    require(launches == want, f"r-RESPA launches {launches}, want {want} (a tier evaluated "
+            "twice or skipped)")
+    require(abs(t_late - TEMP) <= PROD_T_TOL,
+            f"r-RESPA: mean T {t_late} K over the last half, not {TEMP} +- {PROD_T_TOL}")
+    require(err64 <= PROD_SHAKE_ULPS * ulp, f"r-RESPA SHAKE residual {err64} A > "
+            f"{PROD_SHAKE_ULPS} ulps ({ulp} A)")
+
+    # the API beside the production phase's 4 fs numbers (same call)
+    forces.compute(system.pos, system.box, system.forces)
+    integ = Integrator(system, forces, PROD_TIMESTEP, constraints="hbonds", T=TEMP,
+                       thermostat="csvr", seed=1, mts=MTS_N)
+    integ.step(niter=WARMUP_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    integ.step(niter=MTS_TIMED)
+    torch.cuda.synchronize()
+    sps = MTS_TIMED / (time.perf_counter() - t0)
+    prof = profile_water_step(integ, 1.0 / sps, steps=20, label="mts_thrombin_profile",
+                              shares=("pair_", "bonded", "index_add"))
+    log("mts_vs_production", api_mts_steps_per_s=f"{sps:.2f}",
+        api_mts_ns_per_day=f"{sps * PROD_TIMESTEP * 1e-6 * 86400:.3f}",
+        api_production_steps_per_s=f"{prod_sps:.2f}",
+        device_events_per_step_mts=f"{prof[1]:.1f}",
+        device_events_per_step_production=f"{prod_profile[1]:.1f}",
+        device_ms_per_step_mts=f"{prof[0]:.4f}",
+        device_ms_per_step_production=f"{prod_profile[0]:.4f}",
+        seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return launches
+
+
+def build_spcfw(n, precision="single"):
+    """(mol, par, box edge) of scripts/bench_mts.py's box: n^3 flexible
+    SPC/Fw waters on the 3.104 A lattice, seed-0 jitter, GROMACS topology
+    through the port's reader."""
+    from torchmd_tpu_torch.forcefields import ForceField
+    from torchmd_tpu_torch.io import Molecule
+    from torchmd_tpu_torch.parameters import Parameters
+
+    with tempfile.TemporaryDirectory() as td:
+        top = os.path.join(td, "spcfw.top")
+        with open(top, "w") as fh:
+            fh.write(SPCFW_TOP.format(nw=n**3))
+        mol = Molecule(top)
+        ff = ForceField.create(mol, top)
+    grid = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"), axis=-1).reshape(-1, 3)
+    rs = np.random.RandomState(0)
+    w = np.array([[0.000, 0.000, 0.000], [1.012, 0.000, 0.000], [-0.399, 0.930, 0.000]])
+    mol.coords = np.concatenate([w + g * WATER_SPACING + 0.8 + rs.randn(3) * 0.05
+                                 for g in grid])[:, :, None]
+    L = n * WATER_SPACING
+    mol.box = np.full((3, 1), L)
+    terms = ["bonds", "angles", "lj", "electrostatics"]
+    return mol, Parameters(ff, mol, terms, precision=precision), L
+
+
+def spcfw_column_check(forces, pos_np, box_np):
+    """The column kernel's instance on the SPC/Fw path (no virial,
+    reaction field) on the box's own state: f32 on the card against its
+    plain version at f64 on the same inputs at the Pallas bars; its time,
+    the plain version's (f32) and the bound at these shapes."""
+    import torch
+
+    from torchmd_tpu_torch.columns import ColumnKernel
+    from torchmd_tpu_torch.ops import cell as kc
+    from torchmd_tpu_torch.ops import column as kcol
+
+    ck = forces._cell_kernel
+    require(isinstance(ck, ColumnKernel), f"SPC/Fw on {type(ck).__name__}, not the column "
+            "kernel the defaults of Forces pick on the card")
+    p32 = torch.as_tensor(pos_np, dtype=torch.float32, device=DEVICE)
+    b32 = torch.as_tensor(box_np, dtype=torch.float32, device=DEVICE)
+    p64, b64 = p32.double(), b32.double()
+    data, cfg, ccfg = ck.data, ck.cfg, ck.ccfg
+    st = ck.build(p32, b32)
+    require(not bool(st.overflow), "SPC/Fw column structure overflow")
+    st64 = st._replace(jzshift=st.jzshift.double(), ref_pos=st.ref_pos.double())
+    d64 = kc.CellData(**{k: (v.double() if torch.is_tensor(v) and v.is_floating_point()
+                             else v) for k, v in data._asdict().items()})
+    pot_k, f_k = kcol.column_energy_forces(data, cfg, ccfg, st, p32, b32)
+    pot_p, f_p = kcol.column_reference(d64, cfg, ccfg, st64, p64, b64)
+    torch.cuda.synchronize()
+    err = _compare("spcfw/column_rf", pot_k, f_k, pot_p, f_p)
+    npairs = _water_pair_count(data, p32, b32, MTS_WATER_CUTOFF)
+    t = dict(
+        max_abs_err=err,
+        ms=cuda_events_ms(lambda: kcol.column_energy_forces(data, cfg, ccfg, st, p32, b32)),
+        plain_ms=cuda_events_ms(lambda: kcol.column_reference(data, cfg, ccfg, st, p32, b32),
+                                calls=5, warmup=1),
+        bound=bound(tensor_bytes(p32, data.q, data.sig, data.eps, data.excl, st.islot,
+                                 st.jslot, st.jzshift, st.wstart, p32),
+                    pair_flops(npairs, "rfa")))
+    log("mts_water_kernel", kernel="column_rf", natoms=p32.shape[0], with_virial=False,
+        elec="reaction-field", ncols=ccfg.ncols, pairs_in_cutoff=npairs,
+        max_abs_err=err, ms=f"{t['ms']:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
+        bound_ms=f"{t['bound'][0]:.5f}", bound_by=t["bound"][1])
+    return t
+
+
+def _drift_fit(t_fs, h, natoms):
+    """(slope of a least-squares line through H(t), kcal/mol/atom/ns;
+    rms of H about that line, kcal/mol)."""
+    t_fs, h = np.asarray(t_fs, np.float64), np.asarray(h, np.float64)
+    a, b = np.polyfit(t_fs, h, 1)
+    return a / natoms * 1e6, float(np.sqrt(np.mean((h - (a * t_fs + b)) ** 2)))
+
+
+def phase_mts_water():
+    """scripts/bench_mts.py's comparison in the port: the SPC/Fw box on
+    the defaults of Forces (the column kernel's no-virial reaction-field
+    instance, checked against its plain f64 version on the box's state),
+    MTS_WATER_WARM steps of CSVR at 0.5 fs from the lattice (the bench's
+    warm-up), then from that one state NVE runs over MTS_WATER_FS fs
+    (MTS_WATER_RUNS): mts 1 at 0.5 fs, mts 4 at 2 fs and plain VV at
+    2 fs, the bench's three, and as witnesses of where the energy error
+    comes from mts 2 at a 1 fs outer step, mts 8 at 2 fs (a 0.25 fs inner
+    step) and VV at 1 fs. The mts runs enter with the slow tier's forces,
+    so without the one-time dt/2 F_bonded kick of entering with totals.
+    Each run's ns/day, its drift (the slope of a line through the total
+    energy sampled every MTS_WATER_SAMPLE_FS fs) and the rms about it,
+    and launches. mts 4 must stay finite, launch the pair kernel once
+    and the bonded kernel 4 times an outer step (once more a chunk), give
+    more ns/day than mts 1; mts 1 and mts 4 must keep their drifts within
+    MTS_WATER_DRIFT_MAX and their rms within MTS_WATER_RMS_MAX."""
+    import torch
+
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import cell as kc
+    from torchmd_tpu_torch.ops import column as kcol
+    from torchmd_tpu_torch.systems import System
+
+    mol, par, L = build_spcfw(MTS_WATER_N)
+    terms = ["bonds", "angles", "lj", "electrostatics"]
+    m = np.asarray(par.masses, np.float64).reshape(1, -1, 1)
+    natoms = mol.numAtoms
+
+    def setup(pos, vel):
+        forces = Forces(par, terms=terms, precision="single", cutoff=MTS_WATER_CUTOFF,
+                        rfa=True, device=DEVICE)
+        system = System(natoms, 1, "single")
+        system.set_positions(pos)
+        system.set_box(mol.box)
+        system.set_velocities(vel)
+        epot = forces.compute(system.pos, system.box, system.forces)[0]
+        return forces, system, epot
+
+    forces, system, _ = setup(mol.coords, maxwell_boltzmann(
+        par.masses, MTS_WATER_T, 1, seed=1, device=DEVICE, dtype=torch.float32))
+    warm = Integrator(system, forces, 0.5, T=MTS_WATER_T, thermostat="csvr", tau=20.0)
+    t0 = time.perf_counter()
+    _, _, T = warm.step(niter=MTS_WATER_WARM)
+    log("mts_water_warmup", steps=MTS_WATER_WARM, timestep_fs=0.5, T=f"{T[0]:.3f}",
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    start = (system.pos[0].copy(), system.vel.copy())
+    kernel_t = spcfw_column_check(forces, start[0], mol.box.reshape(-1))
+    del forces, warm
+    out = {}
+    for label, mts, dt in MTS_WATER_RUNS:
+        forces, system, e0 = setup(*start)
+        h = [e0 + float(0.5 * (m * system.vel.astype(np.float64) ** 2).sum())]
+        kern = forces._cell_kernel
+        if mts:
+            # enter with the slow tier's forces, as a running r-RESPA chunk does
+            pos = torch.as_tensor(system.pos[0], device=DEVICE)
+            box = torch.as_tensor(system.box_diag[0], dtype=torch.float32, device=DEVICE)
+            slow = forces.mts_tiers()[1]
+            system.set_forces(slow(pos, box, kern.build(pos, box))[1].cpu().numpy()[None])
+        integ = Integrator(system, forces, dt, mts=mts)
+        steps = int(round(MTS_WATER_FS / dt))
+        chunk = int(round(MTS_WATER_SAMPLE_FS / dt))
+        torch.cuda.synchronize()
+        kc.LAUNCHES = kcol.LAUNCHES = kb.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for _ in range(steps // chunk):
+            ek, ep, _ = integ.step(niter=chunk)
+            h.append(float(ek[0] + ep[0]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nsday = MTS_WATER_FS * 1e-6 / wall * 86400
+        finite = bool(np.isfinite(h).all() and np.isfinite(system.pos).all())
+        slope, rms = _drift_fit(np.arange(len(h)) * MTS_WATER_SAMPLE_FS, h, natoms) \
+            if finite else (float("nan"), float("nan"))
+        out[label] = dict(nsday=nsday, finite=finite, slope=slope, rms=rms, pair=kcol.LAUNCHES,
+                          bonded=kb.LAUNCHES, steps=steps, chunks=steps // chunk)
+        log("mts_water", run=label, natoms=natoms, kernel=type(kern).__name__,
+            mts=mts, timestep_fs=dt, inner_fs=dt / (mts or 1), steps=steps,
+            seconds=f"{wall:.4f}", ns_per_day=f"{nsday:.3f}",
+            energy_change_kcal=f"{h[-1] - h[0]:.3f}",
+            drift_kcal_per_atom_ns=f"{slope:.3f}", rms_about_fit_kcal=f"{rms:.3f}",
+            finite=finite, column_launches=kcol.LAUNCHES, cell_launches=kc.LAUNCHES,
+            bonded_launches=kb.LAUNCHES)
+        del forces, integ
+        torch.cuda.empty_cache()
+    m1, m4 = out["mts1_0.5fs"], out["mts4_2fs"]
+    require(m4["finite"], "mts 4 at 2 fs did not stay finite")
+    require(m4["pair"] == m4["steps"] and m4["bonded"] == 4 * m4["steps"] + m4["chunks"],
+            f"mts 4 launches: pair {m4['pair']}, bonded {m4['bonded']}")
+    require(m4["nsday"] > m1["nsday"], f"mts 4 gave {m4['nsday']} ns/day, mts 1 "
+            f"{m1['nsday']}: no payoff")
+    for label, limit in MTS_WATER_DRIFT_MAX.items():
+        require(abs(out[label]["slope"]) <= limit,
+                f"{label}: drift {out[label]['slope']} kcal/mol/atom/ns beyond {limit}")
+    for label, limit in MTS_WATER_RMS_MAX.items():
+        require(out[label]["rms"] <= limit,
+                f"{label}: energy rms {out[label]['rms']} kcal/mol about its fit beyond {limit}")
+    log("mts_water_drift", **{k: f"{v['slope']:.3f}" for k, v in out.items()})
+    log("mts_water_rms", **{k: f"{v['rms']:.3f}" for k, v in out.items()})
+    return {"column_rf": m4["pair"]}, kernel_t
+
+
+def phase_recip_tier(water_sps):
+    """The 62.5k-site box's NVT phase with the reciprocal tier
+    (`mts_recip=RECIP_R`): RECIP_STEPS steps with the counters reset just
+    before and read just after (the cell kernel once a step, the PME
+    spread and gather once every RECIP_R steps plus once a chunk), steps/s
+    beside the NVT phase's; then NVE legs with and without the tier from
+    one state (bench_waterbox.py --phases nve --mts-recip 2's drift)."""
+    import torch
+
+    from torchmd_tpu_torch.constraints import max_settle_error
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.ops import cell as kc
+    from torchmd_tpu_torch.ops import pme as kp
+    from torchmd_tpu_torch.systems import System
+
+    mol, par, L = build_water(WATER_N, WATER_SPACING, True)
+    vel = maxwell_boltzmann(par.masses, TEMP, 1, seed=3, device=DEVICE, dtype=torch.float32)
+
+    def integrator(pos, v, recip, thermostat=True):
+        forces = _water_forces(par, WATER_CUTOFF)
+        system = System(par.natoms, 1, "single")
+        system.set_positions(pos)
+        system.set_box(np.full(3, L))
+        system.set_velocities(v)
+        forces.compute(system.pos, system.box, system.forces)
+        kw = dict(T=TEMP, thermostat="nhc", tau=WATER_TAU) if thermostat else {}
+        return system, forces, Integrator(system, forces, TIMESTEP, constraints="settle",
+                                          mts_recip=recip, **kw)
+
+    system, forces, integ = integrator(mol.coords, vel, RECIP_R)
+    integ.step(niter=WATER_WARMUP)
+    torch.cuda.synchronize()
+    kc.LAUNCHES = kp.SPREAD_LAUNCHES = kp.GATHER_LAUNCHES = 0
+    t0 = time.perf_counter()
+    done = 0
+    while done < RECIP_STEPS:
+        Ekin, Epot, T = integ.step(niter=WATER_CHUNK)
+        done += WATER_CHUNK
+    torch.cuda.synchronize()
+    sps = done / (time.perf_counter() - t0)
+    launches = {"cell": kc.LAUNCHES, "pme_spread": kp.SPREAD_LAUNCHES,
+                "pme_gather": kp.GATHER_LAUNCHES}
+    chunks = done // WATER_CHUNK
+    want = {"cell": done, "pme_spread": done // RECIP_R + chunks,
+            "pme_gather": done // RECIP_R + chunks}
+    pos = torch.as_tensor(system.pos[0], dtype=torch.float64, device=DEVICE)
+    settle_err = float(max_settle_error(integ.constraints.settle, pos))
+    log("recip_tier", mts_recip=RECIP_R, steps=done, steps_per_s=f"{sps:.2f}",
+        nvt_steps_per_s=f"{water_sps:.2f}", speedup=f"{sps / water_sps:.3f}",
+        T=f"{T[0]:.3f}", Epot=f"{Epot[0]:.4f}", settle_max_err_A=settle_err,
+        **{f"{k}_launches": v for k, v in launches.items()},
+        **{f"{k}_expected": v for k, v in want.items()})
+    require(launches == want, f"reciprocal-tier launches {launches}, want {want}")
+    require(np.all(np.isfinite(system.pos)) and np.isfinite([T[0], Epot[0]]).all(),
+            "reciprocal-tier run not finite")
+    require(settle_err < 1e-3, f"SETTLE error {settle_err} A")
+    s_pos, s_vel = system.pos[0].copy(), system.vel.copy()
+    profile_water_step(integ, 1.0 / sps, label="recip_profile")
+    del forces, integ
+    drift = {}
+    for label, recip in (("plain", None), ("recip2", RECIP_R)):
+        s, f, it = integrator(s_pos, s_vel, recip, thermostat=False)
+        ek, ep, _ = it.step(niter=RECIP_R)
+        e0 = float(ek[0] + ep[0])
+        ek, ep, _ = it.step(niter=RECIP_NVE_STEPS)
+        drift[label] = (float(ek[0] + ep[0]) - e0) / par.natoms / (
+            RECIP_NVE_STEPS * TIMESTEP * 1e-6)
+        del s, f, it
+        torch.cuda.empty_cache()
+    log("recip_tier_nve", steps=RECIP_NVE_STEPS,
+        drift_kcal_per_atom_ns_plain=f"{drift['plain']:.4f}",
+        drift_kcal_per_atom_ns_recip=f"{drift['recip2']:.4f}")
+    require(np.isfinite(list(drift.values())).all(), f"NVE drifts {drift}")
+    return launches
+
+
+def _alanine_argv(log_dir, steps, precision="single"):
+    d = os.path.join(DATA, ALA_SYSTEM)
+    return ["--topology", os.path.join(d, "structure.prmtop"),
+            "--forcefield", os.path.join(d, "structure.prmtop"),
+            "--coordinates", os.path.join(d, "input.coor"),
+            "--extended_system", os.path.join(d, "input.xsc"),
+            "--forceterms", *TERMS, "--cutoff", str(ALA_CUTOFF),
+            "--switch_dist", str(ALA_SWITCH), "--elec", "ewald",
+            "--timestep", str(PROD_TIMESTEP), "--constraints", "hbonds",
+            "--hmr", str(PROD_HMR), "--thermostat", "nhc", "--temperature", str(TEMP),
+            "--langevin-temperature", str(TEMP), "--pressure", "1",
+            "--barostat-mode", "mtk", "--precision", precision, "--steps", str(steps),
+            "--output-period", str(min(ALA_PERIOD, steps)), "--save-period", str(steps),
+            "--seed", "1",
+            "--device", DEVICE, "--log-dir", log_dir]
+
+
+def phase_alanine_mtk():
+    """The alanine dipeptide box under MTK with SHAKE through the CLI: the
+    dense MTK scan on the exact Ewald sum (688 < 4,096 atoms), ALA_STEPS
+    steps at 4 fs; the volume within NPT_VOLUME_RANGE. Through the API
+    from the CLI's set-up: ALA_CHECK_STEPS steps at f32 against the f64
+    torch-op path on the card (positions within ALA_POS_TOL A), with every
+    kernel counter still 0 after the f32 steps (the path launches no CUDA
+    kernel); the SHAKE virial's f32 value (relative positions) against
+    f64 within ALA_VIRIAL_TOL of its magnitude, the absolute-position
+    form's f32 error beside it."""
+    import csv
+
+    import torch
+
+    from torchmd_tpu_torch import run as cli
+    from torchmd_tpu_torch.barostat import MTKBarostat
+    from torchmd_tpu_torch.constraints import (apply_position_constraints,
+                                               build_constraint_spec, constraint_virial)
+    from torchmd_tpu_torch.ewald import EwaldRecip
+    from torchmd_tpu_torch.integrator import Integrator
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import cell as kc
+    from torchmd_tpu_torch.ops import column as kcol
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.ops import pme as kp
+
+    def counters():
+        return (kn.LAUNCHES, kb.LAUNCHES, kc.LAUNCHES, kcol.LAUNCHES,
+                kp.SPREAD_LAUNCHES, kp.GATHER_LAUNCHES)
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "cli")
+        summary = cli.main(_alanine_argv(out, ALA_STEPS)
+                           + ["--checkpoint-period", str(ALA_STEPS)])
+        with open(os.path.join(out, "monitor_0.csv")) as fh:
+            rows = list(csv.DictReader(fh))
+        box_end = np.load(os.path.join(out, "output.chk"))["box"][0].diagonal()
+        final = {}
+        for precision in ("single", "double"):
+            args = cli.get_args(_alanine_argv(os.path.join(td, precision), ALA_CHECK_STEPS,
+                                              precision))
+            _, system, forces = cli.setup(args)
+            forces.compute(system.pos, system.box, system.forces)
+            v0 = float(np.prod(system.box_diag[0]))
+            integ = Integrator(system, forces, PROD_TIMESTEP, T=TEMP, thermostat="nhc",
+                               constraints="hbonds", seed=1,
+                               barostat=MTKBarostat(1.0, TEMP))
+            n0 = counters()
+            integ.step(niter=ALA_CHECK_STEPS)
+            torch.cuda.synchronize()
+            final[precision] = (system, forces, integ, counters() != n0)
+    T = np.array([float(r["T"]) for r in rows])
+    sys32, forces32, integ32, launched = final["single"]
+    ratio = float(np.prod(box_end)) / v0
+    dev = float(np.abs(sys32.pos.astype(np.float64) - final["double"][0].pos).max())
+    log("alanine_mtk_cli", natoms=sys32.natoms, steps=summary["steps"],
+        seconds=f"{summary['elapsed_s']:.4f}", steps_per_s=f"{summary['steps_per_sec']:.2f}",
+        ns_per_day=f"{summary['ns_per_day']:.3f}", T_mean=f"{T.mean():.3f}",
+        volume_ratio=f"{ratio:.4f}", recip=type(forces32._ewald).__name__,
+        ewald_kvectors=forces32._ewald.nkvec(), dense_path=not integ32._use_cell,
+        constraints=integ32.constraints.ncon)
+    require(isinstance(forces32._ewald, EwaldRecip) and not integ32._use_cell,
+            "the alanine box should take the dense MTK scan with the exact Ewald sum")
+    require(np.all(np.isfinite(T)), "alanine MTK run not finite")
+    require(NPT_VOLUME_RANGE[0] < ratio < NPT_VOLUME_RANGE[1],
+            f"alanine MTK volume ratio {ratio}")
+    log("alanine_mtk_check", steps=ALA_CHECK_STEPS, max_pos_dev_A=dev,
+        f32_launched_a_kernel=launched)
+    require(dev <= ALA_POS_TOL, f"dense MTK f32 vs f64 positions differ by {dev} A")
+    require(not launched, "the dense MTK path launched a CUDA kernel")
+
+    # the SHAKE virial: one projection of a box-scaled drift, f32 and f64
+    m64 = torch.as_tensor(sys32.masses, dtype=torch.float64, device=DEVICE).reshape(-1, 1)
+    cs64 = build_constraint_spec(forces32.par, m64.cpu().numpy(), "hbonds", device=DEVICE)
+    pos = torch.as_tensor(final["double"][0].pos, device=DEVICE)
+    vel = torch.as_tensor(final["double"][0].vel, dtype=torch.float64, device=DEVICE)
+    drift = torch.full((1, 1, 3), PROD_TIMESTEP / 48.88821, dtype=torch.float64, device=DEVICE)
+    ref = pos * 1.0001
+    pos_c = apply_position_constraints(cs64, ref + vel * drift, ref)
+    delta = pos_c - (ref + vel * drift)
+    vir64 = constraint_virial(cs64, m64, delta, drift, pos_c)
+    vir32 = constraint_virial(integ32.constraints, m64.float(), delta.float(), drift.float(),
+                              pos_c.float()).double()
+    f32 = 2.0 * m64.float() * delta.float() / drift.float() ** 2
+    abs32 = (f32 * pos_c.float()).sum(-2).double()
+    scale = float(vir64.abs().max())
+    rel = float((vir32 - vir64).abs().max()) / scale
+    rel_abs = float((abs32 - vir64).abs().max()) / scale
+    log("alanine_shake_virial", vir64=vir64.cpu().numpy().round(4).tolist(),
+        f32_relative_form_err=f"{rel:.3e}", f32_absolute_form_err=f"{rel_abs:.3e}",
+        seconds=f"{time.perf_counter() - t_phase:.2f}")
+    require(rel <= ALA_VIRIAL_TOL, f"SHAKE virial f32 off by {rel} of its magnitude")
+
+
+def phase_verlet(api_steps_per_s):
+    """Thrombin on Verlet lists (Forces(kernel="verlet"), no box, cutoff
+    7.3 A): per-term energies and forces against the dense pair kernel's
+    at the Pallas bars, then VERLET_STEPS timed Langevin steps at 2 fs,
+    the list's rebuilds and capacity."""
+    import torch
+
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.neighbors import VerletKernel
+    from torchmd_tpu_torch.systems import System
+
+    mol, par, dense = _thrombin_forces(DEVICE)
+    _, _, verlet = _thrombin_forces(DEVICE, kernel="verlet")
+    pos = mol.coords[:, :, 0][None]
+    fd, fv = np.zeros((1, mol.numAtoms, 3)), np.zeros((1, mol.numAtoms, 3))
+    ed = dense.compute(pos, None, fd, returnDetails=True)[0]
+    ev = verlet.compute(pos, None, fv, returnDetails=True)[0]
+    kern = verlet._cell_kernel
+    require(isinstance(kern, VerletKernel), f"kernel='verlet' built {type(kern).__name__}")
+    worst_e = max(abs(ev[k] - w) / max(1.0, abs(w)) for k, w in ed.items())
+    f_err = float(np.abs(fv - fd).max()) / max(1.0, float(np.abs(fd).max()))
+    system = System(mol.numAtoms, 1, "single")
+    system.set_positions(mol.coords)
+    system.set_velocities(maxwell_boltzmann(par.masses, TEMP, 1, seed=1, device=DEVICE,
+                                            dtype=torch.float32))
+    verlet.compute(system.pos, None, system.forces)
+    integ = Integrator(system, verlet, TIMESTEP, gamma=GAMMA, T=TEMP, seed=2)
+    integ.step(niter=VERLET_WARMUP)
+    torch.cuda.synchronize()
+    r0 = verlet._cell_kernel.rebuilds
+    t0 = time.perf_counter()
+    Ekin, Epot, T = integ.step(niter=VERLET_STEPS)
+    torch.cuda.synchronize()
+    sps = VERLET_STEPS / (time.perf_counter() - t0)
+    log("verlet", natoms=mol.numAtoms, capacity=verlet._cell_kernel.capacity,
+        e_rel_err=f"{worst_e:.3e}", f_rel_err=f"{f_err:.3e}", steps=VERLET_STEPS,
+        steps_per_s=f"{sps:.2f}", rebuilds=verlet._cell_kernel.rebuilds - r0,
+        overflow_retries=integ.overflow_retries, T=f"{T[0]:.3f}", Epot=f"{Epot[0]:.4f}",
+        dense_kernel_steps_per_s=f"{api_steps_per_s:.2f}")
+    require(worst_e <= E_TOL, f"Verlet energies off the dense kernel's by {worst_e}")
+    require(f_err <= F_TOL, f"Verlet forces off the dense kernel's by {f_err}")
+    require(np.all(np.isfinite(system.pos)) and np.isfinite([T[0], Epot[0]]).all(),
+            "Verlet run not finite")
+    return sps
+
+
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -2448,20 +3048,29 @@ def main():
     times.update(phase_column_kernels())
     phase_parity()
     thr_launches, api_steps_per_s, thr_profile = phase_dynamics()
-    water_launches, _ = phase_waterbox()
+    water_launches, water_sps = phase_waterbox()
     npt_launches, _ = phase_npt()
     cli_launches, _ = phase_cli(api_steps_per_s)
     phase_external()
-    prod_launches = phase_production(api_steps_per_s, thr_profile)
+    prod_launches, prod_sps, prod_profile = phase_production(api_steps_per_s, thr_profile)
     mc_launches = phase_mc_barostat()
     phase_cmap()
+    mts_launches = phase_mts_thrombin(prod_sps, prod_profile)
+    mts_water_launches, times["column_rf"] = phase_mts_water()
+    recip_launches = phase_recip_tier(water_sps)
+    phase_alanine_mtk()
+    phase_verlet(api_steps_per_s)
     times["roofline"], probe_launches = phase_roofline()
     # the dense pair and bonded kernels' main paths: the API's dynamics,
-    # the CLI's run and the production protocol's; the cell, spread and
-    # gather kernels': the NVT water box's and the Monte Carlo phase's
-    thr_launches = {k: thr_launches[k] + cli_launches[k] + prod_launches[k]
+    # the CLI's run, the production protocol's and its r-RESPA run; the
+    # cell, spread and gather kernels': the NVT water box's, the Monte
+    # Carlo phase's and the reciprocal tier's; the column kernel's: the
+    # NPT phase's (with its virial), and its no-virial reaction-field
+    # instance's (column_rf) the r-RESPA SPC/Fw water's mts 4 run
+    thr_launches = {k: thr_launches[k] + cli_launches[k] + prod_launches[k] + mts_launches[k]
                     for k in thr_launches}
-    water_launches = {k: water_launches[k] + mc_launches.get(k, 0) for k in water_launches}
+    water_launches = {k: water_launches[k] + mc_launches.get(k, 0) + recip_launches.get(k, 0)
+                      for k in water_launches}
 
     import torch
 
@@ -2486,6 +3095,10 @@ def main():
                       water_launches["pme_gather"], times["pme_gather"]),
         _kernel_entry("column", src + "column.cu", "torchmd_tpu/ops/pallas_column.py:266",
                       npt_launches["column"], times["column"]),
+        # the same kernel's no-virial reaction-field instance, on the SPC/Fw
+        # r-RESPA path, checked and timed at that path's shapes
+        _kernel_entry("column_rf", src + "column.cu", "torchmd_tpu/ops/pallas_column.py:266",
+                      mts_water_launches["column_rf"], times["column_rf"]),
         _kernel_entry("roofline", src + "roofline.cu", "scripts/bench_roofline.py:213",
                       probe_launches, times["roofline"]),
     ]

@@ -13,8 +13,8 @@ JAX package, at f64 on the CPU.
   - 20 NVE steps of the alanine box (PME, settle + SHAKE, HMR 3, 4 fs):
     positions within 1e-8 A of the JAX run, and SHAKE's error at the end;
   - the Integrator counts the SHAKE pairs in the degrees of freedom and
-    refuses MTK with SHAKE pairs (NotImplementedError naming ROADMAP item
-    17).
+    takes MTK with SHAKE pairs (refused only with r-RESPA's reciprocal
+    tier, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -201,15 +201,22 @@ def test_alanine_box_4fs_nve_matches_jax():
 
 
 def test_mtk_with_shake_pairs_raises():
+    """MTK with SHAKE pairs runs since the SHAKE virial was ported
+    (test_torch_npt_dense.py); with the reciprocal tier of r-RESPA
+    (`mts_recip`) it still raises, as in the JAX package, which has no
+    virial form of the reciprocal impulse."""
     mol, par, m, vel = _alanine_box()
     forces = Forces(par, terms=ALL_TERMS, precision="double", device="cpu",
                     cutoff=9.0, switch_dist=7.5, elec="pme", kernel="cell")
     s = System(mol.numAtoms, 1, "double")
     s.set_positions(mol.coords)
     s.set_box(mol.box)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="mts_recip"):
         Integrator(s, forces, 2.0, constraints="settle", T=300.0, thermostat="nhc",
-                   barostat=MTKBarostat(1.0, 300.0))
+                   barostat=MTKBarostat(1.0, 300.0), mts=2, mts_recip=2)
+    integ = Integrator(s, forces, 2.0, constraints="settle", T=300.0, thermostat="nhc",
+                       barostat=MTKBarostat(1.0, 300.0))
+    assert integ.constraints.shake is not None and integ._use_cell
 
 
 @pytest.mark.gpu

@@ -130,6 +130,22 @@ wpar = t.Parameters(t.ForceField.create(w, top), w, ["bonds", "lj", "electrostat
 forces = t.Forces(wpar, terms=["bonds", "lj", "electrostatics"], cutoff=2.0,
                   kernel="cell", elec="pme", device="cpu")
 print(mol.numAtoms, w.numAtoms, len(wpar.vsites), forces._cell_kernel is None)
+# the modules of the slice of r-RESPA, Verlet lists, the exact Ewald sum
+# and the dense MTK scan
+import torch
+from torchmd_tpu_torch import checkpoint, run
+rs = np.random.RandomState(0)
+rec = t.EwaldRecip(torch.tensor([0.5, -0.5, 0.2, -0.2]), [8.0, 8.0, 8.0], 3.0, device="cpu")
+e, f, v = rec.energy_forces_virial(torch.tensor(rs.rand(4, 3) * 8.0), torch.full((3,), 8.0))
+vf = t.Forces(par, terms=["bonds", "angles", "electrostatics", "lj"], cutoff=5.0,
+              kernel="verlet", device="cpu")
+vf.compute(mol.coords[:, :, 0][None], None)
+s = t.System(mol.numAtoms, 1, "double")
+s.set_positions(mol.coords)
+ig = t.Integrator(s, vf, 1.0, mts=2)
+ig.step(niter=1)
+print(bool(torch.isfinite(f).all()), type(vf._cell_kernel).__name__,
+      bool(np.isfinite(s.pos).all()))
 """
 
 
@@ -140,7 +156,7 @@ def test_port_builds_without_jax_or_the_jax_package(tmp_path):
          os.path.join(DATA_DIR, "thrombin-ligand-amber"), _water_top(tmp_path, 27)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["4676", "108", "1", "True"]
+    assert out.stdout.split() == ["4676", "108", "1", "True", "True", "VerletKernel", "True"]
 
 
 def test_entry_points_default_to_the_card(tmp_path):

@@ -167,14 +167,16 @@ def test_step_reuses_device_state_and_sees_host_edits():
 
 
 def test_unported_options_raise():
-    """r-RESPA, atom batching and per-replica T still raise; CSVR and
-    SHAKE/RATTLE are ported (a free gas has no bonds to constrain)."""
+    """The device mesh, atom batching and per-replica T still raise,
+    naming their ROADMAP items; CSVR, SHAKE/RATTLE and r-RESPA are ported
+    (a free gas has no bonds to constrain; r-RESPA needs the split
+    evaluators of Forces, tests/test_torch_mts.py)."""
     natoms = 2
     system = System(natoms, 1, "double")
     f = _ZeroForces(np.full((natoms, 1), 1.0))
-    for kw in (dict(mts=2), dict(batch=np.zeros(natoms, int)),
-               dict(T=np.array([300.0]), gamma=1.0)):
-        with pytest.raises(NotImplementedError):
+    for kw, item in ((dict(mesh=object()), "21"), (dict(batch=np.zeros(natoms, int)), "11b"),
+                     (dict(T=np.array([300.0]), gamma=1.0), "11b")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             tint.Integrator(system, f, 1.0, **kw)
     from torchmd_tpu_torch.thermostats import CSVR
 

@@ -209,8 +209,10 @@ def test_mtk_constants_and_validation_match_jax():
 
     with pytest.raises(ValueError, match="Monte Carlo barostats attach at the run-loop"):
         integrator(T=300.0, thermostat="nhc", barostat=MonteCarlo())
-    with pytest.raises(NotImplementedError, match="dense"):
-        integrator(T=300.0, thermostat="nhc", barostat=MTKBarostat(*BARO), kernel="dense")
+    # kernel="dense" takes the dense MTK scan (tests/test_torch_npt_dense.py)
+    integ = integrator(T=300.0, thermostat="nhc", barostat=MTKBarostat(*BARO),
+                       kernel="dense")
+    assert integ._npt is not None and not integ._use_cell
 
 
 @pytest.mark.gpu

@@ -17,7 +17,10 @@
     `--thermostat csvr` and `--pressure` with each Monte Carlo
     `--barostat-mode` on argon, both packages fed the same thermostat and
     barostat draws: positions and boxes within 1e-8 A;
-  - flags of unported modules (r-RESPA, GB) raise NotImplementedError,
+  - `--mts` through both CLIs, `--mts-recip` refused alike on a small
+    system; checkpoint resume of r-RESPA (CLI), of the reciprocal tier
+    and of the dense MTK scan with SHAKE (API);
+  - the flag of an unported module (GB) raises NotImplementedError,
     `--device` accepts cuda[:k] and cpu only;
   - the f64 path selection of `Forces` (`Forces.path`, `select_path`),
     and on a card the f64 Forces against the CPU's.
@@ -337,8 +340,109 @@ def test_production_flags_match_jax(case, tmp_path, monkeypatch):
         assert np.all(np.abs(tm[key] - jm[key]) <= 1e-7 * scale), (key, tm[key], jm[key])
 
 
-@pytest.mark.parametrize("extra, item", [
-    (["--mts", "2"], "17"), (["--mts-recip", "2"], "17"), (["--gbsa"], "20")])
+@pytest.mark.parametrize("extra", [["--mts", "2"], ["--mts", "3", "--thermostat", "nhc",
+                                                    "--langevin-temperature", "300"]],
+                         ids=["mts2-nve", "mts3-nhc"])
+def test_mts_flags_match_jax(extra, tmp_path):
+    """`--mts` through both CLIs on the water case (two replicas, dense
+    path): trajectories within 1e-8 A. `--mts-recip` on this small
+    system (no neighbour-list path) raises alike in both packages."""
+    argv = CASES["water"] + NO_NOISE[:-2] + extra
+    if "--langevin-temperature" not in extra:
+        argv += NO_NOISE[-2:]
+    (jargs, jsys), (targs, tsys) = _run_pair(argv, tmp_path)
+    assert targs.mts == int(extra[1])
+    np.testing.assert_allclose(tsys.pos, np.asarray(jsys.pos), rtol=0, atol=1e-8)
+    tm = _monitor(tmp_path / "torch" / "monitor_0.csv")
+    jm = _monitor(tmp_path / "jax" / "monitor_0.csv")
+    for key in ("epot", "ekin"):
+        assert np.all(np.abs(tm[key] - jm[key]) <= 1e-7 * np.maximum(1.0, np.abs(jm[key])))
+    for pkg, d in ((jrun, "jax2"), (trun, "torch2")):
+        args = pkg.get_args(CASES["water"] + NO_NOISE + ["--mts-recip", "2",
+                                                         "--log-dir", str(tmp_path / d)])
+        mol, system, forces = pkg.setup(args)
+        with pytest.raises(NotImplementedError, match="mts_recip"):
+            pkg.dynamics(args, mol, system, forces)
+
+
+def test_checkpoint_resume_with_mts(tmp_path):
+    """An r-RESPA run (`--mts 2`, Langevin noise) resumed from its
+    checkpoint equals the continuous run: the System's forces hold the
+    carried slow forces, and each chunk evaluates the bonded tier afresh."""
+    common = CASES["water"][:-8] + ["--precision", "double", "--output-period", "10",
+                                    "--temperature", "300", "--langevin-temperature",
+                                    "300", "--device", "cpu", "--seed", "7", "--mts", "2",
+                                    "--replicas", "1"]
+
+    def run(extra, d):
+        args = trun.get_args(common + extra + ["--log-dir", str(tmp_path / d)])
+        mol, system, forces = trun.setup(args)
+        trun.dynamics(args, mol, system, forces)
+        return system
+
+    full = run(["--steps", "40"], "full")
+    run(["--steps", "20", "--checkpoint-period", "20"], "part1")
+    resumed = run(["--steps", "40", "--resume", str(tmp_path / "part1" / "output.chk")],
+                  "part2")
+    np.testing.assert_allclose(resumed.pos, full.pos, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(resumed.forces, full.forces, rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("case", ["mts-recip-cell", "dense-npt-shake"])
+def test_checkpoint_restores_slice6_state(case, tmp_path):
+    """A run continued from a checkpoint into a fresh System and
+    Integrator equals the run that went on: r-RESPA with the reciprocal
+    tier on the 216-water box's cell path (mts 2, mts_recip 2), and the
+    dense MTK scan with SHAKE on the alanine box (its carried virial holds
+    the SHAKE term)."""
+    from torchmd_tpu_torch import Integrator, MTKBarostat, System
+    from torchmd_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    if case == "mts-recip-cell":
+        from test_torch_water import CUTOFF, TERMS, shared_velocities, water_box
+
+        _, par, coords, L = water_box()
+        box = np.full((3, 1), L)
+        fkw = dict(terms=TERMS, cutoff=CUTOFF, kernel="cell", elec="pme")
+        ikw = dict(T=300.0, thermostat="nhc", constraints="settle", mts=2, mts_recip=2)
+        vel, steps = shared_velocities(par), 2
+    else:
+        from test_torch_npt_dense import ALANINE_NB, _alanine
+
+        from common import ALL_TERMS
+
+        mol, par, vel = _alanine()
+        coords, box = mol.coords, mol.box
+        fkw = dict(terms=ALL_TERMS, **ALANINE_NB)
+        ikw = dict(T=300.0, thermostat="nhc", constraints="hbonds",
+                   barostat=MTKBarostat(1.0, 300.0, tau_fs=200.0))
+        steps = 3
+
+    def build():
+        forces = Forces(par, precision="double", device="cpu", **fkw)
+        s = System(coords.shape[0], 1, "double")
+        s.set_positions(coords)
+        s.set_box(box)
+        s.set_velocities(vel)
+        forces.compute(s.pos, s.box, s.forces)
+        return s, Integrator(s, forces, 2.0, **ikw)
+
+    s, integ = build()
+    integ.step(niter=steps)
+    chk = str(tmp_path / "run.chk")
+    save_checkpoint(chk, s, integ, steps)
+    integ.step(niter=steps)
+    s2, integ2 = build()
+    assert load_checkpoint(chk, s2, integ2) == steps
+    integ2.step(niter=steps)
+    np.testing.assert_allclose(s2.pos, s.pos, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(s2.box_diag, s.box_diag, rtol=1e-12)
+    np.testing.assert_allclose(integ2.npt_energy(), integ.npt_energy(), rtol=1e-10)
+    np.testing.assert_allclose(integ2.thermostat_energy(), integ.thermostat_energy(),
+                               rtol=1e-10)
+
+
+@pytest.mark.parametrize("extra, item", [(["--gbsa"], "20")])
 def test_unported_flags_raise(extra, item, tmp_path):
     args = trun.get_args(ARGON + ["--device", "cpu", "--log-dir", str(tmp_path)] + extra)
     with pytest.raises(NotImplementedError, match=f"item {item}"):

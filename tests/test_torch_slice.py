@@ -9,7 +9,9 @@ the JAX package at f64.
   - a short Langevin run through Parameters -> Forces -> System ->
     Integrator gives finite numbers;
   - importing every module of the port loads no jax;
-  - options of later slices raise NotImplementedError.
+  - options of later slices raise NotImplementedError naming their
+    ROADMAP item; those of this slice (Verlet lists, the exact Ewald sum,
+    r-RESPA) run.
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ SLICE_MODULES = (
     "torchmd_tpu_torch.forces", "torchmd_tpu_torch.integrator",
     "torchmd_tpu_torch.interop", "torchmd_tpu_torch.ops",
     "torchmd_tpu_torch.ops._build", "torchmd_tpu_torch.ops.nonbonded",
-    "torchmd_tpu_torch.ops.bonded",
+    "torchmd_tpu_torch.ops.bonded", "torchmd_tpu_torch.ewald",
+    "torchmd_tpu_torch.neighbors", "torchmd_tpu_torch.constraints",
+    "torchmd_tpu_torch.checkpoint", "torchmd_tpu_torch.run",
 )
 
 
@@ -144,26 +148,45 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(kernel="verlet"), dict(elec="ewald", cutoff=9.0),
-    dict(batch=np.zeros(1, int)), dict(T=np.array([300.0]), gamma=1.0),
-    dict(mts=2),
+@pytest.mark.parametrize("kwargs, item", [
+    (dict(mesh=object()), "21"), (dict(batch=np.zeros(1, int)), "11b"),
+    (dict(T=np.array([300.0]), gamma=1.0), "11b"),
 ])
-def test_later_slices_raise_not_implemented(kwargs):
-    """Options of later slices raise NotImplementedError: Verlet lists,
-    the exact Ewald sum (elec='ewald' below the PME size), atom batching,
-    per-replica temperatures and r-RESPA (external potentials, SHAKE and
-    CSVR are ported: tests/test_torch_external.py,
-    tests/test_torch_constraints.py, tests/test_torch_mc_barostat.py)."""
+def test_later_slices_raise_not_implemented(kwargs, item):
+    """Options of later slices raise NotImplementedError naming their
+    ROADMAP item: the device mesh, atom batching and per-replica
+    temperatures (Verlet lists, the exact Ewald sum and r-RESPA are
+    ported: test_later_slice_options_run)."""
     mol, par, _ = _system("ligand")
-    integ_kw = {k: kwargs.pop(k) for k in ("batch", "T", "gamma", "mts")
-                if k in kwargs}
-    with pytest.raises(NotImplementedError, match="slice|not ported"):
-        forces = Forces(par, terms=ALL_TERMS, precision="double", device="cpu",
-                        **kwargs)
-        pos = mol.coords[:, :, 0][None]
-        forces.compute(pos, np.full((1, 3), 40.0))
-        Integrator(System(mol.numAtoms, 1, "double"), forces, 1.0, **integ_kw)
+    forces = Forces(par, terms=ALL_TERMS, precision="double", device="cpu")
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        Integrator(System(mol.numAtoms, 1, "double"), forces, 1.0, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(kernel="verlet", cutoff=9.0), dict(elec="ewald", cutoff=9.0), dict(mts=2)],
+    ids=["verlet", "ewald", "mts"])
+def test_later_slice_options_run(kwargs):
+    """Verlet lists, the exact Ewald sum below PME_AUTO_N atoms and
+    r-RESPA, which raised before this slice, now run: the ligand in a
+    40 A box, two steps."""
+    from torchmd_tpu_torch.ewald import EwaldRecip
+    from torchmd_tpu_torch.neighbors import VerletKernel
+
+    mol, par, _ = _system("ligand")
+    integ_kw = {k: kwargs.pop(k) for k in ("mts",) if k in kwargs}
+    forces = Forces(par, terms=ALL_TERMS, precision="double", device="cpu", **kwargs)
+    s = System(mol.numAtoms, 1, "double")
+    s.set_positions(mol.coords)
+    s.set_box(np.full((3, 1), 40.0))
+    forces.compute(s.pos, s.box, s.forces)
+    integ = Integrator(s, forces, 1.0, **integ_kw)
+    ek, ep, _ = integ.step(niter=2)
+    assert np.isfinite([ek[0], ep[0]]).all() and np.isfinite(s.pos).all()
+    if "kernel" in kwargs:
+        assert isinstance(forces._cell_kernel, VerletKernel)
+    if "elec" in kwargs:
+        assert isinstance(forces._ewald, EwaldRecip)
 
 
 def test_kernel_path_on_cuda_needs_single_precision():

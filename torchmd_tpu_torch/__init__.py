@@ -66,6 +66,17 @@ chunks; Calpha atoms restrained through the external slot):
 
 or `python -m torchmd_tpu_torch.run ... --timestep 4 --constraints hbonds
 --hmr 3 --thermostat csvr --pressure 1`.
+
+r-RESPA (bonded terms on 4 substeps of each 2 fs step; on the neighbour
+paths with Ewald/PME, the reciprocal term every 2 steps), Verlet lists,
+and MTK on a small box with SHAKE on the exact Ewald sum:
+
+    integ = Integrator(system, forces, 2.0, T=300, thermostat="nhc",
+                       mts=4, mts_recip=2)          # or --mts 4 --mts-recip 2
+    forces = Forces(par, terms=terms, cutoff=9.0, kernel="verlet")
+    forces = Forces(par, terms=terms, cutoff=9.0, elec="ewald")  # < 4,096 atoms
+    integ = Integrator(system, forces, 4.0, T=300, thermostat="nhc",
+                       constraints="hbonds", barostat=MTKBarostat(1.0, 300.0))
 """
 
 __version__ = "0.1.0"
@@ -89,6 +100,7 @@ __all__ = [
     "MonteCarloMembraneBarostat", "repartition_hydrogen_masses",
     "HarmonicPositionalRestraint", "FlatBottomRestraint",
     "AnisotropicPositionalRestraint", "combine_externals",
+    "EwaldRecip", "PmeRecip", "VerletKernel", "VerletConfig", "CellKernel",
 ]
 
 _LAZY = {
@@ -133,6 +145,11 @@ _LAZY = {
     "AnisotropicPositionalRestraint": ("torchmd_tpu_torch.restraints",
                                        "AnisotropicPositionalRestraint"),
     "combine_externals": ("torchmd_tpu_torch.external", "combine_externals"),
+    "EwaldRecip": ("torchmd_tpu_torch.ewald", "EwaldRecip"),
+    "PmeRecip": ("torchmd_tpu_torch.ewald", "PmeRecip"),
+    "VerletKernel": ("torchmd_tpu_torch.neighbors", "VerletKernel"),
+    "VerletConfig": ("torchmd_tpu_torch.neighbors", "VerletConfig"),
+    "CellKernel": ("torchmd_tpu_torch.neighbors", "CellKernel"),
 }
 
 

@@ -9,6 +9,13 @@ constraint virial). The generator's state (`torch.Generator.get_state()`,
 a CPU byte tensor for CPU and CUDA generators alike) stands where the
 JAX package saves its key. Written atomically as .npz (`os.replace`);
 resume at f64 on the CPU is exact.
+
+r-RESPA (`mts`, `mts_recip`) needs nothing more: the System's forces
+hold the slow tier's carried forces, and every chunk (a multiple of the
+reciprocal period) evaluates the bonded and reciprocal tiers afresh at
+its entry, as the JAX package's does, so the reciprocal forces carried
+between impulses never cross a chunk. The MTK state (dense, kernel or
+r-RESPA path) keeps its carried virial.
 """
 
 from __future__ import annotations

@@ -313,6 +313,8 @@ class ColumnKernel:
     (`ops.column`); on a CPU tensor, or with `plain=True` on any device,
     it runs the plain version."""
 
+    capacity_name = "column capacities (slots per column)"
+
     def __init__(self, ffp, cfg, parameters, box, skin=2.0,
                  exclusions=("bonds", "angles", "1-4"), pos0=None, plain=False):
         from .ops.cell import prepare_cell_data
@@ -338,10 +340,9 @@ class ColumnKernel:
     def needs_rebuild(self, st: ColumnState, pos, box=None):
         return column_needs_rebuild(st, pos, self.ccfg, box)
 
-    def update(self, pos, st: ColumnState, box=None) -> ColumnState:
-        """A new structure when the skin criterion asks for one (one host
-        read of the trigger), else `st`."""
-        return self.build(pos, box) if bool(self.needs_rebuild(st, pos, box)) else st
+    def refresh(self, st, pos, box=None) -> ColumnState:
+        """The structure for `pos`: rebuilt at every call, on the device."""
+        return self.build(pos, box)
 
     def covers(self, box) -> bool:
         """True while the box still hosts rc-wide columns and a 2 rc-tall

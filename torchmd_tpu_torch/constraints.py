@@ -48,6 +48,8 @@ class ConstraintSet(NamedTuple):
     relax: float          # under-relaxation factor of the Jacobi sweeps
     ij: torch.Tensor      # (2C,) int64: the i column, then the j column
     wsign: torch.Tensor   # (2C, 1): -1/m_i for the i rows, +1/m_j for the j rows
+    atoms: torch.Tensor   # (K,) int64: every constrained atom once
+    anchor: torch.Tensor  # (K,) int64: the heaviest atom of its cluster
 
 
 def _light(parameters, h_mass_cut=H_MASS_CUT):
@@ -93,13 +95,41 @@ def _constraint_set(pairs, r0, masses, iterations, relax, device, dtype):
     m = np.asarray(masses, dtype=np.float64).reshape(-1)
     invm = np.where(m > 0, 1.0 / np.maximum(m, 1e-12), 0.0)
     w = np.concatenate([-invm[pairs[:, 0]], invm[pairs[:, 1]]])[:, None]
+    atoms, anchor = _cluster_anchors(pairs, m)
     return ConstraintSet(
         pairs=torch.as_tensor(pairs, device=device),
         r0=torch.as_tensor(np.asarray(r0, np.float64), dtype=dtype, device=device),
         invm=torch.as_tensor(invm.reshape(-1, 1), dtype=dtype, device=device),
         iterations=int(iterations), relax=float(relax),
         ij=torch.as_tensor(np.concatenate([pairs[:, 0], pairs[:, 1]]), device=device),
-        wsign=torch.as_tensor(w, dtype=dtype, device=device))
+        wsign=torch.as_tensor(w, dtype=dtype, device=device),
+        atoms=torch.as_tensor(atoms, device=device),
+        anchor=torch.as_tensor(anchor, device=device))
+
+
+def _cluster_anchors(pairs, masses):
+    """(atoms, anchor): every atom of the constraint graph once, and for
+    each the heaviest atom (lowest index on a tie) of its connected
+    component, the cluster's heavy atom under 'hbonds'."""
+    parent = {}
+
+    def root(a):
+        while parent.setdefault(a, a) != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    for a, b in pairs:
+        ra, rb = root(int(a)), root(int(b))
+        if ra != rb:
+            parent[max(ra, rb)] = min(ra, rb)
+    atoms = np.unique(pairs.reshape(-1))
+    best = {}
+    for a in atoms:
+        r = root(int(a))
+        if r not in best or masses[a] > masses[best[r]]:
+            best[r] = int(a)
+    return atoms, np.array([best[root(int(a))] for a in atoms], np.int64)
 
 
 def _sweep_terms(cs: ConstraintSet, x):
@@ -462,13 +492,22 @@ def repartition_hydrogen_masses(masses, bonds, factor=4.0, h_mass_cut=H_MASS_CUT
 
 
 def constraint_virial(c: Constraints, masses, delta, drift, pos):
-    """Per-axis virial sum_i f_i,a r_i,a of SETTLE's position constraint
-    forces f = 2 m delta / drift^2 (the MTK barostat's; drift (R, 1, 3)),
-    with each water's hydrogens taken relative to its oxygen: the forces
-    of one water sum to zero, so this equals the sum over absolute
-    positions, without that sum's f32 cancellation (absolute coordinates
-    up to the box edge times forces that cancel within each water)."""
+    """Per-axis virial sum_i f_i,a r_i,a of the position constraint forces
+    f = 2 m delta / drift^2 (the MTK barostat's; drift (R, 1, 3)) of
+    SETTLE and SHAKE, with each water's hydrogens taken relative to its
+    oxygen and each SHAKE cluster's atoms relative to its heaviest atom:
+    the forces of one water or one cluster sum to zero, so this equals
+    the sum over absolute positions (the JAX scans' form), without that
+    sum's f32 cancellation (absolute coordinates up to the box edge times
+    forces that cancel within each cluster)."""
     f = 2.0 * masses * delta / (drift * drift)
-    ss = c.settle
-    o = _rows(pos, ss.oidx)
-    return sum((_rows(f, h) * (_rows(pos, h) - o)).sum(-2) for h in (ss.h1, ss.h2))
+    vir = torch.zeros_like(pos[..., 0, :])
+    ss, cs = c.settle, c.shake
+    if ss is not None:
+        o = _rows(pos, ss.oidx)
+        for h in (ss.h1, ss.h2):
+            vir = vir + (_rows(f, h) * (_rows(pos, h) - o)).sum(-2)
+    if cs is not None:
+        vir = vir + (_rows(f, cs.atoms)
+                     * (_rows(pos, cs.atoms) - _rows(pos, cs.anchor))).sum(-2)
+    return vir

@@ -23,8 +23,13 @@ Self, net-charge and excluded-pair corrections are analytic in the
 positions. `energy_forces_virial` adds the per-axis scaling virial
 -dE/ds_a of E(s pos, s box) that the MTK barostat needs, analytically:
 the JAX package takes it by autodiff of `ewald.energy`, which the spread
-kernel here does not support. The exact separable Ewald sum
-(`EwaldRecip`) comes with a later slice of the port.
+kernel here does not support.
+
+`EwaldRecip` is the exact separable Ewald sum that `Forces` takes for
+`elec="ewald"` below `forces.PME_AUTO_N` atoms. It is the JAX package's
+XLA formulation (no Pallas kernel), so here it is torch ops on any
+device: structure factors as products of per-axis phase tables, forces
+and the per-axis virial by autograd over (pos, s) of E(s pos, s box).
 """
 
 from __future__ import annotations
@@ -124,6 +129,108 @@ def erf_over_r_sum(alpha, dv, qq):
     return -(qq * g).sum(), -(2.0 * qq * dg)[:, None] * dv
 
 
+class EwaldRecip:
+    """Reciprocal + self + net-charge + excluded-pair energy of one
+    topology by the exact Ewald sum over |n_a| <= kmax_a (the JAX package's
+    `ewald.EwaldRecip`):
+
+        S(k) = sum_j q_j Ax[j, nx] Ay[j, ny] Az[j, nz],
+        A_a[j, n] = exp(2 pi i n r_j,a / L_a),
+
+    E_recip = k_e 2 pi / V sum_k exp(-k^2 / 4 alpha^2) / k^2 |S(k)|^2.
+    The integer k set is built once, on the device; the k vectors follow
+    the box tensor of each call, so a changing box costs no host sync.
+    Energy is differentiable in positions and box: `energy_forces` and
+    `energy_forces_virial` take their forces and the MTK virial
+    -dE/ds_a of E(s pos, s box) by autograd. Torch ops on every device
+    (the JAX package computes it in XLA, not in a kernel)."""
+
+    differentiable = True
+
+    def __init__(self, charges, box, cutoff, excl_pairs=None, tol=1e-5,
+                 dtype=None, device=None):
+        if isinstance(charges, torch.Tensor):
+            device = charges.device if device is None else device
+            dtype = charges.dtype if dtype is None else dtype
+        if device is None:
+            from .systems import resolve_device
+
+            device = resolve_device(None)
+        self.device = torch.device(device)
+        self.dtype = torch.float32 if dtype is None else dtype
+        self.charges = torch.as_tensor(
+            charges if isinstance(charges, torch.Tensor) else np.asarray(charges),
+            dtype=self.dtype, device=self.device)
+        self.cfg = choose_parameters(box, cutoff, tol)
+        self._n = tuple(torch.arange(-k, k + 1, device=self.device)
+                        for k in self.cfg.kmax)
+        self.excl = None
+        if excl_pairs is not None and len(excl_pairs):
+            pairs = np.unique(np.sort(np.asarray(excl_pairs, np.int64), axis=1), axis=0)
+            self.excl = torch.as_tensor(pairs, device=self.device)
+
+    def nkvec(self) -> int:
+        """The number of k vectors summed (the origin included)."""
+        return int(np.prod([2 * k + 1 for k in self.cfg.kmax]))
+
+    def energy(self, pos, box):
+        """Reciprocal + self + net-charge + exclusion terms (kcal/mol),
+        differentiable in `pos` and `box`."""
+        dtype = pos.dtype
+        box = torch.as_tensor(box, dtype=dtype, device=pos.device).reshape(3)
+        q = self.charges.to(dtype)
+        V = box[0] * box[1] * box[2]
+        alpha = self.cfg.alpha
+        ctype = torch.complex128 if dtype == torch.float64 else torch.complex64
+
+        def phase(a):
+            ang = (2.0 * math.pi / box[a]) * torch.outer(pos[:, a], self._n[a].to(dtype))
+            return torch.polar(torch.ones_like(ang), ang).to(ctype)
+
+        Ax, Ay, Az = phase(0), phase(1), phase(2)
+        # S[x, y, z] = sum_j q_j Ax Ay Az: two contractions over the atoms
+        wxy = torch.einsum("jx,jy->xyj", Ax * q.to(ctype)[:, None], Ay)
+        S = wxy.reshape(-1, pos.shape[0]) @ Az                       # (X*Y, Z)
+        kx, ky, kz = ((2.0 * math.pi / box[a]) * self._n[a].to(dtype) for a in range(3))
+        k2 = (kx[:, None, None] ** 2 + ky[None, :, None] ** 2
+              + kz[None, None, :] ** 2).reshape(S.shape)
+        k2_safe = torch.where(k2 > 0, k2, torch.ones_like(k2))
+        pref = torch.where(k2 > 0, torch.exp(-k2_safe / (4.0 * alpha**2)) / k2_safe,
+                           torch.zeros_like(k2))
+        e = ELEC_FACTOR * (2.0 * math.pi / V) * (pref * (S.real**2 + S.imag**2)).sum()
+        e = e - ELEC_FACTOR * alpha / math.sqrt(math.pi) * (q * q).sum()
+        qtot = q.sum()
+        e = e - ELEC_FACTOR * math.pi / (2.0 * V * alpha**2) * qtot * qtot
+        if self.excl is not None:
+            i, j = self.excl[:, 0], self.excl[:, 1]
+            dv = pos[i] - pos[j]
+            dv = dv - box * torch.round(dv / box)
+            e = e + erf_over_r_sum(alpha, dv, ELEC_FACTOR * q[i] * q[j])[0]
+        return e
+
+    def energy_forces(self, pos, box, gather=None, order_idx=None):
+        """(energy, forces (N, 3)) by autograd; `gather` and `order_idx`
+        are PmeRecip's options and do not apply to the exact sum."""
+        return self._evaluate(pos, box, False)
+
+    def energy_forces_virial(self, pos, box, gather=None, order_idx=None):
+        """(energy, forces (N, 3), per-axis virial -dE/ds_a (3,)) by
+        autograd over (pos, s) of E(s pos, s box)."""
+        return self._evaluate(pos, box, True)
+
+    def _evaluate(self, pos, box, with_virial):
+        box = torch.as_tensor(box, dtype=pos.dtype, device=pos.device).reshape(3)
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(True)
+            s = torch.ones(3, dtype=pos.dtype, device=pos.device,
+                           requires_grad=with_virial)
+            e = self.energy(p * s, box * s)
+            grads = torch.autograd.grad(e, (p, s) if with_virial else (p,))
+        if with_virial:
+            return e.detach(), -grads[0], -grads[1]
+        return e.detach(), -grads[0]
+
+
 class PmeRecip:
     """Reciprocal + self + net-charge + excluded-pair energy and forces of
     one topology (Essmann et al. 1995).
@@ -135,6 +242,8 @@ class PmeRecip:
     "exact" (default: "ik" for CUDA f32, else "exact"). With `plain=True`
     the spread and ik gather run their plain PyTorch versions on any
     device; otherwise they follow the device (kernels on CUDA)."""
+
+    differentiable = False   # the spread kernel has no backward
 
     def __init__(self, charges, box, cutoff, excl_pairs=None, tol=1e-5,
                  dtype=None, device=None, spacing=1.0, order=None, gather=None,

@@ -15,6 +15,12 @@ The path follows the device:
     cell-list path (`neighbors.CellKernel`, the cell kernel); others the
     dense pair kernel;
   - `kernel="cell"` asks for the cell-list path;
+  - `kernel="verlet"` asks for Verlet lists (`neighbors.VerletKernel`, a
+    padded per-atom list with a skin, with or without a box; torch ops on
+    every device, as the JAX package has no kernel for it). `"auto"`
+    never takes them: the list's build forms (natoms, natoms) arrays
+    (~120 GB at the JAX package's automatic threshold of 100,000 atoms),
+    so systems no cell grid covers stay on the dense pair kernel;
   - on that large-N path, `column` picks the neighbour structure: the
     z-sorted column kernel (`columns.ColumnKernel`) or the 27-cell
     kernel (`neighbors.CellKernel`). None (the default) takes the column
@@ -45,7 +51,13 @@ and adds its forces into the same buffer.
 default ik for CUDA f32, exact otherwise).
 
 `elec="pme"`, and `elec="ewald"` at PME_AUTO_N atoms or more, add smooth
-PME (`ewald.PmeRecip`) with erfc-damped real-space pairs. Virtual sites
+PME (`ewald.PmeRecip`) with erfc-damped real-space pairs; `elec="ewald"`
+below PME_AUTO_N atoms adds the exact Ewald sum (`ewald.EwaldRecip`).
+
+The force field also comes in the tiers of r-RESPA (`mts_tiers`, the
+JAX package's `bonded_ef_one` / `nb_ef_one` split): the bonded terms in
+their own buffer, the real-space pairs with the reciprocal term and the
+external, and the reciprocal term alone. Virtual sites
 (`parameters.vsites`) wrap every path: evaluation at the reconstructed
 site geometry, site forces spread onto the hosts. On the cell path the
 dense (natoms, natoms) exclusion mask is never built (3.9 GB at 62,500
@@ -178,11 +190,7 @@ class Forces:
             raise ValueError(f"Unknown elec mode: {elec}")
         if elec != "auto" and cutoff is None:
             raise ValueError(f"elec='{elec}' requires a cutoff")
-        if kernel == "verlet":
-            raise NotImplementedError(
-                "kernel='verlet' is not ported yet (Verlet lists come with a "
-                "later slice of the port)")
-        if kernel not in ("auto", "dense", "cell"):
+        if kernel not in ("auto", "dense", "cell", "verlet"):
             raise ValueError(f"Unknown kernel: {kernel}")
 
         self.natoms = len(parameters.masses)
@@ -223,6 +231,9 @@ class Forces:
         self.cell_requested = kernel == "cell" and self.has_nb
         self.cell_auto = (kernel == "auto" and self.has_nb
                           and self.natoms >= CELL_AUTO_N)
+        self.verlet_requested = kernel == "verlet" and self.has_nb
+        if self.verlet_requested and cutoff is None:
+            raise ValueError("kernel='verlet' requires a cutoff")
         # the cell path never reads the dense mask: defer it until a path
         # that needs it asks (require_nb_mask)
         self._nb_mask_deferred = self.cell_requested or self.cell_auto
@@ -234,6 +245,7 @@ class Forces:
             self.vsites = vsite_groups_to(parameters.vsites, self.device, self.dtype)
         self._ewald = None
         self._cell_kernel = None
+        self.nb_path = None   # set by choose_nb_path
         self._build_evaluators()
 
     # ------------------------------------------------------------------
@@ -282,18 +294,30 @@ class Forces:
                     "(require_nb_mask) first")
         rec = self._ewald
 
+        def pair_ef_one(pos, box, cl=None):
+            """The real-space pair terms (with `cl`, a prebuilt neighbour
+            structure, on the cell, column and Verlet paths)."""
+            if kern is not None and cl is None:
+                cl = kern.build(pos, box)
+            return nb(pos, box, cl)
+
+        def recip_ef_one(pos, box, cl=None):
+            """The reciprocal term (PME or the exact Ewald sum) as
+            ({"electrostatics": e}, forces); the PME spread follows the
+            neighbour structure's order of the atoms."""
+            order = None if kern is None or cl is None else kern.spread_order(cl)
+            er, ef = rec.energy_forces(pos, box, order_idx=order)
+            return {"electrostatics": er}, ef
+
         def nb_ef_one(pos, box, cl=None):
-            """Nonbonded pairs (with `cl`, a prebuilt cell list, on the
-            cell path) plus the PME reciprocal term, whose spread follows
-            the neighbour structure's order of the atoms."""
+            """Nonbonded pairs plus the reciprocal term."""
             if kern is not None and cl is None:
                 cl = kern.build(pos, box)
             pot, frc = nb(pos, box, cl)
             if rec is not None:
-                er, ef = rec.energy_forces(
-                    pos, box, order_idx=None if kern is None else kern.spread_order(cl))
+                er, ef = recip_ef_one(pos, box, cl)
                 pot = dict(pot)
-                add_energy(pot, "electrostatics", er)
+                add_energy(pot, "electrostatics", er["electrostatics"])
                 frc = frc + ef
             return pot, frc
 
@@ -311,6 +335,8 @@ class Forces:
 
         self.bonded_ef_one = bonded_ef_one
         self.nb_ef_one = nb_ef_one if nb is not None else None
+        self.pair_ef_one = pair_ef_one if nb is not None else None
+        self.recip_ef_one = recip_ef_one if rec is not None else None
         # virtual sites: evaluate at the snapped geometry, spread the site
         # forces onto the hosts
         if self.vsites:
@@ -357,24 +383,58 @@ class Forces:
 
         return wrapped
 
+    def mts_tiers(self, recip_tier=False):
+        """The r-RESPA tiers of one conformation, each (pos, box[, cl]) ->
+        (per-term energies, forces in a buffer of its own), as the JAX
+        integrator composes them (torchmd_tpu/integrator.py:635-675,
+        :966-1015):
+
+          - fast(pos, box): the bonded terms (the bonded kernel with
+            `out=None`, and the autograd terms);
+          - slow(pos, box, cl): the real-space pairs through the
+            neighbour structure `cl` (None on the dense path), the
+            reciprocal term unless `recip_tier`, and the external;
+          - recip(pos, box, cl): the reciprocal term alone (None without
+            Ewald or PME); `cl` gives the PME spread its order.
+
+        With virtual sites each tier evaluates at the snapped geometry and
+        spreads its own site forces onto the hosts."""
+        inner = self.pair_ef_one if recip_tier else self.nb_ef_one
+        fast = self.bonded_ef_one
+
+        def slow(pos, box, cl=None):
+            if inner is None:
+                return {}, torch.zeros_like(pos)
+            return inner(pos, box, cl)
+
+        recip = self.recip_ef_one if recip_tier else None
+        if self.external is not None:
+            slow = _with_external(slow, self.external)
+        if self.vsites:
+            fast, slow = (wrap_energy_forces(self.vsites, f) for f in (fast, slow))
+            if recip is not None:
+                recip = wrap_energy_forces(self.vsites, recip)
+        return fast, slow, recip
+
     # ------------------------------------------------------------------
     def ensure_ewald(self, box):
-        """Build (once) the PME reciprocal term for a concrete box and
-        switch the pair terms to erfc-damped real space. elec='ewald'
-        below PME_AUTO_N atoms would take the exact Ewald sum, which is
-        not ported yet."""
+        """Build (once) the reciprocal term for a concrete box and switch
+        the pair terms to erfc-damped real space: the exact Ewald sum
+        (`EwaldRecip`) for elec='ewald' below PME_AUTO_N atoms, smooth PME
+        (`PmeRecip`) otherwise."""
         if self.elec_mode == "auto" or self._ewald is not None:
             return self._ewald
-        if self.elec_mode == "ewald" and self.natoms < PME_AUTO_N:
-            raise NotImplementedError(
-                f"elec='ewald' below {PME_AUTO_N} atoms takes the exact Ewald "
-                "sum (EwaldRecip), which is not ported yet; use elec='pme'")
-        from .ewald import PmeRecip
+        from .ewald import EwaldRecip, PmeRecip
 
-        self._ewald = PmeRecip(
-            self.ffparams.charges, np.asarray(box, np.float64).reshape(-1)[:3],
-            self.cutoff, excl_pairs=self.par.get_exclusions(types=self.exclusions),
-            gather=self.pme_gather, plain=not self.use_kernels)
+        box = np.asarray(box, np.float64).reshape(-1)[:3]
+        excl = self.par.get_exclusions(types=self.exclusions)
+        if self.elec_mode == "ewald" and self.natoms < PME_AUTO_N:
+            self._ewald = EwaldRecip(self.ffparams.charges, box, self.cutoff,
+                                     excl_pairs=excl)
+        else:
+            self._ewald = PmeRecip(self.ffparams.charges, box, self.cutoff,
+                                   excl_pairs=excl, gather=self.pme_gather,
+                                   plain=not self.use_kernels)
         self.config = self.config._replace(ewald_alpha=self._ewald.cfg.alpha)
         if self._cell_kernel is not None:
             self._cell_kernel.cfg = self.config
@@ -393,6 +453,44 @@ class Forces:
         """True when evaluation runs on the cell-list path for this box:
         requested, or automatic for a large system whose box hosts a grid."""
         return self.cell_requested or (self.cell_auto and self._grid_feasible(box))
+
+    def wants_verlet(self, box=None) -> bool:
+        """True when evaluation runs on Verlet lists: only when asked for
+        (`kernel="verlet"`; see the module docstring)."""
+        return self.verlet_requested
+
+    def choose_nb_path(self, box_diag) -> str:
+        """The neighbour path for an (R, 3) box (zeros: no box), recorded
+        in `nb_path`: "cell" (the cell or column kernel), "verlet" or
+        "dense". Resolves the automatic cell choice for this box and sets
+        up the reciprocal term; `prepare` and the Integrator read it."""
+        box_diag = np.asarray(box_diag, np.float64).reshape(-1, 3)
+        box0 = box_diag[0]
+        periodic = bool(np.any(box_diag != 0))
+        if not periodic and (self.elec_mode != "auto" or self.cell_requested):
+            raise ValueError("PME and the cell-list path need a periodic box")
+        self.resolve_kernel_for_box(box0 if periodic else None)
+        if periodic and self.elec_mode != "auto":
+            self.ensure_ewald(box0)
+        if periodic and self.wants_cell(box0):
+            self.nb_path = "cell"
+        elif self.wants_verlet():
+            self.nb_path = "verlet"
+        else:
+            self.nb_path = "dense"
+        return self.nb_path
+
+    def ensure_verlet_kernel(self, box=None, pos0=None):
+        """Build (once) the Verlet-list kernel into the neighbour-kernel
+        slot; `pos0` sizes its capacity from the real occupancy."""
+        from .neighbors import VerletKernel
+
+        if not isinstance(self._cell_kernel, VerletKernel):
+            b = None if box is None or not np.any(np.asarray(box) != 0) else box
+            self._cell_kernel = VerletKernel(self.require_nb_mask(), self.config,
+                                             box=b, skin=CELL_SKIN, pos0=pos0)
+            self._build_evaluators()
+        return self._cell_kernel
 
     def resolve_kernel_for_box(self, box):
         """An automatic cell choice stands only while the box hosts a
@@ -456,26 +554,33 @@ class Forces:
 
     def prepare(self, pos, box_diag):
         """Resolve the box-dependent parts for (R, N, 3) positions and an
-        (R, 3) box: the dense/cell choice, PME, the cell kernel, and a
-        cell capacity that holds every replica (grown until it does)."""
-        box0 = np.asarray(box_diag, np.float64)[0]
-        self.resolve_kernel_for_box(box0)
-        if self.elec_mode != "auto":
-            self.ensure_ewald(box0)
-        if not self.wants_cell(box0):
+        (R, 3) box (zeros: no box): the neighbour path (`choose_nb_path`),
+        the reciprocal term, the neighbour kernel, and a capacity that
+        holds every replica (grown until it does)."""
+        box_diag = np.asarray(box_diag, np.float64)
+        box0 = box_diag[0]
+        path = self.choose_nb_path(box_diag)
+        if path == "dense":
             return
-        if not np.allclose(box_diag, box0):
-            raise ValueError("the cell-list path requires equal replica boxes")
-        kern = self.ensure_cell_kernel(box0, pos0=to_numpy(pos[0]))
-        if not kern.covers(box_diag):
-            kern = kern.with_box(np.min(box_diag, axis=0), pos0=to_numpy(pos[0]))
-        box_t = torch.as_tensor(box0, dtype=self.dtype, device=self.device)
+        if path == "verlet" and not np.any(box_diag != 0):
+            kern = self.ensure_verlet_kernel(None, pos0=to_numpy(pos[0]))
+            box_t = None
+        else:
+            if not np.allclose(box_diag, box0):
+                raise ValueError("the neighbour-list paths require equal replica boxes")
+            if path == "cell":
+                kern = self.ensure_cell_kernel(box0, pos0=to_numpy(pos[0]))
+                if not kern.covers(box_diag):
+                    kern = kern.with_box(np.min(box_diag, axis=0), pos0=to_numpy(pos[0]))
+            else:
+                kern = self.ensure_verlet_kernel(box0, pos0=to_numpy(pos[0]))
+            box_t = torch.as_tensor(box0, dtype=self.dtype, device=self.device)
         for _ in range(4):
             if not any(bool(kern.build(p, box_t).overflow) for p in pos):
                 break
             kern = kern.grow()
         else:
-            raise RuntimeError("cell list capacity kept overflowing")
+            raise RuntimeError(f"{kern.capacity_name} kept overflowing")
         if kern is not self._cell_kernel:
             self.set_cell_kernel(kern)
 
@@ -501,10 +606,7 @@ class Forces:
                                 dtype=self.dtype, device=self.device)
         nreplicas = pos_t.shape[0]
         box_np = _box_to_diag(box, nreplicas)
-        if np.any(box_np != 0):
-            self.prepare(pos_t, box_np)
-        elif self.elec_mode != "auto" or self.cell_requested:
-            raise ValueError("PME and the cell-list path need a periodic box")
+        self.prepare(pos_t, box_np)
         pots, frcs = [], []
         with torch.no_grad():
             for r in range(nreplicas):

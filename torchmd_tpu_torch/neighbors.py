@@ -194,6 +194,8 @@ class CellKernel:
     runs the plain version. A build that overflows a cell is reported in
     `cl.overflow`; `grow` doubles the capacity."""
 
+    capacity_name = "cell list capacity (atoms per cell)"
+
     def __init__(self, ffp, cfg, parameters, box, skin=2.0,
                  exclusions=("bonds", "angles", "1-4"), capacity=None,
                  pos0=None, plain=False):
@@ -226,6 +228,11 @@ class CellKernel:
 
     def needs_rebuild(self, cl: CellList, pos, box=None):
         return needs_rebuild(cl, pos, self.clcfg, box)
+
+    def refresh(self, cl, pos, box=None) -> CellList:
+        """The structure for `pos`: rebuilt at every call, on the device
+        (a sort; no host decision)."""
+        return self.build(pos, box)
 
     def covers(self, box) -> bool:
         """True while box/ncells still hosts rc-wide cells."""
@@ -265,4 +272,209 @@ class CellKernel:
     def grow(self) -> "CellKernel":
         new = copy.copy(self)
         new.clcfg = self.clcfg.with_capacity(self.clcfg.capacity * 2)
+        return new
+
+
+# ----------------------------------------------------------------------
+# Verlet lists: a padded per-atom neighbour list with a skin
+# ----------------------------------------------------------------------
+#
+# Counterpart of the JAX package's `VerletConfig` ... `VerletKernel`
+# (torchmd_tpu/neighbors.py:676-870): every pair within cutoff + skin
+# that the nonbonded mask allows, as an (natoms, capacity) table padded
+# with natoms, rebuilt when the displacement since the build could have
+# brought an unlisted pair inside the cutoff. It works with or without a
+# periodic box (the cell grid needs one). The JAX package has no Pallas
+# kernel for it, so it is torch ops on every device: one (N, N) distance
+# pass per build, a row gather and the shared pair-block math per
+# evaluation.
+
+
+class VerletConfig(NamedTuple):
+    box: tuple            # concrete (lx, ly, lz); zeros = open boundary
+    cutoff: float
+    skin: float
+    capacity: int         # max neighbours per atom (padded width)
+
+    @property
+    def rc(self):
+        return self.cutoff + self.skin
+
+    @property
+    def pbc(self):
+        return min(self.box) > 0
+
+    def with_capacity(self, capacity: int) -> "VerletConfig":
+        return self._replace(capacity=capacity)
+
+
+class NeighborList(NamedTuple):
+    nbr: torch.Tensor       # (natoms, capacity) int64 neighbour ids, natoms = pad
+    ref_pos: torch.Tensor   # positions at build time
+    overflow: torch.Tensor  # bool scalar: a row held more than `capacity`
+
+
+def _verlet_box(vcfg: VerletConfig, box, like):
+    """The box of a build or check: the call's when given (a zero box is
+    no PBC), else the configuration's; None without PBC."""
+    if box is None:
+        if not vcfg.pbc:
+            return None
+        box = vcfg.box
+    b = torch.as_tensor(box, dtype=like.dtype, device=like.device).reshape(3)
+    return b
+
+
+def _verlet_d2(pos, vcfg: VerletConfig, box=None):
+    """Dense squared-distance matrix (minimum image with a box)."""
+    from .potentials import wrap_displacement
+
+    dv = wrap_displacement(pos[:, None, :] - pos[None, :, :], _verlet_box(vcfg, box, pos))
+    return (dv * dv).sum(-1)
+
+
+def build_verlet_list(pos, nb_mask, vcfg: VerletConfig, box=None) -> NeighborList:
+    """Each row's in-range neighbours in ascending index order (the JAX
+    package's stable argsort order), padded with natoms: a row's rank of
+    each valid column from a running count, no sort and no host sync."""
+    n = pos.shape[0]
+    mask = (_verlet_d2(pos, vcfg, box) <= vcfg.rc * vcfg.rc) & nb_mask
+    rank = torch.cumsum(mask, dim=1) - 1
+    overflow = (rank[:, -1] + 1 > vcfg.capacity).any() if n else torch.zeros(
+        (), dtype=torch.bool, device=pos.device)
+    keep = mask & (rank < vcfg.capacity)
+    nbr = torch.full((n, vcfg.capacity + 1), n, dtype=torch.int64, device=pos.device)
+    # dropped and masked entries land in the spare last column
+    slot = torch.where(keep, rank, torch.full_like(rank, vcfg.capacity))
+    cols = torch.arange(n, device=pos.device).expand(n, n)
+    nbr.scatter_(1, slot, torch.where(keep, cols, torch.full_like(cols, n)))
+    return NeighborList(nbr[:, :vcfg.capacity], pos, overflow)
+
+
+def verlet_needs_rebuild(nl: NeighborList, pos, vcfg: VerletConfig, box=None):
+    """True (a bool tensor) when the list may no longer cover all cutoff
+    pairs (`displacement_trigger` on the displacements since the build)."""
+    from .potentials import wrap_displacement
+
+    d = wrap_displacement(pos - nl.ref_pos, _verlet_box(vcfg, box, pos))
+    return displacement_trigger((d * d).sum(1), vcfg.skin)
+
+
+def verlet_nonbonded_energy_forces(ffp, cfg, vcfg: VerletConfig, nl: NeighborList,
+                                   pos, box, with_virial=False):
+    """Nonbonded energies and forces from the full padded list: one row
+    gather, then the pair-block math of the dense path
+    (`potentials.nonbonded_block_energy_forces`; LJ with NBFIX tables,
+    switching, RFA, Ewald real space). Forces are complete row sums,
+    energies carry the 0.5 symmetric factor; with `with_virial=True` also
+    the per-axis pair virial."""
+    from .potentials import LJ_FAMILY, nonbonded_block_energy_forces, wrap_displacement
+    from .units import ELEC_FACTOR
+
+    n, dtype = pos.shape[0], pos.dtype
+    nbr = nl.nbr
+    mask = nbr < n
+    zero = torch.zeros(1, dtype=dtype, device=pos.device)
+    pos_pad = torch.cat([pos, torch.zeros((1, 3), dtype=dtype, device=pos.device)])
+    dv = wrap_displacement(pos[:, None, :] - pos_pad[nbr], box)
+    qq = None
+    if "electrostatics" in cfg.terms:
+        q = ffp.charges.to(dtype)
+        qq = ELEC_FACTOR * q[:, None] * torch.cat([q, zero])[nbr]
+    A_ij = B_ij = None
+    if any(t in cfg.terms for t in LJ_FAMILY):
+        ti = ffp.mapped_atom_types
+        if ffp.lj_ab is not None:
+            tj = torch.cat([ti, ti.new_zeros(1)])[nbr]
+            A_ij = ffp.lj_ab[0].to(dtype)[ti[:, None], tj]
+            B_ij = ffp.lj_ab[1].to(dtype)[ti[:, None], tj]
+        else:
+            s_at = ffp.lj_params[:, 0].to(dtype)[ti]
+            e_at = ffp.lj_params[:, 1].to(dtype)[ti]
+            sig = 0.5 * (s_at[:, None] + torch.cat([s_at, zero])[nbr])
+            eps = torch.sqrt(torch.abs(e_at[:, None] * torch.cat([e_at, zero])[nbr]))
+            s6 = sig**6
+            B_ij = 4.0 * eps * s6
+            A_ij = B_ij * s6
+    return nonbonded_block_energy_forces(cfg, dv, mask, qq, A_ij, B_ij,
+                                         with_virial=with_virial)
+
+
+class VerletKernel:
+    """A Verlet-list configuration with build / refresh / evaluate entry
+    points for one topology, duck-typed on `CellKernel` so the
+    integrator's neighbour-kernel paths and overflow retry take it:
+
+        nl = kern.build(pos, box)
+        nl = kern.refresh(nl, pos, box)    # rebuilt only on displacement
+        pot, forces = kern.energy_forces(pos, box, nl)
+
+    The capacity (neighbours per atom) is sized from `pos0` when given;
+    a build that finds a fuller row sets `nl.overflow`, and `grow`
+    doubles the capacity. `rebuilds` counts the builds `refresh` made."""
+
+    capacity_name = "Verlet list capacity (neighbours per atom)"
+
+    def __init__(self, ffp, cfg, box=None, skin=2.0, capacity=None, pos0=None):
+        if cfg.cutoff is None:
+            raise ValueError("Verlet lists require a cutoff")
+        if ffp.nb_mask is None:
+            raise ValueError("Verlet lists need the dense nonbonded mask")
+        self.ffp = ffp
+        self.cfg = cfg
+        natoms = int(ffp.charges.shape[0])
+        boxt = ((0.0, 0.0, 0.0) if box is None
+                else tuple(float(b) for b in np.asarray(box).reshape(-1)[:3]))
+        self.vcfg = VerletConfig(boxt, float(cfg.cutoff), float(skin), int(capacity or 0))
+        self.rebuilds = 0
+        if capacity is None:
+            if pos0 is not None:
+                p0 = torch.as_tensor(np.asarray(pos0), dtype=torch.float64,
+                                     device=ffp.nb_mask.device)
+                # size from the real occupancy; overflow growth covers
+                # later density fluctuations
+                occ = int(((_verlet_d2(p0, self.vcfg) <= self.vcfg.rc**2)
+                           & ffp.nb_mask).sum(1).max())
+            else:
+                occ = 128
+            self.vcfg = self.vcfg.with_capacity(max(8, min(natoms, int(occ * 1.2) + 8)))
+
+    @property
+    def capacity(self) -> int:
+        return self.vcfg.capacity
+
+    def build(self, pos, box=None) -> NeighborList:
+        return build_verlet_list(pos, self.ffp.nb_mask, self.vcfg, box)
+
+    def needs_rebuild(self, nl: NeighborList, pos, box=None):
+        return verlet_needs_rebuild(nl, pos, self.vcfg, box)
+
+    def refresh(self, nl, pos, box=None) -> NeighborList:
+        """The list for `pos`: `nl` while it still covers the cutoff,
+        else a new build (one host read of the rebuild flag; the build's
+        overflow stays sticky)."""
+        if nl is None:
+            self.rebuilds += 1
+            return self.build(pos, box)
+        if not bool(self.needs_rebuild(nl, pos, box)):
+            return nl
+        self.rebuilds += 1
+        new = self.build(pos, box)
+        return new._replace(overflow=new.overflow | nl.overflow)
+
+    def spread_order(self, nl):
+        """No space order for the PME spread: the atoms' own order."""
+        return None
+
+    def energy_forces(self, pos, box, nl: NeighborList):
+        return verlet_nonbonded_energy_forces(self.ffp, self.cfg, self.vcfg, nl, pos, box)
+
+    def energy_forces_virial(self, pos, box, nl: NeighborList):
+        return verlet_nonbonded_energy_forces(self.ffp, self.cfg, self.vcfg, nl, pos, box,
+                                              with_virial=True)
+
+    def grow(self) -> "VerletKernel":
+        new = copy.copy(self)
+        natoms = int(self.ffp.charges.shape[0])
+        new.vcfg = self.vcfg.with_capacity(min(natoms, self.vcfg.capacity * 2))
         return new

@@ -17,13 +17,16 @@ field's, which say what the hydrogens are), `--thermostat nhc|csvr`,
 move after each output period) or `mtk*` (MTK dynamics), and an `.mdp`
 `define` (e.g. -DPOSRES: the topology's position, distance and dihedral
 restraints join the run as external potentials, referenced to the
-starting coordinates, summed with an `--external` one).
+starting coordinates, summed with an `--external` one). `--mts N` runs
+r-RESPA (N bonded substeps per timestep) and `--mts-recip R` its
+reciprocal tier (the Ewald/PME term every R outer steps on the
+neighbour-list paths, with `--output-period` a multiple of R).
 
 `--device`: None or `cuda[:k]` run on the CUDA card, `cpu` on the CPU;
 anything else raises ValueError. Without a card and without `--device
-cpu` the run raises, as the port's entry points do. Flags whose modules
-are not ported yet raise NotImplementedError naming their ROADMAP item:
-`--mts` and `--mts-recip` (17), `--gbsa` (20).
+cpu` the run raises, as the port's entry points do. The flag whose
+module is not ported yet raises NotImplementedError naming its ROADMAP
+item: `--gbsa` (20).
 """
 
 from __future__ import annotations
@@ -69,9 +72,13 @@ def get_args(arguments=None):
     parser.add_argument("--solvent-dielectric", default=78.5, type=float,
                         help="Reaction-field solvent dielectric (with --rfa)")
     parser.add_argument("--mts", default=None, type=int,
-                        help="r-RESPA inner bonded substeps (not ported yet)")
+                        help="r-RESPA multiple timestepping: number of "
+                             "inner bonded substeps per (outer) timestep")
     parser.add_argument("--mts-recip", default=None, type=int,
-                        help="three-tier r-RESPA reciprocal period (not ported yet)")
+                        help="three-tier r-RESPA: evaluate the Ewald/PME "
+                             "reciprocal term every N outer steps "
+                             "(neighbor-kernel path with elec=ewald; "
+                             "output-period must divide by N)")
     parser.add_argument("--gbsa", action="store_true", default=False,
                         help="GB/OBC implicit solvent (not ported yet)")
     parser.add_argument("--device", default=None,
@@ -191,10 +198,6 @@ def _unported(flag, item):
 
 def check_ported(args):
     """Raise NotImplementedError for flags whose modules the port lacks."""
-    if getattr(args, "mts", None):
-        _unported("--mts", 17)
-    if getattr(args, "mts_recip", None):
-        _unported("--mts-recip", 17)
     if getattr(args, "gbsa", False):
         _unported("--gbsa", 20)
 
@@ -391,6 +394,8 @@ def dynamics(args, mol, system, forces):
         thermostat=thermo_name,
         tau=getattr(args, "thermostat_tau", None),
         barostat=mtk,
+        mts=getattr(args, "mts", None),
+        mts_recip=getattr(args, "mts_recip", None),
     )
     wrapper = Wrapper(mol.numAtoms, mol.bonds if len(mol.bonds) else None)
 
@@ -463,7 +468,12 @@ def dynamics(args, mol, system, forces):
         else:
             minimize_bfgs(system, forces, steps=args.minimize)
 
-    forces.compute(system.pos, system.box, system.forces)
+    if not args.resume or args.minimize is not None:
+        # a resumed run keeps the checkpoint's forces: under r-RESPA they
+        # are the carried slow forces, which a fresh evaluation (the
+        # total, as the JAX CLI takes) would replace with a dt/2 F_bonded
+        # kick at the first step
+        forces.compute(system.pos, system.box, system.forces)
 
     def emit(i, currpos, boxsnap, epot_arr, ekin_arr, t_arr):
         """All per-output-period file writes for one iteration; runs on

@@ -42,6 +42,13 @@ Integrator.step), f32, imports nothing of JAX or of the JAX package:
     with SHAKE through the CLI: the dense MTK scan on the exact Ewald sum
     (torch ops, no CUDA kernel);
   - thrombin on Verlet lists (`Forces(kernel="verlet")`, torch ops);
+  - thrombin in GB/OBC implicit solvent (`--gbsa` through the CLI; GB is
+    torch ops, as the JAX package has no kernel for it); an 8-replica
+    temperature ladder in GB (`ReplicaExchange`), whose every evaluation
+    launches the pair and bonded kernels once for all replicas (their
+    replica axis); well-tempered metadynamics on the ligand-pocket
+    distance in GB; the ligand decoupled (`make_alchemical`) and as a
+    lambda-dynamics site;
   - the staged probe of the dense pair kernel (python -m
     torchmd_tpu_torch.roofline, 4,676 atoms, tiles of 512): seven stage
     kernels and the elemental-throughput chains.
@@ -119,7 +126,9 @@ Phases (each prints lines; any failure raises and exits non-zero):
      just after (each kernel launched at least once a step); the monitor
      rows finite, the trajectory's shape, the xyz and checkpoint files;
      the run resumed from its step-CLI_SAVE checkpoint within
-     CLI_RESUME_TOL of the continuous run; a `[cli]` line of the CLI's
+     CLI_RESUME_TOL of the continuous run after CLI_PERIOD steps, and at
+     the end within 10x the largest deviation between CLI_RESUMES resumed
+     runs; a `[cli]` line of the CLI's
      steps/s beside the dynamics phase's (the API's) and their ratio;
  10. external: thrombin's Forces with `TorchExternal` over an nn.Module
      (a restraint plus a two-layer MLP, seed EXTERNAL_SEED) against
@@ -182,7 +191,37 @@ Phases (each prints lines; any failure raises and exits non-zero):
      against the dense pair kernel's at the Pallas bars, VERLET_STEPS
      timed Langevin steps, rebuilds and capacity, steps/s beside the
      dynamics phase's;
- 19. roofline: every probe stage (f32) against its plain version (f64) at
+ 19. replica_kernels: the pair and bonded kernels' replica axis on
+     REPLICAS thrombin conformations, one launch each against one launch
+     per replica (the pair kernel bit for bit, the bonded kernel's
+     energies equal, its forces at the Pallas bars) and against the f64
+     plain versions; one R-replica launch timed against R single
+     launches, with the bound at R;
+ 20. gbsa: GB/OBC at f32 against f64 on the card and its analytic forces
+     against autograd of its energy (f64); device ms per evaluation
+     (events and a profile); GB_STEPS CLI steps with `--gbsa`, the
+     counters reset just before and read just after (#1 and #3 once a
+     step and once at the start), mean T over the last half;
+ 21. remd: REPLICAS slots, 300-400 K geometric, GB, REMD_WARMUP steps at
+     each slot's T, then REMD_STEPS steps with an exchange attempt every
+     REMD_PERIOD: #1 and #3 once per evaluation of the ladder (steps + 1,
+     not R times that), each slot's mean T over the last half (read every
+     REMD_SAMPLE steps) within REMD_T_REL, acceptance per pair (not
+     gated);
+ 22. metad: METAD_STEPS steps of well-tempered metadynamics on the
+     ligand-pocket COM distance in GB: exactly METAD_STEPS / METAD_STRIDE
+     hills, the grid against the hills replayed at f64 from the CV series
+     and its integral against the tempered heights, a finite CV series,
+     #1 launched once a step and once at the start, and the host syncs of
+     the run (CUDA sync-debug mode) no more than a METAD_SHORT-step run's;
+ 23. alchemy: the ligand decoupled by `make_alchemical` on the dense pair
+     kernel: at lambda 1 the unmodified system's energy and forces at the
+     Pallas bars (stale exclusion words would count the crossing pairs
+     twice), dU/dlambda at 0.5 f32 against f64, ALCH_STEPS Langevin steps
+     at 0.5 with the launches counted; LambdaDynamics with the ligand as
+     one site, LD_STEPS steps (lambda in [0, 1], finite), and
+     LD_CHECK_STEPS steps at f32 within LD_POS_TOL A of f64;
+ 24. roofline: every probe stage (f32) against its plain version (f64) at
      the probe's full size, on its inputs and on the same rows without
      pairs nearer than 2 A, each row's force held to the size of its terms
      (force_scale); four planted faults (the plain version with k_rf
@@ -193,6 +232,11 @@ Phases (each prints lines; any failure raises and exits non-zero):
      the close pairs) and the chain throughputs.
 The last two lines are a JSON summary of the kernels and the JSON status
 line. Usage: python3 chip_smoke.py
+
+`python3 chip_smoke.py --remd-seeds N` is a measurement, not the smoke
+test: it builds the kernels and runs the remd phase, ungated, for seeds
+0..N-1, and reports the spread of each slot's mean-T deviation (from
+which REMD_T_REL is set).
 """
 
 from __future__ import annotations
@@ -293,8 +337,12 @@ VIRIAL_FLOPS = 6
 # CLI_STEPS steps with a monitor row every CLI_PERIOD and the trajectory
 # and a checkpoint every CLI_SAVE; the run resumed from its CLI_SAVE
 # checkpoint ends within CLI_RESUME_TOL A of the continuous run (the
-# bonded kernel's float atomics make runs differ in the last bits)
+# bonded kernel's float atomics make runs differ in the last bits); the
+# noise at the end is that of CLI_RESUMES resumed runs, their largest
+# pairwise deviation (one pair's is heavy-tailed: over the last 100 of
+# 500 chaotic steps on an H100 one pair grew 11x, another 110x)
 CLI_STEPS, CLI_PERIOD, CLI_SAVE, CLI_RESUME_TOL = 1000, 100, 500, 1e-3
+CLI_RESUMES = 4
 # the external phase: a restraint to the start plus a two-layer MLP of
 # EXTERNAL_WIDTH over each atom's distance to the centroid, f32, weights
 # from EXTERNAL_SEED; EXTERNAL_STEPS CLI steps with it
@@ -438,6 +486,46 @@ ALA_STEPS, ALA_PERIOD, ALA_CUTOFF, ALA_SWITCH = 1000, 50, 9.0, 7.5
 ALA_CHECK_STEPS, ALA_POS_TOL, ALA_VIRIAL_TOL = 10, 1e-3, 1e-5
 # Verlet lists on thrombin: VERLET_STEPS Langevin steps at 2 fs, timed
 VERLET_WARMUP, VERLET_STEPS = 20, 200
+# slice 7: implicit solvent and enhanced sampling on thrombin. The replica
+# axis of the pair and bonded kernels: REPLICAS conformations (the start
+# plus a Maxwell-Boltzmann half-step each, seeds 0..R-1) in one launch,
+# against R one-replica launches (the pair kernel bit for bit, the bonded
+# kernel's energies equal and its forces at the Pallas bars)
+REPLICAS = 8
+# GB/OBC (`--gbsa`, cutoff 7.3 A as the CLI gives it): f32 against f64 on
+# the card, energy relative and forces over max |F| (f32 sums over 21.9 M
+# pair terms); the analytic forces against autograd of the energy at f64
+GB_E_TOL, GB_F_TOL, GB_AD_TOL = 1e-4, 1e-4, 1e-9
+# the CLI run: the CLI phase's flags and --gbsa, with Langevin friction
+# GB_GAMMA ps^-1 (at the CLI phase's 0.1 ps^-1 the first ps stays near
+# 220 K: the start shares its kinetic energy with the potential, and the
+# thermostat's 10 ps relaxation has not brought it back)
+GB_STEPS, GB_PERIOD, GB_T_TOL, GB_GAMMA = 500, 50, 15.0, 10.0
+# replica exchange: the 8-replica geometric ladder 300-400 K in GB,
+# Langevin 1 ps^-1, an attempt every REMD_PERIOD steps; each slot's mean T
+# over the last half, read every REMD_SAMPLE steps, within REMD_T_REL of
+# its ladder T, after REMD_WARMUP steps of each slot at its T with
+# GB_GAMMA ps^-1 (from the start at 1 ps^-1 the slots ran 11-16 % below
+# their T over 1 ps). REMD_T_REL is the mean plus 4 standard deviations
+# of the 48 slot deviations of `--remd-seeds 6` on an H100 (+1.48 % and
+# 1.61 %; the worst 5.03 %), rounded up: the slots run warm while the
+# structure relaxes, and a swapped-in configuration from a hotter rung
+# runs hot in its new slot. The gate is for a grossly wrong ladder (one T
+# for every slot, or reversed); 1 ps cannot tell a slot from its
+# neighbour rung (4 % apart), and the CPU tests hold the T vector's noise
+# to the JAX package's
+REMD_LADDER, REMD_GAMMA, REMD_STEPS, REMD_PERIOD, REMD_T_REL = (300.0, 400.0), 1.0, 500, 100, 0.08
+REMD_WARMUP, REMD_SAMPLE = 200, 10
+# well-tempered metadynamics on the ligand (residue MOL) - pocket (protein
+# heavy atoms within METAD_POCKET A of it at the start) COM distance in GB
+METAD_POCKET, METAD_BIASF, METAD_HEIGHT, METAD_SIGMA = 6.0, 10.0, 0.3, 0.2
+METAD_STRIDE, METAD_STEPS, METAD_SHORT, METAD_DX = 50, 1000, 100, 0.01
+LIGAND = "MOL"
+# alchemy and lambda-dynamics on the ligand: ALCH_STEPS Langevin steps at
+# lam = 0.5; LD_STEPS steps of lambda-dynamics; LD_CHECK_STEPS steps at f32
+# within LD_POS_TOL A of f64 (no thermostat); dU/dlambda f32 within
+# DUDL_TOL (relative) of f64
+ALCH_STEPS, LD_STEPS, LD_CHECK_STEPS, LD_POS_TOL, DUDL_TOL = 200, 200, 10, 1e-3, 1e-4
 
 # Bounds. Published H100 SXM peaks (NVIDIA datasheet, at 700 W):
 HBM_BYTES_PER_S = 3.35e12
@@ -2061,7 +2149,7 @@ def phase_cli(api_steps_per_s):
         require(os.path.exists(mid), f"no step-{CLI_SAVE} checkpoint")
 
         ends = []
-        for k in range(2):
+        for k in range(CLI_RESUMES):
             out = os.path.join(td, f"resumed{k}")
             cli.main(_cli_argv(out, CLI_STEPS, ["--save-period", str(CLI_SAVE),
                                                 "--resume", mid]))
@@ -2069,7 +2157,8 @@ def phase_cli(api_steps_per_s):
         later = nframes - CLI_SAVE // CLI_PERIOD
         require(all(e.shape[2] == later for e in ends), "resumed trajectory frames")
         dev = np.abs(ends[0] - traj[:, :, -later:]).max(axis=(0, 1))
-        floor = np.abs(ends[1] - ends[0]).max(axis=(0, 1))
+        floor = np.max([np.abs(a - b).max(axis=(0, 1))
+                        for i, a in enumerate(ends) for b in ends[i + 1:]], axis=0)
         log("cli_resume", from_step=CLI_SAVE,
             steps="/".join(str(CLI_SAVE + CLI_PERIOD * (f + 1)) for f in range(later)),
             resumed_vs_continuous_A="/".join(f"{d:.3e}" for d in dev),
@@ -2080,10 +2169,10 @@ def phase_cli(api_steps_per_s):
         # the bonded kernel's sums have not grown to CLI_RESUME_TOL yet
         require(dev[0] <= CLI_RESUME_TOL,
                 f"resumed CLI run differs by {dev[0]} A after {CLI_PERIOD} steps")
-        # at the end: as close as two resumed runs are to each other
+        # at the end: as close as the resumed runs are to each other
         require(dev[-1] <= max(CLI_RESUME_TOL, 10.0 * floor[-1]),
-                f"resumed CLI run differs by {dev[-1]} A at the end (two resumed "
-                f"runs: {floor[-1]} A)")
+                f"resumed CLI run differs by {dev[-1]} A at the end ({CLI_RESUMES} "
+                f"resumed runs: {floor[-1]} A apart)")
     return launches, natoms
 
 
@@ -3032,6 +3121,488 @@ def phase_verlet(api_steps_per_s):
     return sps
 
 
+def _ladder_positions(par, pos0, nrep, device, dtype):
+    """(nrep, N, 3): the start plus half a 2 fs step of Maxwell-Boltzmann
+    velocities at 300 K, seed r for replica r."""
+    import torch
+
+    from torchmd_tpu_torch.integrator import maxwell_boltzmann
+    from torchmd_tpu_torch.units import TIMEFACTOR
+
+    vel = torch.cat([maxwell_boltzmann(par.masses, TEMP, 1, seed=r, device=device,
+                                       dtype=torch.float64) for r in range(nrep)])
+    p0 = torch.as_tensor(pos0, dtype=torch.float64, device=device)
+    return (p0[None] + 0.5 * TIMESTEP / TIMEFACTOR * vel).to(dtype).contiguous()
+
+
+def phase_replica_kernels():
+    """The replica axis of the pair (#1) and bonded (#3) kernels on
+    thrombin: REPLICAS conformations in one launch each, against one launch
+    per replica (#1 bit for bit, #3's energies equal and its forces at the
+    Pallas bars) and against the f64 plain versions; then one R-replica
+    launch timed against R one-replica launches, with the bound at R."""
+    import torch
+
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.potentials import make_ffparams
+
+    mol, par, forces = _thrombin_forces(DEVICE)
+    cfg, R = forces.config, REPLICAS
+    d32 = kn.prepare_nb_data(forces.ffparams)
+    plan32 = forces._bonded_plan
+    ffp64 = make_ffparams(par, dtype=torch.float64, device=DEVICE)
+    d64 = kn.prepare_nb_data(ffp64)
+    plan64 = kb.build_bonded_kernel_plan(ffp64, cfg)
+    # the plain f64 versions at the kernels' own (f32) positions
+    p32 = _ladder_positions(par, mol.coords[:, :, 0], R, DEVICE, torch.float32)
+    p64 = p32.double()
+    n0 = (kn.LAUNCHES, kb.LAUNCHES)
+    pot_k, f_k = kn.nonbonded_energy_forces(d32, cfg, p32)
+    bpot_k, bf_k = kb.bonded_energy_forces(plan32, p32)
+    launches = (kn.LAUNCHES - n0[0], kb.LAUNCHES - n0[1])
+    require(launches == (1, 1), f"one launch each for {R} replicas, got {launches}")
+    require(f_k.shape == (R, par.natoms, 3) and all(v.shape == (R,) for v in pot_k.values()),
+            "replica-axis shapes")
+    errs = {"pair": 0.0, "bonded": 0.0}
+    for r in range(R):
+        pot_1, f_1 = kn.nonbonded_energy_forces(d32, cfg, p32[r].contiguous())
+        require(torch.equal(f_k[r], f_1) and all(torch.equal(pot_k[k][r], pot_1[k])
+                                                 for k in pot_1),
+                f"replica {r}: the pair kernel's R-axis result differs from one launch")
+        bpot_1, bf_1 = kb.bonded_energy_forces(plan32, p32[r].contiguous())
+        require(all(torch.equal(bpot_k[k][r], bpot_1[k]) for k in bpot_1),
+                f"replica {r}: the bonded kernel's R-axis energies differ from one launch")
+        _compare(f"replica{r}/bonded-vs-one", {k: v[r] for k, v in bpot_k.items()}, bf_k[r],
+                 bpot_1, bf_1)
+        pot_p, f_p = kn.pair_terms_reference(d64, cfg, p64[r])
+        errs["pair"] = max(errs["pair"], _compare(
+            f"replica{r}/pair", {k: v[r] for k, v in pot_k.items()}, f_k[r], pot_p, f_p))
+        pot_p, f_p = kb.bonded_reference(plan64, p64[r])
+        errs["bonded"] = max(errs["bonded"], _compare(
+            f"replica{r}/bonded", {k: v[r] for k, v in bpot_k.items()}, bf_k[r], pot_p, f_p))
+    torch.cuda.synchronize()
+    log("replica_kernels", replicas=R, natoms=par.natoms, pair_bitwise_per_replica=True,
+        bonded_energies_equal=True, pair_max_abs_err=errs["pair"],
+        bonded_max_abs_err=errs["bonded"])
+
+    npairs = sum(_thrombin_pair_count(d32, CUTOFF, p32[r]) for r in range(R))
+    rows = sum(f.count for f in plan32.families)
+    singles = [p32[r].contiguous() for r in range(R)]
+    out = {
+        "pair_replicas": dict(
+            ms=cuda_events_ms(lambda: kn.nonbonded_energy_forces(d32, cfg, p32)),
+            singles_ms=cuda_events_ms(lambda: [kn.nonbonded_energy_forces(d32, cfg, p)
+                                               for p in singles]),
+            plain_ms=cuda_events_ms(lambda: kn.pair_terms_reference_batch(d32, cfg, p32),
+                                    calls=5, warmup=1),
+            bound=bound(tensor_bytes(p32, d32.q, d32.sig, d32.eps, d32.types,
+                                     d32.excl_start, d32.excl_tile, d32.excl_bits, p32),
+                        pair_flops(npairs, "rfa")),
+            work=f"replicas={R} pairs_in_cutoff={npairs}"),
+        "bonded_replicas": dict(
+            ms=cuda_events_ms(lambda: kb.bonded_energy_forces(plan32, p32)),
+            singles_ms=cuda_events_ms(lambda: [kb.bonded_energy_forces(plan32, p)
+                                               for p in singles]),
+            plain_ms=cuda_events_ms(lambda: kb.bonded_reference_batch(plan32, p32),
+                                    calls=5, warmup=1),
+            # the index and parameter rows are the topology's, read once
+            # for all the replicas; positions in and forces out per replica
+            bound=bound(rows * (16 + 12) + tensor_bytes(p32, p32),
+                        R * sum(f.count * BONDED_ROW_FLOPS[f.kind] for f in plan32.families)),
+            work=f"replicas={R} rows={R * rows}"),
+    }
+    for k, v in out.items():
+        v["max_abs_err"] = errs[k.split("_")[0]]
+        log("timing", kernel=k, shapes=f"thrombin x {R}", ms=f"{v['ms']:.4f}",
+            singles_ms=f"{v['singles_ms']:.4f}",
+            one_launch_over_singles=f"{v['ms'] / v['singles_ms']:.3f}",
+            plain_ms=f"{v['plain_ms']:.4f}", bound_ms=f"{v['bound'][0]:.5f}",
+            bound_by=v["bound"][1], work=v["work"])
+    return out
+
+
+def _gb_forces(mol, par, precision="single", external=None):
+    """Thrombin's Forces with GB/OBC as the external (the CLI's --gbsa)."""
+    from torchmd_tpu_torch.external import combine_externals
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.gb import make_gbsa
+
+    gb = make_gbsa(par, mol, cutoff=CUTOFF, device=DEVICE)
+    ext = gb if external is None else combine_externals([gb, external])
+    return gb, Forces(par, terms=TERMS, precision=precision, cutoff=CUTOFF, rfa=RFA,
+                      device=DEVICE, external=ext)
+
+
+class _Calls:
+    """`step(niter)` calls `fn` niter times: profile_water_step over a
+    function."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def step(self, niter):
+        for _ in range(niter):
+            self.fn()
+
+
+def _monitor(path):
+    import csv
+
+    with open(path) as fh:
+        return list(csv.DictReader(fh))
+
+
+def phase_gbsa():
+    """GB/OBC on thrombin: the analytic three passes at f32 against f64 on
+    the card and against autograd of the energy; its device time per
+    evaluation (CUDA events and a profile); then GB_STEPS steps through
+    the CLI with `--gbsa` (the CLI phase's flags), the counters reset just
+    before and read just after (#1 and #3 once a step and once at the
+    start), the mean T over the last half."""
+    import torch
+
+    from torchmd_tpu_torch import run as cli
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+
+    t_phase = time.perf_counter()
+    mol, par = load_amber(*MAIN_SYSTEM)
+    gb, _ = _gb_forces(mol, par)
+    pos = mol.coords[:, :, 0]
+    p32 = torch.as_tensor(pos, dtype=torch.float32, device=DEVICE)
+    p64 = torch.as_tensor(pos, dtype=torch.float64, device=DEVICE)
+    e32, f32 = gb.energy_forces_fn(p32)
+    e64, f64 = gb.energy_forces_fn(p64)
+    with torch.enable_grad():
+        p = p64.clone().requires_grad_(True)
+        (g64,) = torch.autograd.grad(gb.energy_fn(p), p)
+    fmax = float(f64.abs().max())
+    e_rel = abs(float(e32) - float(e64)) / max(1.0, abs(float(e64)))
+    f_rel = float((f32.double() - f64).abs().max()) / fmax
+    ad_rel = float((f64 + g64).abs().max()) / fmax
+    ms = cuda_events_ms(lambda: gb.energy_forces_fn(p32), calls=10, warmup=2)
+    prof_ms, events = profile_water_step(_Calls(lambda: gb.energy_forces_fn(p32)), ms / 1e3,
+                                         steps=5, top=6, label="gb_profile")
+    log("gb_check", natoms=par.natoms, e32=float(e32), e64=float(e64), e_rel_err=e_rel,
+        f_rel_err=f_rel, analytic_vs_autograd_f64=ad_rel, device_ms=f"{ms:.4f}",
+        profiled_device_ms=f"{prof_ms:.4f}", device_events=f"{events:.1f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    require(e_rel <= GB_E_TOL, f"GB energy f32 off f64 by {e_rel}")
+    require(f_rel <= GB_F_TOL, f"GB forces f32 off f64 by {f_rel} of max |F|")
+    require(ad_rel <= GB_AD_TOL, f"GB analytic forces off autograd by {ad_rel} of max |F|")
+    del g64, p
+
+    with tempfile.TemporaryDirectory() as td:
+        argv = _cli_argv(os.path.join(td, "gb"), GB_STEPS,
+                         ["--gbsa", "--output-period", str(GB_PERIOD),
+                          "--langevin-gamma", str(GB_GAMMA)])
+        kn.LAUNCHES = kb.LAUNCHES = 0
+        summary = cli.main(argv)
+        launches = {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+        rows = _monitor(os.path.join(td, "gb", "monitor_0.csv"))
+        Ts = np.asarray([float(r["T"]) for r in rows])
+        mean_T = float(Ts[len(Ts) // 2:].mean())
+        # a profiled chunk through the API, built as the CLI builds it
+        from torchmd_tpu_torch.integrator import Integrator
+
+        _, system, forces = cli.setup(cli.get_args(argv))
+        forces.compute(system.pos, system.box, system.forces)
+        integ = Integrator(system, forces, TIMESTEP, gamma=GB_GAMMA, T=TEMP, seed=1)
+        step_ms, step_events = profile_water_step(
+            integ, 1.0 / summary["steps_per_sec"], steps=20, label="gbsa_profile",
+            shares=("pair_", "bonded"))
+    log("gbsa", steps=summary["steps"], steps_per_s=f"{summary['steps_per_sec']:.2f}",
+        ns_per_day=f"{summary['ns_per_day']:.3f}", pair_launches=launches["pair"],
+        bonded_launches=launches["bonded"], T_series="/".join(f"{t:.1f}" for t in Ts),
+        mean_T_last_half=f"{mean_T:.3f}", gb_device_ms_per_eval=f"{prof_ms:.4f}",
+        step_device_ms=f"{step_ms:.4f}", seconds=f"{time.perf_counter() - t_phase:.2f}")
+    for k, n in launches.items():
+        require(n == GB_STEPS + 1, f"--gbsa: {k} kernel launched {n} != {GB_STEPS + 1}")
+    require(np.all(np.isfinite(Ts)) and abs(mean_T - TEMP) <= GB_T_TOL,
+            f"--gbsa: mean T {mean_T} over the last half")
+    return launches, summary["steps_per_sec"]
+
+
+def phase_remd(seed=0, gate=True):
+    """ReplicaExchange on thrombin in GB/OBC: REPLICAS slots on a geometric
+    ladder, REMD_STEPS steps with an attempt every REMD_PERIOD, the
+    counters reset just before the start's evaluation and read after the
+    last step (#1 and #3 once per evaluation for the whole ladder); each
+    slot's mean T over the last half, read every REMD_SAMPLE steps;
+    acceptance per pair (not gated). `seed` varies the velocities, the
+    Langevin draws and the exchange draws; `gate=False` only reports."""
+    import torch
+
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.remd import ReplicaExchange
+    from torchmd_tpu_torch.systems import System
+
+    mol, par = load_amber(*MAIN_SYSTEM)
+    _, forces = _gb_forces(mol, par)
+    temps = np.geomspace(*REMD_LADDER, REPLICAS)
+    system = System(mol.numAtoms, REPLICAS, "single")
+    system.set_positions(mol.coords)
+    system.set_velocities(torch.cat([
+        maxwell_boltzmann(par.masses, t, 1, seed=seed * REPLICAS + r, device=DEVICE,
+                          dtype=torch.float32) for r, t in enumerate(temps)]))
+    forces.compute(system.pos, system.box, system.forces)
+    t_warm = time.perf_counter()
+    Integrator(system, forces, TIMESTEP, gamma=GB_GAMMA, T=temps, seed=3 + seed).step(
+        niter=REMD_WARMUP)
+    t_warm = time.perf_counter() - t_warm
+    torch.cuda.synchronize()
+    kn.LAUNCHES = kb.LAUNCHES = 0
+    t0 = time.perf_counter()
+    forces.compute(system.pos, system.box, system.forces)
+    remd = ReplicaExchange(system, forces, TIMESTEP, temps, gamma=REMD_GAMMA, seed=1 + seed)
+    Ts = []
+    for done in range(REMD_SAMPLE, REMD_STEPS + 1, REMD_SAMPLE):
+        _, epot, T = remd.integrator.step(niter=REMD_SAMPLE)
+        if done > REMD_STEPS // 2:
+            Ts.append(T)
+        if done % REMD_PERIOD == 0 and done < REMD_STEPS:
+            remd.attempt_exchanges(epot)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+    mean_T = np.mean(Ts, axis=0)
+    dev = mean_T / temps - 1.0
+    rel = np.abs(dev)
+    log("remd", replicas=REPLICAS, steps=REMD_STEPS, seed=seed, seconds=f"{dt:.3f}",
+        warmup_steps=REMD_WARMUP, warmup_seconds=f"{t_warm:.3f}",
+        steps_per_s=f"{REMD_STEPS / dt:.3f}",
+        replica_steps_per_s=f"{REPLICAS * REMD_STEPS / dt:.2f}",
+        pair_launches=launches["pair"], bonded_launches=launches["bonded"],
+        ladder="/".join(f"{t:.1f}" for t in temps), T_samples_last_half=len(Ts),
+        mean_T_last_half="/".join(f"{t:.1f}" for t in mean_T),
+        T_rel_dev="/".join(f"{d:+.4f}" for d in dev),
+        worst_T_rel=f"{rel.max():.4f}",
+        acceptance="/".join(f"{a:.2f}" for a in remd.acceptance_rates),
+        walkers="/".join(str(w) for w in remd.walker_id))
+    if gate:
+        for k, n in launches.items():
+            require(n == REMD_STEPS + 1,
+                    f"REMD: {k} kernel launched {n} times, want {REMD_STEPS + 1} (one per "
+                    f"evaluation of the ladder, not {REPLICAS * (REMD_STEPS + 1)})")
+        require(np.all(np.isfinite(system.pos)) and rel.max() <= REMD_T_REL,
+                f"REMD: slot mean T {mean_T} off the ladder {temps}")
+    return launches, REMD_STEPS / dt, dev
+
+
+def remd_spread(nseeds):
+    """`phase_remd` over seeds 0..nseeds-1 without its gate: each slot's
+    relative deviation of the last half's mean T from its ladder T, and
+    their spread over the seeds (what REMD_T_REL is set from)."""
+    devs = np.array([phase_remd(seed=s, gate=False)[2] for s in range(nseeds)])
+    log("remd_spread", seeds=nseeds, slots=devs.size,
+        mean_dev=f"{devs.mean():+.4f}", std_dev=f"{devs.std():.4f}",
+        worst_abs=f"{np.abs(devs).max():.4f}",
+        worst_abs_per_seed="/".join(f"{d:.4f}" for d in np.abs(devs).max(1)))
+
+
+def _ligand_and_pocket(mol):
+    """(the ligand's atoms: residue LIGAND of the system's structure.pdb,
+    the protein heavy atoms within METAD_POCKET A of it at the start)."""
+    from torchmd_tpu_torch.io import Molecule
+
+    pdb = Molecule(os.path.join(DATA, MAIN_SYSTEM[0], "structure.pdb"))
+    lig = np.flatnonzero(pdb.resname == LIGAND)
+    pos = mol.coords[:, :, 0]
+    heavy = np.asarray([str(e) != "H" for e in pdb.element])
+    protein = np.setdiff1d(np.flatnonzero(heavy), lig)
+    d = np.sqrt(((pos[protein][:, None, :] - pos[lig][None, :, :]) ** 2).sum(-1)).min(1)
+    return lig, protein[d <= METAD_POCKET]
+
+
+def _count_syncs(fn):
+    """(fn(), host syncs the CUDA sync-debug mode reported during it)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_metad():
+    """Well-tempered metadynamics on thrombin in GB: the ligand-pocket COM
+    distance, METAD_STEPS steps with a hill every METAD_STRIDE, the pair
+    kernel's counter reset before the start's evaluation. The hills
+    replayed in f64 on the host from the CV series give the grid the
+    device built and its integral; the host syncs of a run do not grow
+    with its hills (a METAD_SHORT-step run against the long one)."""
+    import torch
+
+    from torchmd_tpu_torch.cv import com_distance_cv
+    from torchmd_tpu_torch.integrator import maxwell_boltzmann
+    from torchmd_tpu_torch.metadynamics import MetaDynamics
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.systems import System
+    from torchmd_tpu_torch.units import BOLTZMANN
+
+    mol, par = load_amber(*MAIN_SYSTEM)
+    lig, pocket = _ligand_and_pocket(mol)
+    cv = com_distance_cv(lig, pocket, masses=par.masses)
+    s0 = float(cv(torch.as_tensor(mol.coords[:, :, 0], dtype=torch.float64)))
+    # +-5 A about the start: room for every hill's +-5 sigma (the part
+    # below 0 A only holds the tails of hills near 0)
+    grid = (s0 - 5.0, s0 + 5.0, int(round(10.0 / METAD_DX)) + 1)
+
+    def make():
+        _, forces = _gb_forces(mol, par)
+        system = System(mol.numAtoms, 1, "single")
+        system.set_positions(mol.coords)
+        system.set_velocities(maxwell_boltzmann(par.masses, TEMP, 1, seed=1, device=DEVICE,
+                                                dtype=torch.float32))
+        forces.compute(system.pos, system.box, system.forces)
+        return MetaDynamics(system, forces, cv, TIMESTEP, T=TEMP, gamma=GAMMA, grid=grid,
+                            sigma=METAD_SIGMA, height=METAD_HEIGHT, stride=METAD_STRIDE,
+                            bias_factor=METAD_BIASF, seed=2)
+
+    short = make()
+    _, short_syncs = _count_syncs(lambda: short.run(METAD_SHORT))
+    torch.cuda.synchronize()
+    kn.LAUNCHES = kb.LAUNCHES = 0
+    metad = make()
+    t0 = time.perf_counter()
+    cvs, syncs = _count_syncs(lambda: metad.run(METAD_STEPS))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+    # the hills replayed at f64 from the CV at each deposition step
+    xs = metad.lo + metad.dx * np.arange(metad.nbins)
+    kT_dT = BOLTZMANN * (METAD_BIASF - 1.0) * TEMP
+    bias, heights = np.zeros(metad.nbins), []
+    for k in range(METAD_STRIDE - 1, METAD_STEPS, METAD_STRIDE):
+        w = METAD_HEIGHT * np.exp(-np.interp(cvs[k], xs, bias) / kT_dT)
+        heights.append(w)
+        bias = bias + w * np.exp(-0.5 * ((xs - cvs[k]) / METAD_SIGMA) ** 2)
+    dev_bias = metad.bias.double().cpu().numpy()
+    integral = float(dev_bias.sum() * metad.dx)
+    want = float(np.sum(heights) * METAD_SIGMA * np.sqrt(2.0 * np.pi))
+    replay_err = float(np.abs(dev_bias - bias).max())
+    log("metad", steps=METAD_STEPS, seconds=f"{dt:.3f}", steps_per_s=f"{METAD_STEPS / dt:.2f}",
+        ligand_atoms=len(lig), pocket_atoms=len(pocket), cv0=f"{s0:.4f}",
+        cv_range=f"{cvs.min():.4f}-{cvs.max():.4f}", grid=f"{grid[0]:.3f}-{grid[1]:.3f}x{grid[2]}",
+        hills=metad.nhills, heights="/".join(f"{h:.4f}" for h in heights),
+        grid_integral=f"{integral:.6f}", hills_integral=f"{want:.6f}",
+        replay_max_abs_err=f"{replay_err:.3e}", pair_launches=launches["pair"],
+        bonded_launches=launches["bonded"], host_syncs=syncs,
+        host_syncs_short_run=short_syncs)
+    require(metad.nhills == METAD_STEPS // METAD_STRIDE == len(heights), "hill count")
+    require(np.all(np.isfinite(cvs)) and cvs.shape == (METAD_STEPS,), "CV series")
+    require(cvs.min() - 5 * METAD_SIGMA >= grid[0] and cvs.max() + 5 * METAD_SIGMA <= grid[1],
+            "a hill's +-5 sigma left the grid")
+    require(abs(integral - want) <= 1e-3 * want, f"bias integral {integral} != {want}")
+    require(replay_err <= 1e-4 * max(1.0, float(np.abs(bias).max())),
+            f"device bias off the replayed hills by {replay_err}")
+    require(all(n == METAD_STEPS + 1 for n in launches.values()),
+            f"metadynamics: launches {launches}")
+    require(syncs <= short_syncs, f"host syncs grow with the hills: {syncs} against "
+                                  f"{short_syncs} in {METAD_SHORT} steps")
+    return launches, METAD_STEPS / dt
+
+
+def phase_alchemy():
+    """make_alchemical on thrombin (the ligand decoupled from the protein,
+    the dense pair kernel with the edited exclusion words): at lam = 1
+    the total energy and forces equal the unmodified system's at the
+    Pallas bars; dU/dlambda at 0.5 at f32 against f64; ALCH_STEPS Langevin
+    steps at lam = 0.5 with the counters read; LambdaDynamics with the
+    ligand as one site, LD_STEPS steps, and LD_CHECK_STEPS steps at f32
+    against f64 on the card."""
+    import torch
+
+    from torchmd_tpu_torch.alchemy import make_alchemical
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.lambda_dynamics import LambdaDynamics, make_lambda_sites
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.systems import System
+
+    mol, par, base = _thrombin_forces(DEVICE)
+    lig, _ = _ligand_and_pocket(mol)
+    pos = mol.coords[:, :, 0][None]
+    f0, f1 = np.zeros((1, mol.numAtoms, 3)), np.zeros((1, mol.numAtoms, 3))
+    e0 = base.compute(pos, None, f0)[0]
+    _, _, alch = _thrombin_forces(DEVICE)
+    coupling = make_alchemical(alch, lig, lam=1.0)
+    e1 = alch.compute(pos, None, f1)[0]
+    p32 = torch.as_tensor(pos[0], dtype=torch.float32, device=DEVICE)
+    crossing = float(coupling.energy_fn(p32, None))
+    e_rel = abs(e1 - e0) / max(1.0, abs(e0))
+    f_rel = float(np.abs(f1 - f0).max()) / max(1.0, float(np.abs(f0).max()))
+    p64 = torch.as_tensor(pos[0], dtype=torch.float64, device=DEVICE)
+    d32 = float(coupling.dudl(p32, None, 0.5))
+    d64 = float(coupling.dudl(p64, None, 0.5))
+    dudl_rel = abs(d32 - d64) / max(1.0, abs(d64))
+    log("alchemy", ligand_atoms=len(lig), epot_base=e0, epot_lam1=e1, e_rel_err=e_rel,
+        f_rel_err=f_rel, crossing_energy=crossing, dudl32=d32, dudl64=d64,
+        dudl_rel_err=dudl_rel)
+    require(e_rel <= E_TOL, f"alchemy at lam=1: energy off the base system's by {e_rel}")
+    require(f_rel <= F_TOL, f"alchemy at lam=1: forces off the base system's by {f_rel}")
+    require(dudl_rel <= DUDL_TOL, f"dU/dlambda f32 off f64 by {dudl_rel}")
+
+    coupling.lam = 0.5
+    system = System(mol.numAtoms, 1, "single")
+    system.set_positions(mol.coords)
+    system.set_velocities(maxwell_boltzmann(par.masses, TEMP, 1, seed=1, device=DEVICE,
+                                            dtype=torch.float32))
+    torch.cuda.synchronize()
+    kn.LAUNCHES = kb.LAUNCHES = 0
+    alch.compute(system.pos, system.box, system.forces)
+    integ = Integrator(system, alch, TIMESTEP, gamma=GAMMA, T=TEMP, seed=2)
+    t0 = time.perf_counter()
+    _, epot, T = integ.step(niter=ALCH_STEPS)
+    torch.cuda.synchronize()
+    sps = ALCH_STEPS / (time.perf_counter() - t0)
+    launches = {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+    require(all(n == ALCH_STEPS + 1 for n in launches.values()),
+            f"alchemy lam=0.5 run launches {launches}")
+    require(np.all(np.isfinite(system.pos)) and np.isfinite(epot).all(), "alchemy run")
+
+    def ld_run(precision, steps, gamma):
+        _, _, f = _thrombin_forces(DEVICE, precision)
+        couplings = make_lambda_sites(f, [lig])
+        s = System(mol.numAtoms, 1, precision)
+        s.set_positions(mol.coords)
+        s.set_velocities(maxwell_boltzmann(par.masses, TEMP, 1, seed=1, device=DEVICE,
+                                           dtype=torch.float64))
+        ld = LambdaDynamics(s, f, couplings, timestep=TIMESTEP, T=TEMP, gamma=gamma,
+                            lam0=0.5, seed=3)
+        return s, ld.step(niter=steps)
+
+    n0 = kn.LAUNCHES
+    t0 = time.perf_counter()
+    s, (ek, ep, T_ld, lams) = ld_run("single", LD_STEPS, GAMMA)
+    torch.cuda.synchronize()
+    ld_sps = LD_STEPS / (time.perf_counter() - t0)
+    ld_launches = kn.LAUNCHES - n0
+    s32, _ = ld_run("single", LD_CHECK_STEPS, 0.0)
+    s64, _ = ld_run("double", LD_CHECK_STEPS, 0.0)
+    dev = float(np.abs(s32.pos.astype(np.float64) - s64.pos).max())
+    log("lambda_dynamics", steps=LD_STEPS, steps_per_s=f"{ld_sps:.2f}",
+        lam_range=f"{lams.min():.4f}-{lams.max():.4f}", lam_end=f"{lams[-1, 0]:.4f}",
+        epot=f"{ep[0]:.4f}", T=f"{T_ld[0]:.3f}", pair_launches=ld_launches,
+        f32_vs_f64_A=f"{dev:.3e}", alchemy_steps_per_s=f"{sps:.2f}",
+        alchemy_launches=launches["pair"])
+    require(np.all((lams >= 0) & (lams <= 1)) and np.isfinite(ep).all()
+            and np.all(np.isfinite(s.pos)), "lambda-dynamics run")
+    require(ld_launches == LD_STEPS + 1, f"lambda-dynamics pair launches {ld_launches}")
+    require(dev <= LD_POS_TOL, f"lambda-dynamics f32 off f64 by {dev} A")
+    return {k: launches[k] + ld_launches for k in launches}
+
+
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -3060,14 +3631,22 @@ def main():
     recip_launches = phase_recip_tier(water_sps)
     phase_alanine_mtk()
     phase_verlet(api_steps_per_s)
+    times.update(phase_replica_kernels())
+    gb_launches, _ = phase_gbsa()
+    remd_launches, _, _ = phase_remd()
+    metad_launches, _ = phase_metad()
+    alch_launches = phase_alchemy()
     times["roofline"], probe_launches = phase_roofline()
     # the dense pair and bonded kernels' main paths: the API's dynamics,
-    # the CLI's run, the production protocol's and its r-RESPA run; the
+    # the CLI's run, the production protocol's and its r-RESPA run, the
+    # GB/OBC run, metadynamics, alchemy and lambda-dynamics (their
+    # replica-axis instances: the REMD ladder's run); the
     # cell, spread and gather kernels': the NVT water box's, the Monte
     # Carlo phase's and the reciprocal tier's; the column kernel's: the
     # NPT phase's (with its virial), and its no-virial reaction-field
     # instance's (column_rf) the r-RESPA SPC/Fw water's mts 4 run
     thr_launches = {k: thr_launches[k] + cli_launches[k] + prod_launches[k] + mts_launches[k]
+                    + gb_launches[k] + metad_launches[k] + alch_launches[k]
                     for k in thr_launches}
     water_launches = {k: water_launches[k] + mc_launches.get(k, 0) + recip_launches.get(k, 0)
                       for k in water_launches}
@@ -3087,6 +3666,14 @@ def main():
         _kernel_entry("bonded", src + "bonded.cu",
                       "torchmd_tpu/ops/pallas_bonded.py:575",
                       thr_launches["bonded"], times["bonded"]),
+        # the replica axis of #1 and #3 (the vmapped Pallas calls of a
+        # ladder, torchmd_tpu/integrator.py:547): one launch for 8 replicas
+        _kernel_entry("pair_replicas", src + "nonbonded.cu",
+                      "torchmd_tpu/ops/pallas_nonbonded.py:545",
+                      remd_launches["pair"], times["pair_replicas"]),
+        _kernel_entry("bonded_replicas", src + "bonded.cu",
+                      "torchmd_tpu/ops/pallas_bonded.py:575",
+                      remd_launches["bonded"], times["bonded_replicas"]),
         _kernel_entry("cell", src + "cell.cu", "torchmd_tpu/ops/pallas_cell.py:238",
                       water_launches["cell"], times["cell"]),
         _kernel_entry("pme_spread", src + "pme.cu", "torchmd_tpu/ops/pallas_pme.py:235",
@@ -3110,4 +3697,10 @@ def main():
 
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
-    main()
+    if sys.argv[1:2] == ["--remd-seeds"]:
+        # a measurement, not the smoke test: the REMD phase's T spread
+        phase_device()
+        phase_build()
+        remd_spread(int(sys.argv[2]))
+    else:
+        main()

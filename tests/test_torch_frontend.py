@@ -146,6 +146,12 @@ ig = t.Integrator(s, vf, 1.0, mts=2)
 ig.step(niter=1)
 print(bool(torch.isfinite(f).all()), type(vf._cell_kernel).__name__,
       bool(np.isfinite(s.pos).all()))
+# the modules of the implicit-solvent and sampling slice
+from torchmd_tpu_torch import gb, cv, metadynamics, remd, alchemy, lambda_dynamics, analysis
+e_gb = gb.GBSA([0.4, -0.4, 0.1], [1.5, 1.7, 1.2], [0.8, 0.7, 0.85],
+               device="cpu").energy_fn(torch.tensor(rs.rand(3, 3) * 6.0), None)
+print(bool(torch.isfinite(e_gb)), all(hasattr(t, k) for k in (
+    "ReplicaExchange", "MetaDynamics", "make_alchemical", "LambdaDynamics", "normal_modes")))
 """
 
 
@@ -156,7 +162,8 @@ def test_port_builds_without_jax_or_the_jax_package(tmp_path):
          os.path.join(DATA_DIR, "thrombin-ligand-amber"), _water_top(tmp_path, 27)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["4676", "108", "1", "True", "True", "VerletKernel", "True"]
+    assert out.stdout.split() == ["4676", "108", "1", "True", "True", "VerletKernel", "True",
+                                  "True", "True"]
 
 
 def test_entry_points_default_to_the_card(tmp_path):
@@ -174,6 +181,22 @@ def test_entry_points_default_to_the_card(tmp_path):
         maxwell_boltzmann(par.masses, 300.0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
+    from torchmd_tpu_torch.analysis import msd, rdf
+    from torchmd_tpu_torch.gb import GBSA
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GBSA([0.5], [1.5], [0.8])
+    traj = np.random.RandomState(0).rand(3, 4, 3)
+    for fn, args in ((rdf, (traj, [5.0, 5.0, 5.0])), (msd, (traj,))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(*args)
+    from torchmd_tpu_torch.analysis import main as analysis_main
+
+    np.save(tmp_path / "traj.npy", np.transpose(traj, (1, 2, 0)))
+    for flags in (["--rdf", str(tmp_path / "g.csv"), "--box", "5.0"],
+                  ["--msd", str(tmp_path / "m.csv")]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            analysis_main([str(tmp_path), "--traj", "traj.npy"] + flags)
     forces = Forces(par, terms=WATER_TERMS, cutoff=2.0, device="cpu")
     assert forces.device.type == "cpu"
     system = System(par.natoms, 1, "double")

@@ -167,17 +167,24 @@ def test_step_reuses_device_state_and_sees_host_edits():
 
 
 def test_unported_options_raise():
-    """The device mesh, atom batching and per-replica T still raise,
-    naming their ROADMAP items; CSVR, SHAKE/RATTLE and r-RESPA are ported
-    (a free gas has no bonds to constrain; r-RESPA needs the split
+    """The device mesh still raises, naming its ROADMAP item; atom
+    batching and per-replica T are ported, and NHC and CSVR refuse a T
+    vector as the JAX package does; CSVR, SHAKE/RATTLE and r-RESPA are
+    ported (a free gas has no bonds to constrain; r-RESPA needs the split
     evaluators of Forces, tests/test_torch_mts.py)."""
     natoms = 2
     system = System(natoms, 1, "double")
     f = _ZeroForces(np.full((natoms, 1), 1.0))
-    for kw, item in ((dict(mesh=object()), "21"), (dict(batch=np.zeros(natoms, int)), "11b"),
-                     (dict(T=np.array([300.0]), gamma=1.0), "11b")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tint.Integrator(system, f, 1.0, **kw)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        tint.Integrator(system, f, 1.0, mesh=object())
+    assert tint.Integrator(system, f, 1.0, batch=np.zeros(natoms, int)).natoms.tolist() == [2]
+    assert tint.Integrator(system, f, 1.0, T=np.array([300.0]), gamma=1.0).vcoeff.shape == (
+        1, natoms, 1)
+    for thermostat in ("nhc", "csvr"):
+        with pytest.raises(ValueError, match="scalar T"):
+            tint.Integrator(system, f, 1.0, T=np.array([300.0]), thermostat=thermostat)
+    with pytest.raises(ValueError, match="nreplicas"):
+        tint.Integrator(system, f, 1.0, T=np.array([300.0, 310.0]), gamma=1.0)
     from torchmd_tpu_torch.thermostats import CSVR
 
     assert isinstance(tint.Integrator(system, f, 1.0, thermostat="csvr",

@@ -442,11 +442,37 @@ def test_checkpoint_restores_slice6_state(case, tmp_path):
                                rtol=1e-10)
 
 
-@pytest.mark.parametrize("extra, item", [(["--gbsa"], "20")])
-def test_unported_flags_raise(extra, item, tmp_path):
+@pytest.mark.parametrize("extra", [["--gbsa"]])
+def test_unported_flags_raise(extra, tmp_path):
+    """No CLI flag names an unported module any more: `--gbsa`, the last
+    one, builds GB/OBC (argon's PDB has no prmtop radii: the element
+    defaults) as the external potential."""
+    from torchmd_tpu_torch.gb import default_radii
+
     args = trun.get_args(ARGON + ["--device", "cpu", "--log-dir", str(tmp_path)] + extra)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        trun.setup(args)
+    mol, system, forces = trun.setup(args)
+    radii, _ = default_radii(mol.element)
+    assert forces.external is not None and np.all(radii == 1.5)
+    e = forces.external.energy_fn(torch.as_tensor(system.pos[0], dtype=torch.float64), None)
+    assert torch.isfinite(e)
+
+
+def test_gbsa_cli_matches_jax(tmp_path):
+    """`--gbsa` on the ligand's prmtop (its RADII and SCREEN) through both
+    CLIs at f64, 10 steps: positions within 1e-8 A, energies 1e-7."""
+    d = os.path.join(DATA_DIR, "ligand-amber")
+    argv = ["--topology", os.path.join(d, "structure.prmtop"),
+            "--coordinates", os.path.join(d, "structure.pdb"),
+            "--forcefield", os.path.join(d, "structure.prmtop"),
+            "--forceterms", "bonds", "angles", "dihedrals", "impropers", "1-4",
+            "electrostatics", "lj", "--cutoff", "9", "--gbsa", "--steps", "10",
+            "--output-period", "5", "--save-period", "10", "--temperature", "300"]
+    (jargs, jsys), (targs, tsys) = _run_pair(argv + NO_NOISE, tmp_path)
+    np.testing.assert_allclose(tsys.pos, np.asarray(jsys.pos), rtol=0, atol=1e-8)
+    jm, tm = _monitor(tmp_path / "jax" / "monitor_0.csv"), _monitor(tmp_path / "torch" /
+                                                                    "monitor_0.csv")
+    for key in ("epot", "ekin"):
+        assert np.all(np.abs(tm[key] - jm[key]) <= 1e-7 * np.maximum(1.0, np.abs(jm[key])))
 
 
 def test_device_flag():

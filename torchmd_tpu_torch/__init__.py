@@ -77,6 +77,26 @@ and MTK on a small box with SHAKE on the exact Ewald sum:
     forces = Forces(par, terms=terms, cutoff=9.0, elec="ewald")  # < 4,096 atoms
     integ = Integrator(system, forces, 4.0, T=300, thermostat="nhc",
                        constraints="hbonds", barostat=MTKBarostat(1.0, 300.0))
+
+Implicit solvent and enhanced sampling (a protein from a prmtop with
+RADII and SCREEN; `--gbsa` on the CLI): GB/OBC as the external, a
+temperature ladder whose every force evaluation launches the pair and
+bonded kernels once for all replicas, metadynamics on a CV, alchemical
+decoupling of a ligand and lambda-dynamics:
+
+    from torchmd_tpu_torch import (GBSA, MetaDynamics, ReplicaExchange,
+                                   LambdaDynamics, make_alchemical,
+                                   make_gbsa, make_lambda_sites)
+    from torchmd_tpu_torch.cv import com_distance_cv
+
+    forces = Forces(par, terms=terms, cutoff=9.0, rfa=True,
+                    external=make_gbsa(par, mol))
+    remd = ReplicaExchange(system8, forces, 2.0, np.geomspace(300, 400, 8))
+    remd.run(1000, exchange_period=100)
+    metad = MetaDynamics(system, forces, com_distance_cv(ligand, pocket),
+                         2.0, T=300, grid=(0.0, 20.0, 400), sigma=0.2,
+                         height=0.3, stride=50, bias_factor=10.0)
+    coupling = make_alchemical(forces, ligand, lam=0.5)
 """
 
 __version__ = "0.1.0"
@@ -85,7 +105,8 @@ __all__ = [
     "systems", "potentials", "bonded", "forces", "integrator", "interop",
     "ops", "io", "forcefields", "parameters", "units", "neighbors", "ewald",
     "vsites", "constraints", "thermostats", "columns", "barostat",
-    "cmap", "restraints",
+    "cmap", "restraints", "gb", "cv", "metadynamics", "remd", "alchemy",
+    "lambda_dynamics", "analysis",
     "external", "run", "utils", "wrapper", "checkpoint", "observables",
     "minimizers", "profiling", "native", "neighbourlist", "npzmol", "mycalc",
     "calculators",
@@ -101,6 +122,9 @@ __all__ = [
     "HarmonicPositionalRestraint", "FlatBottomRestraint",
     "AnisotropicPositionalRestraint", "combine_externals",
     "EwaldRecip", "PmeRecip", "VerletKernel", "VerletConfig", "CellKernel",
+    "make_alchemical", "AlchemicalCoupling", "ReplicaExchange", "MetaDynamics",
+    "HarmonicBias", "wham", "LambdaDynamics", "make_lambda_sites", "ph_bias",
+    "normal_modes", "GBSA", "make_gbsa",
 ]
 
 _LAZY = {
@@ -150,6 +174,18 @@ _LAZY = {
     "VerletKernel": ("torchmd_tpu_torch.neighbors", "VerletKernel"),
     "VerletConfig": ("torchmd_tpu_torch.neighbors", "VerletConfig"),
     "CellKernel": ("torchmd_tpu_torch.neighbors", "CellKernel"),
+    "make_alchemical": ("torchmd_tpu_torch.alchemy", "make_alchemical"),
+    "AlchemicalCoupling": ("torchmd_tpu_torch.alchemy", "AlchemicalCoupling"),
+    "ReplicaExchange": ("torchmd_tpu_torch.remd", "ReplicaExchange"),
+    "MetaDynamics": ("torchmd_tpu_torch.metadynamics", "MetaDynamics"),
+    "HarmonicBias": ("torchmd_tpu_torch.cv", "HarmonicBias"),
+    "wham": ("torchmd_tpu_torch.cv", "wham"),
+    "LambdaDynamics": ("torchmd_tpu_torch.lambda_dynamics", "LambdaDynamics"),
+    "make_lambda_sites": ("torchmd_tpu_torch.lambda_dynamics", "make_lambda_sites"),
+    "ph_bias": ("torchmd_tpu_torch.lambda_dynamics", "ph_bias"),
+    "normal_modes": ("torchmd_tpu_torch.analysis", "normal_modes"),
+    "GBSA": ("torchmd_tpu_torch.gb", "GBSA"),
+    "make_gbsa": ("torchmd_tpu_torch.gb", "make_gbsa"),
 }
 
 

@@ -40,8 +40,20 @@
 //     resets the ticket for the next call.
 // The forces are the zeroed buffer of the call (a memset and the kernel:
 // two device events) or the caller's buffer, added into (the kernel only).
+//
+// A replica axis: one call takes R conformations of one topology (pos
+// (R, N, 3), a box per replica or none) on a (blocks, R) grid, as the
+// vmapped Pallas call does for a replica ladder
+// (torchmd_tpu/integrator.py:547). Each replica's blocks read its
+// positions, add into its forces, write its energy partials, and take a
+// ticket of their own: the last block of each replica sums that
+// replica's energies, so a replica's energies equal a one-replica call's
+// bit for bit (its forces up to the order of the float atomics). A
+// window's 16-byte flush runs on the groups of the whole (R, N, 3)
+// buffer, so a group at a replica's edge adds 0 to its neighbour's row.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -60,6 +72,7 @@ struct BondedCfg {
   int nfam;
   int rows;                     // rows (threads) per block, <= MAX_ROWS
   int wcap;                     // atoms of the shared window buffer
+  int nrep;                     // replicas of the call (>= 1)
   int block_start[MAXFAM + 1];  // family f owns blocks [start[f], start[f+1])
   int kind[MAXFAM];             // 0 bond, 1 angle, 2 torsion, 3 nb14
   int flags[MAXFAM];            // bond: cutoff on; torsion: AMBER form;
@@ -159,13 +172,22 @@ bonded_kernel(const float* __restrict__ pos, const int4* __restrict__ idx,
   __shared__ double scratch[MAX_ROWS / 32];
   __shared__ int s_flushed;
   __shared__ bool s_last;
+  // this block's replica: its positions, forces, box, partials, ticket
+  // and energies
+  const int rep = blockIdx.y;
+  const size_t rep_off = (size_t)rep * 3 * cfg.natoms;
+  pos += rep_off;
+  if (PBC) box += 3 * rep;
+  epart += 2 * (size_t)rep * gridDim.x;
+  ticket += rep;
+  energies += 2 * (size_t)rep * cfg.nfam;
   int fam = 0;
   while (fam + 1 < cfg.nfam && (int)blockIdx.x >= cfg.block_start[fam + 1]) ++fam;
   const int kind = cfg.kind[fam];
   const int flags = cfg.flags[fam];
   const int tid = threadIdx.x;
   const int2 win = windows[blockIdx.x];  // lo, atoms
-  const Sink sink{window_smem, forces, win.x, win.y <= cfg.wcap};
+  const Sink sink{window_smem, forces + rep_off, win.x, win.y <= cfg.wcap};
   if (sink.shared)
     for (int k = tid; k < 3 * win.y; k += blockDim.x) window_smem[k] = 0.f;
   if (tid == 0) s_flushed = 0;
@@ -267,10 +289,12 @@ bonded_kernel(const float* __restrict__ pos, const int4* __restrict__ idx,
     }
   }
 
-  // flush: the window is the float run [3 lo, 3 (lo + n)) of the forces
+  // flush: the window is the float run [3 lo, 3 (lo + n)) of the
+  // replica's forces, in groups of 4 floats of the whole buffer
   __syncthreads();
   if (sink.shared) {
-    const int f0 = 3 * win.x, f1 = 3 * (win.x + win.y), total = 3 * cfg.natoms;
+    const int f0 = (int)rep_off + 3 * win.x, f1 = (int)rep_off + 3 * (win.x + win.y);
+    const int total = 3 * cfg.natoms * cfg.nrep;
     int flushed = 0;
     for (int g = (f0 >> 2) + tid; g <= (f1 - 1) >> 2; g += blockDim.x) {
       float v[4];
@@ -358,13 +382,13 @@ bonded_kernel(const float* __restrict__ pos, const int4* __restrict__ idx,
 
 }  // namespace
 
-// pos (N,3) f32; idx (R,4) int32 with R = block_start[nfam] * rows rows,
-// -1 in unused slots and padding rows; par (R,3) f32; box (3) or null (no
-// PBC); windows (R / rows) int2 (first atom, atoms) of each block. Scratch
-// epart (R / rows, 2) f64 and ticket (1) uint32, 0 between calls. Outputs:
-// forces (N,3) f32, 16-byte aligned, zeroed here unless `add` (then the
-// call adds into them), energies (nfam, 2) f32 as [main, 1-4
-// electrostatics]; stats (5 uint64, or null) gains the global atomics, the
+// pos (P,N,3) f32 for P = cfg.nrep replicas; idx (R,4) int32 with R =
+// block_start[nfam] * rows rows, -1 in unused slots and padding rows; par
+// (R,3) f32; box (P,3) or null (no PBC); windows (R / rows) int2 (first
+// atom, atoms) of each block. Scratch epart (P, R / rows, 2) f64 and
+// ticket (P) uint32, 0 between calls. Outputs: forces (P,N,3) f32, 16-byte
+// aligned, zeroed here unless `add` (then the call adds into them),
+// energies (P, nfam, 2) f32 as [main, 1-4 electrostatics]; stats (5 uint64, or null) gains the global atomics, the
 // rows summed in a window and straight to the forces, and the blocks of
 // each kind. Returns cudaGetLastError().
 extern "C" int tmd_bonded_energy_forces(const float* pos, const int32_t* idx,
@@ -375,21 +399,24 @@ extern "C" int tmd_bonded_energy_forces(const float* pos, const int32_t* idx,
                                         unsigned long long* stats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cfg.rows < 32 || cfg.rows > MAX_ROWS || cfg.rows % 32 || cfg.wcap < 0 ||
-      12 * (size_t)cfg.wcap > 48 * 1024 || reinterpret_cast<uintptr_t>(forces) % 16)
+      12 * (size_t)cfg.wcap > 48 * 1024 || reinterpret_cast<uintptr_t>(forces) % 16 ||
+      cfg.nrep < 1 || cfg.nrep > 65535 || 3LL * cfg.natoms * cfg.nrep + 4 > INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (!add) {
-    cudaError_t err = cudaMemsetAsync(forces, 0, sizeof(float) * 3 * (size_t)cfg.natoms, s);
+    cudaError_t err = cudaMemsetAsync(
+        forces, 0, sizeof(float) * 3 * (size_t)cfg.natoms * cfg.nrep, s);
     if (err != cudaSuccess) return (int)err;
   }
   const int nblocks = cfg.block_start[cfg.nfam];
   const int4* idx4 = reinterpret_cast<const int4*>(idx);
   const int2* win = reinterpret_cast<const int2*>(windows);
   const size_t smem = 12 * (size_t)cfg.wcap;
+  const dim3 grid(nblocks, cfg.nrep);
   if (box != nullptr)
-    bonded_kernel<true><<<nblocks, cfg.rows, smem, s>>>(pos, idx4, par, box, win, cfg, forces,
+    bonded_kernel<true><<<grid, cfg.rows, smem, s>>>(pos, idx4, par, box, win, cfg, forces,
                                                         epart, ticket, energies, stats);
   else
-    bonded_kernel<false><<<nblocks, cfg.rows, smem, s>>>(pos, idx4, par, box, win, cfg, forces,
+    bonded_kernel<false><<<grid, cfg.rows, smem, s>>>(pos, idx4, par, box, win, cfg, forces,
                                                          epart, ticket, energies, stats);
   return (int)cudaGetLastError();
 }

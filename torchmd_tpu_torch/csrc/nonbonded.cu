@@ -44,6 +44,18 @@
 //     sums the tile's partials in unit order, and the last tile the tiles'
 //     energies in a fixed order: no float atomics, and forces and energies
 //     are bitwise deterministic.
+//   - a replica axis: one call takes R conformations of one topology
+//     (pos (R, N, 3), a box per replica or none) and gives R force arrays
+//     and R energy pairs, as the vmapped Pallas call does for a replica
+//     ladder (torchmd_tpu/integrator.py:547). The prep pass takes the
+//     replica on blockIdx.y and packs each replica's rows and tile boxes
+//     (the per-atom sigma, eps, id and type rows once: they are the
+//     topology's); the walk's units of work run over all R replicas from
+//     one counter, each with its replica's rows, box, partials and arrival
+//     counters. The exclusion words and type tables are shared. A
+//     replica's unit decomposition and summation order are those of a
+//     one-replica call, so its forces and energies equal that call's bit
+//     for bit.
 // Not built: Newton's third law (3,355 unordered tile pairs on thrombin
 // instead of 6,567 ordered ones), which needs a second owner of each force
 // row. Each (PBC, NBFIX, cutoff, electrostatics kind) has its own
@@ -74,6 +86,7 @@ struct PairCfg {
   int use_cutoff;
   int use_switch;
   int pbc;        // read by the host entry only (template flag)
+  int nrep;       // replicas of the call (>= 1)
   float cutoff2;
   float switch_dist;
   float inv_switch_width;
@@ -91,18 +104,20 @@ __host__ __device__ __forceinline__ int num_tiles(int n) {
 
 __host__ __device__ __forceinline__ int units_per_tile(int T) { return (T + UNIT - 1) / UNIT; }
 
-// Scratch layout of one call.
+// Scratch layout of one call of R replicas.
 struct Scratch {
-  float4* pq;      // (T * 32) x, y, z, q
+  float4* pq;      // (R, T * 32) x, y, z, q
   float4* aux;     // (T * 32) sigma/2, sqrt|eps|, id bits, type bits
-  float4* tbox;    // (2 T) tile boxes lo, hi
-  double* epart;   // (units, 2) per-unit energies
-  double* etile;   // (T, 2) per-tile energies
-  float* fpart;    // (units, 96) per-unit force rows
-  int* counters;   // (T + 2) arrivals per i tile, tiles finished, next unit
+  float4* tbox;    // (R, 2 T) tile boxes lo, hi
+  double* epart;   // (R, units, 2) per-unit energies
+  double* etile;   // (R, T, 2) per-tile energies
+  float* fpart;    // (R, units, 96) per-unit force rows
+  int* counters;   // (R (T + 1) + 1) per replica: arrivals per i tile and
+                   // tiles finished; then the next unit of all replicas
 };
 
 long long carve(const PairCfg& cfg, void* base, Scratch* s) {
+  const long long R = cfg.nrep;
   const long long T = num_tiles(cfg.natoms);
   const long long units = T * units_per_tile((int)T);
   char* p = static_cast<char*>(base);
@@ -112,13 +127,13 @@ long long carve(const PairCfg& cfg, void* base, Scratch* s) {
     off += (bytes + 15) / 16 * 16;
     return q;
   };
-  char* pq = take(16 * T * tiles::TILE);
+  char* pq = take(16 * R * T * tiles::TILE);
   char* aux = take(16 * T * tiles::TILE);
-  char* tbox = take(16 * 2 * T);
-  char* epart = take(8 * 2 * units);
-  char* etile = take(8 * 2 * T);
-  char* fpart = take(4 * (long long)ROW * units);
-  char* counters = take(4 * (T + 2));
+  char* tbox = take(16 * 2 * R * T);
+  char* epart = take(8 * 2 * R * units);
+  char* etile = take(8 * 2 * R * T);
+  char* fpart = take(4 * (long long)ROW * R * units);
+  char* counters = take(4 * (R * (T + 1) + 1));
   if (s != nullptr) {
     s->pq = reinterpret_cast<float4*>(pq);
     s->aux = reinterpret_cast<float4*>(aux);
@@ -131,21 +146,25 @@ long long carve(const PairCfg& cfg, void* base, Scratch* s) {
   return off;
 }
 
-// One warp per tile: packed rows, the tile's box; block 0 zeroes the
-// walk's counters.
+// One warp per tile and replica (blockIdx.y): packed rows, the tile's
+// box; the replica-0 blocks write the shared aux rows, block (0, 0)
+// zeroes the walk's counters.
 __global__ void __launch_bounds__(PREP_THREADS)
 pair_prep(const float* __restrict__ pos, const float* __restrict__ q,
           const float* __restrict__ sig, const float* __restrict__ eps,
           const int32_t* __restrict__ types, const __grid_constant__ PairCfg cfg,
           float4* __restrict__ pq, float4* __restrict__ aux, float4* __restrict__ tbox,
           int* __restrict__ counters) {
-  const int n = cfg.natoms, T = num_tiles(n);
-  if (blockIdx.x == 0)
-    for (int k = threadIdx.x; k <= T + 1; k += PREP_THREADS) counters[k] = 0;
+  const int n = cfg.natoms, T = num_tiles(n), rr = blockIdx.y;
+  if (blockIdx.x == 0 && rr == 0)
+    for (int k = threadIdx.x; k <= cfg.nrep * (T + 1); k += PREP_THREADS) counters[k] = 0;
   const int t = blockIdx.x * (PREP_THREADS / 32) + (threadIdx.x >> 5);
   if (t >= T) return;
   const int lane = threadIdx.x & 31, i = t * tiles::TILE + lane;
   const bool active = i < n;
+  pos += (size_t)rr * 3 * n;
+  pq += (size_t)rr * T * tiles::TILE;
+  tbox += (size_t)rr * 2 * T;
   float4 p = make_float4(0.f, 0.f, 0.f, 0.f), a = make_float4(0.f, 0.f, 0.f, 0.f);
   if (active) {
     p = make_float4(pos[3 * i], pos[3 * i + 1], pos[3 * i + 2], q[i]);
@@ -153,7 +172,7 @@ pair_prep(const float* __restrict__ pos, const float* __restrict__ q,
                     __int_as_float(types != nullptr ? types[i] : 0));
   }
   pq[i] = p;
-  aux[i] = a;
+  if (rr == 0) aux[i] = a;
   float4 lo, hi;
   tiles::warp_box(active, p.x, p.y, p.z, lo, hi);
   if (lane == 0) {
@@ -163,27 +182,42 @@ pair_prep(const float* __restrict__ pos, const float* __restrict__ q,
 }
 
 // Persistent warps take units of work from a counter: a unit is one i
-// tile against up to UNIT candidate j tiles, every upt-th of them. The
-// last unit of an i tile to finish sums the tile's force rows in unit
-// order, the last tile the energies.
+// tile of one replica against up to UNIT candidate j tiles, every upt-th
+// of them; replica r owns units [r units, (r + 1) units). The last unit
+// of an i tile to finish sums the tile's force rows in unit order, the
+// last tile of the replica its energies.
 template <bool PBC, bool NBFIX, bool CUTOFF, int ELEC>
 __global__ void __launch_bounds__(WARPS * 32)
-pair_walk(const float4* __restrict__ pq, const float4* __restrict__ aux,
-          const float4* __restrict__ tbox, const int32_t* __restrict__ xstart,
+pair_walk(const float4* __restrict__ pq_all, const float4* __restrict__ aux,
+          const float4* __restrict__ tbox_all, const int32_t* __restrict__ xstart,
           const int32_t* __restrict__ xtile, const uint32_t* __restrict__ xbits,
           const float* __restrict__ lj_a, const float* __restrict__ lj_b,
-          const float* __restrict__ box, const __grid_constant__ PairCfg cfg,
-          float* __restrict__ fpart, double* __restrict__ epart, double* __restrict__ etile,
-          int* __restrict__ counters, float* __restrict__ forces,
-          float* __restrict__ energies, unsigned long long* __restrict__ stats) {
+          const float* __restrict__ box_all, const __grid_constant__ PairCfg cfg,
+          float* __restrict__ fpart_all, double* __restrict__ epart_all,
+          double* __restrict__ etile_all, int* __restrict__ counters_all,
+          float* __restrict__ forces_all, float* __restrict__ energies_all,
+          unsigned long long* __restrict__ stats) {
   __shared__ tiles::WarpSmem smem[WARPS];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = cfg.natoms, T = num_tiles(n), upt = units_per_tile(T), units = T * upt;
+  int* const next = counters_all + (size_t)cfg.nrep * (T + 1);
   while (true) {
     int u = 0;
-    if (lane == 0) u = atomicAdd(counters + T + 1, 1);
+    if (lane == 0) u = atomicAdd(next, 1);
     u = __shfl_sync(tiles::FULL, u, 0);
-    if (u >= units) break;
+    if (u >= cfg.nrep * units) break;
+    // the replica's rows, box, partials, counters and outputs
+    const int rep = u / units;
+    u -= rep * units;
+    const float4* __restrict__ pq = pq_all + (size_t)rep * T * tiles::TILE;
+    const float4* __restrict__ tbox = tbox_all + (size_t)rep * 2 * T;
+    const float* __restrict__ box = PBC ? box_all + 3 * rep : box_all;
+    float* __restrict__ fpart = fpart_all + (size_t)rep * units * ROW;
+    double* __restrict__ epart = epart_all + (size_t)rep * 2 * units;
+    double* __restrict__ etile = etile_all + (size_t)rep * 2 * T;
+    int* __restrict__ counters = counters_all + (size_t)rep * (T + 1);
+    float* __restrict__ forces = forces_all + (size_t)rep * 3 * n;
+    float* __restrict__ energies = energies_all + 2 * rep;
     // unit r of tile it: candidates r, r + upt, r + 2 upt, ... (<= UNIT),
     // so that the dense j range around the i tile spreads over the units
     const int it = u / upt, r = u - it * upt;
@@ -298,13 +332,13 @@ void launch_cutoff(dim3 grid, cudaStream_t s, const PairCfg& cfg, const WalkArgs
 }
 
 // Persistent blocks of the walk: BLOCKS_PER_SM per SM of the current
-// device, no more than the units of work need.
-cudaError_t walk_grid(int T, dim3* grid) {
+// device, no more than the units of work of the R replicas need.
+cudaError_t walk_grid(int T, int R, dim3* grid) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const long long units = (long long)T * units_per_tile(T);
+  const long long units = (long long)R * T * units_per_tile(T);
   long long blocks = (units + WARPS - 1) / WARPS;
   if (blocks > (long long)BLOCKS_PER_SM * sms) blocks = (long long)BLOCKS_PER_SM * sms;
   *grid = dim3((unsigned)(blocks < 1 ? 1 : blocks));
@@ -316,12 +350,12 @@ cudaError_t walk_grid(int T, dim3* grid) {
 // Scratch of a call, in bytes (16-byte aligned pieces).
 extern "C" long long tmd_pair_scratch_bytes(PairCfg cfg) { return carve(cfg, nullptr, nullptr); }
 
-// pos (N,3), q/sig/eps (N), types (N) int32, lj_a/lj_b (T,T) or null
+// pos (R,N,3) for R = cfg.nrep replicas, q/sig/eps (N), types (N) int32, lj_a/lj_b (T,T) or null
 // (null: Lorentz-Berthelot from sig/eps), the exclusions as xstart
 // (ceil(N/32) + 1), xtile (X) and xbits (X, 32) (ops/nonbonded.py
-// tile_exclusions), box (3) or null (no PBC); scratch of
-// tmd_pair_scratch_bytes(cfg) bytes. Outputs: forces (N,3), energies (2)
-// as [lj-family, electrostatics]; stats (5 uint64, or null) gains the
+// tile_exclusions), box (R,3) or null (no PBC); scratch of
+// tmd_pair_scratch_bytes(cfg) bytes. Outputs: forces (R,N,3), energies
+// (R,2) as [lj-family, electrostatics]; stats (5 uint64, or null) gains the
 // walk's counters (tile_pairs.cuh Counters). Returns cudaGetLastError().
 extern "C" int tmd_pair_energy_forces(
     const float* pos, const float* q, const float* sig, const float* eps,
@@ -331,20 +365,22 @@ extern "C" int tmd_pair_energy_forces(
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = cfg.natoms;
-  if (n < 1 || (long long)num_tiles(n) * tiles::TILE > tiles::SLOT_MASK)
+  if (n < 1 || (long long)num_tiles(n) * tiles::TILE > tiles::SLOT_MASK || cfg.nrep < 1 ||
+      cfg.nrep > 65535 ||
+      (long long)cfg.nrep * num_tiles(n) * units_per_tile(num_tiles(n)) > INT_MAX / 2)
     return (int)cudaErrorInvalidValue;
   Scratch sc;
   carve(cfg, scratch, &sc);
   const int T = num_tiles(n);
   const int prep_blocks = (T + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32);
-  pair_prep<<<prep_blocks, PREP_THREADS, 0, s>>>(pos, q, sig, eps, types, cfg, sc.pq, sc.aux,
+  pair_prep<<<dim3(prep_blocks, cfg.nrep), PREP_THREADS, 0, s>>>(pos, q, sig, eps, types, cfg, sc.pq, sc.aux,
                                                  sc.tbox, sc.counters);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const WalkArgs a{sc.pq, sc.aux, sc.tbox, xstart, xtile, xbits, lj_a, lj_b, box,
                    sc.fpart, sc.epart, sc.etile, sc.counters, forces, energies, stats};
   dim3 grid;
-  err = walk_grid(T, &grid);
+  err = walk_grid(T, cfg.nrep, &grid);
   if (err != cudaSuccess) return (int)err;
   const bool nbfix = lj_a != nullptr;
   if (cfg.pbc) {

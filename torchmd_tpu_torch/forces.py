@@ -47,6 +47,15 @@ any object with the reference's `calculate` protocol): `ef_one`
 evaluates it after the internal terms, reports its `"external"` energy
 and adds its forces into the same buffer.
 
+`ef_batch(pos (R, N, 3), boxes)` evaluates a replica ladder: on the
+dense kernel path `ef_one` itself takes the R conformations, with one
+launch of the pair kernel and one of the bonded kernel for all of them
+(the replica axis the vmapped Pallas calls of the JAX package have,
+torchmd_tpu/integrator.py:547) and its other stages (the reciprocal
+term, the autograd terms, the virtual sites, the external) per replica;
+on the other paths, or for replicas that mix a box and none, `ef_one`
+per replica. `compute` and the Integrator's dense path take it.
+
 `gather` picks the PME force gather ("ik" or "exact", `ewald.PmeRecip`;
 default ik for CUDA f32, exact otherwise).
 
@@ -107,6 +116,28 @@ def _box_to_diag(box, nreplicas) -> np.ndarray:
     return np.tile(box.reshape(1, 3), (nreplicas, 1))
 
 
+def _stack_terms(outs):
+    """[(per-term energies, forces)] of R replicas -> ({term: (R,)},
+    forces (R, N, 3)); a term missing in a replica counts 0."""
+    keys = list(dict.fromkeys(k for pot, _ in outs for k in pot))
+    frc = torch.stack([f for _, f in outs])
+    zero = frc.new_zeros(())
+    return ({k: torch.stack([pot.get(k, zero) for pot, _ in outs]) for k in keys}, frc)
+
+
+def _each(fn):
+    """A stage of one conformation, fn(pos (N, 3), box, *args) ->
+    ({term: energy}, forces), also applied to R conformations: pos (R, N,
+    3) with box (R, 3) or None, one replica at a time, stacked."""
+    def lifted(pos, box, *args):
+        if pos.dim() == 2:
+            return fn(pos, box, *args)
+        return _stack_terms([fn(pos[r], None if box is None else box[r], *args)
+                             for r in range(pos.shape[0])])
+
+    return lifted
+
+
 def select_path(kernel, plain, device, dtype) -> str:
     """"kernels" (the kernel wrappers of `ops`: the CUDA kernels on the
     card, their plain PyTorch versions on the CPU) or "torch-ops" (the
@@ -133,16 +164,22 @@ def _with_external(internal, ext):
     N, 3], box)` protocol is called with one replica."""
     ext_ef = external_ef(ext)
 
-    def ef_one(pos, box, cl=None):
-        pot, frc = internal(pos, box, cl)
+    @_each
+    def external_one(pos, box):
+        """The external's ({"external": energy ()}, forces) at one
+        conformation: through `ext_ef` when it has a torch energy, else
+        its batched `calculate` with one replica."""
         if ext_ef is not None:
             e, f = ext_ef(pos, batch_box(box, pos[None])[0])
         else:
             e, f = (torch.as_tensor(to_numpy(x), dtype=pos.dtype, device=pos.device)
                     for x in ext.calculate(pos[None], None if box is None else box[None]))
-        pot = dict(pot)
-        pot["external"] = e.reshape(())
-        return pot, frc.add_(f.reshape(pos.shape))
+        return {"external": e.reshape(())}, f.reshape(pos.shape)
+
+    def ef_one(pos, box, cl=None):
+        pot, frc = internal(pos, box, cl)
+        e, f = external_one(pos, box)
+        return {**pot, **e}, frc.add_(f)
 
     return ef_one
 
@@ -273,6 +310,9 @@ class Forces:
 
         nb = None
         kern = self._cell_kernel
+        # the dense kernel path evaluates a ladder in one `ef_one` call
+        # (`ef_batch`): both kernels take (R, N, 3) positions
+        self._kernel_batch = self.use_kernels and kern is None
         if kern is not None:
             def nb(pos, box, cl):
                 return kern.energy_forces(pos, box, cl)
@@ -287,6 +327,8 @@ class Forces:
                 def nb(pos, box, cl):
                     return _potentials.nonbonded_energy_forces(ffp, pos, box, config)
         elif self.has_nb:
+            self._kernel_batch = False
+
             def nb(pos, box, cl):
                 raise RuntimeError(
                     "the (N, N) exclusion mask is deferred for the cell path; "
@@ -301,6 +343,7 @@ class Forces:
                 cl = kern.build(pos, box)
             return nb(pos, box, cl)
 
+        @_each
         def recip_ef_one(pos, box, cl=None):
             """The reciprocal term (PME or the exact Ewald sum) as
             ({"electrostatics": e}, forces); the PME spread follows the
@@ -323,7 +366,10 @@ class Forces:
 
         def ef_one(pos, box, cl=None):
             """All terms of one conformation: (per-term energies, forces).
-            The bonded forces add into the nonbonded ones' buffer."""
+            The bonded forces add into the nonbonded ones' buffer. On the
+            dense kernel path also of R conformations (pos (R, N, 3), box
+            (R, 3) or None): each kernel launches once for all of them, the
+            other stages run per replica."""
             if nb is None:
                 return bonded_ef_one(pos, box)
             nb_pot, frc = nb_ef_one(pos, box, cl)
@@ -364,24 +410,44 @@ class Forces:
     def has_autograd_terms(self) -> bool:
         return bool(self._autograd_tables())
 
+    def _autograd_ef(self, pos, box):
+        """(`autograd_terms` detached, their gradient) of one conformation."""
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(True)
+            terms = self.autograd_terms(p, box)
+            (g,) = torch.autograd.grad(sum(terms.values()), p)
+        return {k: v.detach() for k, v in terms.items()}, g
+
     def _with_autograd_terms(self, bonded_ef_one):
         """`bonded_ef_one` plus `autograd_terms`: their energies added to
         the per-term dict, their forces by `torch.autograd`."""
         if not self.has_autograd_terms():
             return bonded_ef_one
 
+        autograd_ef = _each(self._autograd_ef)
+
         def wrapped(pos, box, out=None):
             pot, frc = bonded_ef_one(pos, box, out=out)
-            with torch.enable_grad():
-                p = pos.detach().requires_grad_(True)
-                terms = self.autograd_terms(p, box)
-                (g,) = torch.autograd.grad(sum(terms.values()), p)
+            terms, g = autograd_ef(pos, box)
             pot = dict(pot)
             for k, v in terms.items():
-                add_energy(pot, k, v.detach())
+                add_energy(pot, k, v)
             return pot, frc - g
 
         return wrapped
+
+    def ef_batch(self, pos, boxes):
+        """All terms of R conformations: (per-term energies (R,), forces
+        (R, N, 3)). `boxes`: one (3,) tensor or None per replica (None: no
+        PBC). On the dense kernel path, when the replicas all have a box or
+        all have none, one `ef_one` call: the pair kernel and the bonded
+        kernel launch once each for the whole ladder. Otherwise `ef_one`
+        per replica."""
+        nrep = pos.shape[0]
+        nobox = [b is None for b in boxes]
+        if self._kernel_batch and (all(nobox) or not any(nobox)):
+            return self.ef_one(pos, None if nobox[0] else torch.stack(list(boxes)))
+        return _stack_terms([self.ef_one(pos[r], boxes[r]) for r in range(nrep)])
 
     def mts_tiers(self, recip_tier=False):
         """The r-RESPA tiers of one conformation, each (pos, box[, cl]) ->
@@ -607,23 +673,17 @@ class Forces:
         nreplicas = pos_t.shape[0]
         box_np = _box_to_diag(box, nreplicas)
         self.prepare(pos_t, box_np)
-        pots, frcs = [], []
+        # an all-zero box is no PBC: the wrap is left out
+        boxes = [torch.as_tensor(box_np[r], dtype=self.dtype, device=self.device)
+                 if np.any(box_np[r] != 0) else None for r in range(nreplicas)]
         with torch.no_grad():
-            for r in range(nreplicas):
-                # an all-zero box is no PBC: the wrap is left out
-                b = (torch.as_tensor(box_np[r], dtype=self.dtype, device=self.device)
-                     if np.any(box_np[r] != 0) else None)
-                pot, frc = self.ef_one(pos_t[r], b)
-                pots.append(pot)
-                frcs.append(frc)
-        zero = torch.zeros((), dtype=self.dtype, device=self.device)
-        keys = list(pots[0].keys())
+            pot, frc = self.ef_batch(pos_t, boxes)
+        keys = list(pot.keys())
         if "external" not in keys:
             keys.append("external")
-        pot = {k: torch.stack([p.get(k, zero) for p in pots]) for k in keys}
+            pot["external"] = torch.zeros(nreplicas, dtype=self.dtype, device=self.device)
 
         if calculateForces:
-            frc = torch.stack(frcs)
             self.last_forces = frc
             if isinstance(forces, np.ndarray):
                 forces[:] = frc.cpu().numpy().astype(forces.dtype)

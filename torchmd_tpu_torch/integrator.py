@@ -110,12 +110,21 @@ BOLTZMAN = BOLTZMANN  # reference-compatible alias
 MAX_OVERFLOW_RETRIES = 4
 
 
-def kinetic_energy(masses, vel):
-    """Kinetic energy per replica, (nreplicas, 1)."""
+def kinetic_energy(masses, vel, batch=None, nbatch=None):
+    """Kinetic energy per replica, (nreplicas, 1), or per replica and
+    atom group, (nreplicas, nbatch), when `batch` (a (natoms,) int64
+    tensor on vel's device) gives each atom's group (reference
+    torchmd/integrator.py:8-43); `nbatch` defaults to batch.max() + 1,
+    which reads the device."""
     if vel.ndim != 3:
         raise ValueError(f"vel must be 3D (nreplicas, natoms, 3), got {vel.ndim}D")
     m = masses.reshape(1, -1)
-    return (0.5 * m * (vel * vel).sum(2)).sum(1, keepdim=True)
+    e_atom = 0.5 * m * (vel * vel).sum(2)
+    if batch is None:
+        return e_atom.sum(1, keepdim=True)
+    nbatch = int(batch.max()) + 1 if nbatch is None else int(nbatch)
+    out = e_atom.new_zeros((e_atom.shape[0], nbatch))
+    return out.index_add_(1, batch, e_atom)
 
 
 def kinetic_to_temp(Ekin, natoms):
@@ -178,7 +187,15 @@ class Integrator:
     rescale (`tau` fs, default 100 timesteps; `thermostat_energy()` is the
     chain's part of the conserved energy, 0 for CSVR); `mts` and
     `mts_recip` run r-RESPA (module docstring). Massless atoms must be
-    virtual sites of the force field."""
+    virtual sites of the force field.
+
+    `T` is a scalar or, for a replica ladder (`remd.ReplicaExchange`), a
+    (nreplicas,) vector: the Langevin noise coefficient is then (R, 1, 1)
+    x (natoms, 1) (torchmd_tpu/integrator.py:133-156); NHC and CSVR take a
+    scalar only. `batch` ((natoms,) ints) groups the atoms into
+    sub-systems: `step` then reports the kinetic energy and T per
+    replica and group, (R, nbatch), with each group's atom count as its
+    degrees of freedom (counted on the host, numpy)."""
 
     def __init__(self, systems, forces, timestep, device=None, gamma=None,
                  T=None, batch=None, seed=1, generator=None, mesh=None,
@@ -198,7 +215,7 @@ class Integrator:
                 raise ValueError(f"mts_recip must be >= 1, got {mts_recip}")
             if batch is not None:
                 raise NotImplementedError("mts_recip + atom batching")
-        for name, value, item in (("batch", batch, "11b"), ("mesh", mesh, "21"),
+        for name, value, item in (("mesh", mesh, "21"),
                                   *((k, v, None) for k, v in unported.items())):
             if value is not None and not (isinstance(value, (bool, int))
                                           and not value):
@@ -207,8 +224,10 @@ class Integrator:
                     f"Integrator({name}=...) is not ported yet{where}; a later "
                     "slice of the port brings it")
         if T is not None and np.ndim(T) > 0:
-            raise NotImplementedError(
-                "per-replica T vectors are not ported yet (ROADMAP item 11b)")
+            t_arr = np.asarray(T, dtype=np.float64)
+            if t_arr.shape != (systems.nreplicas,):
+                raise ValueError(f"T vector shape {t_arr.shape} != (nreplicas,)")
+        t_on = T is not None and bool(np.any(np.asarray(T) > 0))
 
         self.dt = timestep / TIMEFACTOR
         self.systems = systems
@@ -226,7 +245,17 @@ class Integrator:
         else:
             masses = np.asarray(forces.par.masses, dtype=np.float64).reshape(-1, 1)
         n_real = int(np.sum(masses.reshape(-1) > 0))
-        self.natoms = n_real
+        self.natoms = self._n_real = n_real
+        self.batch = None
+        self._batch_t = None
+        if batch is not None:
+            # groups counted on the host: torch.bincount on CUDA syncs
+            self.batch = np.asarray(batch, dtype=np.int64).reshape(-1)
+            if self.batch.shape != (len(masses),) or self.batch.min() < 0:
+                raise ValueError(f"batch must give each of the {len(masses)} atoms a "
+                                 "group index >= 0")
+            self.natoms = np.bincount(self.batch)
+            self._batch_t = torch.as_tensor(self.batch, device=self.device)
         self.vsites = getattr(forces, "vsites", None)
         if n_real < len(masses) and not self.vsites:
             raise ValueError(
@@ -249,7 +278,7 @@ class Integrator:
             self.constraints = build_constraint_spec(
                 forces.par, masses, mode=constraints, device=self.device,
                 dtype=self.dtype)
-            if self.constraints is not None:
+            if self.constraints is not None and batch is None:
                 self._dof_scale = (3 * n_real) / max(
                     3 * n_real - self.constraints.ncon, 1)
 
@@ -258,8 +287,8 @@ class Integrator:
         if thermostat not in (None, "langevin", "none"):
             from .thermostats import make_thermostat
 
-            if not T:
-                raise ValueError(f"thermostat='{thermostat}' requires T")
+            if not (T is not None and np.ndim(T) == 0 and T):
+                raise ValueError(f"thermostat='{thermostat}' requires a scalar T")
             ncon = self.constraints.ncon if self.constraints is not None else 0
             tau_fs = float(tau) if tau is not None else 100.0 * float(timestep)
             self._thermostat = make_thermostat(
@@ -294,8 +323,8 @@ class Integrator:
                 "mts (r-RESPA) needs a force provider with split evaluators "
                 "(Forces.mts_tiers)")
 
-        self._langevin = T is not None and T > 0 and self.gamma is not None
-        if T is not None and T > 0 and self.gamma is None and self._thermostat is None:
+        self._langevin = t_on and self.gamma is not None
+        if t_on and self.gamma is None and self._thermostat is None:
             raise ValueError(
                 "T (thermostat temperature) set but no coupling: pass gamma "
                 "(Langevin friction, ps^-1) or thermostat='nhc'")
@@ -306,8 +335,13 @@ class Integrator:
             base = torch.where(
                 m > 0, torch.sqrt(2.0 * self.gamma / safe * BOLTZMANN * self.dt),
                 torch.zeros_like(m))
-            self.vcoeff = base * torch.tensor(float(np.sqrt(float(T))),
-                                              dtype=self.dtype, device=self.device)
+            if np.ndim(T) > 0:
+                self.vcoeff = torch.as_tensor(
+                    np.sqrt(np.asarray(T, np.float64)), dtype=self.dtype,
+                    device=self.device)[:, None, None] * base[None]
+            else:
+                self.vcoeff = base * torch.tensor(float(np.sqrt(float(T))),
+                                                  dtype=self.dtype, device=self.device)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         self.generator = generator
@@ -345,9 +379,9 @@ class Integrator:
         if not hasattr(forces, "ffparams"):
             raise ValueError("MTK barostat needs a Forces with its parameters")
         ncon = self.constraints.ncon if self.constraints is not None else 0
-        ndof = 3 * self.natoms - ncon
+        ndof = 3 * self._n_real - ncon
         if self._thermostat is None:
-            if T is not None and T > 0 and self.gamma is not None:
+            if T is not None and np.any(np.asarray(T) > 0) and self.gamma is not None:
                 raise ValueError(
                     "MTK barostat requires thermostat='nhc' (Langevin piston "
                     "is not implemented)")
@@ -400,37 +434,45 @@ class Integrator:
         self._host_snap = tuple(a.copy() for a in snap)
         return self._dev_state
 
+    def _nbatch(self):
+        return 1 if self.batch is None else len(self.natoms)
+
     def _pack(self, state: SimState, epot, overflow, box=None):
-        """pos, vel, forces and an (Ekin, Epot, overflow[, box]) row,
-        stacked for one copy."""
-        r, n = state.pos.shape[0], state.pos.shape[1]
-        aux = torch.zeros((r, 3 * n), dtype=self.dtype, device=self.device)
-        aux[:, 0] = kinetic_energy(self.masses, state.vel)[:, 0]
-        aux[:, 1] = epot
-        aux[:, 2] = overflow.to(self.dtype)
+        """pos, vel, forces and an (Ekin per group, Epot, overflow[, box])
+        row, concatenated along the atoms for one copy."""
+        r = state.pos.shape[0]
+        nb = self._nbatch()
+        width = 3 * (-(-(nb + 5) // 3))
+        aux = torch.zeros((r, width), dtype=self.dtype, device=self.device)
+        aux[:, :nb] = kinetic_energy(self.masses, state.vel, self._batch_t, nb)
+        aux[:, nb] = epot
+        aux[:, nb + 1] = overflow.to(self.dtype)
         if box is not None:
-            aux[:, 3:6] = box
-        return torch.stack([state.pos, state.vel, state.forces,
-                            aux.reshape(r, n, 3)])
+            aux[:, nb + 2:nb + 5] = box
+        return torch.cat([state.pos, state.vel, state.forces,
+                          aux.reshape(r, width // 3, 3)], dim=1)
 
     def _sync_to_host(self, state: SimState, epot, overflow, box=None):
         """One packed device->host copy; returns (Ekin, Epot, overflowed)
         and, unless the chunk overflowed, writes the state (and the box,
-        when given) to the System."""
+        when given) to the System. Ekin is (R,), or (R, nbatch) with
+        `batch`."""
         packed = self._pack(state, epot, overflow, box).cpu().numpy()
-        aux = packed[3].reshape(packed.shape[1], -1)
-        if aux[0, 2] != 0:
+        n, nb = state.pos.shape[1], self._nbatch()
+        aux = packed[:, 3 * n:].reshape(packed.shape[0], -1)
+        if aux[0, nb + 1] != 0:
             return None, None, True
         s = self.systems
-        s.pos[:] = packed[0]
-        s.vel[:] = packed[1]
-        s.forces[:] = packed[2]
+        s.pos[:] = packed[:, :n]
+        s.vel[:] = packed[:, n:2 * n]
+        s.forces[:] = packed[:, 2 * n:3 * n]
         if box is not None:
             for r in range(s.nreplicas):
-                np.fill_diagonal(s.box[r], aux[r, 3:6])
+                np.fill_diagonal(s.box[r], aux[r, nb + 2:nb + 5])
         self._dev_state = state
         self._host_snap = (s.pos.copy(), s.vel.copy(), s.forces.copy())
-        return aux[:, 0].astype(np.float64), aux[:, 1].astype(np.float64), False
+        ekin = aux[:, :nb] if self.batch is not None else aux[:, 0]
+        return ekin.astype(np.float64), aux[:, nb].astype(np.float64), False
 
     def _kernel(self):
         """The neighbour kernel of this path (cell, column or Verlet, as
@@ -439,10 +481,15 @@ class Integrator:
 
     def _energy_forces(self, pos, boxes, kern, cls):
         """(Epot (R,), forces (R, N, 3), overflow flag, neighbour
-        structures) through the forces' evaluator; on the neighbour paths
-        each replica's structure is refreshed for `pos` first."""
+        structures) through the forces' evaluator: on the dense path the
+        ladder evaluator (`Forces.ef_batch`, one launch of each kernel for
+        all replicas); on the neighbour paths each replica's structure is
+        refreshed for `pos` first and evaluated on its own."""
         epots, frcs, new = [], [], []
         overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        if kern is None and hasattr(self.forces, "ef_batch"):
+            pot, frc = self.forces.ef_batch(pos, boxes)
+            return _total(pot, pos, pos.shape[:1]), frc, overflow, cls
         for r in range(pos.shape[0]):
             if kern is None:
                 pot, frc = self.forces.ef_one(pos[r], boxes[r])
@@ -934,10 +981,11 @@ class Integrator:
         return e
 
 
-def _total(pot, like):
-    """The sum of a per-term energy dict (0 for an empty one)."""
+def _total(pot, like, shape=()):
+    """The sum of a per-term energy dict (zeros of `shape` for an empty
+    one)."""
     vals = list(pot.values())
-    return sum(vals) if vals else torch.zeros((), dtype=like.dtype, device=like.device)
+    return sum(vals) if vals else torch.zeros(shape, dtype=like.dtype, device=like.device)
 
 
 def _capacity(kern):

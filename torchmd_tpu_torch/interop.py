@@ -9,8 +9,10 @@ bool, float leaves take `dtype`.
 The functions below do the same for the periodic slices' structures: the
 exclusion table, the cell and column configurations, the cell list, PME,
 SETTLE, virtual sites, the Nose-Hoover chain state and the MTK barostat's
-extended state, so that a test can run both packages on identical inputs
-or hand a run from one to the other.
+extended state, and for the sampling slice's: a GBSA term, an alchemical
+coupling, a metadynamics bias grid and the lambda-dynamics state, so
+that a test can run both packages on identical inputs or hand a run from
+one to the other.
 """
 
 from __future__ import annotations
@@ -158,3 +160,50 @@ def mtk_state_from_numpy(v_eps, xi, vxi, virial=None, device="cpu",
     vir = None if virial is None else _tensor(np.reshape(virial, (-1, 3)), device, dtype)
     return (_tensor(np.reshape(v_eps, (-1, 3)), device, dtype),
             {"xi": _tensor(xi, device, dtype), "vxi": _tensor(vxi, device, dtype)}, vir)
+
+
+# ----------------------------------------------------------------------
+# The sampling slice: implicit solvent, alchemy, metadynamics and
+# lambda-dynamics
+# ----------------------------------------------------------------------
+
+def gbsa_from_numpy(g, device="cpu"):
+    """The port's `GBSA` with the charges, radii, screening factors,
+    dielectrics, surface term and cutoff of a JAX `GBSA` (numpy leaves)."""
+    from .gb import GBSA
+
+    return GBSA(np.asarray(g.charges), np.asarray(g.radii), np.asarray(g.screen),
+                solvent_dielectric=g.eps_out, solute_dielectric=g.eps_in, sa=g.sa,
+                cutoff=g.cutoff, device=device)
+
+
+def coupling_from_numpy(c, ffparams, cfg):
+    """The port's `AlchemicalCoupling` over the port's `ffparams` and
+    `cfg` with the alchemical and environment index sets, lambda, alpha
+    and soft-core power of a JAX `AlchemicalCoupling` (numpy leaves)."""
+    from .alchemy import AlchemicalCoupling
+
+    return AlchemicalCoupling(ffparams, cfg, np.asarray(c.alch_idx), lam=c.lam, alpha=c.alpha,
+                              softcore_power=c.softcore_power,
+                              env_atoms=np.asarray(c.env_idx))
+
+
+def metadynamics_state_from_numpy(metad, bias, step_count=0, nhills=0):
+    """Give the port's `MetaDynamics` a bias grid (nbins,), its global step
+    count and hill count (the JAX object's `bias`, `_step_count` and
+    `nhills`), so that its next `run` continues that run."""
+    bias = np.array(bias, np.float64).reshape(-1)
+    if bias.shape != (metad.nbins,):
+        raise ValueError(f"bias grid of {bias.shape[0]} bins, want {metad.nbins}")
+    metad.bias = torch.as_tensor(bias, dtype=metad.dtype, device=metad.device)
+    metad._step_count = int(step_count)
+    metad.nhills = int(nhills)
+    return metad
+
+
+def lambda_state_from_numpy(ld, theta, vtheta):
+    """Give the port's `LambdaDynamics` the thetas and their velocities
+    ((nsites,) each) of a JAX one."""
+    ld.theta = _tensor(np.reshape(theta, (-1,)), ld.device, ld.dtype)
+    ld.vtheta = _tensor(np.reshape(vtheta, (-1,)), ld.device, ld.dtype)
+    return ld

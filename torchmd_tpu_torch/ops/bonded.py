@@ -20,7 +20,10 @@ launch.
 `bonded_energy_forces(plan, pos, box)` runs the plain version for a CPU
 tensor and launches the kernel for a CUDA tensor; on a CUDA tensor it
 launches or raises. With `out=` it adds the forces into the caller's
-buffer instead of a zeroed one of its own.
+buffer instead of a zeroed one of its own. `pos` (R, N, 3) is a replica
+ladder of one topology, with a box per replica ((R, 3)) or none: one
+launch of the kernel for all R replicas (the plain version loops over
+them).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ LAUNCHES = 0
 ROWS = 128    # rows per CUDA block, a thread each (csrc/bonded.cu takes 32..256)
 WCAP = 2048   # atoms a block's shared window holds at most (12 bytes each)
 MAXFAM = 8    # csrc/bonded.cu MAXFAM
+MAX_REPLICAS = 1024  # replicas of one launch at most (the plan's tickets)
 # the kernel's counters (`stats=`)
 STATS = ("global_atomics", "window_rows", "direct_rows", "window_blocks",
          "direct_blocks")
@@ -70,7 +74,8 @@ class BondedKernelPlan(NamedTuple):
     windows: Optional[torch.Tensor] = None  # (R / rows, 2) int32 first atom, atoms
     wcap: int = 0            # atoms of the kernel's shared window: the widest
                              # window up to WCAP; wider blocks add straight
-    ticket: Optional[torch.Tensor] = None   # (1,) int32 of the kernel, 0 between calls
+    ticket: Optional[torch.Tensor] = None   # (MAX_REPLICAS,) int32 of the kernel, one
+                                            # per replica, 0 between calls
 
 
 def block_windows(idx, rows):
@@ -177,7 +182,7 @@ def build_bonded_kernel_plan(ffp, cfg, dtype=None, wcap=WCAP) -> Optional[Bonded
         zero_terms=tuple(zero_terms), rows=ROWS,
         windows=torch.as_tensor(windows, device=dev),
         wcap=int(fit.max(initial=0)),
-        ticket=torch.zeros(1, dtype=torch.int32, device=dev),
+        ticket=torch.zeros(MAX_REPLICAS, dtype=torch.int32, device=dev),
     )
 
 
@@ -322,6 +327,7 @@ class BondedCfg(ctypes.Structure):
         ("nfam", ctypes.c_int),
         ("rows", ctypes.c_int),
         ("wcap", ctypes.c_int),
+        ("nrep", ctypes.c_int),
         ("block_start", ctypes.c_int * (MAXFAM + 1)),
         ("kind", ctypes.c_int * MAXFAM),
         ("flags", ctypes.c_int * MAXFAM),
@@ -351,9 +357,9 @@ def build():
     _library()
 
 
-def _kernel_cfg(plan: BondedKernelPlan) -> BondedCfg:
+def _kernel_cfg(plan: BondedKernelPlan, nrep=1) -> BondedCfg:
     c = BondedCfg(natoms=plan.natoms, nfam=len(plan.families), rows=plan.rows,
-                  wcap=plan.wcap)
+                  wcap=plan.wcap, nrep=nrep)
     for f, fam in enumerate(plan.families):
         c.block_start[f] = fam.row0 // plan.rows
         c.kind[f] = KINDS[fam.kind]
@@ -367,29 +373,35 @@ def _kernel_cfg(plan: BondedKernelPlan) -> BondedCfg:
 def _launch(plan: BondedKernelPlan, pos, box, out, stats):
     global LAUNCHES
     n, dev, f32 = plan.natoms, pos.device, torch.float32
+    lead = tuple(pos.shape[:-2])       # () or (R,)
+    nrep = pos.shape[0] if lead else 1
+    if len(lead) > 1 or not 1 <= nrep <= MAX_REPLICAS:
+        raise ValueError(f"pos must be (N, 3) or (R, N, 3) with 1 <= R <= "
+                         f"{MAX_REPLICAS}, got {tuple(pos.shape)}")
     nrows = plan.idx.shape[0]
     nblocks = nrows // plan.rows
-    _build.check_tensor(pos, "pos", f32, (n, 3), dev)
+    _build.check_tensor(pos, "pos", f32, lead + (n, 3), dev)
     _build.check_tensor(plan.idx, "idx", torch.int32, (nrows, 4), dev)
     _build.check_tensor(plan.par, "par", f32, (nrows, 3), dev)
     _build.check_tensor(plan.windows, "windows", torch.int32, (nblocks, 2), dev)
-    _build.check_tensor(plan.ticket, "ticket", torch.int32, (1,), dev)
+    _build.check_tensor(plan.ticket, "ticket", torch.int32, (MAX_REPLICAS,), dev)
     if plan.idx.data_ptr() % 16:
         raise ValueError("idx must be 16-byte aligned (read as int4 rows)")
     if box is not None:
-        _build.check_tensor(box, "box", f32, (3,), dev)
+        _build.check_tensor(box, "box", f32, lead + (3,), dev)
     if stats is not None:
         _build.check_tensor(stats, "stats", torch.int64, (len(STATS),), dev)
-    forces = out if out is not None else torch.empty((n, 3), dtype=f32, device=dev)
-    _build.check_tensor(forces, "out", f32, (n, 3), dev)
+    forces = out if out is not None else torch.empty(lead + (n, 3), dtype=f32, device=dev)
+    _build.check_tensor(forces, "out", f32, lead + (n, 3), dev)
     if forces.data_ptr() % 16:
         raise ValueError("the forces must be 16-byte aligned (flushed by 16-byte atomics)")
     lib = _library()
-    epart = torch.empty((nblocks, 2), dtype=torch.float64, device=dev)
-    energies = torch.empty((len(plan.families), 2), dtype=f32, device=dev)
+    epart = torch.empty((nrep, nblocks, 2), dtype=torch.float64, device=dev)
+    energies = torch.empty(lead + (len(plan.families), 2), dtype=f32, device=dev)
     err = lib.tmd_bonded_energy_forces(
         pos.data_ptr(), plan.idx.data_ptr(), plan.par.data_ptr(),
-        None if box is None else box.data_ptr(), plan.windows.data_ptr(), _kernel_cfg(plan),
+        None if box is None else box.data_ptr(), plan.windows.data_ptr(),
+        _kernel_cfg(plan, nrep),
         epart.data_ptr(), plan.ticket.data_ptr(), forces.data_ptr(), int(out is not None),
         energies.data_ptr(), None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -397,22 +409,37 @@ def _launch(plan: BondedKernelPlan, pos, box, out, stats):
         raise RuntimeError(
             f"bonded kernel launch failed: {lib.tmd_error_string(err).decode()}")
     LAUNCHES += 1
-    return _energy_dict(plan, energies, lambda: energies.new_zeros(())), forces
+    fam_e = [(energies[..., f, 0], energies[..., f, 1]) for f in range(len(plan.families))]
+    return _energy_dict(plan, fam_e, lambda: energies.new_zeros(lead)), forces
+
+
+def bonded_reference_batch(plan: BondedKernelPlan, pos, box=None, out=None):
+    """The plain version over a replica ladder: `bonded_reference` for
+    each replica of pos (R, N, 3) with its box (R, 3) or None, stacked:
+    ({term: (R,)}, forces (R, N, 3), added into `out` when given)."""
+    outs = [bonded_reference(plan, p, None if box is None else box[r],
+                             None if out is None else out[r])
+            for r, p in enumerate(pos)]
+    frc = out if out is not None else torch.stack([o[1] for o in outs])
+    return {k: torch.stack([o[0][k] for o in outs]) for k in outs[0][0]}, frc
 
 
 def bonded_energy_forces(plan: BondedKernelPlan, pos, box=None, out=None, stats=None):
-    """pos: (N, 3); box: (3,) diagonal tensor or None (no PBC). Returns
-    ({term: 0-dim energy tensor}, forces (N, 3)). A CPU tensor runs the
-    plain version; a CUDA tensor launches the kernel (f32 only) or raises.
-    A plan with no rows launches nothing. `out`, an (N, 3) tensor of pos's
-    dtype and device: the forces are added into it, and it is returned.
-    `stats`, an int64 (5,) card tensor, gains the kernel's counters
-    (STATS)."""
+    """pos: (N, 3), or (R, N, 3) for R replicas of the topology; box:
+    (3,) (or (R, 3)) diagonal tensor or None (no PBC). Returns ({term:
+    energy tensor, 0-dim (or (R,))}, forces of pos's shape). A CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel (f32 only),
+    once for all the replicas, or raises. A plan with no rows launches
+    nothing. `out`, a tensor of pos's shape, dtype and device: the forces
+    are added into it, and it is returned. `stats`, an int64 (5,) card
+    tensor, gains the kernel's counters (STATS)."""
     if not plan.families:
-        return ({name: pos.new_zeros(()) for name in plan.zero_terms},
+        return ({name: pos.new_zeros(pos.shape[:-2]) for name in plan.zero_terms},
                 torch.zeros_like(pos) if out is None else out)
     if pos.device.type == "cuda":
         return _launch(plan, pos, box, out, stats)
     if pos.device.type == "cpu":
+        if pos.dim() == 3:
+            return bonded_reference_batch(plan, pos, box, out)
         return bonded_reference(plan, pos, box, out)
     raise ValueError(f"no bonded kernel for device {pos.device}")

@@ -16,7 +16,10 @@ it as `tile_exclusions` of the mask, made once per topology in
 for a CPU tensor and launches the kernel for a CUDA tensor; on a CUDA
 tensor it launches or raises. A launch takes one LJ-family term: a term
 set with several takes one launch per such term (`launch_cfgs`), on
-either device.
+either device. `pos` (R, N, 3) is a replica ladder of one topology, with
+a box per replica ((R, 3)) or none: one launch of the kernel for all R
+replicas (the plain version loops over them), each replica's result bit
+for bit that of a one-replica launch.
 """
 
 from __future__ import annotations
@@ -222,7 +225,7 @@ class PairCfg(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "natoms", "ntypes", "lj_kind", "elec_kind", "use_cutoff",
-        "use_switch", "pbc")] + [(name, ctypes.c_float) for name in (
+        "use_switch", "pbc", "nrep")] + [(name, ctypes.c_float) for name in (
             "cutoff2", "switch_dist", "inv_switch_width", "krf", "crf",
             "ewald_alpha", "elec_factor")]
 
@@ -260,8 +263,9 @@ def _energy_dict(kcfg, e_lj, e_el):
     return out
 
 
-def pair_cfg(kcfg, natoms, ntypes) -> PairCfg:
-    """The kernel's PairCfg from a `make_kernel_cfg` dict."""
+def pair_cfg(kcfg, natoms, ntypes, nrep=1) -> PairCfg:
+    """The kernel's PairCfg from a `make_kernel_cfg` dict, for `nrep`
+    replicas."""
     lj_kind = (1 if kcfg["lj"] else 2 if kcfg["repulsion"]
                else 3 if kcfg["repulsioncg"] else 0)
     elec_kind = 0
@@ -273,7 +277,7 @@ def pair_cfg(kcfg, natoms, ntypes) -> PairCfg:
     return PairCfg(
         natoms=natoms, ntypes=ntypes, lj_kind=lj_kind, elec_kind=elec_kind,
         use_cutoff=int(cutoff is not None), use_switch=int(use_switch),
-        pbc=int(kcfg["pbc"]),
+        pbc=int(kcfg["pbc"]), nrep=nrep,
         cutoff2=cutoff ** 2 if cutoff is not None else 0.0,
         switch_dist=switch if use_switch else 0.0,
         inv_switch_width=1.0 / (cutoff - switch) if use_switch else 0.0,
@@ -287,7 +291,11 @@ def _launch(data: NBData, cfg, pos, box, stats=None):
         raise NotImplementedError(
             "a pair kernel launch takes at most one of lj/repulsion/repulsioncg")
     n, dev, f32, i32 = data.natoms, pos.device, torch.float32, torch.int32
-    _build.check_tensor(pos, "pos", f32, (n, 3), dev)
+    lead = tuple(pos.shape[:-2])       # () or (R,)
+    nrep = pos.shape[0] if lead else 1
+    if len(lead) > 1 or nrep < 1:
+        raise ValueError(f"pos must be (N, 3) or (R, N, 3), got {tuple(pos.shape)}")
+    _build.check_tensor(pos, "pos", f32, lead + (n, 3), dev)
     for name in ("q", "sig", "eps"):
         _build.check_tensor(getattr(data, name), name, f32, (n,), dev)
     _build.check_tensor(data.types, "types", i32, (n,), dev)
@@ -304,16 +312,16 @@ def _launch(data: NBData, cfg, pos, box, stats=None):
         _build.check_tensor(data.lj_a, "lj_a", f32, (ntypes, ntypes), dev)
         _build.check_tensor(data.lj_b, "lj_b", f32, (ntypes, ntypes), dev)
     if box is not None:
-        _build.check_tensor(box, "box", f32, (3,), dev)
+        _build.check_tensor(box, "box", f32, lead + (3,), dev)
     if stats is not None:
         _build.check_tensor(stats, "stats", torch.int64, (len(STATS),), dev)
 
     kcfg = make_kernel_cfg(cfg, box is not None)
-    c = pair_cfg(kcfg, n, ntypes)
+    c = pair_cfg(kcfg, n, ntypes, nrep)
     lib = _library()
     scratch = torch.empty(lib.tmd_pair_scratch_bytes(c), dtype=torch.uint8, device=dev)
-    forces = torch.empty((n, 3), dtype=f32, device=dev)
-    energies = torch.empty(2, dtype=f32, device=dev)
+    forces = torch.empty(lead + (n, 3), dtype=f32, device=dev)
+    energies = torch.empty(lead + (2,), dtype=f32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -327,21 +335,35 @@ def _launch(data: NBData, cfg, pos, box, stats=None):
         raise RuntimeError(
             f"pair kernel launch failed: {lib.tmd_error_string(err).decode()}")
     LAUNCHES += 1
-    return _energy_dict(kcfg, energies[0], energies[1]), forces
+    return _energy_dict(kcfg, energies[..., 0], energies[..., 1]), forces
+
+
+def pair_terms_reference_batch(data: NBData, cfg, pos, box=None):
+    """The plain version over a replica ladder: `pair_terms_reference`
+    for each replica of pos (R, N, 3) with its box (R, 3) or None,
+    stacked: ({term: (R,)}, forces (R, N, 3))."""
+    outs = [pair_terms_reference(data, cfg, p, None if box is None else box[r])
+            for r, p in enumerate(pos)]
+    return ({k: torch.stack([o[0][k] for o in outs]) for k in outs[0][0]},
+            torch.stack([o[1] for o in outs]))
 
 
 def nonbonded_energy_forces(data: NBData, cfg, pos, box=None, stats=None):
-    """pos: (N, 3); box: (3,) diagonal tensor or None (no PBC). Returns
-    ({term: 0-dim energy tensor}, forces (N, 3)). A CPU tensor runs the
-    plain version; a CUDA tensor launches the kernel (f32 only) or raises.
-    Either runs once per LJ-family term (`over_launches`). `stats`, an
-    int64 (5,) card tensor, gains the walk's counters (STATS)."""
+    """pos: (N, 3), or (R, N, 3) for R replicas of the topology; box:
+    (3,) (or (R, 3)) diagonal tensor or None (no PBC). Returns ({term:
+    energy tensor, 0-dim (or (R,))}, forces of pos's shape). A CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel (f32 only),
+    once for all the replicas, or raises. Either runs once per LJ-family
+    term (`over_launches`). `stats`, an int64 (5,) card tensor, gains the
+    walk's counters (STATS)."""
     if pos.device.type == "cuda":
         def one(c):
             return _launch(data, c, pos, box, stats)
     elif pos.device.type == "cpu":
+        ref = pair_terms_reference_batch if pos.dim() == 3 else pair_terms_reference
+
         def one(c):
-            return pair_terms_reference(data, c, pos, box)
+            return ref(data, c, pos, box)
     else:
         raise ValueError(f"no pair kernel for device {pos.device}")
     return over_launches(cfg, one)

@@ -20,13 +20,14 @@ restraints join the run as external potentials, referenced to the
 starting coordinates, summed with an `--external` one). `--mts N` runs
 r-RESPA (N bonded substeps per timestep) and `--mts-recip R` its
 reciprocal tier (the Ewald/PME term every R outer steps on the
-neighbour-list paths, with `--output-period` a multiple of R).
+neighbour-list paths, with `--output-period` a multiple of R). `--gbsa`
+adds GB/OBC implicit solvent with the ACE surface term (`gb.make_gbsa`:
+the prmtop's RADII and SCREEN, else element radii), summed with the
+topology's restraints and an `--external` one.
 
 `--device`: None or `cuda[:k]` run on the CUDA card, `cpu` on the CPU;
 anything else raises ValueError. Without a card and without `--device
-cpu` the run raises, as the port's entry points do. The flag whose
-module is not ported yet raises NotImplementedError naming its ROADMAP
-item: `--gbsa` (20).
+cpu` the run raises, as the port's entry points do.
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ def get_args(arguments=None):
                              "(neighbor-kernel path with elec=ewald; "
                              "output-period must divide by N)")
     parser.add_argument("--gbsa", action="store_true", default=False,
-                        help="GB/OBC implicit solvent (not ported yet)")
+                        help="GB/OBC implicit solvent with the ACE surface term")
     parser.add_argument("--device", default=None,
                         help="Device: cuda[:k] | cpu | None (the CUDA card)")
     parser.add_argument("--structure", default=None, help="Deprecated: Input PDB")
@@ -190,18 +191,6 @@ def resolve_cli_device(device):
     raise ValueError(f"--device {name!r}: the port runs on cuda[:k] or cpu")
 
 
-def _unported(flag, item):
-    raise NotImplementedError(
-        f"{flag} is not ported yet (ROADMAP item {item}); see "
-        "torchmd_tpu_torch.run's docstring for what runs")
-
-
-def check_ported(args):
-    """Raise NotImplementedError for flags whose modules the port lacks."""
-    if getattr(args, "gbsa", False):
-        _unported("--gbsa", 20)
-
-
 def gmx_defines(args):
     """An .mdp's `define = -DNAME[=value] ...` as the GROMACS reader's
     defines (NAME -> value or None); the JAX CLI's TMD_GMX_DEFINES scope
@@ -266,7 +255,6 @@ def setup(args, batch_comp=False):
     from .parameters import Parameters
     from .systems import System
 
-    check_ported(args)
     device = resolve_cli_device(args.device)
     mol, is_npz = _load_molecule(args)
     batch_comp = batch_comp or is_npz
@@ -315,6 +303,12 @@ def setup(args, batch_comp=False):
             make_gromacs_distres(parameters, fc_kj_nm2=getattr(args, "disre_fc", 1000.0)),
             make_gromacs_dihres(parameters),
         ) if r is not None]
+    if getattr(args, "gbsa", False):
+        from .gb import make_gbsa
+
+        restraints.append(make_gbsa(
+            parameters, mol, solvent_dielectric=getattr(args, "solvent_dielectric", 78.5),
+            cutoff=args.cutoff, device=device))
     if restraints:
         from .external import combine_externals
 
@@ -364,7 +358,6 @@ def dynamics(args, mol, system, forces):
     from .profiling import StepTimer, trace
     from .wrapper import Wrapper
 
-    check_ported(args)
     mode = getattr(args, "barostat_mode", "iso") or "iso"
     mtk = None
     thermo_name = getattr(args, "thermostat", "langevin")

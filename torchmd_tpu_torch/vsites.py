@@ -143,8 +143,10 @@ def wrap_energy_forces(groups, ef):
     the reconstructed geometry and spread site forces to hosts."""
 
     def wrapped(pos, box, *args):
-        pot, frc = ef(apply_vsites(groups, pos, box), box, *args)
-        return pot, spread_vsite_forces(groups, pos, frc, box)
+        # R conformations' (R, 3) boxes broadcast over the atom axis
+        vbox = box[:, None] if box is not None and pos.dim() == 3 else box
+        pot, frc = ef(apply_vsites(groups, pos, vbox), box, *args)
+        return pot, spread_vsite_forces(groups, pos, frc, vbox)
 
     return wrapped
 

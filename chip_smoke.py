@@ -49,6 +49,10 @@ Integrator.step), f32, imports nothing of JAX or of the JAX package:
     replica axis); well-tempered metadynamics on the ligand-pocket
     distance in GB; the ligand decoupled (`make_alchemical`) and as a
     lambda-dynamics site;
+  - the AMOEBA polarizable force field (make_amoeba_potential with
+    valence, multipole PME and Ewald-split mutual polarization, torch ops
+    and CUDA graphs, no CUDA kernel) on 216 water03 waters in an 18.643 A
+    box, Langevin at 0.5 fs through Forces(terms=[], external=pot);
   - the staged probe of the dense pair kernel (python -m
     torchmd_tpu_torch.roofline, 4,676 atoms, tiles of 512): seven stage
     kernels and the elemental-throughput chains.
@@ -221,7 +225,22 @@ Phases (each prints lines; any failure raises and exits non-zero):
      at 0.5 with the launches counted; LambdaDynamics with the ligand as
      one site, LD_STEPS steps (lambda in [0, 1], finite), and
      LD_CHECK_STEPS steps at f32 within LD_POS_TOL A of f64;
- 24. roofline: every probe stage (f32) against its plain version (f64) at
+ 24. amoeba: the AMOEBA water box (AMOEBA_N^3 waters, make_amoeba_potential
+     with valence=True, ewald=True, pme="auto": MultipolePme, the
+     Ewald-split mutual polarization with a fixed-count CG, 14-7 vdW
+     switched from AMOEBA_SWITCH A): one frame at f32 against f64 on the
+     card (each part's energy within AMOEBA_E_TOL of its scale, forces
+     within AMOEBA_F_TOL of max |F|, induced dipoles within AMOEBA_MU_TOL
+     of max |mu|) and the polarizabilities x AMOEBA_FAULT beyond all
+     three; the f64 CG within cg_tol in fewer than cg_iters iterations;
+     host syncs of a CG solve (sync-debug mode) no more than a quarter
+     solve's, eager and as the CUDA graph; the split of an evaluation
+     (permanent-field pass, one CG iteration, energy and backward pass;
+     the graphed solve against the eager one) by CUDA events; the whole
+     evaluation's CUDA graph against the eager forces; AMOEBA_STEPS
+     Langevin steps (steps/s, ns/day, T, the energy change; no kernel of
+     #1-#8 launched) and a profile;
+ 25. roofline: every probe stage (f32) against its plain version (f64) at
      the probe's full size, on its inputs and on the same rows without
      pairs nearer than 2 A, each row's force held to the size of its terms
      (force_scale); four planted faults (the plain version with k_rf
@@ -232,6 +251,9 @@ Phases (each prints lines; any failure raises and exits non-zero):
      the close pairs) and the chain throughputs.
 The last two lines are a JSON summary of the kernels and the JSON status
 line. Usage: python3 chip_smoke.py
+
+`python3 chip_smoke.py --amoeba` runs the device and amoeba phases alone
+(they build no kernel).
 
 `python3 chip_smoke.py --remd-seeds N` is a measurement, not the smoke
 test: it builds the kernels and runs the remd phase, ungated, for seeds
@@ -526,6 +548,57 @@ LIGAND = "MOL"
 # within LD_POS_TOL A of f64 (no thermostat); dU/dlambda f32 within
 # DUDL_TOL (relative) of f64
 ALCH_STEPS, LD_STEPS, LD_CHECK_STEPS, LD_POS_TOL, DUDL_TOL = 200, 200, 10, 1e-3, 1e-4
+
+# the AMOEBA water box: AMOEBA_N^3 water03 waters on a lattice (random
+# orientations from AMOEBA_SEED) in a cubic AMOEBA_L A box (0.997 g/cm^3,
+# Ren & Ponder 2003), make_amoeba_potential(valence=True, ewald=True,
+# pme="auto") with mutual polarization (AMOEBA_CG: cg_iters, cg_tol), the
+# vdW switched from AMOEBA_SWITCH to AMOEBA_CUTOFF; Langevin at 300 K,
+# AMOEBA_DT fs, f32, AMOEBA_WARMUP then AMOEBA_STEPS timed steps in
+# chunks of AMOEBA_CHUNK. One frame at f32 against f64 on the card: each
+# part's energy within AMOEBA_E_TOL of the part's scale (its magnitude;
+# the permanent part's is its Ewald self energy, the sum the f32 rounding
+# follows), forces within AMOEBA_F_TOL of max |F|, induced dipoles within
+# AMOEBA_MU_TOL of max |mu|; the polarizabilities scaled by
+# AMOEBA_FAULT must miss those bars.
+AMOEBA_N, AMOEBA_L, AMOEBA_SEED = 6, 18.643, 5
+AMOEBA_CUTOFF, AMOEBA_SWITCH, AMOEBA_CG = 9.0, 8.1, (40, 1e-6)
+AMOEBA_DT, AMOEBA_WARMUP, AMOEBA_STEPS, AMOEBA_CHUNK = 0.5, 2, 20, 5
+AMOEBA_E_TOL, AMOEBA_F_TOL, AMOEBA_MU_TOL = 2e-5, 3e-4, 2e-5
+AMOEBA_FAULT = 1.01
+# the published water03 parameters of tests/test_amoeba.py (WATER03_FULL)
+AMOEBA_PRM = """
+atom          1    1    O     "AMOEBA Water O"               8    15.995    2
+atom          2    2    H     "AMOEBA Water H"               1     1.008    1
+
+multipole     1   -2   -2              -0.51966
+                                        0.00000    0.00000    0.14279
+                                        0.37928
+                                        0.00000   -0.41809
+                                        0.00000    0.00000    0.03881
+multipole     2    1    2               0.25983
+                                       -0.03859    0.00000   -0.05818
+                                       -0.03673
+                                        0.00000   -0.10739
+                                       -0.00203    0.00000    0.14412
+
+polarize      1           0.8370     0.3900       2
+polarize      2           0.4960     0.3900       1
+
+vdw           1               3.4050     0.1100
+vdw           2               2.6550     0.0135      0.910
+
+bond-cubic              -2.55
+bond-quartic            3.793125
+angle-cubic             -0.014
+angle-quartic           0.000056
+angle-pentic            -0.0000007
+angle-sextic            0.000000022
+
+bond          1    2          529.60     0.9572
+angle         2    1    2      34.05     108.50
+ureybrad      2    1    2      38.25     1.5537
+"""
 
 # Bounds. Published H100 SXM peaks (NVIDIA datasheet, at 700 W):
 HBM_BYTES_PER_S = 3.35e12
@@ -3603,6 +3676,256 @@ def phase_alchemy():
     return {k: launches[k] + ld_launches for k in launches}
 
 
+def build_amoeba_box(precision="single"):
+    """(par, types, bonds, coords (N, 3), box edge) of the AMOEBA water box:
+    AMOEBA_N^3 water03 waters (r 0.9572 A, 108.5 deg) at the centres of an
+    AMOEBA_N^3 lattice in the AMOEBA_L box, each turned by a random
+    rotation (AMOEBA_SEED), as scripts/bench_waterbox.py builds its box."""
+    from torchmd_tpu_torch.forcefields.ff_yaml import YamlForcefield
+    from torchmd_tpu_torch.io import Molecule
+    from torchmd_tpu_torch.parameters import Parameters
+
+    n, L = AMOEBA_N, AMOEBA_L
+    th, r = np.radians(108.5), 0.9572
+    mono = np.array([[0.0, 0.0, 0.0], [r * np.sin(th / 2), 0.0, r * np.cos(th / 2)],
+                     [-r * np.sin(th / 2), 0.0, r * np.cos(th / 2)]])
+    mono -= mono.mean(0)
+    rs = np.random.RandomState(AMOEBA_SEED)
+    coords = []
+    for g in np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"), -1).reshape(-1, 3):
+        q, rr = np.linalg.qr(rs.randn(3, 3))
+        q = q * np.sign(np.diag(rr))
+        if np.linalg.det(q) < 0:
+            q[:, 0] = -q[:, 0]
+        coords.append((g + 0.5) * (L / n) + mono @ q.T)
+    coords = np.concatenate(coords)
+    nw = n ** 3
+    types = np.tile([1, 2, 2], nw)
+    bonds = np.concatenate([[[m, m + 1], [m, m + 2]] for m in range(0, 3 * nw, 3)])
+    mol = Molecule()
+    mol.numAtoms = 3 * nw
+    mol.atomtype = np.array(["OW", "HW", "HW"] * nw, dtype=object)
+    mol.charge = np.zeros(3 * nw)
+    mol.masses = np.array([15.995, 1.008, 1.008] * nw)
+    mol.bonds = bonds
+    mol.angles = np.asarray([[m + 1, m, m + 2] for m in range(0, 3 * nw, 3)])
+    mol.coords = coords[:, :, None]
+    mol.box = np.full((3, 1), L)
+    ff = YamlForcefield(mol, {"atomtypes": ["OW", "HW"],
+                              "masses": {"OW": 15.995, "HW": 1.008}})
+    return Parameters(ff, mol, [], precision=precision), types, bonds, coords, L
+
+
+def _amoeba_eval(pot, pos, box):
+    """(parts {name: float}, forces (N, 3) f64 numpy, induced dipoles f64
+    numpy) of one frame."""
+    import torch
+
+    x = pos.detach().clone().requires_grad_(True)
+    parts = pot.energy_parts(x, box)
+    (g,) = torch.autograd.grad(sum(parts.values()), x)
+    mu = pot.parts[0].polarization.induced_dipoles(pos, box)
+    return ({k: float(v.detach()) for k, v in parts.items()}, -g.double().cpu().numpy(),
+            mu.double().cpu().numpy())
+
+
+def _amoeba_errors(got, ref, scales):
+    """(worst part's |dE| / scale, |dF| / max |F|, |dmu| / max |mu|)."""
+    e = max(abs(got[0][k] - v) / scales[k] for k, v in ref[0].items())
+    f = float(np.abs(got[1] - ref[1]).max() / np.abs(ref[1]).max())
+    mu = float(np.abs(got[2] - ref[2]).max() / np.abs(ref[2]).max())
+    return e, f, mu
+
+
+def phase_amoeba():
+    """The AMOEBA water box through make_amoeba_potential + Forces(terms=[],
+    external=pot) + Integrator: one frame at f32 against f64 on the card
+    (parts, forces, induced dipoles) and the planted polarizability fault;
+    the f64 CG's convergence; the host syncs of a CG solve against one of a
+    quarter of its iterations (sync-debug mode); the step's split (the
+    permanent-field pass, one CG iteration, the energy and its backward
+    pass) by CUDA events and a profile; AMOEBA_STEPS timed Langevin steps.
+    Launches none of the kernels #1-#8 (AMOEBA is torch ops, as it is
+    XLA ops in the JAX package)."""
+    import copy
+
+    import torch
+
+    from torchmd_tpu_torch.amoeba import make_amoeba_potential, parse_tinker_prm
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.multipole_ewald import self_energy
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import cell as kc
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.ops import pme as kp
+    from torchmd_tpu_torch.systems import System
+
+    t_phase = time.perf_counter()
+    par, types, bonds, coords, L = build_amoeba_box()
+    n = coords.shape[0]
+    # the exclusions: every intramolecular pair (the AMOEBA factories read
+    # only nb_mask of an FFParams)
+    nb_mask = ~np.eye(n, dtype=bool)
+    for m in range(0, n, 3):
+        nb_mask[m:m + 3, m:m + 3] = False
+    prm = parse_tinker_prm(AMOEBA_PRM)
+    kw = dict(cutoff=AMOEBA_CUTOFF, switch_dist=AMOEBA_SWITCH, ewald=True,
+              box=np.full(3, L), pme="auto", valence=True, cg_iters=AMOEBA_CG[0],
+              cg_tol=AMOEBA_CG[1], device=DEVICE)
+
+    class _Ffp:
+        pass
+
+    ffp = _Ffp()
+    ffp.nb_mask = torch.as_tensor(nb_mask, device=DEVICE)
+    pot, charges = make_amoeba_potential(ffp, types, bonds, prm, **kw)
+    pol = pot.parts[0].polarization
+    eng = pot.parts[0].multipoles
+    require(type(eng).__name__ == "MultipolePme"
+            and type(pol).__name__ == "AmoebaPolarizationEwald", "AMOEBA engines")
+    for t in prm["polarize"].values():
+        t["alpha"] *= AMOEBA_FAULT
+    fault, _ = make_amoeba_potential(ffp, types, bonds, prm, **kw)
+
+    frame = {}
+    for dt in (torch.float64, torch.float32):
+        pos = torch.as_tensor(coords, dtype=dt, device=DEVICE)
+        box = torch.full((3,), L, dtype=dt, device=DEVICE)
+        frame[dt] = _amoeba_eval(pot, pos, box)
+        frame[dt, "cg"] = (int(pol.last_cg_iters), float(pol.last_cg_rs) ** 0.5)
+    p32 = torch.as_tensor(coords, dtype=torch.float32, device=DEVICE)
+    b32 = torch.full((3,), L, dtype=torch.float32, device=DEVICE)
+    faulty = _amoeba_eval(fault, p32, b32)
+    ref = frame[torch.float64]
+    # the permanent part is a small sum of large Ewald tiers: its scale is
+    # the self energy's magnitude
+    q, mu_p, Q = eng._moments(torch.as_tensor(coords, device=DEVICE),
+                              torch.full((3,), L, dtype=torch.float64, device=DEVICE))
+    e_self = abs(332.0637133 * float(self_energy(eng.cfg.alpha, q, mu_p, Q).sum()))
+    scales = {k: max(1.0, abs(v)) for k, v in ref[0].items()}
+    scales["permanent"] = max(scales["permanent"], e_self)
+    err = _amoeba_errors(frame[torch.float32], ref, scales)
+    err_fault = _amoeba_errors(faulty, ref, scales)
+    iters64, res64 = frame[torch.float64, "cg"]
+    iters32, res32 = frame[torch.float32, "cg"]
+    log("amoeba_frame", natoms=n, box=L, kmesh="x".join(map(str, eng.kmesh)),
+        order=eng.order, alpha=f"{eng.cfg.alpha:.6f}",
+        **{f"e64_{k}": f"{v:.6f}" for k, v in ref[0].items()},
+        **{f"e32_{k}": f"{v:.6f}" for k, v in frame[torch.float32][0].items()},
+        permanent_scale=f"{scales['permanent']:.3f}", e_rel_err=f"{err[0]:.3e}",
+        f_rel_err=f"{err[1]:.3e}", mu_rel_err=f"{err[2]:.3e}",
+        fault_e_rel_err=f"{err_fault[0]:.3e}", fault_f_rel_err=f"{err_fault[1]:.3e}",
+        fault_mu_rel_err=f"{err_fault[2]:.3e}", cg_iters_f64=iters64,
+        cg_residual_f64=f"{res64:.3e}", cg_iters_f32=iters32, cg_residual_f32=f"{res32:.3e}",
+        max_mu=f"{np.abs(ref[2]).max():.5f}", max_f=f"{np.abs(ref[1]).max():.4f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    require(all(np.isfinite(v) for v in frame[torch.float32][0].values()), "AMOEBA f32 parts")
+    require(err[0] <= AMOEBA_E_TOL, f"AMOEBA parts f32 off f64 by {err[0]} of their scale")
+    require(err[1] <= AMOEBA_F_TOL, f"AMOEBA forces f32 off f64 by {err[1]} of max |F|")
+    require(err[2] <= AMOEBA_MU_TOL, f"AMOEBA dipoles f32 off f64 by {err[2]} of max |mu|")
+    require(err_fault[0] > AMOEBA_E_TOL and err_fault[1] > AMOEBA_F_TOL
+            and err_fault[2] > AMOEBA_MU_TOL,
+            f"the planted polarizability fault passed the bars: {err_fault}")
+    require(iters64 < AMOEBA_CG[0] and res64 <= AMOEBA_CG[1],
+            f"f64 CG: {iters64} iterations, residual {res64}")
+
+    # host syncs of a solve do not grow with its iterations, eager or as
+    # the CUDA graph (captured before the count); all iterations run
+    # (cg_tol 0)
+    def variant(iters, graph):
+        v = copy.copy(pol)
+        v.pspec = pol.pspec._replace(cg_iters=iters, cg_tol=0.0)
+        v.cuda_graph = graph
+        v.induced_dipoles(p32, b32)
+        return v
+
+    syncs = {}
+    for iters in (AMOEBA_CG[0] // 4, AMOEBA_CG[0]):
+        for graph in (False, True):
+            v = variant(iters, graph)
+            syncs[iters, graph] = _count_syncs(lambda: v.induced_dipoles(p32, b32))[1]
+
+    # the split of one evaluation by CUDA events: the solve with no
+    # iteration (geometry, permanent field, one operator application), the
+    # full solve (graphed and eager), and the whole force evaluation
+    zero, full, eager = (variant(0, True), variant(AMOEBA_CG[0], True),
+                         variant(AMOEBA_CG[0], False))
+    ms_field = cuda_events_ms(lambda: zero.induced_dipoles(p32, b32), calls=5, warmup=1)
+    ms_solve = cuda_events_ms(lambda: full.induced_dipoles(p32, b32), calls=5, warmup=1)
+    ms_eager = cuda_events_ms(lambda: eager.induced_dipoles(p32, b32), calls=3, warmup=1)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eager.induced_dipoles(p32, b32)
+    torch.cuda.synchronize()
+    host_eager = (time.perf_counter() - t0) / 3 * 1e3
+
+    def evaluate():
+        x = p32.detach().clone().requires_grad_(True)
+        torch.autograd.grad(pot.energy_fn(x, b32), x)
+
+    # the whole evaluation as one graph (what Forces calls) against the
+    # eager energy and backward pass around the graphed solve
+    e_graph, f_graph = pot.energy_forces_fn(p32, b32)
+    graph_f_err = float(np.abs(f_graph.double().cpu().numpy() - frame[torch.float32][1]).max()
+                        / np.abs(ref[1]).max())
+    ms_eval_eager = cuda_events_ms(evaluate, calls=5, warmup=1)
+    ms_eval = cuda_events_ms(lambda: pot.energy_forces_fn(p32, b32), calls=10, warmup=2)
+    ms_iter = (ms_solve - ms_field) / AMOEBA_CG[0]
+    log("amoeba_split", field_pass_ms=f"{ms_field:.3f}", cg_iteration_ms=f"{ms_iter:.4f}",
+        solve_ms=f"{ms_solve:.3f}", solve_eager_device_ms=f"{ms_eager:.3f}",
+        solve_eager_host_ms=f"{host_eager:.3f}", evaluation_ms=f"{ms_eval:.3f}",
+        evaluation_eager_ms=f"{ms_eval_eager:.3f}",
+        energy_and_backward_ms=f"{ms_eval - ms_solve:.3f}",
+        energy_and_backward_eager_ms=f"{ms_eval_eager - ms_solve:.3f}",
+        graph_vs_eager_f_err=f"{graph_f_err:.3e}",
+        **{f"host_syncs_{it}it_{'graph' if g else 'eager'}": n
+           for (it, g), n in syncs.items()})
+    require(graph_f_err <= 0.1 * AMOEBA_F_TOL, f"graphed forces off eager by {graph_f_err}")
+    for graph in (False, True):
+        lo, hi = syncs[AMOEBA_CG[0] // 4, graph], syncs[AMOEBA_CG[0], graph]
+        require(hi <= lo, f"CG host syncs grow with the iterations: {hi} against {lo}")
+
+    # the dynamics: Forces(terms=[], external=pot) + Integrator
+    forces = Forces(par, terms=[], external=pot, precision="single", device=DEVICE)
+    system = System(n, 1, "single")
+    system.set_positions(coords[:, :, None])
+    system.set_box(np.full(3, L))
+    system.set_velocities(maxwell_boltzmann(par.masses, TEMP, 1, seed=AMOEBA_SEED,
+                                            device=DEVICE, dtype=torch.float32))
+    integ = Integrator(system, forces, AMOEBA_DT, gamma=GAMMA, T=TEMP, seed=1)
+    integ.step(niter=AMOEBA_WARMUP)
+    torch.cuda.synchronize()
+    counters = (kn, kb, kc, kp)
+    for mod in counters:
+        for name in ("LAUNCHES", "SPREAD_LAUNCHES", "GATHER_LAUNCHES"):
+            if hasattr(mod, name):
+                setattr(mod, name, 0)
+    Ts, Es = [], []
+    t0 = time.perf_counter()
+    for _ in range(AMOEBA_STEPS // AMOEBA_CHUNK):
+        ek, ep, T = integ.step(niter=AMOEBA_CHUNK)
+        Ts.append(float(np.asarray(T).reshape(-1)[0]))
+        Es.append(float(np.asarray(ek).reshape(-1)[0] + np.asarray(ep).reshape(-1)[0]))
+    torch.cuda.synchronize()
+    dt_run = time.perf_counter() - t0
+    launched = sum(getattr(mod, name, 0) for mod in counters
+                   for name in ("LAUNCHES", "SPREAD_LAUNCHES", "GATHER_LAUNCHES"))
+    sps = AMOEBA_STEPS / dt_run
+    pos_end = np.asarray(system.pos)
+    prof_ms, events = profile_water_step(integ, dt_run / AMOEBA_STEPS, steps=2, top=10,
+                                         label="amoeba_profile")
+    log("amoeba", natoms=n, steps=AMOEBA_STEPS, dt_fs=AMOEBA_DT, seconds=f"{dt_run:.3f}",
+        steps_per_s=f"{sps:.3f}", ns_per_day=f"{sps * AMOEBA_DT * 86400e-6:.4f}",
+        T_series="/".join(f"{t:.1f}" for t in Ts), mean_T=f"{np.mean(Ts):.2f}",
+        E_series="/".join(f"{e:.3f}" for e in Es), energy_change=f"{Es[-1] - Es[0]:.4f}",
+        step_device_ms=f"{prof_ms:.3f}", device_events_per_step=f"{events:.1f}",
+        kernel_launches=launched, seconds_phase=f"{time.perf_counter() - t_phase:.2f}")
+    require(np.all(np.isfinite(pos_end)) and np.all(np.isfinite(Ts + Es)), "AMOEBA dynamics")
+    require(launched == 0, f"the AMOEBA path launched {launched} kernels of #1-#8")
+    return sps
+
+
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -3636,6 +3959,7 @@ def main():
     remd_launches, _, _ = phase_remd()
     metad_launches, _ = phase_metad()
     alch_launches = phase_alchemy()
+    phase_amoeba()
     times["roofline"], probe_launches = phase_roofline()
     # the dense pair and bonded kernels' main paths: the API's dynamics,
     # the CLI's run, the production protocol's and its r-RESPA run, the
@@ -3697,7 +4021,11 @@ def main():
 
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
-    if sys.argv[1:2] == ["--remd-seeds"]:
+    if sys.argv[1:2] == ["--amoeba"]:
+        # the AMOEBA phase alone (it launches none of the kernels)
+        phase_device()
+        phase_amoeba()
+    elif sys.argv[1:2] == ["--remd-seeds"]:
         # a measurement, not the smoke test: the REMD phase's T spread
         phase_device()
         phase_build()

@@ -238,6 +238,48 @@ def test_pressure_matches_jax(case, tmp_path):
     np.testing.assert_allclose(pt, pj, rtol=1e-9, atol=1e-9)
 
 
+@pytest.mark.parametrize("case", ["argon", "water"])
+def test_pressure_on_the_cell_path_matches_jax(case, tmp_path):
+    """The cell path (kernel="cell", no dense mask): the pair kernel's
+    per-axis virial, PME's analytic one and autograd for the rest against
+    jax.jvp through the JAX package's cell kernel. Argon at a 9 A cutoff;
+    the 216-water TIP4P/2005 box (virtual sites, SETTLE bonds, PME) at a
+    4 A cutoff on 3x3x3 cells."""
+    from test_torch_water import CUTOFF, TERMS, shared_velocities, water_box
+
+    from torchmd_tpu.forces import Forces as JaxForces
+    from torchmd_tpu.observables import pressure as jpressure
+    from torchmd_tpu.systems import System as JaxSystem
+    from torchmd_tpu_torch.observables import pressure
+    from torchmd_tpu_torch.systems import System
+
+    if case == "argon":
+        (_, jsys, jf), (_, tsys, tf) = _argon_pair(tmp_path)
+        jf = JaxForces(jf.par, terms=jf.energies, cutoff=9.0, kernel="cell")
+        tf = Forces(tf.par, terms=tf.energies, cutoff=9.0, kernel="cell", device="cpu")
+        tsys.set_velocities(np.asarray(jsys.vel))
+    else:
+        jpar, tpar, coords, L = water_box()
+        kw = dict(terms=TERMS, precision="double", cutoff=CUTOFF, kernel="cell",
+                  elec="pme")
+        jf, tf = JaxForces(jpar, **kw), Forces(tpar, device="cpu", **kw)
+        vel = shared_velocities(jpar)
+        jsys, tsys = JaxSystem(coords.shape[0], 1, "double"), System(coords.shape[0], 1,
+                                                                     "double")
+        for s in (jsys, tsys):
+            s.set_positions(coords)
+            s.set_box(np.full((3, 1), L))
+            s.set_velocities(vel)
+    jf.ensure_cell_kernel(np.asarray(jsys.box_diag)[0])
+    # the JAX Forces sets up its reciprocal term at the first evaluation;
+    # before it, its pressure leaves PME out
+    jf.compute(jsys.pos, jsys.box)
+    pj, pt = jpressure(jf, jsys), pressure(tf, tsys)
+    assert tf.nb_path == "cell" and tf.ffparams.nb_mask is None
+    assert np.isfinite(pt).all() and pt.shape == pj.shape
+    np.testing.assert_allclose(pt, pj, rtol=1e-9, atol=1e-9)
+
+
 def test_lbfgs_reaches_the_jax_energy(tmp_path):
     """Different L-BFGS implementations (optax, torch.optim) on
     benzamidine in vacuum (18 atoms, 7 terms): held by the converged

@@ -97,6 +97,20 @@ decoupling of a ligand and lambda-dynamics:
                          2.0, T=300, grid=(0.0, 20.0, 400), sigma=0.2,
                          height=0.3, stride=50, bias_factor=10.0)
     coupling = make_alchemical(forces, ligand, lam=0.5)
+
+The AMOEBA polarizable force field from TINKER .prm text and an .xyz
+frame (multipole PME, Thole mutual polarization, 14-7 vdW, valence; its
+evaluation one CUDA graph on the card), as the only term of `Forces`:
+
+    from torchmd_tpu_torch.amoeba import (make_amoeba_potential,
+                                          parse_tinker_prm, read_tinker_xyz)
+
+    coords, types, bonds, box = read_tinker_xyz("box.xyz")
+    pot, _ = make_amoeba_potential(ffparams, types, bonds,
+                                   parse_tinker_prm(prm_text), cutoff=9.0,
+                                   switch_dist=8.1, ewald=True, box=box,
+                                   valence=True)   # ffparams: its nb_mask
+    forces = Forces(par, terms=[], external=pot)
 """
 
 __version__ = "0.1.0"
@@ -106,7 +120,8 @@ __all__ = [
     "ops", "io", "forcefields", "parameters", "units", "neighbors", "ewald",
     "vsites", "constraints", "thermostats", "columns", "barostat",
     "cmap", "restraints", "gb", "cv", "metadynamics", "remd", "alchemy",
-    "lambda_dynamics", "analysis",
+    "lambda_dynamics", "analysis", "multipoles", "multipole_ewald",
+    "amoeba_valence", "amoeba",
     "external", "run", "utils", "wrapper", "checkpoint", "observables",
     "minimizers", "profiling", "native", "neighbourlist", "npzmol", "mycalc",
     "calculators",
@@ -124,7 +139,8 @@ __all__ = [
     "EwaldRecip", "PmeRecip", "VerletKernel", "VerletConfig", "CellKernel",
     "make_alchemical", "AlchemicalCoupling", "ReplicaExchange", "MetaDynamics",
     "HarmonicBias", "wham", "LambdaDynamics", "make_lambda_sites", "ph_bias",
-    "normal_modes", "GBSA", "make_gbsa",
+    "normal_modes", "GBSA", "make_gbsa", "apply_vsites", "make_multipoles",
+    "MultipoleEwald", "MultipolePme", "make_amoeba_potential",
 ]
 
 _LAZY = {
@@ -186,6 +202,11 @@ _LAZY = {
     "normal_modes": ("torchmd_tpu_torch.analysis", "normal_modes"),
     "GBSA": ("torchmd_tpu_torch.gb", "GBSA"),
     "make_gbsa": ("torchmd_tpu_torch.gb", "make_gbsa"),
+    "apply_vsites": ("torchmd_tpu_torch.vsites", "apply_vsites"),
+    "make_multipoles": ("torchmd_tpu_torch.multipoles", "make_multipoles"),
+    "MultipoleEwald": ("torchmd_tpu_torch.multipole_ewald", "MultipoleEwald"),
+    "MultipolePme": ("torchmd_tpu_torch.multipole_ewald", "MultipolePme"),
+    "make_amoeba_potential": ("torchmd_tpu_torch.amoeba", "make_amoeba_potential"),
 }
 
 

@@ -68,6 +68,46 @@ def bspline_b2(K, n):
     return np.where(mag2 < 1e-12, 0.0, 1.0 / np.where(mag2 < 1e-12, 1.0, mag2))
 
 
+class _SplineTaps(torch.autograd.Function):
+    """`bspline_weights` whose derivative is the lower-order recursion
+    M_n'(u) = M_{n-1}(u) - M_{n-1}(u - 1) (exact at the knots, where
+    differentiating the Cox-de Boor recursion is not)."""
+
+    @staticmethod
+    def forward(ctx, frac, n):
+        ctx.save_for_backward(frac)
+        ctx.n = n
+        return bspline_weights(frac, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (frac,) = ctx.saved_tensors
+        if ctx.n == 2:   # M_2' = +1 on [0, 1), -1 on [1, 2)
+            dw = torch.stack([torch.ones_like(frac), -torch.ones_like(frac)], -1)
+        else:
+            dw = bspline_dweights(frac, ctx.n)
+        return (grad * dw).sum(-1), None
+
+
+def bspline_weights_d2(frac, n):
+    """(M, M', M'') of the order-n spline taps wrt frac (the JAX
+    `ewald.bspline_weights_d2`), each (..., n), from the analytic
+    recursions M_n' = M_{n-1}(u) - M_{n-1}(u-1) and M_n'' = M_{n-2}(u) -
+    2 M_{n-2}(u-1) + M_{n-2}(u-2); all three differentiable in frac by
+    the same recursions. Requires n >= 4."""
+    if n < 4:
+        raise ValueError("bspline_weights_d2 needs order >= 4")
+    w = _SplineTaps.apply(frac, n)
+    wm1 = _SplineTaps.apply(frac, n - 1)
+    p1 = torch.zeros_like(wm1[..., :1])
+    dw = torch.cat([wm1, p1], -1) - torch.cat([p1, wm1], -1)
+    wm2 = _SplineTaps.apply(frac, n - 2)
+    p2 = torch.zeros_like(wm2[..., :1])
+    d2w = (torch.cat([wm2, p2, p2], -1) - 2.0 * torch.cat([p2, wm2, p2], -1)
+           + torch.cat([p2, p2, wm2], -1))
+    return w, dw, d2w
+
+
 def pme_fast_len(n):
     """Next 2/3/5-smooth length >= n (FFT-friendly sizes)."""
     n = max(int(n), 16)

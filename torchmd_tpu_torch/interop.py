@@ -9,8 +9,9 @@ bool, float leaves take `dtype`.
 The functions below do the same for the periodic slices' structures: the
 exclusion table, the cell and column configurations, the cell list, PME,
 SETTLE, virtual sites, the Nose-Hoover chain state and the MTK barostat's
-extended state, and for the sampling slice's: a GBSA term, an alchemical
-coupling, a metadynamics bias grid and the lambda-dynamics state, so
+extended state, for the sampling slice's: a GBSA term, an alchemical
+coupling, a metadynamics bias grid and the lambda-dynamics state, and
+for the polarizable slice's: the multipole and polarization specs, so
 that a test can run both packages on identical inputs or hand a run from
 one to the other.
 """
@@ -207,3 +208,39 @@ def lambda_state_from_numpy(ld, theta, vtheta):
     ld.theta = _tensor(np.reshape(theta, (-1,)), ld.device, ld.dtype)
     ld.vtheta = _tensor(np.reshape(vtheta, (-1,)), ld.device, ld.dtype)
     return ld
+
+
+# ----------------------------------------------------------------------
+# The polarizable slice: AMOEBA multipoles and polarization
+# ----------------------------------------------------------------------
+
+def multipole_spec_from_numpy(spec, device="cpu"):
+    """The port's `MultipoleSpec` from a JAX `multipoles.MultipoleSpec`
+    (numpy leaves): the same sites, local moments, frames, mask, cutoff
+    and switch."""
+    from .multipoles import MultipoleSpec
+
+    def t(a):
+        return _tensor(a, device, torch.float64)
+
+    return MultipoleSpec(
+        sites=t(spec.sites), mu_local=t(spec.mu_local), frame_kind=t(spec.frame_kind),
+        z_atom=t(spec.z_atom), x_atom=t(spec.x_atom),
+        nb_mask=_tensor(np.asarray(spec.nb_mask, bool), device, torch.float64),
+        cutoff=None if spec.cutoff is None else float(spec.cutoff),
+        quad_local=None if spec.quad_local is None else t(spec.quad_local),
+        switch_dist=None if spec.switch_dist is None else float(spec.switch_dist))
+
+
+def polarization_spec_from_numpy(pspec, device="cpu"):
+    """The port's `amoeba.PolarizationSpec` from a JAX one (numpy leaves)."""
+    from .amoeba import PolarizationSpec
+
+    def t(a):
+        return _tensor(a, device, torch.float64)
+
+    return PolarizationSpec(
+        sites=t(pspec.sites), alpha=t(pspec.alpha), thole=t(pspec.thole),
+        perm_mask=_tensor(np.asarray(pspec.perm_mask, bool), device, torch.float64),
+        cutoff=None if pspec.cutoff is None else float(pspec.cutoff),
+        cg_iters=int(pspec.cg_iters), cg_tol=float(pspec.cg_tol))

@@ -10,8 +10,11 @@ which is exact for every differentiable term without per-term virial
 formulas. `pressure` takes the differentiable torch-op energy of the
 bonded and dense nonbonded terms (`potentials.compute_potentials`, with
 virtual sites snapped at the scaled geometry) and of an external's
-`energy_fn`, and PME's analytic virial (`PmeRecip.energy_forces_virial`).
-Pressure: P = (2K + W) / (3V).
+`energy_fn`. The terms with an analytic virial add it, as the NPT
+integrator composes them (`Integrator._npt_ef_vir`): on the cell path
+the cell or column kernel's per-axis pair virial, and PME's
+(`PmeRecip.energy_forces_virial`), both at the snapped geometry with the
+site correction -sum F (r - dr/ds). Pressure: P = (2K + W) / (3V).
 """
 
 from __future__ import annotations
@@ -31,21 +34,19 @@ def virial(efn_one, pos, box):
     with torch.enable_grad():
         lmbda = torch.ones((), dtype=pos.dtype, device=pos.device, requires_grad=True)
         e = efn_one(pos.detach() * lmbda, None if box is None else box * lmbda)
+        if not e.requires_grad:   # no term left to differentiate
+            return torch.zeros((), dtype=pos.dtype, device=pos.device)
         (dUdl,) = torch.autograd.grad(e, lmbda)
     return -dUdl
 
 
-def _total_energy_fn(forces):
+def _total_energy_fn(forces, nonbonded=True):
     """The differentiable energy of one conformation (without PME's
-    reciprocal part, whose virial is analytic)."""
+    reciprocal part, and without the pair terms when `nonbonded` is
+    False: the analytic virials carry those)."""
     from .potentials import compute_potentials
     from .vsites import apply_vsites
 
-    has_nb = any(t in forces.energies for t in forces.nonbonded)
-    if has_nb and forces.ffparams.nb_mask is None:
-        raise NotImplementedError(
-            "pressure on the cell-list path (deferred exclusion mask) is not "
-            "ported yet; its virial is the NPT integrator's")
     ext = getattr(forces.external, "energy_fn", None)
     if forces.external is not None and ext is None:
         raise NotImplementedError(
@@ -55,7 +56,8 @@ def _total_energy_fn(forces):
     def etot_one(pos, box):
         if forces.vsites:
             pos = apply_vsites(forces.vsites, pos, box)
-        pot = compute_potentials(forces.ffparams, pos, box, forces.config)
+        pot = compute_potentials(forces.ffparams, pos, box, forces.config,
+                                 nonbonded=nonbonded)
         e = sum(pot.values()) if pot else torch.zeros((), dtype=pos.dtype,
                                                      device=pos.device)
         if ext is not None:
@@ -63,6 +65,27 @@ def _total_energy_fn(forces):
         return e
 
     return etot_one
+
+
+def _analytic_virial(forces, pos, box, cell):
+    """W of the terms with an analytic per-axis virial (the cell or column
+    kernel's pairs when `cell`, PME's reciprocal part), at the snapped
+    geometry with the site correction."""
+    from .vsites import apply_vsites_scaling
+
+    p2 = pos
+    if forces.vsites:
+        p2, tangent = apply_vsites_scaling(forces.vsites, pos, box)
+    frc, vir = torch.zeros_like(pos), torch.zeros_like(box)
+    if cell:
+        kern = forces._cell_kernel
+        _, frc, vir = kern.energy_forces_virial(p2, box, kern.build(p2, box))
+    if forces._ewald is not None:
+        _, f_r, v_r = forces._ewald.energy_forces_virial(p2, box, "exact")
+        frc, vir = frc + f_r, vir + v_r
+    if forces.vsites:
+        vir = vir - (frc * (p2 - tangent)).sum(0)
+    return vir.sum()
 
 
 def pressure(forces, system, units="bar"):
@@ -76,13 +99,14 @@ def pressure(forces, system, units="bar"):
     dev, dtype = forces.device, forces.dtype
     pos = torch.as_tensor(np.asarray(system.pos), dtype=dtype, device=dev)
     forces.prepare(pos, box)
-    etot_one = _total_energy_fn(forces)
+    cell = forces.nb_path == "cell"
+    etot_one = _total_energy_fn(forces, nonbonded=not cell)
     boxd = torch.as_tensor(box, dtype=dtype, device=dev)
     W = []
     for p, b in zip(pos, boxd):
         w = virial(etot_one, p, b)
-        if forces._ewald is not None:
-            w = w + forces._ewald.energy_forces_virial(p, b, "exact")[2].sum()
+        if cell or forces._ewald is not None:
+            w = w + _analytic_virial(forces, p, b, cell)
         W.append(w)
     W = torch.stack(W)
     masses = torch.as_tensor(np.asarray(forces.par.masses).reshape(-1, 1),

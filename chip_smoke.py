@@ -53,6 +53,13 @@ Integrator.step), f32, imports nothing of JAX or of the JAX package:
     valence, multipole PME and Ewald-split mutual polarization, torch ops
     and CUDA graphs, no CUDA kernel) on 216 water03 waters in an 18.643 A
     box, Langevin at 0.5 fs through Forces(terms=[], external=pot);
+  - thrombin with Drude oscillators (make_drude, scf_drude,
+    DrudeIntegrator: dual Langevin at 1 fs): the dense pair and bonded
+    kernels on the extended topology; the SWM4-NDP polarizable water box
+    (CHARMM Drude-2013 ingestion, lone pairs, make_drude_ewald's PME):
+    the pair kernel in Ewald real space, the bonded kernel and the PME
+    spread; the NNP trained and run as an external, and force matching of
+    the CG chain's parameters (torch ops, no CUDA kernel);
   - the staged probe of the dense pair kernel (python -m
     torchmd_tpu_torch.roofline, 4,676 atoms, tiles of 512): seven stage
     kernels and the elemental-throughput chains.
@@ -240,7 +247,39 @@ Phases (each prints lines; any failure raises and exits non-zero):
      evaluation's CUDA graph against the eager forces; AMOEBA_STEPS
      Langevin steps (steps/s, ns/day, T, the energy change; no kernel of
      #1-#8 launched) and a profile;
- 25. roofline: every probe stage (f32) against its plain version (f64) at
+ 25. drude: thrombin with Drude oscillators on its heavy atoms
+     (DRUDE_ALPHA A^3, make_drude: 2,357 oscillators, 7,033 particles;
+     DRUDE_TERMS, without the scaled 1-4 term): #1 and #3 on the
+     extended system against plain at the Pallas bars with every
+     core-Drude pair at r = 0 and at the SCF state (#3's window_stats
+     for the springs' rows), scf_drude at f32 (damping, iterations, host
+     reads, launches) and the SCF witnesses (the JAX step's growth, the
+     damped step's stall), DRUDE_THROMBIN_STEPS timed dual-Langevin steps
+     with the counters reset just before and
+     read just after (steps/s, ns/day) and a profile, each from the SCF
+     state, the collapse witness (where a Drude first leaves its core by
+     0.5 A), DRUDE_NVE_STEPS NVE steps at f32 against f64 on the card
+     (1e-3 A, or 3x the one-ulp floor with the 1 % charge control
+     beyond it), #1 and #3 timed at 7,033 particles; then the polarizable
+     argon liquid (ARGON_N^3 atoms): DRUDE_WARMUP and DRUDE_STEPS
+     dual-Langevin steps, T_phys within DRUDE_T_TOL of 300 K and T_rel
+     below DRUDE_TREL_MAX over the last half;
+ 26. drude_swm4: SWM4_N^3 SWM4-NDP waters from
+     tests/data/swm4-ndp/swm4ndp.str (lone pairs, Thole, PME through
+     make_drude_ewald with the exact gather): #1 (Ewald real space), #3
+     and the spread #6 against plain at the start and relaxed; the f64
+     SCF to SCF_TOL_F64, the f32 SCF on the kernels (launches one each
+     an iteration, no ik gather); dipoles (mean above SWM4_GAS_MU, all
+     below SWM4_MU_RANGE[1], f32 within SWM4_MU_REL of f64) and the
+     unrotated lattice's, all in SWM4_MU_RANGE;
+ 27. nnp: the NNP trained on the argon dimer's LJ curve (NNP_STEPS Adam
+     steps, f32: loss and the well), the dimer's MD through
+     Forces(external=NNPExternal), the default NNPConfig at thrombin's
+     width (ms, peak memory);
+ 28. train: examples/train_cg.py's force matching, TRAIN_CHECK_STEPS
+     steps at f32 against f64, then TRAIN_STEPS steps (steps/s, loss,
+     recovered bond lengths, held-out force RMSE);
+ 29. roofline: every probe stage (f32) against its plain version (f64) at
      the probe's full size, on its inputs and on the same rows without
      pairs nearer than 2 A, each row's force held to the size of its terms
      (force_scale); four planted faults (the plain version with k_rf
@@ -253,7 +292,8 @@ The last two lines are a JSON summary of the kernels and the JSON status
 line. Usage: python3 chip_smoke.py
 
 `python3 chip_smoke.py --amoeba` runs the device and amoeba phases alone
-(they build no kernel).
+(they build no kernel); `python3 chip_smoke.py --drude` the device and
+build phases, then drude and drude_swm4.
 
 `python3 chip_smoke.py --remd-seeds N` is a measurement, not the smoke
 test: it builds the kernels and runs the remd phase, ungated, for seeds
@@ -599,6 +639,83 @@ bond          1    2          529.60     0.9572
 angle         2    1    2      34.05     108.50
 ureybrad      2    1    2      38.25     1.5537
 """
+
+# Drude oscillators on thrombin (the main path's system): DRUDE_ALPHA A^3
+# on every heavy atom and 0 on hydrogens -- a load-bearing setting of the
+# dynamics path, not a published force field -- and the JAX defaults (k
+# 500, m_D 0.4, Thole 2.6); scf_drude (at most SCF_ITERS iterations; the
+# SWM4 box's f32 tolerance SCF_TOL_F32 kcal/mol/A: f32 forces cannot reach
+# the f64 1e-10; thrombin's below),
+# then DrudeIntegrator at DRUDE_DT fs, 300 K, 1 ps^-1, T_drude 1 K, 20
+# ps^-1 for DRUDE_STEPS steps in chunks of DRUDE_CHUNK: the mean T_phys of
+# the last half's chunks within DRUDE_T_TOL of 300 K, the mean T_rel below
+# DRUDE_TREL_MAX (tests/test_drude.py:117-145); DRUDE_NVE_STEPS NVE steps
+# at f32 (kernels) against f64 (torch ops) on the card, within 1e-3 A or 3x
+# the one-ulp floor with the 1 % charge control beyond it.
+# Thrombin's terms without the scaled "1-4" term, its 1-2, 1-3 and 1-4
+# pairs excluded from the pair term and Thole-screened between
+# oscillators. With "1-4" the extended topology's 1-4 table carries the
+# shifted core charges q - q_D and no Drude counterpart (the JAX
+# construction, which the port keeps; ROADMAP section 3): q_D^2 k_e /
+# (scee r), ~280 kcal/mol a heavy-atom 1-4 pair at q_D = -1.735 e (1 A^3),
+# scee 1.2 and r 3 A. With 1-4 pairs in the pair term instead, a Drude
+# (no LJ) falls onto a 1-4 hydroxyl hydrogen (no LJ either) within 30 fs.
+DRUDE_TERMS = [t for t in TERMS if t != "1-4"]
+DRUDE_ALPHA, DRUDE_DT, DRUDE_STEPS, DRUDE_CHUNK = 1.0, 1.0, 1000, 20
+# steps at the same settings before the gated run: from Maxwell-Boltzmann
+# velocities T_phys falls to ~210 K within 20 fs and gamma 1 ps^-1 brings
+# it back over ~1 ps
+DRUDE_WARMUP = 1000
+# Drude thrombin's timed run is short, each from the SCF state: a polar
+# hydrogen (no LJ) falls onto a neighbour's Drude (no LJ either) across
+# an H-bond within ~100 fs (the collapse witness logs where, running at
+# most DRUDE_COLLAPSE_STEPS; ROADMAP section 3). The gated 1,000-step run
+# is the polarizable argon liquid: ARGON_N^3 atoms in an ARGON_L A box
+# (1.29 g/cm^3), argon's ARGON_ALPHA A^3, cutoff ARGON_CUTOFF A, reaction
+# field. The SCF witnesses: the JAX step (damping 1) for
+# SCF_WITNESS_ITERS iterations, and the damped one to SCF_TOL_F32.
+DRUDE_THROMBIN_STEPS, DRUDE_COLLAPSE_STEPS, SCF_WITNESS_ITERS = 20, 400, 60
+ARGON_N, ARGON_L, ARGON_ALPHA, ARGON_CUTOFF = 12, 44.6, 1.64, 10.0
+DRUDE_T_TOL, DRUDE_TREL_MAX, DRUDE_NVE_STEPS = 15.0, 60.0, 10
+SCF_ITERS, SCF_TOL_F32, SCF_TOL_F64 = 200, 1e-2, 1e-10
+# the SCF on thrombin: the JAX package's full step g / (2 k) grows on the
+# Trp rings' stiff dipole modes (curvature beyond 4 k, 1.4 A pairs
+# Thole-screened only to 0.93); half of it converges. Its tolerance
+# DRUDE_SCF_TOL kcal/mol/A: the reaction field's force at the cutoff,
+# k_e q_i q_j (2 k_rf r_c - 1/r_c^2), is not 0, so a Drude pair (1.735 e
+# each) crossing 7.3 A moves a Drude's force by ~0.4 kcal/mol/A, which no
+# step size settles below
+DRUDE_SCF_DAMPING, DRUDE_SCF_TOL = 0.5, 1.0
+# SWM4-NDP (Lamoureux et al. 2006; tests/data/swm4-ndp/swm4ndp.str):
+# SWM4_N^3 waters on a lattice in a SWM4_L A box (0.997 g/cm^3), each
+# turned by a random rotation about its O (SWM4_SEED), M sites from the
+# lone-pair frame, PME (make_drude_ewald, tol SWM4_TOL, cutoff SWM4_CUTOFF,
+# terms electrostatics + bonds: the RTF has no LJ). Randomly oriented
+# neighbours' fields are random with respect to a molecule's own dipole,
+# so the SCF lowers some dipoles below the gas value (the phase logs the
+# least): that box is held to its mean above the gas dipole SWM4_GAS_MU
+# and every dipole below SWM4_MU_RANGE[1]; the same lattice with every
+# water unrotated (tests/test_drude_charmm.py's arrangement) to
+# SWM4_MU_RANGE for every dipole; f32 dipoles within SWM4_MU_REL
+# (relative) of f64.
+SWM4_N, SWM4_L, SWM4_SEED, SWM4_CUTOFF, SWM4_TOL = 12, 37.28, 5, 9.0, 1e-5
+SWM4_MU_RANGE, SWM4_GAS_MU, SWM4_MU_REL = (1.86, 3.2), 1.85, 1e-3
+DEBYE = 4.80320425            # D per e A
+# the NNP on the argon-dimer LJ curve (tests/test_nnp.py): NNP_DISTS
+# distances, NNP_STEPS Adam steps at NNP_LR, f32; the final loss below
+# NNP_LOSS_DROP x the first and E within NNP_E_TOL kcal/mol of LJ at
+# NNP_CHECK_R; then NNP_MD_STEPS steps of the dimer at 5 fs with the NNP as
+# the only term; the default NNPConfig at thrombin's width (species by
+# element) timed for one energy + forces evaluation
+NNP_DISTS, NNP_STEPS, NNP_LR, NNP_LOSS_DROP, NNP_E_TOL = 48, 800, 3e-3, 1e-2, 0.05
+NNP_CHECK_R, NNP_MD_STEPS = (3.6, 3.8, 4.5, 6.0), 400
+# force matching on examples/train_cg.py's recipe: TRAIN_B jittered
+# conformations of the 20-bead CG chain, bonds/angles/LJ perturbed, Adam
+# at TRAIN_LR, energy weight TRAIN_EW, TRAIN_STEPS steps (f32); the final
+# loss at most TRAIN_LOSS_DROP x the first; TRAIN_CHECK_STEPS steps at f32
+# against f64 on the card, every parameter within TRAIN_REL (relative)
+TRAIN_B, TRAIN_LR, TRAIN_EW, TRAIN_STEPS, TRAIN_LOSS_DROP = 64, 2.5e-2, 1e-4, 1500, 1e-2
+TRAIN_CHECK_STEPS, TRAIN_REL = 20, 1e-4
 
 # Bounds. Published H100 SXM peaks (NVIDIA datasheet, at 700 W):
 HBM_BYTES_PER_S = 3.35e12
@@ -3926,6 +4043,624 @@ def phase_amoeba():
     return sps
 
 
+# ----------------------------------------------------------------------
+# Drude oscillators, the NNP and force matching
+# ----------------------------------------------------------------------
+
+def _drude_kernel_check(tag, ext32, ext64, cfg, p32, box=None, recip32=None):
+    """Kernels #1 and #3 (and, with `recip32`, the PME spread #6) on an
+    extended Drude system against their plain versions at f64 at the
+    Pallas bars; returns {kernel: max abs force (mesh) error}."""
+    import torch
+
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.ops import pme as kp
+
+    p64 = p32.double()
+    b32 = None if box is None else torch.as_tensor(box, dtype=torch.float32, device=DEVICE)
+    b64 = None if box is None else b32.double()
+    pot_k, f_k = kn.nonbonded_energy_forces(kn.prepare_nb_data(ext32), cfg, p32, b32)
+    pot_p, f_p = kn.pair_terms_reference(kn.prepare_nb_data(ext64), cfg, p64, b64)
+    errs = {"pair": _compare(f"{tag}/pair", pot_k, f_k, pot_p, f_p)}
+    plan32 = kb.build_bonded_kernel_plan(ext32, cfg)
+    pot_k, f_k = kb.bonded_energy_forces(plan32, p32, b32)
+    pot_p, f_p = kb.bonded_reference(kb.build_bonded_kernel_plan(ext64, cfg), p64, b64)
+    errs["bonded"] = _compare(f"{tag}/bonded", pot_k, f_k, pot_p, f_p)
+    if recip32 is not None:
+        kmesh, order = tuple(recip32.cfg.kmax), recip32.ORDER
+        mesh_k = kp.pme_spread(p32, ext32.charges, b32, kmesh, order)
+        mesh_p = kp.spread_reference(p64, ext64.charges, b64, kmesh, order)
+        errs["pme_spread"] = float((mesh_k.double() - mesh_p).abs().max())
+        require(errs["pme_spread"] <= MESH_TOL * float(mesh_p.abs().max()),
+                (tag, "spread", errs["pme_spread"]))
+    torch.cuda.synchronize()
+    log("drude_kernels", case=tag, natoms=int(p32.shape[0]),
+        **{f"{k}_max_abs_err": v for k, v in errs.items()})
+    return errs
+
+
+def _drude_thrombin(precision):
+    """(mol, forces, ffp_ext, spec) of thrombin with Drudes on its heavy
+    atoms at `precision` on the card (f64 takes the torch-op path):
+    DRUDE_TERMS, 1-2, 1-3 and 1-4 pairs excluded (see DRUDE_TERMS)."""
+    from torchmd_tpu_torch.drude import make_drude
+    from torchmd_tpu_torch.forces import Forces
+
+    mol, par = load_amber(*MAIN_SYSTEM)
+    forces = Forces(par, terms=DRUDE_TERMS, precision=precision, cutoff=CUTOFF, rfa=RFA,
+                    device=DEVICE)
+    alpha = np.where(np.asarray(par.masses).reshape(-1) < 1.5, 0.0, DRUDE_ALPHA)
+    ext, spec = make_drude(forces, alpha=alpha)
+    return mol, forces, ext, spec
+
+
+def _drude_nve(ext, spec, cfg, pos, vel, dtype, steps=DRUDE_NVE_STEPS):
+    """Positions (f64 numpy) after `steps` NVE steps of DrudeIntegrator."""
+    import torch
+
+    from torchmd_tpu_torch.drude import DrudeIntegrator
+
+    integ = DrudeIntegrator(ext, spec, cfg, pos, timestep=DRUDE_DT, gamma=0.0,
+                            gamma_drude=0.0, dtype=dtype, device=DEVICE)
+    integ.vel = torch.as_tensor(vel, dtype=dtype, device=DEVICE)
+    integ.step(niter=steps)
+    return integ.pos.double().cpu().numpy()
+
+
+def _drude_langevin(ext, spec, cfg, pos, box=None, seed=1):
+    """DrudeIntegrator at DRUDE_DT fs, 300 K, 1 ps^-1, T_drude 1 K, 20 ps^-1
+    from `pos`, Maxwell-Boltzmann velocities (`seed`), f32 on the card."""
+    import torch
+
+    from torchmd_tpu_torch.drude import DrudeIntegrator
+
+    integ = DrudeIntegrator(ext, spec, cfg, pos, box=box, timestep=DRUDE_DT, T=TEMP,
+                            gamma=1.0, T_drude=1.0, gamma_drude=20.0, seed=seed,
+                            dtype=torch.float32, device=DEVICE)
+    integ.set_velocities_boltzmann(seed=seed)
+    return integ
+
+
+def phase_drude():
+    """Thrombin with Drude oscillators on its heavy atoms: #1 and #3 on
+    the extended system against plain at the start (every core-Drude pair
+    at r = 0) and at the SCF state; scf_drude (iterations, host reads,
+    launches); DRUDE_THROMBIN_STEPS timed dual-Langevin steps from the
+    SCF state (steps/s, ns/day, launches) and a profile, each from a fresh
+    start; DRUDE_NVE_STEPS NVE steps at f32 against f64 on the card; then
+    the gated dual-Langevin run on the polarizable argon liquid
+    (`phase_drude_argon`). Returns the launches of the runs."""
+    import torch
+
+    from torchmd_tpu_torch.drude import drude_energy_forces, init_drude_positions, scf_drude
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+
+    t_phase = time.perf_counter()
+    mol, forces, ext, spec = _drude_thrombin("single")
+    _, forces64, ext64, spec64 = _drude_thrombin("double")
+    cfg = forces.config
+    npol, n_ext = int(spec.core_idx.shape[0]), int(ext.charges.shape[0])
+    plan = kb.build_bonded_kernel_plan(ext, cfg)
+    log("drude_setup", natoms=mol.numAtoms, oscillators=npol, particles=n_ext,
+        thole_pairs=int(spec.thole_i.shape[0]), q_drude=f"{float(spec.q_drude[0]):.4f}",
+        **kb.window_stats(plan), widest_window=int(plan.windows[:, 1].max()))
+    require(n_ext == mol.numAtoms + npol and ext64.charges.shape[0] == n_ext, "extended sizes")
+    pos0 = init_drude_positions(torch.as_tensor(mol.coords[:, :, 0], dtype=torch.float32,
+                                                device=DEVICE), spec)
+    _drude_kernel_check("drude-thrombin-start", ext, ext64, cfg, pos0)
+
+    ef = drude_energy_forces(ext, spec, cfg)
+    torch.cuda.synchronize()
+    kn.LAUNCHES = kb.LAUNCHES = 0
+    t0 = time.perf_counter()
+    pos, info = scf_drude(ext, spec, cfg, pos0, None, iters=SCF_ITERS, tol=DRUDE_SCF_TOL,
+                          ef=ef, return_info=True, damping=DRUDE_SCF_DAMPING)
+    torch.cuda.synchronize()
+    scf_s = time.perf_counter() - t0
+    scf_launches = {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+    log("drude_scf", case="thrombin", precision="f32", damping=DRUDE_SCF_DAMPING,
+        seconds=f"{scf_s:.4f}", ms_per_iteration=f"{1e3 * scf_s / info['iterations']:.4f}",
+        pair_launches=kn.LAUNCHES, bonded_launches=kb.LAUNCHES, **info)
+    require(kn.LAUNCHES == kb.LAUNCHES == info["iterations"], "SCF launches")
+    require(info["gmax"] <= DRUDE_SCF_TOL, f"thrombin SCF stopped at gmax {info['gmax']}")
+    _drude_kernel_check("drude-thrombin-scf", ext, ext64, cfg, pos)
+    # the witnesses: the JAX step's growth on the stiff modes, and the
+    # damped step's stall at the reaction field's cutoff jumps
+    for damping, iters, tol in ((1.0, SCF_WITNESS_ITERS, SCF_TOL_F32),
+                                (DRUDE_SCF_DAMPING, SCF_ITERS, SCF_TOL_F32)):
+        trace = []
+
+        def traced(p, b):
+            out = ef(p, b)
+            trace.append(float(out[1][spec.drude_idx].abs().max()))
+            return out
+
+        scf_drude(ext, spec, cfg, pos0, None, iters=iters, tol=tol, damping=damping, ef=traced)
+        log("drude_scf_witness", damping=damping, iterations=len(trace), tol=tol,
+            gmax_trace=",".join(f"{g:.4g}" for g in trace[::max(1, iters // 6)] + trace[-1:]))
+
+    integ = _drude_langevin(ext, spec, cfg, pos)
+    integ.step(niter=1)
+    torch.cuda.synchronize()
+    kn.LAUNCHES = kb.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rows = [integ.step(niter=DRUDE_CHUNK) for _ in range(DRUDE_THROMBIN_STEPS // DRUDE_CHUNK)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"pair": kn.LAUNCHES + scf_launches["pair"],
+                "bonded": kb.LAUNCHES + scf_launches["bonded"]}
+    sps = DRUDE_THROMBIN_STEPS / dt
+    rows = np.asarray(rows)
+    log("drude_dynamics", case="thrombin", steps=DRUDE_THROMBIN_STEPS, seconds=f"{dt:.4f}",
+        steps_per_s=f"{sps:.2f}", ns_per_day=f"{sps * DRUDE_DT * 1e-6 * 86400:.4f}",
+        T=f"{rows[-1, 2]:.3f}", T_rel=f"{rows[-1, 3]:.3f}", Epot=f"{rows[-1, 1]:.4f}",
+        pair_launches=kn.LAUNCHES, bonded_launches=kb.LAUNCHES)
+    require(np.all(np.isfinite(rows)), "Drude thrombin run not finite")
+    require(kn.LAUNCHES == kb.LAUNCHES == DRUDE_THROMBIN_STEPS, f"Drude launches {launches}")
+    profile_water_step(_drude_langevin(ext, spec, cfg, pos), 1.0 / sps,
+                       steps=DRUDE_THROMBIN_STEPS // 2, label="drude_profile",
+                       shares=("pair_", "bonded"))
+    _drude_collapse_witness(mol, ext, spec, cfg, pos)
+
+    # NVE from the SCF state: f32 kernels against f64 torch ops on the
+    # card, with the one-ulp floor and the 1 % charge control
+    p, v = pos.clone(), _drude_langevin(ext, spec, cfg, pos).vel
+    ulp = torch.abs(torch.nextafter(p, torch.full_like(p, np.inf)) - p)
+    ref = _drude_nve(ext64, spec64, forces64.config, p.double(), v, torch.float64)
+    dev = float(np.abs(_drude_nve(ext, spec, cfg, p, v, torch.float32) - ref).max())
+    floor = float(np.abs(_drude_nve(ext, spec, cfg, p + ulp, v, torch.float32) - ref).max())
+    ctl = float(np.abs(_drude_nve(ext._replace(charges=ext.charges * 1.01), spec, cfg, p, v,
+                                  torch.float32) - ref).max())
+    log("drude_nve", steps=DRUDE_NVE_STEPS, max_pos_dev_A=dev, ulp_floor_A=floor,
+        charge_control_A=ctl)
+    require(dev <= 1e-3 or (dev <= 3.0 * floor < ctl),
+            f"Drude NVE f32 vs f64 {dev} A (floor {floor}, control {ctl})")
+
+    d32 = kn.prepare_nb_data(ext)
+    log("drude_timing", natoms=n_ext,
+        pair_ms=f"{cuda_events_ms(lambda: kn.nonbonded_energy_forces(d32, cfg, pos)):.4f}",
+        bonded_ms=f"{cuda_events_ms(lambda: kb.bonded_energy_forces(plan, pos)):.4f}",
+        evaluation_ms=f"{cuda_events_ms(lambda: ef(pos, None)):.4f}",
+        seconds=f"{time.perf_counter() - t_phase:.2f}")
+    argon = phase_drude_argon()
+    return {k: launches[k] + argon[k] for k in launches}, sps
+
+
+def _drude_collapse_witness(mol, ext, spec, cfg, pos):
+    """Run Drude thrombin from its SCF state in chunks of 10 steps, at
+    most DRUDE_COLLAPSE_STEPS, until a Drude is 0.5 A from its core or the
+    energy is not finite; log the step, that Drude's atom and its nearest
+    particles (name, distance, charge). No gate: the reason the timed run
+    is short."""
+    import torch
+
+    integ = _drude_langevin(ext, spec, cfg, pos)
+    names = np.asarray(mol.name)
+    n = mol.numAtoms
+    step = 0
+    while step < DRUDE_COLLAPSE_STEPS:
+        ep = integ.step(niter=10)[1]
+        step += 10
+        x = integ.pos
+        d = (x[spec.drude_idx] - x[spec.core_idx]).norm(dim=1)
+        if not np.isfinite(ep) or float(d.max()) > 0.5:
+            break
+    k = int(d.argmax())
+    dist = (x - x[spec.drude_idx[k]]).norm(dim=1)
+    near = [(names[j] if j < n else "D:" + str(names[int(spec.core_idx[j - n])]),
+             f"{float(dist[j]):.3f}", f"{float(ext.charges[j]):+.3f}")
+            for j in torch.argsort(dist)[1:5].tolist()]
+    log("drude_collapse", steps=step, finite=bool(np.isfinite(ep)),
+        max_drude_displacement_A=f"{float(d.max()):.3f}",
+        atom=names[int(spec.core_idx[k])], nearest=near)
+
+
+def phase_drude_argon():
+    """The dual-Langevin dynamics gates on a polarizable argon liquid
+    (ARGON_N^3 atoms, LJ of tests/systems/argon, alpha ARGON_ALPHA A^3,
+    Drudes on every atom, cutoff ARGON_CUTOFF in a box of ARGON_L A, RFA):
+    DRUDE_WARMUP then DRUDE_STEPS steps (counters reset just before and
+    read just after), mean T_phys of the last half within DRUDE_T_TOL of
+    300 K, mean T_rel below DRUDE_TREL_MAX. Returns the launches."""
+    import torch
+
+    from torchmd_tpu_torch.drude import init_drude_positions, make_drude_ffparams
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.potentials import FFParams, ForceTermConfig
+
+    n = ARGON_N ** 3
+    g = np.stack(np.meshgrid(*[np.arange(ARGON_N)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    coords = (g + 0.5) * (ARGON_L / ARGON_N)
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=DEVICE)
+
+    ffp = FFParams(charges=t(np.zeros(n)), masses=t(np.full((n, 1), 39.95)),
+                   mapped_atom_types=t(np.zeros(n), torch.int64),
+                   lj_params=t([[3.345, 0.238]]), bonds=None, angles=None, dihedrals=None,
+                   impropers=None, nb14=None, nb_mask=~torch.eye(n, dtype=torch.bool,
+                                                                device=DEVICE))
+    ext, spec = make_drude_ffparams(ffp, np.full(n, ARGON_ALPHA))
+    cfg = ForceTermConfig(terms=("lj", "electrostatics", "bonds"), cutoff=ARGON_CUTOFF,
+                          rfa=True)
+    box = np.full(3, ARGON_L)
+    integ = _drude_langevin(ext, spec, cfg, init_drude_positions(t(coords), spec), box=box)
+    warm = [integ.step(niter=DRUDE_CHUNK) for _ in range(DRUDE_WARMUP // DRUDE_CHUNK)]
+    torch.cuda.synchronize()
+    kn.LAUNCHES = kb.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rows = np.asarray([integ.step(niter=DRUDE_CHUNK) for _ in range(DRUDE_STEPS // DRUDE_CHUNK)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+    half = rows[len(rows) // 2:]
+    T_mean, Trel_mean = float(half[:, 2].mean()), float(half[:, 3].mean())
+    sps = DRUDE_STEPS / dt
+    log("drude_dynamics", case="argon", natoms=n, particles=2 * n, warmup=DRUDE_WARMUP,
+        T_warmup_end=f"{warm[-1][2]:.2f}", steps=DRUDE_STEPS, seconds=f"{dt:.4f}",
+        steps_per_s=f"{sps:.2f}", ns_per_day=f"{sps * DRUDE_DT * 1e-6 * 86400:.4f}",
+        T_last_half=f"{T_mean:.3f}", T_rel_last_half=f"{Trel_mean:.3f}",
+        Epot=f"{rows[-1, 1]:.4f}", host_reads=len(rows), pair_launches=launches["pair"],
+        bonded_launches=launches["bonded"])
+    require(np.all(np.isfinite(rows)), "Drude argon run not finite")
+    for k, v in launches.items():
+        require(v == DRUDE_STEPS, f"argon {k} kernel launched {v} != {DRUDE_STEPS} times")
+    require(abs(T_mean - TEMP) <= DRUDE_T_TOL, f"Drude T_phys {T_mean} off {TEMP}")
+    require(Trel_mean < DRUDE_TREL_MAX, f"Drude T_rel {Trel_mean} >= {DRUDE_TREL_MAX}")
+    return launches
+
+
+def build_swm4(parallel=False):
+    """(charges, alpha, thole, lone pairs, coordinates) of the SWM4-NDP
+    box: n^3 = SWM4_N^3 waters (O, M, H1, H2; O-H 0.9572 A, 104.52 deg) at the centres
+    of an n^3 lattice in the L = SWM4_L box, each turned about its O by a random
+    rotation (SWM4_SEED) unless `parallel`; M rows at O until the lone
+    pairs are constrained."""
+    n, L = SWM4_N, SWM4_L
+    from torchmd_tpu_torch.drude import charmm_drude_tables
+    from torchmd_tpu_torch.forcefields.ff_charmm import CharmmParameterSet
+    from torchmd_tpu_torch.io import Molecule
+
+    r, th = 0.9572, np.radians(104.52)
+    mono = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 0.0],
+                     [r * np.sin(th / 2), 0.0, r * np.cos(th / 2)],
+                     [-r * np.sin(th / 2), 0.0, r * np.cos(th / 2)]])
+    rs = np.random.RandomState(SWM4_SEED)
+    coords = []
+    for g in np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"), -1).reshape(-1, 3):
+        q, rr = np.linalg.qr(rs.randn(3, 3))
+        q = q * np.sign(np.diag(rr))
+        if np.linalg.det(q) < 0:
+            q[:, 0] = -q[:, 0]
+        coords.append((g + 0.5) * (L / n) + mono @ (np.eye(3) if parallel else q.T))
+    nw = n ** 3
+    mol = Molecule()
+    mol.numAtoms = 4 * nw
+    mol.name = np.array(["OH2", "OM", "H1", "H2"] * nw, dtype=object)
+    mol.resname = np.array(["SWM4"] * 4 * nw, dtype=object)
+    mol.resid = np.repeat(np.arange(nw), 4)
+    prm = CharmmParameterSet(os.path.join(DATA, "swm4-ndp", "swm4ndp.str"))
+    alpha, thole, charges, lps = charmm_drude_tables(prm, mol)
+    return charges, alpha, thole, lps, np.concatenate(coords)
+
+
+def _swm4_system(charges, alpha, thole, lps, coords, dtype):
+    """(ffp_ext, spec, start positions (Drudes on their cores), recip, cfg)
+    of an SWM4-NDP box at `dtype` on the card."""
+    import torch
+
+    from torchmd_tpu_torch.drude import (constrain_lonepairs, init_drude_positions,
+                                         make_drude_ewald, make_drude_ffparams,
+                                         make_lonepair_spec)
+    from torchmd_tpu_torch.potentials import FFParams, ForceTermConfig
+
+    n = len(charges)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=DEVICE)
+
+    mol_of = torch.arange(n, device=DEVICE) // 4
+    ffp = FFParams(charges=t(charges),
+                   masses=t(np.tile([15.999, 1e-9, 1.008, 1.008], n // 4).reshape(-1, 1)),
+                   mapped_atom_types=t(np.zeros(n), torch.int64),
+                   lj_params=t(np.zeros((1, 2))), bonds=None, angles=None, dihedrals=None,
+                   impropers=None, nb14=None, nb_mask=mol_of[:, None] != mol_of[None, :])
+    ext, spec = make_drude_ffparams(ffp, alpha, thole_atom=np.where(alpha > 0, thole, np.nan))
+    pos = constrain_lonepairs(make_lonepair_spec(lps, device=DEVICE, dtype=dtype),
+                              [lp["site"] for lp in lps], t(coords))
+    recip, aew = make_drude_ewald(ext, np.full(3, SWM4_L), SWM4_CUTOFF, tol=SWM4_TOL)
+    cfg = ForceTermConfig(terms=("electrostatics", "bonds"), cutoff=SWM4_CUTOFF,
+                          ewald_alpha=aew)
+    return ext, spec, init_drude_positions(pos, spec), recip, cfg
+
+
+def swm4_dipoles(ext, pos):
+    """Each molecule's dipole (D, f64 numpy): its four sites and its Drude
+    row about its O."""
+    import torch
+
+    nw = int(pos.shape[0]) // 5
+    m = torch.arange(nw, device=pos.device)
+    rows = torch.stack([4 * m, 4 * m + 1, 4 * m + 2, 4 * m + 3, 4 * nw + m], 1)
+    p, q = pos.double(), ext.charges.double()
+    d = p[rows] - p[4 * m][:, None, :]
+    return ((q[rows][..., None] * d).sum(1).norm(dim=-1) * DEBYE).cpu().numpy()
+
+
+def phase_drude_swm4():
+    """The SWM4-NDP box (CHARMM Drude-2013 ingestion, lone pairs, PME on
+    the extended topology): #1 (Ewald real space), #3 and the PME spread
+    #6 against plain at the start and at the relaxed geometry; scf_drude
+    at f64 (plain, to SCF_TOL_F64) and at f32 (the kernels, the counters
+    reset just before and read just after); the dipoles' gates; the same
+    lattice unrotated. Returns the f32 solve's launches."""
+    import torch
+
+    from torchmd_tpu_torch.drude import scf_drude
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.ops import pme as kp
+
+    t_phase = time.perf_counter()
+    box = np.full(3, SWM4_L)
+    parts = build_swm4()
+    ext64, spec64, p0_64, rec64, cfg64 = _swm4_system(*parts, torch.float64)
+    ext, spec, p0, rec, cfg = _swm4_system(*parts, torch.float32)
+    require(type(rec).__name__ == "PmeRecip" and rec.gather == "exact", "SWM4 reciprocal term")
+    log("swm4_setup", waters=SWM4_N ** 3, particles=int(ext.charges.shape[0]), box=SWM4_L,
+        mesh="x".join(map(str, rec.cfg.kmax)), order=rec.ORDER,
+        ewald_alpha=f"{cfg.ewald_alpha:.6f}", excluded_pairs=int(rec.excl.shape[0]),
+        seconds=f"{time.perf_counter() - t_phase:.2f}")
+    _drude_kernel_check("swm4-start", ext, ext64, cfg, p0, box, rec)
+
+    t0 = time.perf_counter()
+    p64, info64 = scf_drude(ext64, spec64, cfg64, p0_64, box, iters=SCF_ITERS,
+                            tol=SCF_TOL_F64, recip=rec64, return_info=True)
+    torch.cuda.synchronize()
+    log("drude_scf", case="swm4", precision="f64", seconds=f"{time.perf_counter() - t0:.4f}",
+        **info64)
+    require(info64["gmax"] <= SCF_TOL_F64, f"f64 SCF stopped at gmax {info64['gmax']}")
+
+    torch.cuda.synchronize()
+    kn.LAUNCHES = kb.LAUNCHES = kp.SPREAD_LAUNCHES = kp.GATHER_LAUNCHES = 0
+    t0 = time.perf_counter()
+    p32, info = scf_drude(ext, spec, cfg, p0, box, iters=SCF_ITERS, tol=SCF_TOL_F32,
+                          recip=rec, return_info=True)
+    torch.cuda.synchronize()
+    scf_s = time.perf_counter() - t0
+    launches = {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES, "pme_spread": kp.SPREAD_LAUNCHES,
+                "pme_gather": kp.GATHER_LAUNCHES}
+    log("drude_scf", case="swm4", precision="f32", seconds=f"{scf_s:.4f}",
+        ms_per_iteration=f"{1e3 * scf_s / info['iterations']:.4f}",
+        **{f"{k}_launches": v for k, v in launches.items()}, **info)
+    require(launches["pme_gather"] == 0, "the exact-gather path launched the ik gather")
+    require(launches["pair"] == launches["bonded"] == launches["pme_spread"]
+            == info["iterations"], f"SWM4 SCF launches {launches}")
+    _drude_kernel_check("swm4-relaxed", ext, ext64, cfg, p64.float(), box, rec)
+
+    mu64, mu32 = swm4_dipoles(ext64, p64), swm4_dipoles(ext, p32)
+    rel = float(np.abs(mu32 / mu64 - 1.0).max())
+    log("swm4_dipoles", mean_D=f"{mu64.mean():.4f}", min_D=f"{mu64.min():.4f}",
+        max_D=f"{mu64.max():.4f}", p5_D=f"{np.percentile(mu64, 5):.4f}",
+        p95_D=f"{np.percentile(mu64, 95):.4f}", above_gas_share=f"{(mu64 > SWM4_GAS_MU).mean():.3f}",
+        f32_vs_f64_rel=rel)
+    require(mu64.mean() > SWM4_GAS_MU and mu64.max() < SWM4_MU_RANGE[1],
+            f"SWM4 dipoles: mean {mu64.mean()}, max {mu64.max()}")
+    require(rel <= SWM4_MU_REL, f"SWM4 f32 dipoles off f64 by {rel}")
+
+    # the unrotated lattice: every molecule's dipole enhanced alike
+    ext_l, spec_l, p0_l, rec_l, cfg_l = _swm4_system(*build_swm4(parallel=True), torch.float64)
+    p_l, info_l = scf_drude(ext_l, spec_l, cfg_l, p0_l, box, iters=SCF_ITERS, tol=SCF_TOL_F64,
+                            recip=rec_l, return_info=True)
+    mu_l = swm4_dipoles(ext_l, p_l)
+    log("swm4_lattice", min_D=f"{mu_l.min():.6f}", max_D=f"{mu_l.max():.6f}", **info_l,
+        seconds=f"{time.perf_counter() - t_phase:.2f}")
+    require(SWM4_MU_RANGE[0] < mu_l.min() and mu_l.max() < SWM4_MU_RANGE[1],
+            f"SWM4 lattice dipoles {mu_l.min()}-{mu_l.max()} D")
+
+    d32 = kn.prepare_nb_data(ext)
+    b32 = torch.as_tensor(box, dtype=torch.float32, device=DEVICE)
+    kmesh = tuple(rec.cfg.kmax)
+    log("swm4_timing", pair_ms=f"{cuda_events_ms(lambda: kn.nonbonded_energy_forces(d32, cfg, p32, b32)):.4f}",
+        spread_ms=f"{cuda_events_ms(lambda: kp.pme_spread(p32, ext.charges, b32, kmesh, rec.ORDER)):.4f}",
+        recip_ms=f"{cuda_events_ms(lambda: rec.energy_forces(p32, b32)):.4f}")
+    return launches
+
+
+def _lj_dimer(d, sigma=3.4, eps=0.24):
+    s6 = (sigma / d) ** 6
+    return 4 * eps * (s6 * s6 - s6)
+
+
+def phase_nnp():
+    """The NNP trained on the argon dimer's LJ curve at f32 on the card
+    (losses, the well), then driving the dimer's MD through
+    Forces(external=NNPExternal) and the Integrator; the default
+    NNPConfig's energy + forces at thrombin's width (device ms, peak
+    memory). Launches none of the kernels #1-#8."""
+    import torch
+
+    from torchmd_tpu_torch.forcefields.forcefield import NullForcefield
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.integrator import Integrator
+    from torchmd_tpu_torch.io import Molecule
+    from torchmd_tpu_torch.nnp import NNPConfig, NNPExternal, init_params, nnp_energy, train_nnp
+    from torchmd_tpu_torch.parameters import Parameters
+    from torchmd_tpu_torch.systems import System
+
+    cfg = NNPConfig(n_species=1, cutoff=8.0, n_rbf=24, features=24, hidden=48)
+    model = init_params(cfg, seed=0, dtype=torch.float32, device=DEVICE)
+    dists = np.linspace(3.2, 7.5, NNP_DISTS)
+    pos = np.zeros((NNP_DISTS, 2, 3))
+    pos[:, 1, 0] = dists
+    h = 1e-4
+    dEdr = (_lj_dimer(dists + h) - _lj_dimer(dists - h)) / (2 * h)
+    f_ref = np.zeros_like(pos)
+    f_ref[:, 1, 0], f_ref[:, 0, 0] = -dEdr, dEdr
+    species = torch.zeros(2, dtype=torch.int64, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, hist = train_nnp(model, cfg, species, pos, _lj_dimer(dists), f_ref,
+                            steps=NNP_STEPS, learning_rate=NNP_LR)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    errs = {}
+    with torch.no_grad():
+        for r in NNP_CHECK_R:
+            x = torch.tensor([[0.0, 0, 0], [r, 0, 0]], dtype=torch.float32, device=DEVICE)
+            errs[r] = abs(float(nnp_energy(model, cfg, species, x)) - _lj_dimer(r))
+    log("nnp_train", steps=NNP_STEPS, seconds=f"{train_s:.3f}",
+        steps_per_s=f"{NNP_STEPS / train_s:.2f}", loss_first=hist[0], loss_last=hist[-1],
+        **{f"E_err_{r}A": f"{e:.5f}" for r, e in errs.items()})
+    require(hist[-1] < NNP_LOSS_DROP * hist[0], f"NNP loss {hist[0]} -> {hist[-1]}")
+    require(max(errs.values()) < NNP_E_TOL, f"NNP well off LJ by {errs}")
+
+    mol = Molecule()
+    mol.numAtoms = 2
+    mol.atomtype = np.array(["Ar", "Ar"], dtype=object)
+    mol.charge = np.zeros(2)
+    mol.masses = np.array([39.95, 39.95])
+    mol.coords = np.asarray([[0.0, 0, 0], [4.4, 0, 0]])[:, :, None]
+    par = Parameters(NullForcefield(mol), mol, [], precision="single")
+    forces = Forces(par, terms=[], external=NNPExternal(model, cfg, species),
+                    precision="single", device=DEVICE)
+    system = System(2, 1, "single")
+    system.set_positions(mol.coords)
+    integ = Integrator(system, forces, timestep=5.0, device=DEVICE)
+    seps = []
+    for _ in range(NNP_MD_STEPS // 10):
+        integ.step(niter=10)
+        seps.append(float(np.linalg.norm(system.pos[0, 1] - system.pos[0, 0])))
+    seps = np.asarray(seps)
+    log("nnp_md", steps=NNP_MD_STEPS, sep_min=f"{seps.min():.4f}", sep_max=f"{seps.max():.4f}",
+        sep_std=f"{seps.std():.4f}")
+    require(seps.min() > 3.0 and seps.max() < 6.5 and seps.std() > 0.01, "NNP dimer MD")
+
+    # the default width at thrombin's size
+    mol_t, par_t = load_amber(*MAIN_SYSTEM)
+    _, species_t = np.unique(np.asarray(par_t.masses).reshape(-1).round(1), return_inverse=True)
+    big_cfg = NNPConfig(n_species=int(species_t.max()) + 1)
+    big = init_params(big_cfg, seed=0, dtype=torch.float32, device=DEVICE)
+    x = torch.as_tensor(mol_t.coords[:, :, 0], dtype=torch.float32, device=DEVICE)
+    spec_t = torch.as_tensor(species_t, device=DEVICE)
+
+    def energy_forces():
+        p = x.detach().requires_grad_(True)
+        e = nnp_energy(big, big_cfg, spec_t, p)
+        return e, torch.autograd.grad(e, p)[0]
+
+    e, f = energy_forces()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    energy_forces()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = cuda_events_ms(energy_forces, calls=5, warmup=1)
+    log("nnp_thrombin", natoms=mol_t.numAtoms, species=big_cfg.n_species,
+        features=big_cfg.features, ms=f"{ms:.3f}", peak_gib=f"{peak / 2**30:.3f}",
+        energy=f"{float(e.detach()):.4f}", finite=bool(torch.isfinite(f).all()))
+    require(bool(torch.isfinite(f).all()), "NNP forces at thrombin's width not finite")
+    del big, e, f
+    torch.cuda.empty_cache()
+
+
+def _cg_training(dtype, n_conf=TRAIN_B, seed=0):
+    """(trainer, state, pos, box, f_ref, e_ref, ffp_true, cfg) of
+    examples/train_cg.py's recipe on the card at `dtype`."""
+    import functools
+
+    import torch
+
+    from torchmd_tpu_torch.forcefields import ForceField
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.io import Molecule
+    from torchmd_tpu_torch.parameters import Parameters
+    from torchmd_tpu_torch.potentials import total_energy
+    from torchmd_tpu_torch.train import ForceMatchingTrainer
+
+    terms = ["bonds", "angles", "repulsioncg"]
+    cgdir = os.path.join(REPO, "tests", "systems", "cg")
+    mol = Molecule(os.path.join(cgdir, "cg_structure.psf"))
+    mol.read(os.path.join(cgdir, "cg_structure.xtc"))
+    ff = ForceField.create(mol, os.path.join(cgdir, "forcefield.yaml"))
+    prec = "double" if dtype == torch.float64 else "single"
+    par = Parameters(ff, mol, terms, precision=prec)
+    forces = Forces(par, terms=terms, precision=prec, cutoff=9.0, exclusions=("bonds",),
+                    device=DEVICE)
+    ffp, cfg = forces.ffparams, forces.config
+    base = mol.coords[:, :, 0].astype(np.float64)
+    rs = np.random.RandomState(seed)
+    pos = torch.as_tensor(base[None] + 0.25 * rs.randn(n_conf, *base.shape), dtype=dtype,
+                          device=DEVICE)
+    box = torch.zeros((n_conf, 3), dtype=dtype, device=DEVICE)
+    x = pos.clone().requires_grad_(True)
+    e_ref = torch.func.vmap(lambda p, b: total_energy(ffp, p, b, cfg))(x, box)
+    (g,) = torch.autograd.grad(e_ref.sum(), x)
+    start = ffp._replace(
+        bonds=ffp.bonds._replace(params=ffp.bonds.params * torch.tensor(
+            [[1.4, 1.05]], dtype=dtype, device=DEVICE)),
+        angles=ffp.angles._replace(params=ffp.angles.params * torch.tensor(
+            [[0.7, 0.95]], dtype=dtype, device=DEVICE)),
+        lj_params=ffp.lj_params * 1.2)
+    trainer = ForceMatchingTrainer(start, cfg, trainable=("bonds", "angles", "lj"),
+                                   optimizer=functools.partial(torch.optim.Adam, lr=TRAIN_LR),
+                                   energy_weight=TRAIN_EW)
+    return trainer, trainer.init(), pos, box, -g.detach(), e_ref.detach(), ffp, cfg
+
+
+def phase_train():
+    """examples/train_cg.py's recipe on the card: TRAIN_STEPS force-matching
+    steps at f32 (steps/s, the loss, the recovered bond lengths, a held-out
+    force RMSE); TRAIN_CHECK_STEPS steps at f32 against f64. Launches none
+    of the kernels #1-#8 (the loss's double backward runs torch ops)."""
+    import torch
+
+    from torchmd_tpu_torch.potentials import total_energy
+
+    trainer, state, pos, box, f_ref, e_ref, ffp_true, cfg = _cg_training(torch.float32)
+    params = {}
+    for dt in (torch.float32, torch.float64):
+        tr, st, *data = _cg_training(dt)
+        for _ in range(TRAIN_CHECK_STEPS):
+            st, _ = tr.step(st, *data[:4])
+        params[dt] = {k: v.detach().double().cpu().numpy() for k, v in st.params.items()}
+    rel = max(float(np.abs(params[torch.float32][k] - v).max() / np.abs(v).max())
+              for k, v in params[torch.float64].items())
+    log("train_check", steps=TRAIN_CHECK_STEPS, f32_vs_f64_rel=rel)
+    require(rel <= TRAIN_REL, f"force matching f32 off f64 by {rel}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        state, loss = trainer.step(state, pos, box, f_ref, e_ref)
+        if i % 250 == 0 or i == TRAIN_STEPS - 1:
+            losses.append(float(loss))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    learned = trainer.ffparams(state)
+    bond_err = float((learned.bonds.params[:, 1] - ffp_true.bonds.params[:, 1]).abs().max())
+    rs = np.random.RandomState(1)
+    test = pos[:8].detach() + 0.25 * torch.as_tensor(rs.randn(*pos[:8].shape),
+                                                       dtype=pos.dtype, device=DEVICE)
+
+    def forces_of(ffp):
+        x = test.clone().requires_grad_(True)
+        e = torch.func.vmap(lambda p, b: total_energy(ffp, p, b, cfg))(x, box[:8])
+        return -torch.autograd.grad(e.sum(), x)[0]
+
+    rmse = float(((forces_of(learned) - forces_of(ffp_true)) ** 2).mean().sqrt())
+    log("train", steps=TRAIN_STEPS, seconds=f"{dt:.3f}", steps_per_s=f"{TRAIN_STEPS / dt:.2f}",
+        loss_first=losses[0], loss_last=losses[-1], bond_length_err_A=f"{bond_err:.5f}",
+        heldout_force_rmse=f"{rmse:.4f}", conformations=TRAIN_B)
+    require(losses[-1] <= TRAIN_LOSS_DROP * losses[0], f"training loss {losses}")
+    return TRAIN_STEPS / dt
+
+
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -3960,19 +4695,27 @@ def main():
     metad_launches, _ = phase_metad()
     alch_launches = phase_alchemy()
     phase_amoeba()
+    drude_launches, _ = phase_drude()
+    swm4_launches = phase_drude_swm4()
+    phase_nnp()
+    phase_train()
     times["roofline"], probe_launches = phase_roofline()
     # the dense pair and bonded kernels' main paths: the API's dynamics,
     # the CLI's run, the production protocol's and its r-RESPA run, the
-    # GB/OBC run, metadynamics, alchemy and lambda-dynamics (their
+    # GB/OBC run, metadynamics, alchemy and lambda-dynamics, the Drude
+    # thrombin run and the SWM4-NDP box's f32 SCF solve (their
     # replica-axis instances: the REMD ladder's run); the
     # cell, spread and gather kernels': the NVT water box's, the Monte
-    # Carlo phase's and the reciprocal tier's; the column kernel's: the
+    # Carlo phase's and the reciprocal tier's, and the spread's also the
+    # SWM4-NDP solve's; the column kernel's: the
     # NPT phase's (with its virial), and its no-virial reaction-field
     # instance's (column_rf) the r-RESPA SPC/Fw water's mts 4 run
     thr_launches = {k: thr_launches[k] + cli_launches[k] + prod_launches[k] + mts_launches[k]
                     + gb_launches[k] + metad_launches[k] + alch_launches[k]
+                    + drude_launches[k] + swm4_launches[k]
                     for k in thr_launches}
     water_launches = {k: water_launches[k] + mc_launches.get(k, 0) + recip_launches.get(k, 0)
+                      + (swm4_launches["pme_spread"] if k == "pme_spread" else 0)
                       for k in water_launches}
 
     import torch
@@ -4025,6 +4768,12 @@ if __name__ == "__main__":
         # the AMOEBA phase alone (it launches none of the kernels)
         phase_device()
         phase_amoeba()
+    elif sys.argv[1:2] == ["--drude"]:
+        # the Drude phases alone (thrombin and the SWM4-NDP box)
+        phase_device()
+        phase_build()
+        phase_drude()
+        phase_drude_swm4()
     elif sys.argv[1:2] == ["--remd-seeds"]:
         # a measurement, not the smoke test: the REMD phase's T spread
         phase_device()

@@ -59,9 +59,8 @@ SLICE_MODULES = (
     "torchmd_tpu_torch.amoeba_valence", "torchmd_tpu_torch.amoeba",
 )
 # names of the JAX package's __all__ whose modules are not ported yet
-# (ROADMAP item 20: drude, viz, train; item 21: parallel)
-UNPORTED_NAMES = ("make_drude", "DrudeIntegrator", "make_drude_ewald", "view_frame",
-                  "train", "parallel")
+# (ROADMAP item 21: parallel)
+UNPORTED_NAMES = ("parallel",)
 
 
 def _system(name):

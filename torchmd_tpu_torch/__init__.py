@@ -111,6 +111,25 @@ evaluation one CUDA graph on the card), as the only term of `Forces`:
                                    switch_dist=8.1, ewald=True, box=box,
                                    valence=True)   # ffparams: its nb_mask
     forces = Forces(par, terms=[], external=pot)
+
+Drude oscillators (polarizabilities per atom, or from a force field's
+`polarizabilities:` section): the extended system runs the pair and
+bonded kernels on the card, an SCF solve relaxes the Drudes, and the
+dual-Langevin integrator keeps them cold:
+
+    from torchmd_tpu_torch import DrudeIntegrator, make_drude
+    from torchmd_tpu_torch.drude import init_drude_positions, scf_drude
+
+    ffp_ext, spec = make_drude(forces, alpha=alpha)
+    pos = scf_drude(ffp_ext, spec, forces.config,
+                    init_drude_positions(coords, spec), None)
+    integ = DrudeIntegrator(ffp_ext, spec, forces.config, pos, T=300.0,
+                            T_drude=1.0, dtype=torch.float32)
+    Ekin, Epot, T, T_rel = integ.step(niter=100)
+
+A neural-network potential (`nnp.train_nnp`, then `nnp.NNPExternal` as
+`Forces(external=...)`), force matching of force-field parameters
+(`train.ForceMatchingTrainer`) and a PNG of a frame (`view_frame`).
 """
 
 __version__ = "0.1.0"
@@ -121,7 +140,7 @@ __all__ = [
     "vsites", "constraints", "thermostats", "columns", "barostat",
     "cmap", "restraints", "gb", "cv", "metadynamics", "remd", "alchemy",
     "lambda_dynamics", "analysis", "multipoles", "multipole_ewald",
-    "amoeba_valence", "amoeba",
+    "amoeba_valence", "amoeba", "drude", "nnp", "train", "viz",
     "external", "run", "utils", "wrapper", "checkpoint", "observables",
     "minimizers", "profiling", "native", "neighbourlist", "npzmol", "mycalc",
     "calculators",
@@ -140,7 +159,8 @@ __all__ = [
     "make_alchemical", "AlchemicalCoupling", "ReplicaExchange", "MetaDynamics",
     "HarmonicBias", "wham", "LambdaDynamics", "make_lambda_sites", "ph_bias",
     "normal_modes", "GBSA", "make_gbsa", "apply_vsites", "make_multipoles",
-    "MultipoleEwald", "MultipolePme", "make_amoeba_potential",
+    "MultipoleEwald", "MultipolePme", "make_amoeba_potential", "make_drude",
+    "DrudeIntegrator", "make_drude_ewald", "view_frame",
 ]
 
 _LAZY = {
@@ -207,6 +227,10 @@ _LAZY = {
     "MultipoleEwald": ("torchmd_tpu_torch.multipole_ewald", "MultipoleEwald"),
     "MultipolePme": ("torchmd_tpu_torch.multipole_ewald", "MultipolePme"),
     "make_amoeba_potential": ("torchmd_tpu_torch.amoeba", "make_amoeba_potential"),
+    "make_drude": ("torchmd_tpu_torch.drude", "make_drude"),
+    "DrudeIntegrator": ("torchmd_tpu_torch.drude", "DrudeIntegrator"),
+    "make_drude_ewald": ("torchmd_tpu_torch.drude", "make_drude_ewald"),
+    "view_frame": ("torchmd_tpu_torch.viz", "view_frame"),
 }
 
 

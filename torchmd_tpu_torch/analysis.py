@@ -232,7 +232,7 @@ def main(argv=None):
                     help="Box diagonal (1 or 3 values) for the RDF")
     ap.add_argument("--rdf-bins", type=int, default=100)
     ap.add_argument("--view", default=None,
-                    help="Render the last frame to this PNG (not ported: raises)")
+                    help="Render the last trajectory frame to this PNG (torchmd_tpu_torch.viz)")
     ap.add_argument("--device", default=None,
                     help="Device of the RDF and MSD (default the CUDA card; "
                          "cpu for the CPU)")
@@ -260,8 +260,12 @@ def main(argv=None):
         else:
             raise SystemExit(f"unsupported trajectory format: {path}")
         if args.view:
-            raise NotImplementedError(
-                "--view: the frame renderer (viz.py) is not ported yet; see ROADMAP.md")
+            from .viz import view_frame
+
+            frames = _frames(traj)
+            view_frame(None, frames[-1], out=args.view,
+                       title=f"{args.traj} frame {len(frames) - 1}")
+            print("wrote", args.view)
         if args.rmsd:
             vals = rmsd(traj)
             np.savetxt(args.rmsd, np.column_stack([np.arange(len(vals)), vals]),
@@ -280,7 +284,7 @@ def main(argv=None):
             np.savetxt(args.msd, np.column_stack([np.arange(len(vals)), vals]),
                        delimiter=",", header="lag,msd", comments="")
             print("wrote", args.msd)
-        if not (args.rmsd or args.rdf or args.msd):
+        if not (args.rmsd or args.rdf or args.msd or args.view):
             raise SystemExit("--traj given but no analysis selected")
         return
 

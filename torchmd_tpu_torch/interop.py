@@ -10,8 +10,10 @@ The functions below do the same for the periodic slices' structures: the
 exclusion table, the cell and column configurations, the cell list, PME,
 SETTLE, virtual sites, the Nose-Hoover chain state and the MTK barostat's
 extended state, for the sampling slice's: a GBSA term, an alchemical
-coupling, a metadynamics bias grid and the lambda-dynamics state, and
-for the polarizable slice's: the multipole and polarization specs, so
+coupling, a metadynamics bias grid and the lambda-dynamics state, for
+the polarizable slice's: the multipole and polarization specs, and for
+the Drude slice's: the Drude and lone-pair specs, an NNP's weights and a
+Drude run's state, so
 that a test can run both packages on identical inputs or hand a run from
 one to the other.
 """
@@ -244,3 +246,55 @@ def polarization_spec_from_numpy(pspec, device="cpu"):
         perm_mask=_tensor(np.asarray(pspec.perm_mask, bool), device, torch.float64),
         cutoff=None if pspec.cutoff is None else float(pspec.cutoff),
         cg_iters=int(pspec.cg_iters), cg_tol=float(pspec.cg_tol))
+
+
+# ----------------------------------------------------------------------
+# The Drude slice: Drude oscillators, CHARMM lone pairs, the NNP
+# ----------------------------------------------------------------------
+
+def drude_spec_from_numpy(spec, device="cpu", dtype=torch.float64):
+    """The port's `drude.DrudeSpec` from a JAX one (numpy leaves)."""
+    from .drude import DrudeSpec
+
+    def t(name):
+        v = getattr(spec, name)
+        return None if v is None else _tensor(v, device, dtype)
+
+    return DrudeSpec(**{f: (float(spec.m_drude) if f == "m_drude" else
+                            float(spec.k_drude) if f == "k_drude" else t(f))
+                        for f in DrudeSpec._fields})
+
+
+def lonepair_spec_from_numpy(spec, device="cpu", dtype=torch.float64):
+    """The port's `drude.LonePairSpec` from a JAX one (numpy leaves)."""
+    from .drude import LonePairSpec
+
+    return LonePairSpec(*(_tensor(getattr(spec, f), device, dtype)
+                          for f in LonePairSpec._fields))
+
+
+def nnp_params_from_numpy(params, cfg, device="cpu", dtype=torch.float64):
+    """The port's `nnp.NNP` carrying a JAX NNP's params dict (numpy
+    leaves, the same names and (nin, nout) layouts)."""
+    from .nnp import NNP
+
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return _tensor(v, device, dtype)
+
+    return NNP(cfg, conv(dict(params)))
+
+
+def drude_state_from_numpy(integ, pos, vel, forces=None):
+    """Give the port's `drude.DrudeIntegrator` the positions, velocities
+    and, optionally, the forces carried out of a JAX DrudeIntegrator's last
+    step (`pos`, `vel`, `_last_frc`), so that its next `step` continues
+    that run; without forces the port evaluates them at the entry state."""
+    def t(a):
+        return _tensor(np.reshape(a, (-1, 3)), integ.device, integ.dtype)
+
+    integ.pos, integ.vel = t(pos), t(vel)
+    integ._last_frc = None if forces is None else t(forces)
+    integ._last_pos = integ.pos
+    return integ

@@ -319,6 +319,11 @@ def compute_potentials(par: FFParams, pos, box, cfg: ForceTermConfig,
     return pot
 
 
+def total_energy(par: FFParams, pos, box, cfg: ForceTermConfig):
+    """The sum of `compute_potentials` (a 0-dim tensor)."""
+    return sum(compute_potentials(par, pos, box, cfg).values(), _zero(pos))
+
+
 def energy_and_forces(par: FFParams, pos, box, cfg: ForceTermConfig):
     """(per-term potentials, forces = -dE/dpos by autograd)."""
     with torch.enable_grad():

@@ -254,11 +254,11 @@ Phases (each prints lines; any failure raises and exits non-zero):
      core-Drude pair at r = 0 and at the SCF state (#3's window_stats
      for the springs' rows), scf_drude at f32 (damping, iterations, host
      reads, launches) and the SCF witnesses (the JAX step's growth, the
-     damped step's stall), DRUDE_THROMBIN_STEPS timed dual-Langevin steps
-     with the counters reset just before and
-     read just after (steps/s, ns/day) and a profile, each from the SCF
-     state, the collapse witness (where a Drude first leaves its core by
-     0.5 A), DRUDE_NVE_STEPS NVE steps at f32 against f64 on the card
+     damped step's stall), DRUDE_WINDOWS timed windows of DRUDE_WINDOW
+     dual-Langevin steps, each from the SCF state, with the counters
+     reset just before and read just after (steps/s, ns/day) and a
+     profile, the collapse witness (the first step where a Drude leaves
+     its core by 0.5 A, and the pair), DRUDE_NVE_STEPS NVE steps at f32 against f64 on the card
      (1e-3 A, or 3x the one-ulp floor with the 1 % charge control
      beyond it), #1 and #3 timed at 7,033 particles; then the polarizable
      argon liquid (ARGON_N^3 atoms): DRUDE_WARMUP and DRUDE_STEPS
@@ -269,9 +269,11 @@ Phases (each prints lines; any failure raises and exits non-zero):
      make_drude_ewald with the exact gather): #1 (Ewald real space), #3
      and the spread #6 against plain at the start and relaxed; the f64
      SCF to SCF_TOL_F64, the f32 SCF on the kernels (launches one each
-     an iteration, no ik gather); dipoles (mean above SWM4_GAS_MU, all
-     below SWM4_MU_RANGE[1], f32 within SWM4_MU_REL of f64) and the
-     unrotated lattice's, all in SWM4_MU_RANGE;
+     an iteration, no ik gather); dipoles (all below SWM4_MU_RANGE[1],
+     f32 within SWM4_MU_REL of f64), the induced dipoles against the JAX
+     package's reading SWM4_WITNESS (the f64 solve of its 6^3 box, and
+     the full box's mean within SWM4_WITNESS_SE standard errors), and
+     the unrotated lattice's dipoles, all in SWM4_MU_RANGE;
  27. nnp: the NNP trained on the argon dimer's LJ curve (NNP_STEPS Adam
      steps, f32: loss and the well), the dimer's MD through
      Forces(external=NNPExternal), the default NNPConfig at thrombin's
@@ -666,15 +668,20 @@ DRUDE_ALPHA, DRUDE_DT, DRUDE_STEPS, DRUDE_CHUNK = 1.0, 1.0, 1000, 20
 # velocities T_phys falls to ~210 K within 20 fs and gamma 1 ps^-1 brings
 # it back over ~1 ps
 DRUDE_WARMUP = 1000
-# Drude thrombin's timed run is short, each from the SCF state: a polar
-# hydrogen (no LJ) falls onto a neighbour's Drude (no LJ either) across
-# an H-bond within ~100 fs (the collapse witness logs where, running at
-# most DRUDE_COLLAPSE_STEPS; ROADMAP section 3). The gated 1,000-step run
-# is the polarizable argon liquid: ARGON_N^3 atoms in an ARGON_L A box
-# (1.29 g/cm^3), argon's ARGON_ALPHA A^3, cutoff ARGON_CUTOFF A, reaction
-# field. The SCF witnesses: the JAX step (damping 1) for
+# Drude thrombin leaves the model within tens of femtoseconds: a polar
+# hydrogen (no LJ) and a neighbour's Drude (no LJ either) fall onto each
+# other across an H-bond (the collapse witness logs the first step and the
+# pair, stepping at most DRUDE_COLLAPSE_STEPS;
+# tests/test_torch_drude_thrombin.py shows the JAX package and the port
+# collapse at the same step on a piece of this system; ROADMAP section
+# 3). Its dynamics are therefore timed over DRUDE_WINDOWS windows of
+# DRUDE_WINDOW steps, each from the SCF state with fresh velocities, the
+# clock and the counters around the stepping alone. The gated 1,000-step
+# run is the polarizable argon liquid: ARGON_N^3 atoms in an ARGON_L A
+# box (1.29 g/cm^3), argon's ARGON_ALPHA A^3, cutoff ARGON_CUTOFF A,
+# reaction field. The SCF witnesses: the JAX step (damping 1) for
 # SCF_WITNESS_ITERS iterations, and the damped one to SCF_TOL_F32.
-DRUDE_THROMBIN_STEPS, DRUDE_COLLAPSE_STEPS, SCF_WITNESS_ITERS = 20, 400, 60
+DRUDE_WINDOW, DRUDE_WINDOWS, DRUDE_COLLAPSE_STEPS, SCF_WITNESS_ITERS = 10, 50, 400, 60
 ARGON_N, ARGON_L, ARGON_ALPHA, ARGON_CUTOFF = 12, 44.6, 1.64, 10.0
 DRUDE_T_TOL, DRUDE_TREL_MAX, DRUDE_NVE_STEPS = 15.0, 60.0, 10
 SCF_ITERS, SCF_TOL_F32, SCF_TOL_F64 = 200, 1e-2, 1e-10
@@ -693,13 +700,21 @@ DRUDE_SCF_DAMPING, DRUDE_SCF_TOL = 0.5, 1.0
 # terms electrostatics + bonds: the RTF has no LJ). Randomly oriented
 # neighbours' fields are random with respect to a molecule's own dipole,
 # so the SCF lowers some dipoles below the gas value (the phase logs the
-# least): that box is held to its mean above the gas dipole SWM4_GAS_MU
-# and every dipole below SWM4_MU_RANGE[1]; the same lattice with every
-# water unrotated (tests/test_drude_charmm.py's arrangement) to
-# SWM4_MU_RANGE for every dipole; f32 dipoles within SWM4_MU_REL
+# least), and every dipole is held below SWM4_MU_RANGE[1]. The induced
+# dipoles |q_D d| are held to a reading of the JAX package:
+# SWM4_WITNESS = (n, mean, spread) of the same construction cut to n^3
+# waters, set by tests/test_torch_drude_charmm.py (where the port equals
+# the JAX package on it within 1e-8 D). The card's f64 solve of that n^3
+# box meets the mean and spread within SWM4_WITNESS_TOL D, and the full
+# box's mean lies within SWM4_WITNESS_SE standard errors of the witness
+# mean (both boxes' spreads over their water counts). The same lattice
+# with every water unrotated (tests/test_drude_charmm.py's arrangement)
+# meets SWM4_MU_RANGE for every dipole; f32 dipoles within SWM4_MU_REL
 # (relative) of f64.
 SWM4_N, SWM4_L, SWM4_SEED, SWM4_CUTOFF, SWM4_TOL = 12, 37.28, 5, 9.0, 1e-5
-SWM4_MU_RANGE, SWM4_GAS_MU, SWM4_MU_REL = (1.86, 3.2), 1.85, 1e-3
+SWM4_MU_RANGE, SWM4_MU_REL = (1.86, 3.2), 1e-3
+SWM4_WITNESS = (6, 0.25514654329238945, 0.11004410626184047)
+SWM4_WITNESS_TOL, SWM4_WITNESS_SE = 1e-6, 4.0
 DEBYE = 4.80320425            # D per e A
 # the NNP on the argon-dimer LJ curve (tests/test_nnp.py): NNP_DISTS
 # distances, NNP_STEPS Adam steps at NNP_LR, f32; the final loss below
@@ -4126,9 +4141,10 @@ def phase_drude():
     """Thrombin with Drude oscillators on its heavy atoms: #1 and #3 on
     the extended system against plain at the start (every core-Drude pair
     at r = 0) and at the SCF state; scf_drude (iterations, host reads,
-    launches); DRUDE_THROMBIN_STEPS timed dual-Langevin steps from the
-    SCF state (steps/s, ns/day, launches) and a profile, each from a fresh
-    start; DRUDE_NVE_STEPS NVE steps at f32 against f64 on the card; then
+    launches); DRUDE_WINDOWS windows of DRUDE_WINDOW timed dual-Langevin
+    steps, each from the SCF state (steps/s, ns/day, launches), a profile
+    and the collapse witness, each from a fresh start; DRUDE_NVE_STEPS
+    NVE steps at f32 against f64 on the card; then
     the gated dual-Langevin run on the polarizable argon liquid
     (`phase_drude_argon`). Returns the launches of the runs."""
     import torch
@@ -4182,26 +4198,34 @@ def phase_drude():
             gmax_trace=",".join(f"{g:.4g}" for g in trace[::max(1, iters // 6)] + trace[-1:]))
 
     integ = _drude_langevin(ext, spec, cfg, pos)
-    integ.step(niter=1)
+    f0 = ef(pos, None)[1]
+    steps = DRUDE_WINDOWS * DRUDE_WINDOW
+    rows, dt = [], 0.0
     torch.cuda.synchronize()
     kn.LAUNCHES = kb.LAUNCHES = 0
-    t0 = time.perf_counter()
-    rows = [integ.step(niter=DRUDE_CHUNK) for _ in range(DRUDE_THROMBIN_STEPS // DRUDE_CHUNK)]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    for w in range(DRUDE_WINDOWS):
+        integ.set_velocities_boltzmann(seed=w + 1)
+        integ.pos, integ._last_frc = pos.clone(), f0
+        integ._last_pos = integ.pos
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows.append(integ.step(niter=DRUDE_WINDOW))
+        torch.cuda.synchronize()
+        dt += time.perf_counter() - t0
     launches = {"pair": kn.LAUNCHES + scf_launches["pair"],
                 "bonded": kb.LAUNCHES + scf_launches["bonded"]}
-    sps = DRUDE_THROMBIN_STEPS / dt
+    sps = steps / dt
     rows = np.asarray(rows)
-    log("drude_dynamics", case="thrombin", steps=DRUDE_THROMBIN_STEPS, seconds=f"{dt:.4f}",
-        steps_per_s=f"{sps:.2f}", ns_per_day=f"{sps * DRUDE_DT * 1e-6 * 86400:.4f}",
-        T=f"{rows[-1, 2]:.3f}", T_rel=f"{rows[-1, 3]:.3f}", Epot=f"{rows[-1, 1]:.4f}",
+    log("drude_dynamics", case="thrombin", windows=DRUDE_WINDOWS, window_steps=DRUDE_WINDOW,
+        steps=steps, seconds=f"{dt:.4f}", steps_per_s=f"{sps:.2f}",
+        ns_per_day=f"{sps * DRUDE_DT * 1e-6 * 86400:.4f}",
+        T_window_ends=f"{rows[:, 2].min():.1f}-{rows[:, 2].max():.1f}",
+        T_rel_window_ends=f"{rows[:, 3].min():.2f}-{rows[:, 3].max():.2f}",
         pair_launches=kn.LAUNCHES, bonded_launches=kb.LAUNCHES)
     require(np.all(np.isfinite(rows)), "Drude thrombin run not finite")
-    require(kn.LAUNCHES == kb.LAUNCHES == DRUDE_THROMBIN_STEPS, f"Drude launches {launches}")
+    require(kn.LAUNCHES == kb.LAUNCHES == steps, f"Drude launches {launches}")
     profile_water_step(_drude_langevin(ext, spec, cfg, pos), 1.0 / sps,
-                       steps=DRUDE_THROMBIN_STEPS // 2, label="drude_profile",
-                       shares=("pair_", "bonded"))
+                       steps=DRUDE_WINDOW, label="drude_profile", shares=("pair_", "bonded"))
     _drude_collapse_witness(mol, ext, spec, cfg, pos)
 
     # NVE from the SCF state: f32 kernels against f64 torch ops on the
@@ -4229,32 +4253,45 @@ def phase_drude():
 
 
 def _drude_collapse_witness(mol, ext, spec, cfg, pos):
-    """Run Drude thrombin from its SCF state in chunks of 10 steps, at
-    most DRUDE_COLLAPSE_STEPS, until a Drude is 0.5 A from its core or the
-    energy is not finite; log the step, that Drude's atom and its nearest
-    particles (name, distance, charge). No gate: the reason the timed run
-    is short."""
+    """Run Drude thrombin from its SCF state step by step, at most
+    DRUDE_COLLAPSE_STEPS, until a Drude is 0.5 A from its core or the
+    energy is not finite; log that step, that Drude's atom and its nearest
+    particles (name, atom type, distance, charge) at that step, and the
+    largest displacement and T_rel five steps later. No gate: the reason
+    the dynamics are timed in short windows."""
     import torch
 
     integ = _drude_langevin(ext, spec, cfg, pos)
-    names = np.asarray(mol.name)
+    names, types = np.asarray(mol.name), np.asarray(mol.atomtype)
     n = mol.numAtoms
+
+    def label(j):
+        if j < n:
+            return f"{names[j]}/{types[j]}"
+        return "D:" + str(names[int(spec.core_idx[j - n])])
+
+    def displacement():
+        return (integ.pos[spec.drude_idx] - integ.pos[spec.core_idx]).norm(dim=1)
+
     step = 0
     while step < DRUDE_COLLAPSE_STEPS:
-        ep = integ.step(niter=10)[1]
-        step += 10
-        x = integ.pos
-        d = (x[spec.drude_idx] - x[spec.core_idx]).norm(dim=1)
-        if not np.isfinite(ep) or float(d.max()) > 0.5:
+        out = integ.step(niter=1)
+        step += 1
+        d = displacement()
+        if not np.isfinite(out[1]) or float(d.max()) > 0.5:
             break
     k = int(d.argmax())
+    x = integ.pos
     dist = (x - x[spec.drude_idx[k]]).norm(dim=1)
-    near = [(names[j] if j < n else "D:" + str(names[int(spec.core_idx[j - n])]),
-             f"{float(dist[j]):.3f}", f"{float(ext.charges[j]):+.3f}")
-            for j in torch.argsort(dist)[1:5].tolist()]
-    log("drude_collapse", steps=step, finite=bool(np.isfinite(ep)),
-        max_drude_displacement_A=f"{float(d.max()):.3f}",
-        atom=names[int(spec.core_idx[k])], nearest=near)
+    near = [(label(j), f"{float(dist[j]):.3f}", f"{float(ext.charges[j]):+.3f}")
+            for j in torch.argsort(dist)[1:4].tolist()]
+    at = (float(d.max()), out[3])
+    later = integ.step(niter=5)
+    log("drude_collapse", step=step, finite=bool(np.isfinite(out[1])),
+        max_drude_displacement_A=f"{at[0]:.3f}", T_rel=f"{at[1]:.1f}",
+        atom=label(int(spec.core_idx[k])), nearest=near,
+        max_displacement_5_later_A=f"{float(displacement().max()):.3f}",
+        T_rel_5_later=f"{later[3]:.1f}")
 
 
 def phase_drude_argon():
@@ -4313,17 +4350,13 @@ def phase_drude_argon():
     return launches
 
 
-def build_swm4(parallel=False):
-    """(charges, alpha, thole, lone pairs, coordinates) of the SWM4-NDP
-    box: n^3 = SWM4_N^3 waters (O, M, H1, H2; O-H 0.9572 A, 104.52 deg) at the centres
-    of an n^3 lattice in the L = SWM4_L box, each turned about its O by a random
-    rotation (SWM4_SEED) unless `parallel`; M rows at O until the lone
-    pairs are constrained."""
-    n, L = SWM4_N, SWM4_L
-    from torchmd_tpu_torch.drude import charmm_drude_tables
-    from torchmd_tpu_torch.forcefields.ff_charmm import CharmmParameterSet
-    from torchmd_tpu_torch.io import Molecule
-
+def swm4_coords(n=None, parallel=False):
+    """(4 n^3, 3) coordinates of n^3 SWM4-NDP waters (n: default SWM4_N;
+    O, M, H1, H2; O-H 0.9572 A, 104.52 deg) at the centres of an n^3
+    lattice of SWM4_L / SWM4_N A cells, each turned about its O by a
+    random rotation (SWM4_SEED) unless `parallel`; M rows at O until the
+    lone pairs are constrained."""
+    n = SWM4_N if n is None else n
     r, th = 0.9572, np.radians(104.52)
     mono = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 0.0],
                      [r * np.sin(th / 2), 0.0, r * np.cos(th / 2)],
@@ -4335,7 +4368,18 @@ def build_swm4(parallel=False):
         q = q * np.sign(np.diag(rr))
         if np.linalg.det(q) < 0:
             q[:, 0] = -q[:, 0]
-        coords.append((g + 0.5) * (L / n) + mono @ (np.eye(3) if parallel else q.T))
+        coords.append((g + 0.5) * (SWM4_L / SWM4_N) + mono @ (np.eye(3) if parallel else q.T))
+    return np.concatenate(coords)
+
+
+def build_swm4(n=None, parallel=False):
+    """(charges, alpha, thole, lone pairs, coordinates) of the SWM4-NDP
+    box of `swm4_coords(n, parallel)`, edge n SWM4_L / SWM4_N."""
+    n = SWM4_N if n is None else n
+    from torchmd_tpu_torch.drude import charmm_drude_tables
+    from torchmd_tpu_torch.forcefields.ff_charmm import CharmmParameterSet
+    from torchmd_tpu_torch.io import Molecule
+
     nw = n ** 3
     mol = Molecule()
     mol.numAtoms = 4 * nw
@@ -4344,12 +4388,13 @@ def build_swm4(parallel=False):
     mol.resid = np.repeat(np.arange(nw), 4)
     prm = CharmmParameterSet(os.path.join(DATA, "swm4-ndp", "swm4ndp.str"))
     alpha, thole, charges, lps = charmm_drude_tables(prm, mol)
-    return charges, alpha, thole, lps, np.concatenate(coords)
+    return charges, alpha, thole, lps, swm4_coords(n, parallel)
 
 
 def _swm4_system(charges, alpha, thole, lps, coords, dtype):
     """(ffp_ext, spec, start positions (Drudes on their cores), recip, cfg)
-    of an SWM4-NDP box at `dtype` on the card."""
+    of an SWM4-NDP box (its edge from the water count, at SWM4_L / SWM4_N
+    A a water) at `dtype` on the card."""
     import torch
 
     from torchmd_tpu_torch.drude import (constrain_lonepairs, init_drude_positions,
@@ -4371,7 +4416,8 @@ def _swm4_system(charges, alpha, thole, lps, coords, dtype):
     ext, spec = make_drude_ffparams(ffp, alpha, thole_atom=np.where(alpha > 0, thole, np.nan))
     pos = constrain_lonepairs(make_lonepair_spec(lps, device=DEVICE, dtype=dtype),
                               [lp["site"] for lp in lps], t(coords))
-    recip, aew = make_drude_ewald(ext, np.full(3, SWM4_L), SWM4_CUTOFF, tol=SWM4_TOL)
+    edge = round((n // 4) ** (1 / 3)) * SWM4_L / SWM4_N
+    recip, aew = make_drude_ewald(ext, np.full(3, edge), SWM4_CUTOFF, tol=SWM4_TOL)
     cfg = ForceTermConfig(terms=("electrostatics", "bonds"), cutoff=SWM4_CUTOFF,
                           ewald_alpha=aew)
     return ext, spec, init_drude_positions(pos, spec), recip, cfg
@@ -4388,6 +4434,13 @@ def swm4_dipoles(ext, pos):
     p, q = pos.double(), ext.charges.double()
     d = p[rows] - p[4 * m][:, None, :]
     return ((q[rows][..., None] * d).sum(1).norm(dim=-1) * DEBYE).cpu().numpy()
+
+
+def swm4_induced(spec, pos):
+    """Each molecule's induced dipole |q_D (r_D - r_O)| (D, f64 numpy)."""
+    p = pos.double()
+    d = p[spec.drude_idx] - p[spec.core_idx]
+    return (spec.q_drude.double().abs() * d.norm(dim=1) * DEBYE).cpu().numpy()
 
 
 def phase_drude_swm4():
@@ -4442,13 +4495,31 @@ def phase_drude_swm4():
     _drude_kernel_check("swm4-relaxed", ext, ext64, cfg, p64.float(), box, rec)
 
     mu64, mu32 = swm4_dipoles(ext64, p64), swm4_dipoles(ext, p32)
+    ind64 = swm4_induced(spec64, p64)
     rel = float(np.abs(mu32 / mu64 - 1.0).max())
+    # the witness box: the same construction at SWM4_WITNESS's n^3 waters
+    n_w, mean_w, std_w = SWM4_WITNESS
+    ext_w, spec_w, p0_w, rec_w, cfg_w = _swm4_system(*build_swm4(n_w), torch.float64)
+    p_w, info_w = scf_drude(ext_w, spec_w, cfg_w, p0_w, np.full(3, n_w * SWM4_L / SWM4_N),
+                            iters=SCF_ITERS, tol=SCF_TOL_F64, recip=rec_w, return_info=True)
+    ind_w = swm4_induced(spec_w, p_w)
+    se = np.sqrt(std_w ** 2 / n_w ** 3 + ind64.std() ** 2 / SWM4_N ** 3)
     log("swm4_dipoles", mean_D=f"{mu64.mean():.4f}", min_D=f"{mu64.min():.4f}",
         max_D=f"{mu64.max():.4f}", p5_D=f"{np.percentile(mu64, 5):.4f}",
-        p95_D=f"{np.percentile(mu64, 95):.4f}", above_gas_share=f"{(mu64 > SWM4_GAS_MU).mean():.3f}",
-        f32_vs_f64_rel=rel)
-    require(mu64.mean() > SWM4_GAS_MU and mu64.max() < SWM4_MU_RANGE[1],
-            f"SWM4 dipoles: mean {mu64.mean()}, max {mu64.max()}")
+        p95_D=f"{np.percentile(mu64, 95):.4f}", induced_mean_D=f"{ind64.mean():.6f}",
+        induced_std_D=f"{ind64.std():.6f}", f32_vs_f64_rel=rel)
+    log("swm4_witness", waters=n_w ** 3, recip=type(rec_w).__name__,
+        iterations=info_w["iterations"], induced_mean_D=repr(float(ind_w.mean())),
+        induced_std_D=repr(float(ind_w.std())), jax_mean_D=mean_w, jax_std_D=std_w,
+        full_box_off_by_se=f"{abs(ind64.mean() - mean_w) / se:.3f}")
+    require(abs(ind_w.mean() - mean_w) <= SWM4_WITNESS_TOL
+            and abs(ind_w.std() - std_w) <= SWM4_WITNESS_TOL,
+            f"SWM4 witness box: induced {ind_w.mean()} +- {ind_w.std()} D, "
+            f"the JAX package's {mean_w} +- {std_w}")
+    require(abs(ind64.mean() - mean_w) <= SWM4_WITNESS_SE * se,
+            f"SWM4 induced dipoles: mean {ind64.mean()} D, the witness {mean_w} "
+            f"(standard error {se})")
+    require(mu64.max() < SWM4_MU_RANGE[1], f"SWM4 dipoles: max {mu64.max()}")
     require(rel <= SWM4_MU_REL, f"SWM4 f32 dipoles off f64 by {rel}")
 
     # the unrotated lattice: every molecule's dipole enhanced alike

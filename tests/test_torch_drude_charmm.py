@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from conftest import DATA_DIR
 
 from torchmd_tpu import drude as jdr
@@ -182,13 +184,14 @@ def test_nbthole_pairs_and_energy_match_jax(tmp_path):
     assert abs(e_got - e_want) <= 1e-10 * max(1.0, abs(e_want)) and e_want != 0.0
 
 
-def _lattice_relaxed(pkg, prm):
-    """(relaxed extended positions, per-molecule dipoles in D) of the 2x2x2
-    SWM4-NDP lattice (edge 4 A, box 8 A, cutoff 3.5 A, Ewald tol 1e-6)."""
+def _relaxed(pkg, prm, coords, L, cutoff, tol):
+    """(relaxed extended positions, per-molecule dipoles, induced dipoles
+    |q_D d|, both in D) of SWM4-NDP waters at `coords` (O, M placeholder,
+    H1, H2 each) in an L A box under Ewald (`make_drude_ewald`)."""
     dr = jdr if pkg == "jax" else tdr
-    nres, L = 8, 8.0
-    g = np.arange(2) * 4.0 + 1.0
-    mol = _swm4_mol(np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3))
+    nres = len(coords) // 4
+    mol = _swm4_mol(np.zeros((nres, 3)))
+    mol.coords = np.asarray(coords, np.float64)[:, :, None]
     alpha, thole, charges, lps = dr.charmm_drude_tables(prm, mol)
     n = 4 * nres
     intra = np.kron(np.eye(nres, dtype=bool), np.ones((4, 4), bool))
@@ -205,8 +208,8 @@ def _lattice_relaxed(pkg, prm):
         ext, spec = jdr.make_drude_ffparams(ffp, alpha, thole_atom=thole_atom)
         pos = jdr.constrain_lonepairs(jdr.make_lonepair_spec(lps), sites,
                                       jnp.asarray(mol.coords[:, :, 0]))
-        recip, aew = jdr.make_drude_ewald(ext, box, 3.5, tol=1e-6)
-        cfg = JaxCfg(terms=("electrostatics", "bonds"), cutoff=3.5, ewald_alpha=aew)
+        recip, aew = jdr.make_drude_ewald(ext, box, cutoff, tol=tol)
+        cfg = JaxCfg(terms=("electrostatics", "bonds"), cutoff=cutoff, ewald_alpha=aew)
         r = jdr.scf_drude(ext, spec, cfg, jdr.init_drude_positions(pos, spec),
                           jnp.asarray(box), recip=recip)
         q_ext = np.asarray(ext.charges)
@@ -216,8 +219,8 @@ def _lattice_relaxed(pkg, prm):
             thole_atom=thole_atom)
         pos = tdr.constrain_lonepairs(tdr.make_lonepair_spec(lps, device="cpu"), sites,
                                       torch.as_tensor(mol.coords[:, :, 0]))
-        recip, aew = tdr.make_drude_ewald(ext, box, 3.5, tol=1e-6)
-        cfg = ForceTermConfig(terms=("electrostatics", "bonds"), cutoff=3.5, ewald_alpha=aew)
+        recip, aew = tdr.make_drude_ewald(ext, box, cutoff, tol=tol)
+        cfg = ForceTermConfig(terms=("electrostatics", "bonds"), cutoff=cutoff, ewald_alpha=aew)
         r = tdr.scf_drude(ext, spec, cfg, tdr.init_drude_positions(pos, spec), box,
                           recip=recip)
         q_ext = ext.charges.numpy()
@@ -225,7 +228,16 @@ def _lattice_relaxed(pkg, prm):
     mus = [np.linalg.norm(sum(q_ext[i] * (r[i] - r[4 * m])
                               for i in list(range(4 * m, 4 * m + 4)) + [n + m])) * DEBYE
            for m in range(nres)]
-    return r, np.asarray(mus)
+    induced = np.abs(q_ext[n:]) * np.linalg.norm(r[n:] - r[0:n:4], axis=1) * DEBYE
+    return r, np.asarray(mus), induced
+
+
+def _lattice_relaxed(pkg, prm):
+    """`_relaxed` on the 2x2x2 SWM4-NDP lattice (edge 4 A, box 8 A, cutoff
+    3.5 A, Ewald tol 1e-6)."""
+    g = np.arange(2) * 4.0 + 1.0
+    mol = _swm4_mol(np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3))
+    return _relaxed(pkg, prm, mol.coords[:, :, 0], 8.0, 3.5, 1e-6)[:2]
 
 
 def test_swm4_lattice_scf_matches_jax():
@@ -234,6 +246,27 @@ def test_swm4_lattice_scf_matches_jax():
     assert np.abs(r_got - r_want).max() <= 1e-8
     assert np.abs(mu_got - mu_want).max() <= 1e-8
     assert np.all(mu_got > 1.86) and np.all(mu_got < 3.2)
+
+
+def test_swm4_random_box_sets_the_card_witness():
+    """chip_smoke.py's randomly oriented SWM4-NDP box cut to n = 6 (216
+    waters, 18.64 A, the card box's density, cutoff and Ewald tolerance;
+    exact Ewald below PME_AUTO_N particles): the port's relaxed positions
+    and dipoles equal the JAX package's, and the JAX package's mean and
+    spread of the induced dipoles are the values the card's f64 solve is
+    held to (`chip_smoke.SWM4_WITNESS`, which also bounds the card's
+    12^3 box)."""
+    n, mean, std = chip_smoke.SWM4_WITNESS
+    coords = chip_smoke.swm4_coords(n)
+    args = (coords, n * chip_smoke.SWM4_L / chip_smoke.SWM4_N, chip_smoke.SWM4_CUTOFF,
+            chip_smoke.SWM4_TOL)
+    r_want, mu_want, ind_want = _relaxed("jax", JaxPrm(STR), *args)
+    r_got, mu_got, ind_got = _relaxed("torch", TorchPrm(STR), *args)
+    assert np.abs(r_got - r_want).max() <= 1e-8
+    assert np.abs(mu_got - mu_want).max() <= 1e-8
+    assert np.abs(ind_got - ind_want).max() <= 1e-8
+    assert abs(ind_want.mean() - mean) <= 1e-6 and abs(ind_want.std() - std) <= 1e-6, (
+        ind_want.mean(), ind_want.std())
 
 
 @pytest.mark.parametrize("kind", [tdr.LP_BISECTOR, tdr.LP_RELATIVE])

@@ -22,9 +22,10 @@ integrator call) take the route `Forces` takes (`forces.select_path`): on
 CUDA f32 the pair kernel (#1, its exclusion words made from the extended
 mask, where every core-Drude pair starts at r = 0) and the bonded kernel
 (#3, the springs among its bond rows); on the CPU the kernels' plain
-versions; at f64 on the card the torch-op path. Thole, NBTHOLE (small
-index-pair sums) and the terms that ride on the bonded stage by autograd
-in `Forces` (CMAP, GROMOS-96) come from `torch.autograd`; the reciprocal
+versions; at f64 on the card the torch-op path. It is `Forces`' own
+composition of the force field (`forces.build_evaluators`), with Thole
+and NBTHOLE (small index-pair sums) riding on its bonded stage by
+`torch.autograd` beside CMAP and the GROMOS-96 forms; the reciprocal
 term from `make_drude_ewald`'s engine (PME with the exact gather, whose
 forces are the gradient of its energy, as `jax.grad` gives them in the
 JAX package: the spread kernel #6 runs on the card, the ik gather #7
@@ -52,13 +53,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import bonded as _bonded
 from . import potentials as _potentials
-from .cmap import cmap_energy
+from .forces import PME_AUTO_N, build_evaluators, select_path
 from .integrator import kinetic_to_temp
-from .ops import bonded as _ops_bonded
-from .ops import nonbonded as _ops_nonbonded
-from .potentials import NONBONDED_TERMS, TermTable, add_energy, wrap_displacement
+from .potentials import TermTable, wrap_displacement
 from .systems import resolve_device, to_numpy
 from .units import BOLTZMANN, ELEC_FACTOR, PICOSEC2TIMEU, TIMEFACTOR
 
@@ -290,7 +288,6 @@ def make_drude_ewald(ffp_ext, box, cutoff, tol=1e-5, pme="auto", dtype=None):
     its plain version). dtype: default the charges' (the engine lives on
     their device)."""
     from .ewald import EwaldRecip, PmeRecip
-    from .forces import PME_AUTO_N, select_path
 
     mask = to_numpy(ffp_ext.nb_mask).astype(bool)
     n_ext = mask.shape[0]
@@ -322,22 +319,6 @@ def _check_cfg(cfg, recip):
             "with make_drude_ewald(ffp_ext, box, cutoff) and pass recip=.")
 
 
-def _autograd_energy(ffp_ext, spec, cfg, pos, box) -> dict:
-    """The terms taken by autograd: Thole, NBTHOLE and those that ride on
-    `Forces`' bonded stage (CMAP, GROMOS-96 bonds and angles)."""
-    out = {}
-    if spec.thole_i is not None:
-        out["thole"] = thole_energy(spec, pos, box)
-    if spec.nbthole_i is not None:
-        out["nbthole"] = nbthole_energy(spec, pos, box)
-    for name, fn, table in (("cmap", cmap_energy, ffp_ext.cmap),
-                            ("bonds", _potentials.g96_bond_energy, ffp_ext.bonds_g96),
-                            ("angles", _potentials.g96_angle_energy, ffp_ext.angles_g96)):
-        if name in cfg.terms and table is not None:
-            add_energy(out, name, fn(table, pos, box))
-    return out
-
-
 def drude_energy(ffp_ext, spec: DrudeSpec, cfg, pos_ext, box, recip=None):
     """Total potential (a 0-dim tensor, differentiable by autograd on the
     torch-op terms) of the extended system: `compute_potentials` plus
@@ -354,57 +335,32 @@ def drude_energy(ffp_ext, spec: DrudeSpec, cfg, pos_ext, box, recip=None):
 
 def drude_energy_forces(ffp_ext, spec: DrudeSpec, cfg, recip=None):
     """The evaluator of an extended system: ef(pos (N_ext, 3), box (3,) or
-    None) -> ({term: energy}, forces). Pair and bonded terms take
-    `Forces`' route (`forces.select_path` on ffp_ext's device and dtype):
-    the kernel wrappers (CUDA kernels #1 and #3 at f32 on the card, their
-    plain versions on the CPU) or, at f64 on the card, the torch-op
-    path. Thole ("thole"), NBTHOLE ("nbthole"),
-    CMAP and the GROMOS-96 forms by autograd; the reciprocal term adds
-    into "electrostatics". The kernels' inputs (the pair kernel's
-    exclusion words of the extended mask, the bonded row plan) are made
-    once here."""
-    from .forces import select_path
-
+    None) -> ({term: energy}, forces). It is `Forces`' own composition
+    (`forces.build_evaluators`) of ffp_ext on the route `forces.select_path`
+    takes for ffp_ext's device and dtype: the kernel wrappers (CUDA kernels
+    #1 and #3 at f32 on the card, their plain versions on the CPU) or, at
+    f64 on the card, the torch-op path; the reciprocal term `recip` adds
+    into "electrostatics". Thole ("thole") and NBTHOLE ("nbthole") ride on
+    its bonded stage by autograd, beside CMAP and the GROMOS-96 forms. The
+    kernels' inputs (the pair kernel's exclusion words of the extended
+    mask, the bonded row plan) are made once here."""
     _check_cfg(cfg, recip)
-    kernels = select_path("auto", False, ffp_ext.charges.device,
-                          ffp_ext.charges.dtype) == "kernels"
-    has_nb = any(t in cfg.terms for t in NONBONDED_TERMS)
-    if kernels:
-        nb_data = _ops_nonbonded.prepare_nb_data(ffp_ext) if has_nb else None
-        bplan = _ops_bonded.build_bonded_kernel_plan(ffp_ext, cfg)
-    else:
-        bplan = _bonded.build_bonded_plan(ffp_ext, cfg)
+    use_kernels = select_path("auto", False, ffp_ext.charges.device,
+                              ffp_ext.charges.dtype) == "kernels"
+    extra = None
+    if spec.thole_i is not None or spec.nbthole_i is not None:
+        def extra(pos, box):
+            out = {}
+            if spec.thole_i is not None:
+                out["thole"] = thole_energy(spec, pos, box)
+            if spec.nbthole_i is not None:
+                out["nbthole"] = nbthole_energy(spec, pos, box)
+            return out
+    ef_one = build_evaluators(ffp_ext, cfg, use_kernels, recip=recip,
+                              extra_autograd=extra).ef_one
 
     def ef(pos, box):
-        box = _box_tensor(box, pos)
-        if has_nb and kernels:
-            pot, frc = _ops_nonbonded.nonbonded_energy_forces(nb_data, cfg, pos, box)
-        elif has_nb:
-            pot, frc = _potentials.nonbonded_energy_forces(ffp_ext, pos, box, cfg)
-        else:
-            pot, frc = {}, torch.zeros_like(pos)
-        pot = dict(pot)
-        if bplan is not None:
-            if kernels:
-                bpot, frc = _ops_bonded.bonded_energy_forces(bplan, pos, box, out=frc)
-            else:
-                bpot, bfrc = _bonded.bonded_energy_forces(ffp_ext, bplan, pos, box, cfg)
-                frc = frc + bfrc
-            for k, v in bpot.items():
-                add_energy(pot, k, v)
-        with torch.enable_grad():
-            p = pos.detach().requires_grad_(True)
-            terms = _autograd_energy(ffp_ext, spec, cfg, p, box)
-            if terms:
-                (g,) = torch.autograd.grad(sum(terms.values()), p)
-                frc = frc - g
-        for k, v in terms.items():
-            add_energy(pot, k, v.detach())
-        if recip is not None:
-            er, fr = recip.energy_forces(pos, box)
-            add_energy(pot, "electrostatics", er)
-            frc = frc + fr
-        return pot, frc
+        return ef_one(pos, _box_tensor(box, pos))
 
     return ef
 
@@ -459,13 +415,18 @@ class DrudeIntegrator:
     core-Drude coordinates. The three normal draws of a step come in the
     JAX package's order (per atom, centre of mass, relative) from one
     `torch.Generator` seeded from `seed`. device: default the CUDA card;
-    ffp_ext, spec and recip live there already."""
+    ffp_ext, spec and recip live there already, at `dtype`."""
 
     def __init__(self, ffp_ext, spec: DrudeSpec, cfg, pos_ext, box=None,
                  timestep=1.0, T=300.0, gamma=1.0, T_drude=1.0,
                  gamma_drude=20.0, seed=1, dtype=torch.float64,
                  recip=None, device=None, generator=None):
         self.device = resolve_device(device)
+        if dtype != ffp_ext.charges.dtype:
+            raise ValueError(
+                f"dtype={dtype} but ffp_ext is {ffp_ext.charges.dtype}: the "
+                "integrator runs at the extended force field's precision "
+                "(the card's kernels take f32 throughout)")
         self.dtype = dtype
         self.ffp, self.spec, self.cfg, self.recip = ffp_ext, spec, cfg, recip
         self.dt = timestep / TIMEFACTOR

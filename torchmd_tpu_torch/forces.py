@@ -5,6 +5,9 @@ JAX package does: the same constructor arguments, the same
 `compute(pos, box, forces, returnDetails, explicit_forces, toNumpy,
 calculateForces)` signature and return shapes, and the split into
 `bonded_ef_one` / `nb_ef_one` / `ef_one` evaluators of one conformation.
+Those evaluators come from `build_evaluators`, the one composition of
+the force field, which the Drude path (`drude.drude_energy_forces`)
+calls too.
 
 The path follows the device:
 
@@ -74,6 +77,8 @@ atoms).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -184,6 +189,170 @@ def _with_external(internal, ext):
     return ef_one
 
 
+def autograd_tables(ffp, terms):
+    """(term, energy function, table) of the bonded terms that ride on
+    the bonded stage of every path by autograd, as in the JAX package
+    (`torchmd_tpu/forces.py:286-338`): CMAP and the GROMOS-96 bond and
+    angle forms, tiny terms that no kernel computes."""
+    return [(name, fn, table) for name, fn, table in (
+        ("cmap", cmap_energy, ffp.cmap),
+        ("bonds", _potentials.g96_bond_energy, ffp.bonds_g96),
+        ("angles", _potentials.g96_angle_energy, ffp.angles_g96))
+        if name in terms and table is not None]
+
+
+class Evaluators(NamedTuple):
+    """The evaluators of one composition of the force field (see
+    `build_evaluators`); the `*_ef_one` stages are None where the force
+    field has no such stage."""
+    bonded_plan: object     # the bonded kernel's or the torch-op plan
+    kernel_batch: bool      # ef_one also takes (R, N, 3) in one call
+    bonded_ef_one: object
+    nb_ef_one: object
+    pair_ef_one: object
+    recip_ef_one: object
+    ef_one: object
+
+
+def _with_autograd(bonded_ef_one, energy):
+    """`bonded_ef_one` plus the terms of `energy(pos, box) -> {term:
+    energy}`: their energies added to the per-term dict, their forces by
+    `torch.autograd`."""
+    @_each
+    def autograd_ef(pos, box):
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(True)
+            terms = energy(p, box)
+            (g,) = torch.autograd.grad(sum(terms.values()), p)
+        return {k: v.detach() for k, v in terms.items()}, g
+
+    def wrapped(pos, box, out=None):
+        pot, frc = bonded_ef_one(pos, box, out=out)
+        terms, g = autograd_ef(pos, box)
+        pot = dict(pot)
+        for k, v in terms.items():
+            add_energy(pot, k, v)
+        return pot, frc - g
+
+    return wrapped
+
+
+def build_evaluators(ffp, config, use_kernels, recip=None, cell_kernel=None,
+                     extra_autograd=None) -> Evaluators:
+    """The one composition of the force field that `Forces` and the Drude
+    path (`drude.drude_energy_forces`) evaluate: the bonded stage (the
+    bonded kernel's wrapper with `use_kernels`, else the torch-op plan),
+    with the `autograd_tables` terms and `extra_autograd(pos, box) ->
+    {term: energy}` by autograd; the real-space pairs (`cell_kernel`'s
+    neighbour path, else the dense pair kernel's wrapper or the torch-op
+    pairs over `ffp.nb_mask`); the reciprocal term `recip`. Every stage
+    maps (pos, box[, cl]) -> ({term: energy}, forces); `ef_one` sums them,
+    the bonded forces added into the pair forces' buffer."""
+    if use_kernels:
+        plan = _ops_bonded.build_bonded_kernel_plan(ffp, config)
+
+        def bonded_ef_one(pos, box, out=None):
+            """Bonded terms; with `out`, their forces added into it
+            (the kernel adds into the caller's buffer)."""
+            if plan is None:
+                return {}, torch.zeros_like(pos) if out is None else out
+            return _ops_bonded.bonded_energy_forces(plan, pos, box, out=out)
+    else:
+        plan = _bonded.build_bonded_plan(ffp, config)
+
+        def bonded_ef_one(pos, box, out=None):
+            if plan is None:
+                return {}, torch.zeros_like(pos) if out is None else out
+            pot, frc = _bonded.bonded_energy_forces(ffp, plan, pos, box, config)
+            return pot, frc if out is None else out + frc
+    tables = autograd_tables(ffp, config.terms)
+    if tables or extra_autograd is not None:
+        def autograd_energy(pos, box):
+            out = {} if extra_autograd is None else dict(extra_autograd(pos, box))
+            for name, fn, table in tables:
+                add_energy(out, name, fn(table, pos, box))
+            return out
+
+        bonded_ef_one = _with_autograd(bonded_ef_one, autograd_energy)
+
+    nb = None
+    kern = cell_kernel
+    has_nb = any(t in config.terms for t in NONBONDED_TERMS)
+    # the dense kernel path evaluates a ladder in one `ef_one` call
+    # (`ef_batch`): both kernels take (R, N, 3) positions
+    kernel_batch = use_kernels and kern is None
+    if kern is not None:
+        def nb(pos, box, cl):
+            return kern.energy_forces(pos, box, cl)
+    elif has_nb and ffp.nb_mask is not None:
+        if use_kernels:
+            nb_data = _ops_nonbonded.prepare_nb_data(ffp)
+
+            def nb(pos, box, cl):
+                return _ops_nonbonded.nonbonded_energy_forces(nb_data, config, pos, box)
+        else:
+            def nb(pos, box, cl):
+                return _potentials.nonbonded_energy_forces(ffp, pos, box, config)
+    elif has_nb:
+        kernel_batch = False
+
+        def nb(pos, box, cl):
+            raise RuntimeError(
+                "the (N, N) exclusion mask is deferred for the cell path; "
+                "build the cell kernel (ensure_cell_kernel) or the mask "
+                "(require_nb_mask) first")
+    rec = recip
+
+    def pair_ef_one(pos, box, cl=None):
+        """The real-space pair terms (with `cl`, a prebuilt neighbour
+        structure, on the cell, column and Verlet paths)."""
+        if kern is not None and cl is None:
+            cl = kern.build(pos, box)
+        return nb(pos, box, cl)
+
+    @_each
+    def recip_ef_one(pos, box, cl=None):
+        """The reciprocal term (PME or the exact Ewald sum) as
+        ({"electrostatics": e}, forces); the PME spread follows the
+        neighbour structure's order of the atoms."""
+        order = None if kern is None or cl is None else kern.spread_order(cl)
+        er, ef = rec.energy_forces(pos, box, order_idx=order)
+        return {"electrostatics": er}, ef
+
+    def nb_ef_one(pos, box, cl=None):
+        """Nonbonded pairs plus the reciprocal term."""
+        if kern is not None and cl is None:
+            cl = kern.build(pos, box)
+        pot, frc = nb(pos, box, cl)
+        if rec is not None:
+            er, ef = recip_ef_one(pos, box, cl)
+            pot = dict(pot)
+            add_energy(pot, "electrostatics", er["electrostatics"])
+            frc = frc + ef
+        return pot, frc
+
+    def ef_one(pos, box, cl=None):
+        """All terms of one conformation: (per-term energies, forces).
+        The bonded forces add into the nonbonded ones' buffer. On the
+        dense kernel path also of R conformations (pos (R, N, 3), box
+        (R, 3) or None): each kernel launches once for all of them, the
+        other stages run per replica."""
+        if nb is None:
+            return bonded_ef_one(pos, box)
+        nb_pot, frc = nb_ef_one(pos, box, cl)
+        pot, frc = bonded_ef_one(pos, box, out=frc)
+        pot = dict(pot)
+        for k, v in nb_pot.items():
+            add_energy(pot, k, v)
+        return pot, frc
+
+    return Evaluators(
+        bonded_plan=plan, kernel_batch=kernel_batch, bonded_ef_one=bonded_ef_one,
+        nb_ef_one=nb_ef_one if nb is not None else None,
+        pair_ef_one=pair_ef_one if nb is not None else None,
+        recip_ef_one=recip_ef_one if rec is not None else None, ef_one=ef_one)
+
+
 class Forces:
     bonded = list(BONDED_TERMS)
     nonbonded = list(NONBONDED_TERMS)
@@ -287,102 +456,15 @@ class Forces:
 
     # ------------------------------------------------------------------
     def _build_evaluators(self):
-        ffp, config = self.ffparams, self.config
-        if self.use_kernels:
-            plan = _ops_bonded.build_bonded_kernel_plan(ffp, config)
-
-            def bonded_ef_one(pos, box, out=None):
-                """Bonded terms; with `out`, their forces added into it
-                (the kernel adds into the caller's buffer)."""
-                if plan is None:
-                    return {}, torch.zeros_like(pos) if out is None else out
-                return _ops_bonded.bonded_energy_forces(plan, pos, box, out=out)
-        else:
-            plan = _bonded.build_bonded_plan(ffp, config)
-
-            def bonded_ef_one(pos, box, out=None):
-                if plan is None:
-                    return {}, torch.zeros_like(pos) if out is None else out
-                pot, frc = _bonded.bonded_energy_forces(ffp, plan, pos, box, config)
-                return pot, frc if out is None else out + frc
-        self._bonded_plan = plan
-        bonded_ef_one = self._with_autograd_terms(bonded_ef_one)
-
-        nb = None
-        kern = self._cell_kernel
-        # the dense kernel path evaluates a ladder in one `ef_one` call
-        # (`ef_batch`): both kernels take (R, N, 3) positions
-        self._kernel_batch = self.use_kernels and kern is None
-        if kern is not None:
-            def nb(pos, box, cl):
-                return kern.energy_forces(pos, box, cl)
-        elif self.has_nb and ffp.nb_mask is not None:
-            if self.use_kernels:
-                nb_data = _ops_nonbonded.prepare_nb_data(ffp)
-
-                def nb(pos, box, cl):
-                    return _ops_nonbonded.nonbonded_energy_forces(
-                        nb_data, config, pos, box)
-            else:
-                def nb(pos, box, cl):
-                    return _potentials.nonbonded_energy_forces(ffp, pos, box, config)
-        elif self.has_nb:
-            self._kernel_batch = False
-
-            def nb(pos, box, cl):
-                raise RuntimeError(
-                    "the (N, N) exclusion mask is deferred for the cell path; "
-                    "build the cell kernel (ensure_cell_kernel) or the mask "
-                    "(require_nb_mask) first")
-        rec = self._ewald
-
-        def pair_ef_one(pos, box, cl=None):
-            """The real-space pair terms (with `cl`, a prebuilt neighbour
-            structure, on the cell, column and Verlet paths)."""
-            if kern is not None and cl is None:
-                cl = kern.build(pos, box)
-            return nb(pos, box, cl)
-
-        @_each
-        def recip_ef_one(pos, box, cl=None):
-            """The reciprocal term (PME or the exact Ewald sum) as
-            ({"electrostatics": e}, forces); the PME spread follows the
-            neighbour structure's order of the atoms."""
-            order = None if kern is None or cl is None else kern.spread_order(cl)
-            er, ef = rec.energy_forces(pos, box, order_idx=order)
-            return {"electrostatics": er}, ef
-
-        def nb_ef_one(pos, box, cl=None):
-            """Nonbonded pairs plus the reciprocal term."""
-            if kern is not None and cl is None:
-                cl = kern.build(pos, box)
-            pot, frc = nb(pos, box, cl)
-            if rec is not None:
-                er, ef = recip_ef_one(pos, box, cl)
-                pot = dict(pot)
-                add_energy(pot, "electrostatics", er["electrostatics"])
-                frc = frc + ef
-            return pot, frc
-
-        def ef_one(pos, box, cl=None):
-            """All terms of one conformation: (per-term energies, forces).
-            The bonded forces add into the nonbonded ones' buffer. On the
-            dense kernel path also of R conformations (pos (R, N, 3), box
-            (R, 3) or None): each kernel launches once for all of them, the
-            other stages run per replica."""
-            if nb is None:
-                return bonded_ef_one(pos, box)
-            nb_pot, frc = nb_ef_one(pos, box, cl)
-            pot, frc = bonded_ef_one(pos, box, out=frc)
-            pot = dict(pot)
-            for k, v in nb_pot.items():
-                add_energy(pot, k, v)
-            return pot, frc
-
-        self.bonded_ef_one = bonded_ef_one
-        self.nb_ef_one = nb_ef_one if nb is not None else None
-        self.pair_ef_one = pair_ef_one if nb is not None else None
-        self.recip_ef_one = recip_ef_one if rec is not None else None
+        ev = build_evaluators(self.ffparams, self.config, self.use_kernels,
+                              recip=self._ewald, cell_kernel=self._cell_kernel)
+        self._bonded_plan = ev.bonded_plan
+        self._kernel_batch = ev.kernel_batch
+        self.bonded_ef_one = ev.bonded_ef_one
+        self.nb_ef_one = ev.nb_ef_one
+        self.pair_ef_one = ev.pair_ef_one
+        self.recip_ef_one = ev.recip_ef_one
+        ef_one = ev.ef_one
         # virtual sites: evaluate at the snapped geometry, spread the site
         # forces onto the hosts
         if self.vsites:
@@ -391,50 +473,10 @@ class Forces:
             ef_one = _with_external(ef_one, self.external)
         self.ef_one = ef_one
 
-    def _autograd_tables(self):
-        """(term, energy function, table) of the bonded terms that ride on
-        the bonded stage of every path by autograd, as in the JAX package
-        (`torchmd_tpu/forces.py:286-338`): CMAP and the GROMOS-96 bond and
-        angle forms, tiny terms that no kernel computes."""
-        ffp = self.ffparams
-        return [(name, fn, table) for name, fn, table in (
-            ("cmap", cmap_energy, ffp.cmap),
-            ("bonds", _potentials.g96_bond_energy, ffp.bonds_g96),
-            ("angles", _potentials.g96_angle_energy, ffp.angles_g96))
-            if name in self.energies and table is not None]
-
-    def autograd_terms(self, pos, box) -> dict:
-        """Per-term energies of `_autograd_tables` for one conformation."""
-        return {name: fn(table, pos, box) for name, fn, table in self._autograd_tables()}
-
     def has_autograd_terms(self) -> bool:
-        return bool(self._autograd_tables())
-
-    def _autograd_ef(self, pos, box):
-        """(`autograd_terms` detached, their gradient) of one conformation."""
-        with torch.enable_grad():
-            p = pos.detach().requires_grad_(True)
-            terms = self.autograd_terms(p, box)
-            (g,) = torch.autograd.grad(sum(terms.values()), p)
-        return {k: v.detach() for k, v in terms.items()}, g
-
-    def _with_autograd_terms(self, bonded_ef_one):
-        """`bonded_ef_one` plus `autograd_terms`: their energies added to
-        the per-term dict, their forces by `torch.autograd`."""
-        if not self.has_autograd_terms():
-            return bonded_ef_one
-
-        autograd_ef = _each(self._autograd_ef)
-
-        def wrapped(pos, box, out=None):
-            pot, frc = bonded_ef_one(pos, box, out=out)
-            terms, g = autograd_ef(pos, box)
-            pot = dict(pot)
-            for k, v in terms.items():
-                add_energy(pot, k, v)
-            return pot, frc - g
-
-        return wrapped
+        """True when a term rides on the bonded stage by autograd
+        (`autograd_tables`)."""
+        return bool(autograd_tables(self.ffparams, self.energies))
 
     def ef_batch(self, pos, boxes):
         """All terms of R conformations: (per-term energies (R,), forces

@@ -7,7 +7,8 @@ differentiates through the force computation, d(loss)/d(params) of F =
 -dE/dpos, a double backward through the torch-op `compute_potentials`.
 The conformations of a batch are one leading dimension, evaluated with
 `torch.func.vmap`; sharding the batch over devices (the JAX package's
-`mesh=`) is ROADMAP item 21 and raises here.
+`mesh=` with its `dp_axis`/`sp_axis` names) is ROADMAP item 21: `mesh=`
+raises here, and the axis names are not taken until then.
 """
 
 from __future__ import annotations
@@ -70,8 +71,7 @@ class ForceMatchingTrainer:
     mean((E - e_ref)^2), as in the JAX package."""
 
     def __init__(self, ffp: FFParams, cfg: ForceTermConfig, trainable=("lj",),
-                 optimizer=None, energy_weight=0.0, mesh=None, dp_axis="dp",
-                 sp_axis="sp"):
+                 optimizer=None, energy_weight=0.0, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: sharding the batch over devices is not ported yet "

@@ -281,7 +281,39 @@ Phases (each prints lines; any failure raises and exits non-zero):
  28. train: examples/train_cg.py's force matching, TRAIN_CHECK_STEPS
      steps at f32 against f64, then TRAIN_STEPS steps (steps/s, loss,
      recovered bond lengths, held-out force RMSE);
- 29. roofline: every probe stage (f32) against its plain version (f64) at
+ 29. mesh: the device mesh (`torchmd_tpu_torch.parallel`), one process
+     per rank spawned by `parallel.launch` after the build (the ranks load
+     the built libraries); a rank's failure fails the phase. The script
+     needs one card and NCCL takes one rank per card, so: mesh_nccl,
+     thrombin (the main path's configuration) under shard="spatial" on
+     one NCCL rank, 10 steps within MESH_NCCL_TOL of the unsharded kernel
+     run and steps/s beside it (the sharded path's overhead at W = 1);
+     spatial_thrombin on W = 2 and 4 gloo ranks sharing cuda:0, each
+     rank's row range of #1 against its plain f64 version at the Pallas
+     bars and bit for bit against the full launch's rows, timed one rank
+     at a time beside the bound of its share, 10 steps within
+     MESH_TRAJ_TOL of the unsharded run, MESH_CFG's t_steps Langevin
+     steps at MESH_T_GAMMA with the counters reset just before and read
+     just after (the last half's mean T within MESH_T_TOL of 300 K, #1
+     only through its row range) and
+     steps/s ("W ranks sharing one card (gloo)": the decomposition, not
+     scaling); spatial_water on W = 2: the 62,500-site box (PME, SETTLE,
+     sites, NHC) WATER_WARMUP sharded steps, then 10 steps from there
+     against the unsharded run within
+     WATER_FLOOR_FACTOR x its one-ulp floor (the 1 % charge control
+     beyond it; whether within MESH_TRAJ_TOL is logged), SETTLE and sites,
+     each rank's slab of #4 against plain f64 and the slabs' sum against
+     the full launch, timed; spatial_mtk: the argon NPT of
+     tests/test_mtk.py at f32, box and positions against the unsharded
+     dense MTK run, the volume in NPT_VOLUME_RANGE; replica_mesh: the
+     REPLICAS-replica thrombin ladder over dp = 2, each replica within
+     MESH_TRAJ_TOL of the one-process run, #1 and #3 once per evaluation
+     on each rank; train_mesh: the force matching of phase 28 at f64 on
+     a 1 x 2 mesh against the unsharded trainer (MESH_TRAIN_REL); a
+     `[mesh_collectives]` line per phase counts the ranks' collectives
+     (none goes through host memory: torch 2.11's gloo runs all four on
+     CUDA tensors, `parallel/mesh.py`);
+ 30. roofline: every probe stage (f32) against its plain version (f64) at
      the probe's full size, on its inputs and on the same rows without
      pairs nearer than 2 A, each row's force held to the size of its terms
      (force_scale); four planted faults (the plain version with k_rf
@@ -295,7 +327,8 @@ line. Usage: python3 chip_smoke.py
 
 `python3 chip_smoke.py --amoeba` runs the device and amoeba phases alone
 (they build no kernel); `python3 chip_smoke.py --drude` the device and
-build phases, then drude and drude_swm4.
+build phases, then drude and drude_swm4; `python3 chip_smoke.py --mesh`
+the device and build phases, then mesh.
 
 `python3 chip_smoke.py --remd-seeds N` is a measurement, not the smoke
 test: it builds the kernels and runs the remd phase, ungated, for seeds
@@ -491,8 +524,10 @@ AR {n}
 # r-RESPA on thrombin through the CLI: the production flags plus --mts
 # MTS_N (bonded terms on MTS_N substeps of each 4 fs step), MTS_STEPS outer
 # steps in chunks of PROD_PERIOD, then MTS_TIMED steps through the API
-# and a profile beside the production phase's
-MTS_N, MTS_STEPS, MTS_TIMED = 2, 1000, 200
+# and a profile beside the production phase's (MTS_STEPS 1,000 before the
+# device mesh's phases joined; 500 keep the whole script within 1,200 s
+# on a slow host, where it took 1,015 s)
+MTS_N, MTS_STEPS, MTS_TIMED = 2, 500, 200
 # scripts/bench_mts.py's water in the port: MTS_WATER_N^3 flexible SPC/Fw
 # waters on the 3.104 A lattice, cutoff 8.5 A, reaction field, NVE on the
 # defaults of Forces; after MTS_WATER_WARM steps of CSVR at 0.5 fs from
@@ -546,7 +581,8 @@ RECIP_R, RECIP_STEPS, RECIP_NVE_STEPS = 2, 500, 200
 # ACEMD input: 688 atoms, cutoff 9 A, switching from 7.5 A), the exact
 # Ewald sum, X-H bonds constrained, hydrogens x3, 4 fs, NHC at 300 K, 1 bar
 ALA_SYSTEM = "prod_alanine_dipeptide_amber"
-ALA_STEPS, ALA_PERIOD, ALA_CUTOFF, ALA_SWITCH = 1000, 50, 9.0, 7.5
+# (ALA_STEPS 1,000 before the device mesh's phases joined; see MTS_STEPS)
+ALA_STEPS, ALA_PERIOD, ALA_CUTOFF, ALA_SWITCH = 500, 50, 9.0, 7.5
 ALA_CHECK_STEPS, ALA_POS_TOL, ALA_VIRIAL_TOL = 10, 1e-3, 1e-5
 # Verlet lists on thrombin: VERLET_STEPS Langevin steps at 2 fs, timed
 VERLET_WARMUP, VERLET_STEPS = 20, 200
@@ -4639,9 +4675,10 @@ def phase_nnp():
     torch.cuda.empty_cache()
 
 
-def _cg_training(dtype, n_conf=TRAIN_B, seed=0):
+def _cg_training(dtype, n_conf=TRAIN_B, seed=0, mesh=None, device=None):
     """(trainer, state, pos, box, f_ref, e_ref, ffp_true, cfg) of
-    examples/train_cg.py's recipe on the card at `dtype`."""
+    examples/train_cg.py's recipe on the card at `dtype` (the trainer on
+    `mesh` when given)."""
     import functools
 
     import torch
@@ -4658,28 +4695,29 @@ def _cg_training(dtype, n_conf=TRAIN_B, seed=0):
     mol = Molecule(os.path.join(cgdir, "cg_structure.psf"))
     mol.read(os.path.join(cgdir, "cg_structure.xtc"))
     ff = ForceField.create(mol, os.path.join(cgdir, "forcefield.yaml"))
+    device = device or DEVICE
     prec = "double" if dtype == torch.float64 else "single"
     par = Parameters(ff, mol, terms, precision=prec)
     forces = Forces(par, terms=terms, precision=prec, cutoff=9.0, exclusions=("bonds",),
-                    device=DEVICE)
+                    device=device)
     ffp, cfg = forces.ffparams, forces.config
     base = mol.coords[:, :, 0].astype(np.float64)
     rs = np.random.RandomState(seed)
     pos = torch.as_tensor(base[None] + 0.25 * rs.randn(n_conf, *base.shape), dtype=dtype,
-                          device=DEVICE)
-    box = torch.zeros((n_conf, 3), dtype=dtype, device=DEVICE)
+                          device=device)
+    box = torch.zeros((n_conf, 3), dtype=dtype, device=device)
     x = pos.clone().requires_grad_(True)
     e_ref = torch.func.vmap(lambda p, b: total_energy(ffp, p, b, cfg))(x, box)
     (g,) = torch.autograd.grad(e_ref.sum(), x)
     start = ffp._replace(
         bonds=ffp.bonds._replace(params=ffp.bonds.params * torch.tensor(
-            [[1.4, 1.05]], dtype=dtype, device=DEVICE)),
+            [[1.4, 1.05]], dtype=dtype, device=device)),
         angles=ffp.angles._replace(params=ffp.angles.params * torch.tensor(
-            [[0.7, 0.95]], dtype=dtype, device=DEVICE)),
+            [[0.7, 0.95]], dtype=dtype, device=device)),
         lj_params=ffp.lj_params * 1.2)
     trainer = ForceMatchingTrainer(start, cfg, trainable=("bonds", "angles", "lj"),
                                    optimizer=functools.partial(torch.optim.Adam, lr=TRAIN_LR),
-                                   energy_weight=TRAIN_EW)
+                                   energy_weight=TRAIN_EW, mesh=mesh)
     return trainer, trainer.init(), pos, box, -g.detach(), e_ref.detach(), ffp, cfg
 
 
@@ -4732,6 +4770,589 @@ def phase_train():
     return TRAIN_STEPS / dt
 
 
+# ----------------------------------------------------------------------
+# The device mesh (parallel/): one process per rank, spawned by
+# parallel.launch after phase_build has built every kernel (the ranks load
+# the built libraries). The script needs one card, and NCCL takes one
+# rank per card, so the mesh runs one NCCL rank, or 2 and 4 gloo ranks
+# sharing cuda:0 (gloo runs the mesh's collectives on CUDA tensors, torch
+# 2.11). Times of W ranks on one card check the decomposition; they say
+# nothing of scaling across cards.
+# ----------------------------------------------------------------------
+MESH_CFG = dict(
+    device="cuda:0", w1_backend="nccl", main_system=MAIN_SYSTEM, water=(WATER_N, WATER_SPACING, WATER_CUTOFF),
+    steps=10,                   # the trajectory checks
+    water_warmup=WATER_WARMUP,  # sharded steps to the water check's start
+    t_steps=200, t_chunk=10,    # spatial thrombin's Langevin T gate
+    timed=100, timed_chunk=50,  # steps/s
+    mtk_chunks=2, mtk_steps=20,
+    replicas=REPLICAS, train_b=TRAIN_B, train_steps=3,
+)
+MESH_NCCL_TOL = 1e-5            # A: one NCCL rank against the unsharded run
+# A: W gloo ranks against the unsharded run (thrombin, the replicas); the
+# water box is held to WATER_FLOOR_FACTOR x its one-ulp floor instead,
+# which reads ~2e-3 A after 10 steps (its unsharded runs differ by ~2e-4
+# A between ranks: the PME spread's atomics), and this bound is logged
+MESH_TRAJ_TOL = 1e-3
+# K: the spatial Langevin run's mean T over its last half, at friction
+# MESH_T_GAMMA ps^-1 (as the GB phase's gate: at the main path's 0.1 ps^-1
+# the minimised start's 300 K shares its kinetic energy with the potential
+# and the 10 ps relaxation has not brought it back in 0.4 ps; 207 K on the
+# card)
+MESH_T_TOL, MESH_T_GAMMA = 15.0, 10.0
+MESH_MTK_BOX_REL, MESH_MTK_POS_TOL = 1e-5, 1e-3   # spatial MTK against dense MTK, f32
+MESH_TRAIN_REL = 1e-10          # the sharded trainer against the unsharded, f64
+
+
+def _mesh_ms(fn, device, calls=30, warmup=3):
+    """Device ms of fn() on this rank (CUDA events); None off the card."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return None
+    return cuda_events_ms(fn, calls, warmup)
+
+
+def _mesh_sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _one_at_a_time(fn):
+    """fn() on each rank in turn (the others wait at a barrier): timings
+    of one rank's kernel with the card otherwise idle."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def _rank_thrombin(rank, cfg, world):
+    """One rank of spatial thrombin (the main-path configuration: 7 terms,
+    cutoff 7.3 A, reaction field, no box, Langevin 300 K, 2 fs, f32): the
+    row range of #1 against its plain f64 version and bit for bit against
+    the full launch's rows, timed one rank at a time; 10 steps against
+    the unsharded kernel run from one start; t_steps Langevin steps at
+    MESH_T_GAMMA with the counters reset just before and read just after
+    (mean T of the last half); steps/s of the sharded run (and of the
+    unsharded one on this rank)."""
+    import torch
+
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.parallel import make_mesh
+    from torchmd_tpu_torch.parallel.spatial import padded_rows
+    from torchmd_tpu_torch.systems import System
+
+    dev = torch.device(cfg["device"])
+    mesh = make_mesh(axes=("sp",), device=dev)
+    mol, par = load_amber(*cfg["main_system"])
+    forces = Forces(par, terms=TERMS, precision="single", cutoff=CUTOFF, rfa=RFA, device=dev)
+    n = mol.numAtoms
+    vel0 = maxwell_boltzmann(par.masses, TEMP, 1, seed=1, device=dev, dtype=torch.float32)
+
+    def run(m, steps, chunk, gamma=GAMMA):
+        system = System(n, 1, "single")
+        system.set_positions(mol.coords)
+        system.set_velocities(vel0)
+        kw = {} if m is None else dict(mesh=m, mesh_axis="sp", shard="spatial")
+        integ = Integrator(system, forces, TIMESTEP, gamma=gamma, T=TEMP, seed=2, **kw)
+        temps = [integ.step(niter=chunk)[2][0] for _ in range(steps // chunk)]
+        return system, integ, temps
+
+    ref, _, _ = run(None, cfg["steps"], cfg["steps"])
+    got, _, _ = run(mesh, cfg["steps"], cfg["steps"])
+    dev_a = float(np.abs(got.pos - ref.pos).max())
+
+    # the row range of #1 on the start: plain f64, the full launch's rows
+    d32 = kn.prepare_nb_data(forces.ffparams)
+    f64 = Forces(par, terms=TERMS, precision="double", cutoff=CUTOFF, rfa=RFA, device=dev)
+    d64 = kn.prepare_nb_data(f64.ffparams)
+    ncfg = forces.config
+    p64 = torch.as_tensor(mol.coords[:, :, 0], dtype=torch.float64, device=dev)
+    p32 = p64.float().contiguous()
+    rows = padded_rows(n, world) // world
+    nt = -(-n // 32)
+    tiles = (min(rank * rows // 32, nt), min(nt, (rank + 1) * rows // 32))
+    lo, hi = kn.row_span(n, tiles)
+    pot_k, f_k = kn.nonbonded_energy_forces(d32, ncfg, p32, rows=tiles)
+    pot_p, f_p = kn.pair_terms_reference(d64, ncfg, p64, rows=tiles)
+    _, f_full = kn.nonbonded_energy_forces(d32, ncfg, p32)
+    _mesh_sync(dev)
+    # a rank past the last atom has no rows (small systems only)
+    err = _compare(f"rank{rank}/pair_rows", pot_k, f_k, pot_p, f_p) if hi > lo else 0.0
+    bitwise = bool(torch.equal(f_k, f_full[lo:hi]))
+    require(bitwise, f"rank {rank}: the row range's forces differ from the full launch's rows")
+    share = (hi - lo) / n
+    npairs = _thrombin_pair_count(d32, CUTOFF, p32)
+    b_ms, b_by = bound(tensor_bytes(p32, d32.q, d32.sig, d32.eps, d32.types, d32.excl_start,
+                                    d32.excl_tile, d32.excl_bits, p32),
+                       pair_flops(npairs, "rfa"))
+    times = _one_at_a_time(lambda: dict(
+        ms=_mesh_ms(lambda: kn.nonbonded_energy_forces(d32, ncfg, p32, rows=tiles), dev),
+        plain_ms=_mesh_ms(lambda: kn.pair_terms_reference(d32, ncfg, p32, rows=tiles), dev)))
+    del f64, d64
+
+    # the Langevin T gate, the counters reset just before and read just after
+    _mesh_sync(dev)
+    kn.LAUNCHES = kn.ROW_LAUNCHES = kb.LAUNCHES = 0
+    mesh.calls.clear()
+    _, _, temps = run(mesh, cfg["t_steps"], cfg["t_chunk"], MESH_T_GAMMA)
+    _mesh_sync(dev)
+    launches = {"pair_rows": kn.ROW_LAUNCHES, "pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+    collectives = dict(mesh.calls)
+
+    def steps_per_s(m):
+        system, integ, _ = run(m, cfg["timed_chunk"], cfg["timed_chunk"])
+        _mesh_sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(cfg["timed"] // cfg["timed_chunk"]):
+            integ.step(niter=cfg["timed_chunk"])
+        _mesh_sync(dev)
+        return cfg["timed"] / (time.perf_counter() - t0)
+
+    sps = steps_per_s(mesh)
+    sps_unsharded = steps_per_s(None) if world == 1 else None
+    return dict(dev_A=dev_a, err=err, bitwise=bitwise, tiles=tiles, rows=hi - lo,
+                ms=times["ms"], plain_ms=times["plain_ms"],
+                bound=(b_ms * share, b_by), mean_T=float(np.mean(temps[len(temps) // 2:])),
+                launches=launches, collectives=collectives, sps=sps, sps_unsharded=sps_unsharded,
+                finite=bool(np.all(np.isfinite(got.pos))))
+
+
+def _rank_water(rank, cfg):
+    """One rank of the spatial water box (62,500 TIP4P/2005 sites, PME
+    order 4 on 80^3, SETTLE, sites, NHC, 2 fs; the cell kernel's slabs,
+    column=False): water_warmup sharded steps from the lattice, then from
+    that state 10 steps against the unsharded run, beside its f32 rounding
+    floor (from a start moved by one ulp) and a 1 % charge control
+    (SETTLE and sites on the sharded result); the slab of #4 against its
+    plain f64 version, the ranks' slabs summed against the full launch,
+    timed one rank at a time (rank 0 also checks and times the slabs of
+    1 and 4 ranks); launches and collectives of the sharded run."""
+    import copy
+
+    import torch
+
+    from torchmd_tpu_torch.constraints import max_settle_error
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import cell as kc
+    from torchmd_tpu_torch.ops import pme as kp
+    from torchmd_tpu_torch.parallel import make_mesh
+    from torchmd_tpu_torch.parallel.spatial import slab
+    from torchmd_tpu_torch.systems import System
+    from torchmd_tpu_torch.vsites import apply_vsites
+
+    dev = torch.device(cfg["device"])
+    mesh = make_mesh(axes=("sp",), device=dev)
+    n_w, spacing, cutoff = cfg["water"]
+    mol, par, L = build_water(n_w, spacing, True)
+    vel = maxwell_boltzmann(par.masses, TEMP, 1, seed=3, device=dev, dtype=torch.float32)
+
+    from torchmd_tpu_torch.forces import Forces
+
+    def run(m, p=par, coords=mol.coords[:, :, 0].astype(np.float32), vel=vel):
+        forces = Forces(p, terms=WATER_TERMS, precision="single", cutoff=cutoff,
+                        elec="ewald" if p.natoms >= 4096 else "pme", kernel="cell",
+                        device=dev, column=False)
+        system = System(p.natoms, 1, "single")
+        system.set_positions(coords)
+        system.set_box(np.full(3, L))
+        system.set_velocities(vel)
+        forces.compute(system.pos, system.box, system.forces)
+        kw = {} if m is None else dict(mesh=m, mesh_axis="sp", shard="spatial")
+        integ = Integrator(system, forces, TIMESTEP, constraints="settle", T=TEMP,
+                           thermostat="nhc", tau=WATER_TAU, **kw)
+        return system, forces, integ
+
+    # the start: water_warmup sharded steps from the lattice (whose first
+    # steps melt it), the same state on every rank (a sharded run's end is
+    # gathered); then from it the unsharded run, its f32 rounding floor (the
+    # start moved by one ulp per coordinate) and a fault control (every
+    # charge x 1.01), as water_trajectory_check holds the kernel path
+    warm, _, warm_integ = run(mesh)
+    warm_integ.step(niter=cfg["water_warmup"])
+    p32 = warm.pos[0].astype(np.float32)
+    vel = torch.as_tensor(warm.vel, device=dev)
+    del warm_integ
+    one_ulp = np.random.RandomState(4).rand(*p32.shape) < 0.5
+    moved = np.where(one_ulp, np.nextafter(p32, np.float32(np.inf)),
+                     np.nextafter(p32, np.float32(-np.inf)))
+    wrong = copy.copy(par)
+    wrong.charges = par.charges * (1.0 + WATER_CONTROL_Q[-1])
+    ends = {}
+    for label, kw in (("ref", {}), ("ulp", dict(coords=moved)), ("control", dict(p=wrong))):
+        s_, _, integ_ = run(None, coords=kw.get("coords", p32), p=kw.get("p", par), vel=vel)
+        integ_.step(niter=cfg["steps"])
+        ends[label] = s_.pos.copy()
+        del integ_
+    ref = ends["ref"]
+    floor = float(np.abs(ends["ulp"] - ref).max())
+    control = float(np.abs(ends["control"] - ref).max())
+    system, forces, integ = run(mesh, coords=p32, vel=vel)
+    _mesh_sync(dev)
+    kc.LAUNCHES = kc.SLAB_LAUNCHES = kp.SPREAD_LAUNCHES = kp.GATHER_LAUNCHES = kb.LAUNCHES = 0
+    mesh.calls.clear()
+    integ.step(niter=cfg["steps"])
+    _mesh_sync(dev)
+    launches = {"cell_slab": kc.SLAB_LAUNCHES, "cell": kc.LAUNCHES,
+                "pme_spread": kp.SPREAD_LAUNCHES, "pme_gather": kp.GATHER_LAUNCHES,
+                "bonded": kb.LAUNCHES}
+    collectives = dict(mesh.calls)
+    dev_a = float(np.abs(system.pos - ref).max())
+    pos = torch.as_tensor(system.pos[0], dtype=torch.float64, device=dev)
+    box64 = torch.full((3,), L, dtype=torch.float64, device=dev)
+    settle_err = float(max_settle_error(integ.constraints.settle, pos))
+    sites = forces.vsites[0].sites
+    site_err = float((pos[sites] - apply_vsites(forces.vsites, pos, box64)[sites]).abs().max())
+
+    # the slab of #4 on the end state
+    kern = forces._cell_kernel
+    d32, ncfg, clcfg = kern.data, kern.cfg, kern.clcfg
+    p32 = pos.float().contiguous()
+    b32 = box64.float()
+    cl = kern.build(p32, b32)
+    f64 = Forces(par, terms=WATER_TERMS, precision="double", cutoff=cutoff, elec="ewald",
+                 kernel="cell", device=dev, column=False, plain=True)
+    f64.ensure_cell_kernel(np.full(3, L), pos0=system.pos[0], allow_column=False)
+    d64 = f64._cell_kernel.data
+    cl64 = cl._replace(ref_pos=cl.ref_pos.double())
+    sl = slab(clcfg.ncells[0], mesh.shape["sp"], mesh.index("sp"))
+    pot_k, f_k = kc.cell_energy_forces(d32, ncfg, clcfg, cl, p32, b32, slab=sl)
+    pot_p, f_p = kc.cell_reference(d64, ncfg, clcfg, cl64, pos, box64, slab=sl)
+    pot_full, f_full = kc.cell_energy_forces(d32, ncfg, clcfg, cl, p32, b32)
+    _mesh_sync(dev)
+    err = _compare(f"rank{rank}/cell_slab", pot_k, f_k, pot_p, f_p)
+    f_sum = mesh.all_reduce(f_k, "sp")
+    e_sum = {k: float(mesh.all_reduce(v.reshape(1), "sp")[0]) for k, v in pot_k.items()}
+    sum_err = _compare(f"rank{rank}/slab_sum", {k: torch.tensor(v) for k, v in e_sum.items()},
+                       f_sum, pot_full, f_full)
+    ncells = int(np.prod(clcfg.ncells))
+    npairs = _water_pair_count(d32, p32, b32, cutoff)
+    b_ms, b_by = bound(tensor_bytes(p32, d32.q, d32.sig, d32.eps, cl.slots, cl.counts,
+                                    d32.excl, p32), pair_flops(npairs, "ewald"))
+
+    def timed(s_k):
+        """ms, plain ms and the bound of the slab s_k's share of cells."""
+        a, b = kc.slab_cells(clcfg, s_k)
+        return dict(cells=b - a, bound=(b_ms * (b - a) / ncells, b_by),
+                    ms=_mesh_ms(lambda: kc.cell_energy_forces(d32, ncfg, clcfg, cl, p32, b32,
+                                                              slab=s_k), dev),
+                    plain_ms=_mesh_ms(lambda: kc.cell_reference(d32, ncfg, clcfg, cl, p32, b32,
+                                                                slab=s_k),
+                                      dev, calls=5, warmup=1))
+
+    def other_layouts():
+        """Rank 0 checks and times the slabs of 1 and 4 ranks too."""
+        out = []
+        for world in (1, 4):
+            for k in range(world):
+                s_k = slab(clcfg.ncells[0], world, k)
+                pk, fk = kc.cell_energy_forces(d32, ncfg, clcfg, cl, p32, b32, slab=s_k)
+                pp, fp = kc.cell_reference(d64, ncfg, clcfg, cl64, pos, box64, slab=s_k)
+                e = _compare(f"W={world}/slab{k}", pk, fk, pp, fp)
+                out.append(dict(world=world, rank=k, err=e, **timed(s_k)))
+        return out
+
+    times = _one_at_a_time(lambda: timed(sl))
+    others = _one_at_a_time(lambda: other_layouts() if rank == 0 else [])
+    del f64, d64, cl64
+    return dict(dev_A=dev_a, floor_A=floor, control_A=control, settle_err=settle_err,
+                site_err=site_err, err=err,
+                sum_err=sum_err, slab=sl, cells=times["cells"], ms=times["ms"],
+                plain_ms=times["plain_ms"], bound=times["bound"], others=others,
+                launches=launches, collectives=collectives,
+                finite=bool(np.all(np.isfinite(system.pos))))
+
+
+def _rank_mtk(rank, cfg):
+    """One rank of spatial MTK on tests/test_mtk.py's argon gas (1,000
+    atoms, lj, cutoff 9 A, NHC at 120 K, 4x the ideal-gas pressure, tau_p
+    2000 fs, 2 fs, f32): the box and positions against the unsharded
+    dense MTK run from one start."""
+    import torch
+
+    from torchmd_tpu_torch.barostat import MTKBarostat
+    from torchmd_tpu_torch.forcefields import ForceField
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.io import Molecule
+    from torchmd_tpu_torch.observables import ideal_gas_pressure
+    from torchmd_tpu_torch.parallel import make_mesh
+    from torchmd_tpu_torch.parameters import Parameters
+    from torchmd_tpu_torch.systems import System
+
+    dev = torch.device(cfg["device"])
+    mesh = make_mesh(axes=("sp",), device=dev)
+    d = os.path.join(REPO, "tests", "systems", "argon")
+    mol = Molecule(os.path.join(d, "argon_start.pdb"))
+    ff = ForceField.create(mol, os.path.join(d, "argon_forcefield.yaml"))
+    par = Parameters(ff, mol, ["lj"], precision="single")
+    L = 77.395
+    P = ideal_gas_pressure(mol.numAtoms, 120.0, L**3)
+    vel = maxwell_boltzmann(par.masses, 120.0, 1, seed=6, device=dev, dtype=torch.float32)
+
+    def run(m):
+        forces = Forces(par, terms=["lj"], precision="single", cutoff=9.0, device=dev)
+        system = System(mol.numAtoms, 1, "single")
+        system.set_positions(mol.coords)
+        system.set_box(np.full(3, L))
+        system.set_velocities(vel)
+        forces.compute(system.pos, system.box, system.forces)
+        kw = {} if m is None else dict(mesh=m, mesh_axis="sp", shard="spatial")
+        integ = Integrator(system, forces, TIMESTEP, T=120.0, thermostat="nhc",
+                           barostat=MTKBarostat(4.0 * P, 120.0, tau_fs=2000.0), seed=7, **kw)
+        for _ in range(cfg["mtk_chunks"]):
+            integ.step(niter=cfg["mtk_steps"])
+        return system
+
+    ref = run(None)
+    mesh.calls.clear()
+    got = run(mesh)
+    box_rel = float(np.abs(got.box_diag / ref.box_diag - 1.0).max())
+    return dict(box=got.box_diag[0].tolist(), box_rel=box_rel,
+                dev_A=float(np.abs(got.pos - ref.pos).max()),
+                volume_ratio=float(np.prod(got.box_diag[0]) / L**3),
+                collectives=dict(mesh.calls), finite=bool(np.all(np.isfinite(got.pos))))
+
+
+def _rank_replicas(rank, cfg):
+    """One rank of the replica-sharded thrombin ladder (replicas at 300 K,
+    Langevin, each from its own Maxwell-Boltzmann draw): each replica's
+    10 steps against the single-process run of all replicas, and the
+    launches of #1 and #3 of the sharded run (one each per evaluation of
+    the rank's replicas)."""
+    import torch
+
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.parallel import make_mesh
+    from torchmd_tpu_torch.systems import System
+
+    dev = torch.device(cfg["device"])
+    mesh = make_mesh(axes=("dp",), device=dev)
+    mol, par = load_amber(*cfg["main_system"])
+    nrep = cfg["replicas"]
+    forces = Forces(par, terms=TERMS, precision="single", cutoff=CUTOFF, rfa=RFA, device=dev)
+    vel = torch.cat([maxwell_boltzmann(par.masses, TEMP, 1, seed=r, device=dev,
+                                       dtype=torch.float32) for r in range(nrep)])
+
+    def run(m):
+        system = System(mol.numAtoms, nrep, "single")
+        system.set_positions(mol.coords)
+        system.set_velocities(vel)
+        kw = {} if m is None else dict(mesh=m, mesh_axis="dp")
+        integ = Integrator(system, forces, TIMESTEP, gamma=GAMMA, T=TEMP, seed=5, **kw)
+        _mesh_sync(dev)
+        kn.LAUNCHES = kb.LAUNCHES = 0
+        integ.step(niter=cfg["steps"])
+        _mesh_sync(dev)
+        return system, {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+
+    ref, _ = run(None)
+    mesh.calls.clear()
+    got, launches = run(mesh)
+    dev_a = np.abs(got.pos - ref.pos).reshape(nrep, -1).max(1)
+    return dict(dev_A=dev_a.tolist(), launches=launches, collectives=dict(mesh.calls),
+                finite=bool(np.all(np.isfinite(got.pos))))
+
+
+def _rank_train(rank, cfg):
+    """One rank of the sharded force matching (examples/train_cg.py's
+    recipe, TRAIN_B conformations, f64, Adam): dp x sp = 1 x W, every
+    conformation's rows over the ranks; losses and parameters against
+    the unsharded trainer on this rank."""
+    import torch
+    import torch.distributed as dist
+
+    from torchmd_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(axes=("dp", "sp"), shape=(1, dist.get_world_size()),
+                     device=cfg["device"])
+    out = {}
+    for label, m in (("unsharded", None), ("sharded", mesh)):
+        trainer, state, *data = _cg_training(torch.float64, n_conf=cfg["train_b"], mesh=m,
+                                             device=cfg["device"])
+        losses = []
+        for _ in range(cfg["train_steps"]):
+            state, loss = trainer.step(state, *data[:4])
+            losses.append(float(loss))
+        out[label] = (np.asarray(losses),
+                      {k: v.detach().cpu().numpy() for k, v in state.params.items()})
+    (l0, p0), (l1, p1) = out["unsharded"], out["sharded"]
+    rel = max([float(np.abs(l1 / l0 - 1.0).max())]
+              + [float(np.abs(p1[k] - v).max() / np.abs(v).max()) for k, v in p0.items()])
+    return dict(losses=l1.tolist(), rel=rel, collectives=dict(mesh.calls))
+
+
+def _collectives_total(outs):
+    total = {}
+    for o in outs:
+        for k, v in o["collectives"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _thrombin_launches(cfg, o):
+    """The launches of spatial thrombin's T-gate run on one rank: one row
+    range of #1 (none for a rank with no rows) and one #3 a step."""
+    steps = cfg["t_steps"]
+    return {"pair_rows": steps if o["rows"] else 0, "pair": 0, "bonded": steps}
+
+
+def phase_mesh(cfg=None):
+    """The device mesh on the card (the module docstring's phase 29):
+    mesh_nccl, spatial_thrombin at W = 2 and 4, spatial_water,
+    spatial_mtk, replica_mesh and train_mesh. Returns the kernel entries
+    of the row range (#1) and the slab (#4) and their launches."""
+    from torchmd_tpu_torch.parallel.launch import Ranks
+
+    cfg = dict(MESH_CFG, **(cfg or {}))
+    dev = cfg["device"]
+    cores = len(os.sched_getaffinity(0))
+    collectives = {}
+    t0 = time.perf_counter()
+    with Ranks(1, backend=cfg["w1_backend"], device=dev, threads=cores,
+               timeout=600) as ranks:
+        (nccl,) = ranks.run(_rank_thrombin, cfg, 1)
+    log("mesh_nccl", world=1, backend=cfg["w1_backend"], max_pos_dev_A=nccl["dev_A"],
+        steps=cfg["steps"], sharded_steps_per_s=f"{nccl['sps']:.2f}",
+        unsharded_steps_per_s=f"{nccl['sps_unsharded']:.2f}",
+        overhead=f"{nccl['sps_unsharded'] / nccl['sps']:.3f}", pair_rows_launches=
+        nccl["launches"]["pair_rows"], mean_T=f"{nccl['mean_T']:.2f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    require(nccl["dev_A"] <= MESH_NCCL_TOL, f"one NCCL rank off the unsharded run by "
+            f"{nccl['dev_A']} A")
+    require(nccl["finite"], "non-finite positions on the NCCL rank")
+    require(nccl["launches"] == _thrombin_launches(cfg, nccl),
+            f"NCCL rank: launches {nccl['launches']} (one row range and one bonded "
+            "launch a step)")
+    collectives["mesh_nccl"] = nccl["collectives"]
+
+    rows = {1: [nccl]}
+    with Ranks(2, backend="gloo", device=dev, threads=max(1, cores // 2),
+               timeout=900) as ranks:
+        t0 = time.perf_counter()
+        rows[2] = ranks.run(_rank_thrombin, cfg, 2)
+        log("spatial_thrombin_wall", world=2, seconds=f"{time.perf_counter() - t0:.1f}")
+        t0 = time.perf_counter()
+        water = ranks.run(_rank_water, cfg)
+        log("spatial_water_wall", world=2, seconds=f"{time.perf_counter() - t0:.1f}")
+        t0 = time.perf_counter()
+        mtk = ranks.run(_rank_mtk, cfg)
+        replicas = ranks.run(_rank_replicas, cfg)
+        train = ranks.run(_rank_train, cfg)
+        log("mesh_rest_wall", world=2, seconds=f"{time.perf_counter() - t0:.1f}")
+    with Ranks(4, backend="gloo", device=dev, threads=max(1, cores // 4),
+               timeout=900) as ranks:
+        rows[4] = ranks.run(_rank_thrombin, cfg, 4)
+
+    for world in (2, 4):
+        outs = rows[world]
+        for r, o in enumerate(outs):
+            log("spatial_thrombin", world=world, rank=r, tiles=o["tiles"], rows=o["rows"],
+                pair_rows_max_abs_err=o["err"], bitwise_vs_full=o["bitwise"],
+                max_pos_dev_A=o["dev_A"], mean_T=f"{o['mean_T']:.2f}",
+                steps_per_s=f"{o['sps']:.2f}", label="W ranks sharing one card (gloo)",
+                **{f"{k}_launches": v for k, v in o["launches"].items()})
+            require(o["dev_A"] <= MESH_TRAJ_TOL, f"W={world} rank {r}: {o['dev_A']} A off "
+                    "the unsharded run")
+            require(abs(o["mean_T"] - TEMP) <= MESH_T_TOL, f"W={world}: mean T {o['mean_T']}")
+            require(o["finite"], f"W={world}: non-finite positions")
+            require(o["launches"] == _thrombin_launches(cfg, o),
+                    f"W={world} rank {r}: launches {o['launches']} (one row range and one "
+                    "bonded launch a step)")
+        collectives[f"spatial_thrombin_w{world}"] = _collectives_total(outs)
+    for world, outs in rows.items():
+        for r, o in enumerate(outs):
+            log("mesh_kernels", kernel="pair_rows", world=world, rank=r, rows=o["rows"],
+                ms=o["ms"], plain_ms=o["plain_ms"], bound_ms=f"{o['bound'][0]:.5f}",
+                bound_by=o["bound"][1], max_abs_err=o["err"])
+
+    for r, o in enumerate(water):
+        limit = WATER_FLOOR_FACTOR * o["floor_A"]
+        log("spatial_water", world=2, rank=r, slab=o["slab"], cells=o["cells"],
+            max_pos_dev_A=o["dev_A"], within_mesh_traj_tol=o["dev_A"] <= MESH_TRAJ_TOL,
+            ulp_floor_A=o["floor_A"], limit_A=limit, charge_control_A=o["control_A"],
+            settle_max_err_A=o["settle_err"],
+            site_max_err_A=o["site_err"], cell_slab_max_abs_err=o["err"],
+            slab_sum_max_abs_err=o["sum_err"],
+            **{f"{k}_launches": v for k, v in o["launches"].items()})
+        log("mesh_kernels", kernel="cell_slab", world=2, rank=r, cells=o["cells"],
+            ms=o["ms"], plain_ms=o["plain_ms"], bound_ms=f"{o['bound'][0]:.5f}",
+            bound_by=o["bound"][1], max_abs_err=o["err"])
+        require(o["dev_A"] <= limit, f"water rank {r}: {o['dev_A']} A off the unsharded "
+                f"run, beyond {WATER_FLOOR_FACTOR} x its one-ulp floor {o['floor_A']} A")
+        require(o["control_A"] > limit, f"the water charge control moved only "
+                f"{o['control_A']} A")
+        require(o["settle_err"] < 1e-3 and o["site_err"] < 1e-4,
+                f"water rank {r}: SETTLE {o['settle_err']}, sites {o['site_err']}")
+        require(o["finite"], "non-finite water positions")
+        # one slab (none for a rank past the grid), one spread and one gather
+        # a step; the TIP4P/2005 topology has no bonded table (its waters are
+        # [ settles ])
+        steps = cfg["steps"]
+        require(o["launches"] == {"cell_slab": steps if o["cells"] else 0, "cell": 0,
+                                  "pme_spread": steps, "pme_gather": steps, "bonded": 0},
+                f"water rank {r}: launches {o['launches']}")
+        for t in o["others"]:
+            log("mesh_kernels", kernel="cell_slab", world=t["world"], rank=t["rank"],
+                cells=t["cells"], ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=f"{t['bound'][0]:.5f}", bound_by=t["bound"][1], max_abs_err=t["err"])
+    collectives["spatial_water"] = _collectives_total(water)
+
+    for r, o in enumerate(mtk):
+        log("spatial_mtk", world=2, rank=r, box=o["box"], box_rel_dev=o["box_rel"],
+            max_pos_dev_A=o["dev_A"], volume_ratio=f"{o['volume_ratio']:.5f}")
+        require(o["box_rel"] <= MESH_MTK_BOX_REL and o["dev_A"] <= MESH_MTK_POS_TOL,
+                f"spatial MTK rank {r}: box {o['box_rel']}, positions {o['dev_A']} A")
+        require(NPT_VOLUME_RANGE[0] <= o["volume_ratio"] <= NPT_VOLUME_RANGE[1],
+                f"spatial MTK volume ratio {o['volume_ratio']}")
+        require(o["finite"], "non-finite spatial MTK positions")
+    collectives["spatial_mtk"] = _collectives_total(mtk)
+
+    for r, o in enumerate(replicas):
+        log("replica_mesh", world=2, rank=r, replicas=cfg["replicas"],
+            max_pos_dev_A=max(o["dev_A"]), pair_launches=o["launches"]["pair"],
+            bonded_launches=o["launches"]["bonded"])
+        require(max(o["dev_A"]) <= MESH_TRAJ_TOL, f"replica rank {r}: {o['dev_A']}")
+        require(o["launches"] == {"pair": cfg["steps"], "bonded": cfg["steps"]},
+                f"replica rank {r}: launches {o['launches']} (one each an evaluation)")
+        require(o["finite"], "non-finite replica positions")
+    collectives["replica_mesh"] = _collectives_total(replicas)
+
+    for r, o in enumerate(train):
+        log("train_mesh", world=2, rank=r, mesh="1x2", steps=cfg["train_steps"],
+            losses=o["losses"], rel_vs_unsharded=o["rel"])
+        require(o["rel"] <= MESH_TRAIN_REL, f"sharded trainer off by {o['rel']}")
+    collectives["train_mesh"] = _collectives_total(train)
+    # what the ranks' collectives were, summed over the ranks of each run;
+    # gloo takes them on the card's tensors, so none went through the host
+    for phase, counts in collectives.items():
+        log("mesh_collectives", of=phase, host_staged="none", **counts)
+
+    def entry(kernel, outs, launches):
+        worst = max(outs, key=lambda o: o["ms"] or 0.0)
+        return dict(ms=worst["ms"], plain_ms=worst["plain_ms"], bound=worst["bound"],
+                    max_abs_err=max(o["err"] for o in outs)), launches
+
+    return {"pair_rows": entry("pair_rows", rows[2], sum(
+                o["launches"]["pair_rows"] for o in rows[2])),
+            "cell_slab": entry("cell_slab", water, sum(
+                o["launches"]["cell_slab"] for o in water))}
+
+
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -4770,6 +5391,7 @@ def main():
     swm4_launches = phase_drude_swm4()
     phase_nnp()
     phase_train()
+    mesh_times = phase_mesh()
     times["roofline"], probe_launches = phase_roofline()
     # the dense pair and bonded kernels' main paths: the API's dynamics,
     # the CLI's run, the production protocol's and its r-RESPA run, the
@@ -4826,6 +5448,14 @@ def main():
                       mts_water_launches["column_rf"], times["column_rf"]),
         _kernel_entry("roofline", src + "roofline.cu", "scripts/bench_roofline.py:213",
                       probe_launches, times["roofline"]),
+        # the row range of #1 and the slab of #4 (the spatially sharded
+        # paths), at W = 2 gloo ranks sharing the card: launches summed
+        # over the ranks, the slowest rank's times, the bound of its share
+        _kernel_entry("pair_rows", src + "nonbonded.cu",
+                      "torchmd_tpu/ops/pallas_nonbonded.py:545",
+                      mesh_times["pair_rows"][1], mesh_times["pair_rows"][0]),
+        _kernel_entry("cell_slab", src + "cell.cu", "torchmd_tpu/ops/pallas_cell.py:238",
+                      mesh_times["cell_slab"][1], mesh_times["cell_slab"][0]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4845,6 +5475,11 @@ if __name__ == "__main__":
         phase_build()
         phase_drude()
         phase_drude_swm4()
+    elif sys.argv[1:2] == ["--mesh"]:
+        # the device mesh's phases alone
+        phase_device()
+        phase_build()
+        phase_mesh()
     elif sys.argv[1:2] == ["--remd-seeds"]:
         # a measurement, not the smoke test: the REMD phase's T spread
         phase_device()

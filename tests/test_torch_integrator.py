@@ -167,15 +167,16 @@ def test_step_reuses_device_state_and_sees_host_edits():
 
 
 def test_unported_options_raise():
-    """The device mesh still raises, naming its ROADMAP item; atom
-    batching and per-replica T are ported, and NHC and CSVR refuse a T
+    """A device mesh that is not a `parallel.Mesh` raises TypeError (the
+    mesh is ported: tests/test_torch_parallel.py); atom batching and
+    per-replica T are ported, and NHC and CSVR refuse a T
     vector as the JAX package does; CSVR, SHAKE/RATTLE and r-RESPA are
     ported (a free gas has no bonds to constrain; r-RESPA needs the split
     evaluators of Forces, tests/test_torch_mts.py)."""
     natoms = 2
     system = System(natoms, 1, "double")
     f = _ZeroForces(np.full((natoms, 1), 1.0))
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         tint.Integrator(system, f, 1.0, mesh=object())
     assert tint.Integrator(system, f, 1.0, batch=np.zeros(natoms, int)).natoms.tolist() == [2]
     assert tint.Integrator(system, f, 1.0, T=np.array([300.0]), gamma=1.0).vcoeff.shape == (

@@ -9,9 +9,9 @@ the JAX package at f64.
   - a short Langevin run through Parameters -> Forces -> System ->
     Integrator gives finite numbers;
   - importing every module of the port loads no jax;
-  - options of later slices raise NotImplementedError naming their
-    ROADMAP item; those of this slice (Verlet lists, the exact Ewald sum,
-    r-RESPA) run.
+  - a device mesh that is not a `parallel.Mesh` raises TypeError; the
+    options of later slices (Verlet lists, the exact Ewald sum, r-RESPA)
+    run.
 """
 
 from __future__ import annotations
@@ -57,10 +57,12 @@ SLICE_MODULES = (
     "torchmd_tpu_torch.checkpoint", "torchmd_tpu_torch.run",
     "torchmd_tpu_torch.multipoles", "torchmd_tpu_torch.multipole_ewald",
     "torchmd_tpu_torch.amoeba_valence", "torchmd_tpu_torch.amoeba",
+    "torchmd_tpu_torch.parallel", "torchmd_tpu_torch.parallel.mesh",
+    "torchmd_tpu_torch.parallel.spatial", "torchmd_tpu_torch.parallel.launch",
 )
 # names of the JAX package's __all__ whose modules are not ported yet
-# (ROADMAP item 21: parallel)
-UNPORTED_NAMES = ("parallel",)
+# (none since the device mesh, ROADMAP item 21, was ported)
+UNPORTED_NAMES = ()
 
 
 def _system(name):
@@ -178,15 +180,16 @@ def test_port_exports_the_jax_names():
     (dict(T=np.array([300.0]), gamma=1.0), None),
 ])
 def test_later_slices_raise_not_implemented(kwargs, item):
-    """Options of later slices raise NotImplementedError naming their
-    ROADMAP item: the device mesh. Atom batching and per-replica
-    temperatures (item 11b) are ported and step (as Verlet lists, the
-    exact Ewald sum and r-RESPA: test_later_slice_options_run)."""
+    """The options of later slices are ported: the device mesh (ROADMAP
+    item 21) takes a `parallel.Mesh`, and anything else raises TypeError
+    (tests/test_torch_parallel.py runs it); atom batching and per-replica
+    temperatures (item 11b) step (as Verlet lists, the exact Ewald sum and
+    r-RESPA: test_later_slice_options_run)."""
     mol, par, _ = _system("ligand")
     forces = Forces(par, terms=ALL_TERMS, precision="double", device="cpu")
     system = System(mol.numAtoms, 1, "double")
     if item is not None:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             Integrator(system, forces, 1.0, **kwargs)
         return
     system.set_positions(mol.coords)

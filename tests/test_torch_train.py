@@ -12,7 +12,9 @@ the JAX package at f64 on the CPU.
     electrostatics on benzamidine (excluded pairs, the diagonal) is
     finite and equals the JAX package's (1e-9 relative);
   - the planted fault: a rebuild that ignores the trained tensors (stale
-    parameters) must leave the JAX trajectory; `mesh=` raises.
+    parameters) must leave the JAX trajectory; `mesh=` takes a
+    `parallel.Mesh` (tests/test_torch_parallel.py) and raises TypeError
+    for anything else.
 """
 
 from __future__ import annotations
@@ -178,6 +180,6 @@ def test_double_backward_through_pairs_is_finite_and_matches_jax():
 
 def test_mesh_raises():
     ffp, cfg, _, _, _ = _cg()
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         ttrain.ForceMatchingTrainer(ffparams_from_numpy(_np(ffp)), _port_cfg(cfg),
                                     mesh=object())

@@ -143,7 +143,7 @@ __all__ = [
     "amoeba_valence", "amoeba", "drude", "nnp", "train", "viz",
     "external", "run", "utils", "wrapper", "checkpoint", "observables",
     "minimizers", "profiling", "native", "neighbourlist", "npzmol", "mycalc",
-    "calculators",
+    "calculators", "parallel",
     # convenience re-exports (lazy)
     "Molecule", "ForceField", "AmberForcefield", "GromacsForcefield",
     "YamlForcefield", "CharmmForcefield", "npzMolecule",

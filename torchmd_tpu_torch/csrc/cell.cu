@@ -34,7 +34,14 @@
 //   - energies (and with VIRIAL the raw per-axis sums g * d_a^2) sum per
 //     warp in f64, and a finishing kernel adds the warps in a fixed order.
 // The VIRIAL instance (MTK barostat; pallas_cell.py's with_virial) returns
-// the raw sums: the caller applies the -0.5. The NBFIX instances read A/B
+// the raw sums: the caller applies the -0.5.
+// A slab (the spatially sharded path; the JAX package's slab of cell
+// columns, torchmd_tpu/neighbors.py:340-380) is the cell range [cell0,
+// cell1): cells are x-major, so a slab of x columns is contiguous, and
+// the launch takes that range's i tiles only (blockIdx.x offset by the
+// range's first tile), their energy partials and their finishing sum.
+// Forces of atoms outside the slab stay zero, so the ranks' slabs sum to
+// the full call. The NBFIX instances read A/B
 // from the (ntypes, ntypes) tables by the packed rows' types.
 
 #include <cuda_runtime.h>
@@ -62,6 +69,7 @@ struct CellCfg {
   int lj_kind;    // 0 none, 1 lj, 2 repulsion, 3 repulsioncg
   int elec_kind;  // 0 none, 1 coulomb, 2 reaction field, 3 ewald
   int use_switch;
+  int cell0, cell1;  // the slab's cells [cell0, cell1) (all: 0, ncells)
   float cutoff2;
   float switch_dist;
   float inv_switch_width;
@@ -165,8 +173,8 @@ cell_kernel(const float4* __restrict__ pq, const float4* __restrict__ aux,
   __shared__ tiles::WarpSmem smem[tiles::NSPLIT];
   constexpr int NP = VIRIAL ? 5 : 2;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gt = blockIdx.x;  // this block's i tile
   const int tpc = tiles_per_cell(cfg);
+  const int gt = cfg.cell0 * tpc + blockIdx.x;  // this block's i tile
   const int c = gt / tpc, ti = gt % tpc;
   const int cap = cfg.capacity;
   const int cnt_i = min(counts[c], cap);
@@ -286,9 +294,10 @@ cudaError_t prep(const float* pos, const float* q, const float* sig, const float
 // (ncells) int32, excl (N, nexcl) int32 (N = empty), lj_a/lj_b the
 // (ntypes, ntypes) NBFIX tables or null (Lorentz-Berthelot from sig/eps),
 // box (3); scratch of
-// tmd_cell_scratch_bytes(cfg) bytes (16-byte aligned). Outputs: forces
-// (N,3), zeroed first so an atom that a capacity overflow dropped from its
-// cell reads 0 (the caller redoes an overflowed step); energies (np) as
+// tmd_cell_scratch_bytes(cfg) bytes (16-byte aligned); i atoms those of
+// the cells [cfg.cell0, cfg.cell1). Outputs: forces (N,3), zeroed first so
+// an atom that a capacity overflow dropped from its cell, or one outside
+// the slab, reads 0 (the caller redoes an overflowed step); energies (np) as
 // [lj-family, electrostatics] and, with `virial`, the raw sums g * d_a^2
 // for a = x, y, z; stats (5 uint64, or null) gains the walk's counters
 // (tile_pairs.cuh Counters). Returns cudaGetLastError().
@@ -300,7 +309,8 @@ extern "C" int tmd_cell_energy_forces(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ncells = cfg.ncx * cfg.ncy * cfg.ncz;
   if (cfg.capacity < 1 || cfg.capacity > MAX_CAPACITY ||
-      (long long)ncells * cfg.capacity > tiles::SLOT_MASK)
+      (long long)ncells * cfg.capacity > tiles::SLOT_MASK || cfg.cell0 < 0 ||
+      cfg.cell1 <= cfg.cell0 || cfg.cell1 > ncells)
     return (int)cudaErrorInvalidValue;
   float4 *pq, *aux, *tbox;
   double* part;
@@ -309,7 +319,8 @@ extern "C" int tmd_cell_energy_forces(
   if (err != cudaSuccess) return (int)err;
   err = prep(pos, q, sig, eps, types, slots, counts, box, cfg, pq, aux, tbox, s);
   if (err != cudaSuccess) return (int)err;
-  const int ntiles = ncells * ((cfg.capacity + tiles::TILE - 1) / tiles::TILE);
+  const int tpc = (cfg.capacity + tiles::TILE - 1) / tiles::TILE;
+  const int ntiles = (cfg.cell1 - cfg.cell0) * tpc;  // the slab's i tiles
   const PairArgs a{pq, aux, tbox, counts, excl, lj_a, lj_b, box, forces, part, stats};
   const bool nbfix = lj_a != nullptr;
   if (virial) {
@@ -321,8 +332,10 @@ extern "C" int tmd_cell_energy_forces(
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  const int np = virial ? 5 : 2;
   tiles::finish_parts<FIN_THREADS><<<1, FIN_THREADS, 0, s>>>(
-      part, tiles::NSPLIT * ntiles, virial ? 5 : 2, energies);
+      part + (size_t)np * tiles::NSPLIT * cfg.cell0 * tpc, tiles::NSPLIT * ntiles, np,
+      energies);
   return (int)cudaGetLastError();
 }
 

@@ -56,6 +56,15 @@
 //     replica's unit decomposition and summation order are those of a
 //     one-replica call, so its forces and energies equal that call's bit
 //     for bit.
+//   - a row range (the spatially sharded path, torchmd_tpu/parallel/
+//     spatial.py:64-77, rowblock_energy_forces): the i tiles [it0, it1)
+//     against all atoms. The prep pass still packs every tile (the j
+//     side is all atoms); the walk's counter runs over the range's units
+//     only, each with the unit index, partials and arrival counter of
+//     the full call, and the forces come out for the range's rows. A
+//     range's rows equal the same rows of the full call bit for bit (the
+//     same units, summed in the same order); its energies are the
+//     range's tiles' sums.
 // Not built: Newton's third law (3,355 unordered tile pairs on thrombin
 // instead of 6,567 ordered ones), which needs a second owner of each force
 // row. Each (PBC, NBFIX, cutoff, electrostatics kind) has its own
@@ -87,6 +96,7 @@ struct PairCfg {
   int use_switch;
   int pbc;        // read by the host entry only (template flag)
   int nrep;       // replicas of the call (>= 1)
+  int it0, it1;   // the i tiles [it0, it1) (all: 0, ceil(natoms / 32))
   float cutoff2;
   float switch_dist;
   float inv_switch_width;
@@ -182,10 +192,11 @@ pair_prep(const float* __restrict__ pos, const float* __restrict__ q,
 }
 
 // Persistent warps take units of work from a counter: a unit is one i
-// tile of one replica against up to UNIT candidate j tiles, every upt-th
-// of them; replica r owns units [r units, (r + 1) units). The last unit
-// of an i tile to finish sums the tile's force rows in unit order, the
-// last tile of the replica its energies.
+// tile of the range [it0, it1) of one replica against up to UNIT
+// candidate j tiles, every upt-th of them; replica r owns counter values
+// [r runits, (r + 1) runits), runits = (it1 - it0) upt. The last unit of
+// an i tile to finish sums the tile's force rows in unit order, the last
+// tile of the range its energies.
 template <bool PBC, bool NBFIX, bool CUTOFF, int ELEC>
 __global__ void __launch_bounds__(WARPS * 32)
 pair_walk(const float4* __restrict__ pq_all, const float4* __restrict__ aux,
@@ -200,15 +211,18 @@ pair_walk(const float4* __restrict__ pq_all, const float4* __restrict__ aux,
   __shared__ tiles::WarpSmem smem[WARPS];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = cfg.natoms, T = num_tiles(n), upt = units_per_tile(T), units = T * upt;
+  const int nt = cfg.it1 - cfg.it0, runits = nt * upt;
+  const int nrows = min(n, cfg.it1 * tiles::TILE) - cfg.it0 * tiles::TILE;
   int* const next = counters_all + (size_t)cfg.nrep * (T + 1);
   while (true) {
     int u = 0;
     if (lane == 0) u = atomicAdd(next, 1);
     u = __shfl_sync(tiles::FULL, u, 0);
-    if (u >= cfg.nrep * units) break;
-    // the replica's rows, box, partials, counters and outputs
-    const int rep = u / units;
-    u -= rep * units;
+    if (u >= cfg.nrep * runits) break;
+    // the replica's rows, box, partials, counters and outputs; u becomes
+    // the full call's unit index
+    const int rep = u / runits;
+    u = u - rep * runits + cfg.it0 * upt;
     const float4* __restrict__ pq = pq_all + (size_t)rep * T * tiles::TILE;
     const float4* __restrict__ tbox = tbox_all + (size_t)rep * 2 * T;
     const float* __restrict__ box = PBC ? box_all + 3 * rep : box_all;
@@ -216,7 +230,7 @@ pair_walk(const float4* __restrict__ pq_all, const float4* __restrict__ aux,
     double* __restrict__ epart = epart_all + (size_t)rep * 2 * units;
     double* __restrict__ etile = etile_all + (size_t)rep * 2 * T;
     int* __restrict__ counters = counters_all + (size_t)rep * (T + 1);
-    float* __restrict__ forces = forces_all + (size_t)rep * 3 * n;
+    float* __restrict__ forces = forces_all + (size_t)rep * 3 * nrows;
     float* __restrict__ energies = energies_all + 2 * rep;
     // unit r of tile it: candidates r, r + upt, r + 2 upt, ... (<= UNIT),
     // so that the dense j range around the i tile spreads over the units
@@ -260,7 +274,7 @@ pair_walk(const float4* __restrict__ pq_all, const float4* __restrict__ aux,
     for (int k = lane; k < ROW && it * tiles::TILE + k / 3 < n; k += 32) {
       float s = 0.f;
       for (int v = 0; v < upt; ++v) s += __ldcg(tile_rows + (size_t)v * ROW + k);
-      forces[(size_t)it * ROW + k] = s;
+      forces[(size_t)(it - cfg.it0) * ROW + k] = s;
     }
     // lane l sums units l, l + 32, ...; then a fixed shuffle tree
     const double* ep = epart + 2 * (size_t)it * upt;
@@ -275,14 +289,14 @@ pair_walk(const float4* __restrict__ pq_all, const float4* __restrict__ aux,
       etile[2 * it] = a;
       etile[2 * it + 1] = b;
     }
-    // the last tile sums the tiles' energies in a fixed order
+    // the range's last tile sums the tiles' energies in a fixed order
     __threadfence();
     __syncwarp();
-    if (lane == 0) last = atomicAdd(counters + T, 1) == T - 1;
+    if (lane == 0) last = atomicAdd(counters + T, 1) == nt - 1;
     if (!__shfl_sync(tiles::FULL, last, 0)) continue;
     __threadfence();
     a = b = 0.0;
-    for (int t = lane; t < T; t += 32) {
+    for (int t = cfg.it0 + lane; t < cfg.it1; t += 32) {
       a += __ldcg(etile + 2 * t);
       b += __ldcg(etile + 2 * t + 1);
     }
@@ -332,13 +346,14 @@ void launch_cutoff(dim3 grid, cudaStream_t s, const PairCfg& cfg, const WalkArgs
 }
 
 // Persistent blocks of the walk: BLOCKS_PER_SM per SM of the current
-// device, no more than the units of work of the R replicas need.
-cudaError_t walk_grid(int T, int R, dim3* grid) {
+// device, no more than the units of work of the R replicas' nt tiles
+// need.
+cudaError_t walk_grid(int T, int nt, int R, dim3* grid) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const long long units = (long long)R * T * units_per_tile(T);
+  const long long units = (long long)R * nt * units_per_tile(T);
   long long blocks = (units + WARPS - 1) / WARPS;
   if (blocks > (long long)BLOCKS_PER_SM * sms) blocks = (long long)BLOCKS_PER_SM * sms;
   *grid = dim3((unsigned)(blocks < 1 ? 1 : blocks));
@@ -350,12 +365,14 @@ cudaError_t walk_grid(int T, int R, dim3* grid) {
 // Scratch of a call, in bytes (16-byte aligned pieces).
 extern "C" long long tmd_pair_scratch_bytes(PairCfg cfg) { return carve(cfg, nullptr, nullptr); }
 
-// pos (R,N,3) for R = cfg.nrep replicas, q/sig/eps (N), types (N) int32, lj_a/lj_b (T,T) or null
+// pos (R,N,3) for R = cfg.nrep replicas and the i tiles [cfg.it0, cfg.it1),
+// q/sig/eps (N), types (N) int32, lj_a/lj_b (T,T) or null
 // (null: Lorentz-Berthelot from sig/eps), the exclusions as xstart
 // (ceil(N/32) + 1), xtile (X) and xbits (X, 32) (ops/nonbonded.py
 // tile_exclusions), box (R,3) or null (no PBC); scratch of
-// tmd_pair_scratch_bytes(cfg) bytes. Outputs: forces (R,N,3), energies
-// (R,2) as [lj-family, electrostatics]; stats (5 uint64, or null) gains the
+// tmd_pair_scratch_bytes(cfg) bytes. Outputs: forces (R,M,3) of the
+// range's M = min(N, 32 it1) - 32 it0 rows (M = N for the full range),
+// energies (R,2) as [lj-family, electrostatics] of those rows; stats (5 uint64, or null) gains the
 // walk's counters (tile_pairs.cuh Counters). Returns cudaGetLastError().
 extern "C" int tmd_pair_energy_forces(
     const float* pos, const float* q, const float* sig, const float* eps,
@@ -366,7 +383,7 @@ extern "C" int tmd_pair_energy_forces(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = cfg.natoms;
   if (n < 1 || (long long)num_tiles(n) * tiles::TILE > tiles::SLOT_MASK || cfg.nrep < 1 ||
-      cfg.nrep > 65535 ||
+      cfg.nrep > 65535 || cfg.it0 < 0 || cfg.it1 <= cfg.it0 || cfg.it1 > num_tiles(n) ||
       (long long)cfg.nrep * num_tiles(n) * units_per_tile(num_tiles(n)) > INT_MAX / 2)
     return (int)cudaErrorInvalidValue;
   Scratch sc;
@@ -380,7 +397,7 @@ extern "C" int tmd_pair_energy_forces(
   const WalkArgs a{sc.pq, sc.aux, sc.tbox, xstart, xtile, xbits, lj_a, lj_b, box,
                    sc.fpart, sc.epart, sc.etile, sc.counters, forces, energies, stats};
   dim3 grid;
-  err = walk_grid(T, cfg.nrep, &grid);
+  err = walk_grid(T, cfg.it1 - cfg.it0, cfg.nrep, &grid);
   if (err != cudaSuccess) return (int)err;
   const bool nbfix = lj_a != nullptr;
   if (cfg.pbc) {

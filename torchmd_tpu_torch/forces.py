@@ -212,6 +212,7 @@ class Evaluators(NamedTuple):
     pair_ef_one: object
     recip_ef_one: object
     ef_one: object
+    pair_rows_ef_one: object = None  # dense path: (pos, box, tiles) -> rows
 
 
 def _with_autograd(bonded_ef_one, energy):
@@ -275,7 +276,7 @@ def build_evaluators(ffp, config, use_kernels, recip=None, cell_kernel=None,
 
         bonded_ef_one = _with_autograd(bonded_ef_one, autograd_energy)
 
-    nb = None
+    nb = nb_rows = None
     kern = cell_kernel
     has_nb = any(t in config.terms for t in NONBONDED_TERMS)
     # the dense kernel path evaluates a ladder in one `ef_one` call
@@ -290,9 +291,18 @@ def build_evaluators(ffp, config, use_kernels, recip=None, cell_kernel=None,
 
             def nb(pos, box, cl):
                 return _ops_nonbonded.nonbonded_energy_forces(nb_data, config, pos, box)
+
+            def nb_rows(pos, box, tiles):
+                return _ops_nonbonded.nonbonded_energy_forces(nb_data, config, pos, box,
+                                                              rows=tiles)
         else:
             def nb(pos, box, cl):
                 return _potentials.nonbonded_energy_forces(ffp, pos, box, config)
+
+            def nb_rows(pos, box, tiles):
+                lo, hi = _ops_nonbonded.row_span(pos.shape[-2], tiles)
+                return _potentials.rowblock_energy_forces(ffp, config, pos[lo:hi], pos,
+                                                          box, lo)
     elif has_nb:
         kernel_batch = False
 
@@ -350,7 +360,8 @@ def build_evaluators(ffp, config, use_kernels, recip=None, cell_kernel=None,
         bonded_plan=plan, kernel_batch=kernel_batch, bonded_ef_one=bonded_ef_one,
         nb_ef_one=nb_ef_one if nb is not None else None,
         pair_ef_one=pair_ef_one if nb is not None else None,
-        recip_ef_one=recip_ef_one if rec is not None else None, ef_one=ef_one)
+        recip_ef_one=recip_ef_one if rec is not None else None, ef_one=ef_one,
+        pair_rows_ef_one=nb_rows)
 
 
 class Forces:
@@ -464,6 +475,9 @@ class Forces:
         self.nb_ef_one = ev.nb_ef_one
         self.pair_ef_one = ev.pair_ef_one
         self.recip_ef_one = ev.recip_ef_one
+        # the dense path's row block: (pos (N, 3), box, (it0, it1)) ->
+        # (energies, forces of the i tiles' rows) (parallel.spatial)
+        self.pair_rows_ef_one = ev.pair_rows_ef_one
         ef_one = ev.ef_one
         # virtual sites: evaluate at the snapped geometry, spread the site
         # forces onto the hosts
@@ -490,6 +504,26 @@ class Forces:
         if self._kernel_batch and (all(nobox) or not any(nobox)):
             return self.ef_one(pos, None if nobox[0] else torch.stack(list(boxes)))
         return _stack_terms([self.ef_one(pos[r], boxes[r]) for r in range(nrep)])
+
+    def replicated_ef(self):
+        """The terms the spatially sharded path evaluates on every rank of
+        a conformation, (pos, box, cl=None) -> (per-term energies,
+        forces): the bonded terms, the reciprocal term (its PME spread in
+        the order of `cl`) and the external (torchmd_tpu/integrator.py:
+        2340-2365). The real-space pairs are the rank's row block or
+        slab."""
+        bonded, rec = self.bonded_ef_one, self.recip_ef_one
+
+        def ef(pos, box, cl=None):
+            pot, frc = bonded(pos, box)
+            if rec is not None:
+                er, fr = rec(pos, box, cl)
+                pot = dict(pot)
+                add_energy(pot, "electrostatics", er["electrostatics"])
+                frc = frc + fr
+            return pot, frc
+
+        return ef if self.external is None else _with_external(ef, self.external)
 
     def mts_tiers(self, recip_tier=False):
         """The r-RESPA tiers of one conformation, each (pos, box[, cl]) ->
@@ -639,16 +673,22 @@ class Forces:
         return (supported and self.use_kernels and self.device.type == "cuda"
                 and self.dtype == torch.float32)
 
-    def ensure_cell_kernel(self, box, pos0=None):
+    def ensure_cell_kernel(self, box, pos0=None, allow_column=True):
         """Build (once) the large-N neighbour kernel for a concrete box
         diagonal, the column or the cell kernel (`wants_column`); `pos0`
-        sizes the capacities from the real occupancy."""
+        sizes the capacities from the real occupancy. `allow_column=False`
+        (the spatially sharded path, whose slabs are the cell kernel's)
+        takes the cell kernel, replacing a column kernel built before."""
+        from .neighbors import CellKernel
+
+        if not allow_column and self._cell_kernel is not None and not isinstance(
+                self._cell_kernel, CellKernel):
+            self._cell_kernel = None
         if self._cell_kernel is None:
             box = np.asarray(box, np.float64).reshape(-1)[:3]
-            if self.wants_column(box):
+            Kernel = CellKernel
+            if allow_column and self.wants_column(box):
                 from .columns import ColumnKernel as Kernel
-            else:
-                from .neighbors import CellKernel as Kernel
             self._cell_kernel = Kernel(
                 self.ffparams, self.config, self.par, box, skin=CELL_SKIN,
                 exclusions=self.exclusions, pos0=pos0, plain=not self.use_kernels)
@@ -691,6 +731,19 @@ class Forces:
             raise RuntimeError(f"{kern.capacity_name} kept overflowing")
         if kern is not self._cell_kernel:
             self.set_cell_kernel(kern)
+
+    def prepare_rows(self, box_diag):
+        """`prepare` for the spatially sharded row block: the reciprocal
+        term, and the dense pair kernel's row range (`pair_rows_ef_one`)
+        over the dense mask. A Verlet kernel gives way to it: the JAX
+        package's spatial scan evaluates the row block on the Verlet path
+        too (torchmd_tpu/integrator.py:448-470)."""
+        if self.choose_nb_path(box_diag) == "cell":
+            raise ValueError("prepare_rows: the cell path's slabs use prepare")
+        if self._cell_kernel is not None:
+            self.set_cell_kernel(None)
+        if self.has_nb:
+            self.require_nb_mask()
 
     # ------------------------------------------------------------------
     def compute(

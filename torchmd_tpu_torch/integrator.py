@@ -85,11 +85,33 @@ error. With `mts=n` the MTK run is r-RESPA NPT (`_build_scan_npt_mts`):
 the fast tier (bonded terms, by autograd) on the n substeps inside the
 box-coupled propagator, its dU/ds from the last substep, and the slow
 tier's analytic (kernel path) or autograd (dense path) virial at the
-outer step. Spatial NPT runs on a mesh and is not ported yet (ROADMAP
-item 21). The Monte Carlo barostats (`barostat.MonteCarloBarostat` and
+outer step. The Monte Carlo barostats (`barostat.MonteCarloBarostat` and
 its variants) are not integrator options: they attach to the run loop,
 `barostat.attempt(system, forces)` between chunks, and
 `Integrator(barostat=<MC>)` raises ValueError, as in the JAX package.
+
+`mesh=` (a `parallel.Mesh`, one process per rank; the JAX package's
+torchmd_tpu/integrator.py:296-320) shards the run over the ranks of
+`mesh_axis`. Every rank builds the same System, Forces and Integrator
+and calls `step` together; after each `step` every rank's System holds
+the whole result, equal to an unsharded run's (one gather a chunk).
+`shard="replica"`: each rank steps its block of the replicas on the
+paths above (on the dense kernel path one launch of the pair and bonded
+kernels for its replicas), with no communication inside the chunk.
+`shard="spatial"` (one replica): the atoms pad to whole 32-atom tiles on
+every rank, each rank owns a block of rows, and each step gathers the
+positions, evaluates the rank's row block of the dense pair kernel (the
+kernel's row range) or its slab of cell columns on the cell kernel
+(reduce-scattered to rows; the column kernel has no slab), and the
+bonded terms, the reciprocal term and the external on the gathered
+positions; SHAKE/RATTLE/SETTLE and the virtual sites work on gathered
+arrays, the thermostats sum the kinetic energy over the axis, and a cell
+overflow is OR-ed over it. With an MTK barostat the spatial path runs
+the dense row block by torch ops (its virial by autograd over the
+scaling) and keeps the extended state the same on every rank. Langevin
+and CSVR noise is drawn for the whole system from the generator, which
+every rank seeds alike, and cut to the rank's piece: a sharded run's
+noise is the unsharded run's.
 """
 
 from __future__ import annotations
@@ -195,12 +217,15 @@ class Integrator:
     scalar only. `batch` ((natoms,) ints) groups the atoms into
     sub-systems: `step` then reports the kinetic energy and T per
     replica and group, (R, nbatch), with each group's atom count as its
-    degrees of freedom (counted on the host, numpy)."""
+    degrees of freedom (counted on the host, numpy). `mesh` (a
+    `parallel.Mesh`), `mesh_axis` and `shard` ("replica" or "spatial")
+    shard the run over ranks (module docstring)."""
 
     def __init__(self, systems, forces, timestep, device=None, gamma=None,
                  T=None, batch=None, seed=1, generator=None, mesh=None,
                  constraints=None, thermostat=None, tau=None, nchain=3,
-                 barostat=None, mts=None, mts_recip=None, **unported):
+                 barostat=None, mts=None, mts_recip=None, mesh_axis="dp",
+                 shard="replica", **unported):
         # r-RESPA: the JAX package's argument checks (torchmd_tpu/
         # integrator.py:321-341)
         self.mts = None if mts in (None, 0, False) else int(mts)
@@ -215,14 +240,24 @@ class Integrator:
                 raise ValueError(f"mts_recip must be >= 1, got {mts_recip}")
             if batch is not None:
                 raise NotImplementedError("mts_recip + atom batching")
-        for name, value, item in (("mesh", mesh, "21"),
-                                  *((k, v, None) for k, v in unported.items())):
+        for name, value in unported.items():
             if value is not None and not (isinstance(value, (bool, int))
                                           and not value):
-                where = f" (ROADMAP item {item})" if item else ""
                 raise NotImplementedError(
-                    f"Integrator({name}=...) is not ported yet{where}; a later "
+                    f"Integrator({name}=...) is not ported yet; a later "
                     "slice of the port brings it")
+        if mesh is not None:
+            from .parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(
+                    f"mesh must be a torchmd_tpu_torch.parallel.Mesh (make_mesh), "
+                    f"got {type(mesh).__name__}")
+            if shard not in ("replica", "spatial"):
+                raise ValueError(f"shard={shard!r} (want 'replica' or 'spatial')")
+            if not _same_device(mesh.device, forces.device):
+                raise ValueError(f"the mesh's device {mesh.device} differs from the "
+                                 f"forces' device {forces.device}")
         if T is not None and np.ndim(T) > 0:
             t_arr = np.asarray(T, dtype=np.float64)
             if t_arr.shape != (systems.nreplicas,):
@@ -346,6 +381,20 @@ class Integrator:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         self.generator = generator
 
+        # the device mesh (torchmd_tpu/integrator.py:296-320): the replicas
+        # over an axis, or one system's atom rows (`_setup_spatial`)
+        self.mesh, self.mesh_axis = mesh, mesh_axis
+        self._nrep = systems.nreplicas
+        self._rep = slice(None)
+        self._sp = None
+        if mesh is not None and shard == "spatial":
+            self._setup_spatial(mesh, mesh_axis)
+        elif mesh is not None:
+            from .parallel.mesh import replica_sharding
+
+            self._rep = replica_sharding(mesh, mesh_axis, systems.nreplicas)
+            self._shard_replica_state()
+
         self.overflow_retries = 0
         self.overflow_log = []
         self._dev_state = None
@@ -418,6 +467,321 @@ class Integrator:
         )
 
     # ------------------------------------------------------------------
+    # The device mesh: replica sharding (each rank steps its block of the
+    # replicas, no per-step communication) and spatial sharding (one
+    # system's atom rows over the ranks of an axis)
+    # ------------------------------------------------------------------
+    def _shard_replica_state(self):
+        """Keep this rank's replicas of the per-replica state: the
+        thermostat chain, the MTK extended state, a T ladder's noise
+        coefficient."""
+        rep = self._rep
+        self._thermo_aux = {k: v[rep] for k, v in self._thermo_aux.items()}
+        if self._npt is not None:
+            v_eps, aux_b, vir = self._npt_extra
+            self._npt_extra = (v_eps[rep], {k: v[rep] for k, v in aux_b.items()},
+                               None if vir is None else vir[rep])
+        if self.vcoeff is not None and self.vcoeff.dim() == 3:
+            self.vcoeff = self.vcoeff[rep]
+
+    def _gather_replicas(self, t):
+        """The replicas of every rank of the replica axis, in order."""
+        if self.mesh is None or self._sp is not None:
+            return t
+        return self.mesh.all_gather(t, self.mesh_axis)
+
+    def _randn(self, vel):
+        """Standard normal noise for `vel`, drawn for the whole system
+        (all replicas, all atoms) and cut to this rank's piece, so that a
+        replica's or an atom's noise does not depend on the layout."""
+        if self._sp is not None:
+            sp = self._sp
+            noise = torch.randn((1, sp["natoms"], 3), generator=self.generator,
+                                device=self.device, dtype=self.dtype)
+            return sp["rows_of"](noise)
+        noise = torch.randn((self._nrep,) + tuple(vel.shape[1:]), generator=self.generator,
+                            device=self.device, dtype=self.dtype)
+        return noise[self._rep]
+
+    def _thermo_kw(self):
+        """The thermostat's keywords: the generator, and on a mesh the
+        kinetic-energy sum over the row axis or this rank's replicas."""
+        kw = {"generator": self.generator}
+        if self._sp is not None:
+            mesh, ax = self.mesh, self.mesh_axis
+            kw["reduce"] = lambda t: mesh.all_reduce(t, ax)
+        elif self.mesh is not None:
+            kw["replicas"] = (self._rep.start, self._nrep)
+        return kw
+
+    def _setup_spatial(self, mesh, axis):
+        """Spatial sharding (torchmd_tpu/integrator.py:296-320, 410-470):
+        the atoms pad to `parallel.spatial.padded_rows` (whole 32-atom
+        tiles on every rank) and rank k of the axis owns rows [k rows,
+        (k + 1) rows) of the state. The checks are the JAX package's."""
+        from .parallel.spatial import pad_rows, padded_rows
+
+        systems, forces = self.systems, self.forces
+        if systems.nreplicas != 1:
+            raise ValueError("spatial sharding supports nreplicas=1")
+        if self.batch is not None:
+            raise NotImplementedError("atom batching + spatial sharding")
+        if self.mts is not None or self.mts_recip is not None:
+            raise NotImplementedError(
+                "mts (r-RESPA) supports the dense and cell/column/verlet force "
+                "paths (no spatial sharding, no host-loop providers)")
+        if not hasattr(forces, "replicated_ef"):
+            raise ValueError("spatial sharding needs a Forces (its row block, slab "
+                             "and replicated terms)")
+        if self._npt is not None:
+            if self.vsites or self.constraints is not None:
+                raise NotImplementedError(
+                    "MTK + spatial sharding currently integrates unconstrained "
+                    "point atoms (no virtual sites / SHAKE-SETTLE); use the "
+                    "replica-sharded or single-device NPT paths for those")
+            if self._use_cell:
+                raise NotImplementedError(
+                    "MTK + spatial sharding runs on the row-block path "
+                    "(kernel='dense'); the slab-sharded cell kernel has no "
+                    "virial form yet")
+        n = len(self.masses)
+        k, nsp = mesh.index(axis), mesh.shape[axis]
+        npad = padded_rows(n, nsp)
+        rows = npad // nsp
+        row0 = k * rows
+        nt = -(-n // 32)
+        t0 = min(row0 // 32, nt)
+        tiles = (t0, max(t0, min(nt, (row0 + rows) // 32)))
+
+        def rows_of(a, value=0.0):
+            """This rank's rows of an (R, N, ...) array, padded."""
+            return pad_rows(a, npad, value)[:, row0:row0 + rows]
+
+        vc = None
+        if self._langevin:
+            vc = self.vcoeff[0] if self.vcoeff.dim() == 3 else self.vcoeff
+            vc = rows_of(vc[None])[0]
+        self._sp = dict(natoms=n, npad=npad, rows=rows, row0=row0, tiles=tiles,
+                        rows_of=rows_of, masses=rows_of(self.masses[None], 1.0)[0],
+                        vcoeff=vc)
+        if self._use_cell:
+            # the slabs are the cell kernel's (the JAX package's
+            # allow_column=False, torchmd_tpu/integrator.py:463-467)
+            forces.ensure_cell_kernel(np.asarray(systems.box_diag)[0],
+                                      pos0=np.asarray(systems.pos)[0], allow_column=False)
+        else:
+            # the dense row block, on the Verlet path too (the JAX package's
+            # spatial scan has no Verlet form)
+            self._use_verlet = False
+            forces.prepare_rows(np.asarray(systems.box_diag))
+
+    def _spatial_gather(self, state: SimState) -> SimState:
+        """The whole system's state from every rank's rows (one gather)."""
+        n, mesh, ax = self._sp["natoms"], self.mesh, self.mesh_axis
+        full = mesh.all_gather(torch.cat(list(state), dim=-1)[0], ax)[None, :n]
+        return SimState(full[..., :3], full[..., 3:6], full[..., 6:9])
+
+    def _spatial_ef(self, pos_l, full, box):
+        """One evaluation on the rank (torchmd_tpu/integrator.py:2340-2460):
+        (snapped local rows, snapped full positions, local row forces,
+        this rank's pair energy, the replicated terms' energy, overflow).
+        The pairs are the rank's row block of the dense pair kernel, or
+        its slab of the cell kernel reduce-scattered to rows; the bonded
+        terms, the reciprocal term and the external run on every rank on
+        the gathered positions and give this rank's rows; virtual sites
+        snap on the gathered positions and spread their forces after one
+        more gather."""
+        from .parallel.spatial import pad_rows
+        from .vsites import apply_vsites, spread_vsite_forces
+
+        sp, forces, mesh, ax = self._sp, self.forces, self.mesh, self.mesh_axis
+        n, npad, rows = sp["natoms"], sp["npad"], sp["rows"]
+        if self.vsites:
+            full = apply_vsites(self.vsites, full[0], box)[None]
+            pos_l = sp["rows_of"](full)
+        p_n = full[0]
+        overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        cl = None
+        kern = self._kernel()
+        if self._use_cell:
+            cl = kern.build(p_n, box)
+            overflow = cl.overflow
+            pot, f_nb = kern.energy_forces(p_n, box, cl, slab=sp["slab"])
+            f_rows = mesh.reduce_scatter(pad_rows(f_nb, npad), ax)
+        elif forces.pair_rows_ef_one is not None:
+            pot, f_nb = forces.pair_rows_ef_one(p_n, box, sp["tiles"])
+            f_rows = pad_rows(f_nb, rows)
+        elif not forces.has_nb:
+            pot, f_rows = {}, pos_l.new_zeros((rows, 3))
+        else:
+            raise RuntimeError("spatial sharding: the forces have pair terms but no "
+                               "row block (Forces.prepare_rows)")
+        e_nb = _total(pot, p_n)
+        pot_r, f_r = sp["replicated"](p_n, box, cl)
+        f_rows = f_rows + sp["rows_of"](f_r[None])[0]
+        if self.vsites:
+            f_full = mesh.all_gather(f_rows, ax)[:n]
+            f_rows = sp["rows_of"](spread_vsite_forces(self.vsites, p_n, f_full, box)[None])[0]
+        return pos_l, full, f_rows[None], e_nb, _total(pot_r, p_n), overflow
+
+    def _run_spatial(self, state: SimState, aux, box, niter):
+        """`niter` steps of this rank's rows (torchmd_tpu/integrator.py:
+        2212-2534): (state, this rank's pair energy, the replicated terms'
+        energy, thermostat state, overflow flag). SHAKE/RATTLE/SETTLE run
+        on the gathered arrays; the thermostats sum the kinetic energy
+        over the axis."""
+        from .constraints import apply_position_constraints, apply_velocity_constraints
+
+        sp, mesh, ax = self._sp, self.mesh, self.mesh_axis
+        n, m, dt = sp["natoms"], sp["masses"], self.dt
+        thermo, cs, kw = self._thermostat, self.constraints, self._thermo_kw()
+        pos, vel, frc = state
+        overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        for _ in range(niter):
+            if thermo is not None:
+                vel, aux = thermo.pre(vel, aux, m, dt, **kw)
+            pos_new, vel = _first_vv(pos, vel, frc, m, dt)
+            if cs is not None:
+                both = mesh.all_gather(torch.cat([pos_new, pos], dim=-1)[0], ax)[None, :n]
+                full = apply_position_constraints(cs, both[..., :3], both[..., 3:])
+                pos_c = sp["rows_of"](full)
+                vel = vel + (pos_c - pos_new) / dt
+                pos_new = pos_c
+            else:
+                full = mesh.all_gather(pos_new[0], ax)[None, :n]
+            pos, full, frc, e_nb, e_rep, ov = self._spatial_ef(pos_new, full, box)
+            overflow = overflow | ov
+            if self._langevin:
+                vel = langevin_kick(vel, self._randn(vel), self.gamma, dt, sp["vcoeff"])
+            vel = _second_vv(vel, frc, m, dt)
+            if cs is not None:
+                v_full = mesh.all_gather(vel[0], ax)[None, :n]
+                vel = sp["rows_of"](apply_velocity_constraints(cs, full, v_full))
+            if thermo is not None:
+                vel, aux = thermo.post(vel, aux, m, dt, **kw)
+        return SimState(pos, vel, frc), e_nb, e_rep, aux, overflow
+
+    def _step_spatial(self, niter):
+        """The chunk loop of the spatial path: every rank starts from the
+        System's full state, steps its rows, and the chunk ends in one
+        gather of the rows, the pair energy's sum over the axis and the
+        overflow flag's OR (a cell that overflowed grows the kernel and
+        redoes the chunk, torchmd_tpu/integrator.py:2946)."""
+        from .parallel.spatial import slab
+
+        sp, forces, mesh, ax = self._sp, self.forces, self.mesh, self.mesh_axis
+        box_np = np.asarray(self.systems.box_diag, dtype=np.float64)
+        use_pbc = bool(np.any(box_np != 0))
+        box = torch.as_tensor(box_np[0], dtype=self.dtype, device=self.device) \
+            if use_pbc else None
+        full0 = self._state_from_system()
+        if self._use_cell:
+            forces.prepare(full0.pos, box_np)
+        else:
+            forces.prepare_rows(box_np)
+        with torch.no_grad():
+            for _ in range(MAX_OVERFLOW_RETRIES):
+                sp["replicated"] = forces.replicated_ef()
+                if self._use_cell:
+                    sp["slab"] = slab(self._kernel().clcfg.ncells[0], mesh.shape[ax],
+                                      mesh.index(ax))
+                state0 = SimState(*(sp["rows_of"](t) for t in full0))
+                state, e_nb, e_rep, aux, overflow = self._run_spatial(
+                    state0, self._thermo_aux, box, niter)
+                epot = mesh.all_reduce(e_nb.reshape(1), ax) + e_rep
+                Ekin, Epot, overflowed = self._sync_to_host(
+                    self._spatial_gather(state), epot, mesh.any(overflow, ax))
+                if not overflowed:
+                    self._thermo_aux = aux
+                    break
+                self._grow()
+            else:
+                raise RuntimeError(f"{forces._cell_kernel.capacity_name} kept overflowing")
+        T = kinetic_to_temp(Ekin, self.natoms) * self._dof_scale
+        return Ekin, Epot, T
+
+    def _spatial_ef_vir(self, pos_l, box):
+        """Spatial MTK's evaluation (torchmd_tpu/integrator.py:2095-2130):
+        (Epot (1,), local row forces, per-axis virial (1, 3)). The rank's
+        row block by the torch-op block math, its virial -dU/ds by
+        autograd over the scaling s; the other terms on the gathered
+        positions (`_npt_ef_vir` without the pairs); one all-reduce of the
+        row block's energy and virial."""
+        from .potentials import rowblock_energy_forces
+
+        sp, forces, mesh, ax = self._sp, self.forces, self.mesh, self.mesh_axis
+        n, rows, row0 = sp["natoms"], sp["rows"], sp["row0"]
+        full = mesh.all_gather(pos_l[0], ax)[:n]
+        b = box[0]
+        lo, hi = min(row0, n), min(row0 + rows, n)
+        e_nb = full.new_zeros(())
+        vir_nb = full.new_zeros(3)
+        f_rows = full.new_zeros((rows, 3))
+        if forces.has_nb:
+            with torch.enable_grad():
+                s = torch.ones(3, dtype=full.dtype, device=full.device, requires_grad=True)
+                pot, f_nb = rowblock_energy_forces(forces.ffparams, forces.config,
+                                                   full[lo:hi] * s, full * s, b * s, lo)
+                e = _total(pot, full)
+                (gs,) = torch.autograd.grad(e, s, allow_unused=True)
+            e_nb = e.detach()
+            if gs is not None:
+                vir_nb = -gs
+            f_rows[:hi - lo] = f_nb.detach()
+        e_ch, f_ch, vir_ch = self._npt_ef_vir(full, b, pairs=False)
+        f_rows = f_rows + sp["rows_of"](f_ch[None])[0]
+        red = mesh.all_reduce(torch.cat([e_nb.reshape(1), vir_nb]), ax)
+        return (red[:1] + e_ch).reshape(1), f_rows[None], (red[1:] + vir_ch)[None]
+
+    def _run_spatial_npt(self, state: SimState, box, v_eps, aux_p, aux_b, vir, niter):
+        """`niter` MTK steps of this rank's rows (torchmd_tpu/integrator.py:
+        1979-2211): the extended state (box, v_eps, both chains) is the
+        same on every rank, since it reads only sums over the axis."""
+        sp, mesh, ax = self._sp, self.mesh, self.mesh_axis
+        m, dt = sp["masses"], self.dt
+        ndof = self._npt["ndof"]
+        thermo, kw = self._thermostat, self._thermo_kw()
+        _, baro_half, eps_kick, kick = self._mtk_ops(
+            m, lambda t: mesh.all_reduce(t, ax))
+        pos, vel, frc = state
+        epot = None
+        for _ in range(niter):
+            v_eps, aux_b = baro_half(v_eps, aux_b)
+            vel, aux_p = thermo.pre(vel, aux_p, m, dt, **kw)
+            v_eps = eps_kick(v_eps, vel, vir, box)
+            x = ((v_eps + v_eps.sum(-1, keepdim=True) / ndof) * 0.5 * dt)[:, None, :]
+            vel = kick(vel, frc, x, 0.5 * dt)
+            pos, vel, box, _, _ = self._npt_drift(pos, vel, box, v_eps, dt)
+            epot, frc, vir = self._spatial_ef_vir(pos, box)
+            vel = kick(vel, frc, x, 0.5 * dt)
+            v_eps = eps_kick(v_eps, vel, vir, box)
+            vel, aux_p = thermo.post(vel, aux_p, m, dt, **kw)
+            v_eps, aux_b = baro_half(v_eps, aux_b)
+        return SimState(pos, vel, frc), box, v_eps, aux_p, aux_b, vir, epot
+
+    def _step_spatial_npt(self, niter):
+        """The spatial MTK chunk: the virial is recomputed at the chunk's
+        entry (as the JAX package's spatial NPT scan does), the chunk
+        ends in one gather of the rows."""
+        forces = self.forces
+        box_np = np.asarray(self.systems.box_diag, dtype=np.float64)
+        full0 = self._state_from_system()
+        forces.prepare_rows(box_np)
+        boxes = torch.as_tensor(box_np, dtype=self.dtype, device=self.device)
+        v_eps0, aux_b0, _ = self._npt_extra
+        with torch.no_grad():
+            state0 = SimState(*(self._sp["rows_of"](t) for t in full0))
+            vir0 = self._spatial_ef_vir(state0.pos, boxes)[2]
+            state, box, v_eps, aux_p, aux_b, vir, epot = self._run_spatial_npt(
+                state0, boxes, v_eps0, self._thermo_aux, aux_b0, vir0, niter)
+            overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+            Ekin, Epot, _ = self._sync_to_host(self._spatial_gather(state), epot, overflow, box)
+        self._thermo_aux = aux_p
+        self._npt_extra = (v_eps, aux_b, vir)
+        T = kinetic_to_temp(Ekin, self.natoms) * self._dof_scale
+        return Ekin, Epot, T
+
+    # ------------------------------------------------------------------
     def _state_from_system(self) -> SimState:
         """Device state; reused when the System's arrays are unchanged since
         the last sync, else one packed host->device copy."""
@@ -428,7 +792,8 @@ class Integrator:
             self._state_was_cached = True
             return self._dev_state
         self._state_was_cached = False
-        packed = torch.as_tensor(np.stack(snap), dtype=self.dtype,
+        # this rank's replicas on a replica mesh
+        packed = torch.as_tensor(np.stack(snap)[:, self._rep], dtype=self.dtype,
                                  device=self.device)
         self._dev_state = SimState(packed[0], packed[1], packed[2])
         self._host_snap = tuple(a.copy() for a in snap)
@@ -457,10 +822,11 @@ class Integrator:
         and, unless the chunk overflowed, writes the state (and the box,
         when given) to the System. Ekin is (R,), or (R, nbatch) with
         `batch`."""
-        packed = self._pack(state, epot, overflow, box).cpu().numpy()
+        # on a replica mesh, every rank's replicas
+        packed = self._gather_replicas(self._pack(state, epot, overflow, box)).cpu().numpy()
         n, nb = state.pos.shape[1], self._nbatch()
         aux = packed[:, 3 * n:].reshape(packed.shape[0], -1)
-        if aux[0, nb + 1] != 0:
+        if np.any(aux[:, nb + 1] != 0):
             return None, None, True
         s = self.systems
         s.pos[:] = packed[:, :n]
@@ -511,13 +877,14 @@ class Integrator:
 
         m, dt = self.masses, self.dt
         thermo, cs, vsites = self._thermostat, self.constraints, self.vsites
+        kw = self._thermo_kw()
         kern = self._kernel()
         cls = [None] * state.pos.shape[0]
         pos, vel, frc = state
         overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         for _ in range(niter):
             if thermo is not None:
-                vel, aux = thermo.pre(vel, aux, m, dt, generator=self.generator)
+                vel, aux = thermo.pre(vel, aux, m, dt, **kw)
             pos_new, vel = _first_vv(pos, vel, frc, m, dt)
             if cs is not None:
                 pos_c = apply_position_constraints(cs, pos_new, pos)
@@ -530,14 +897,12 @@ class Integrator:
             epot, frc, ov, cls = self._energy_forces(pos, boxes, kern, cls)
             overflow = overflow | ov
             if self._langevin:
-                noise = torch.randn(vel.shape, generator=self.generator,
-                                    device=self.device, dtype=self.dtype)
-                vel = langevin_kick(vel, noise, self.gamma, dt, self.vcoeff)
+                vel = langevin_kick(vel, self._randn(vel), self.gamma, dt, self.vcoeff)
             vel = _second_vv(vel, frc, m, dt)
             if cs is not None:
                 vel = apply_velocity_constraints(cs, pos, vel)
             if thermo is not None:
-                vel, aux = thermo.post(vel, aux, m, dt, generator=self.generator)
+                vel, aux = thermo.post(vel, aux, m, dt, **kw)
         return SimState(pos, vel, frc), epot, aux, overflow
 
     def _tier(self, fn, pos, boxes, cls=None):
@@ -559,6 +924,7 @@ class Integrator:
         n, R = self.mts or 1, self.mts_recip or 1
         ddt = dt / n
         thermo, cs, vsites = self._thermostat, self.constraints, self.vsites
+        kw = self._thermo_kw()
         kern = self._kernel()
         fast, slow, recip = self.forces.mts_tiers(recip_tier=R > 1)
         # the noise coefficient was built for the outer dt; a substep's
@@ -580,7 +946,7 @@ class Integrator:
         for it in range(niter):
             cnt = it % R
             if thermo is not None:
-                vel, aux = thermo.pre(vel, aux, m, dt, generator=self.generator)
+                vel, aux = thermo.pre(vel, aux, m, dt, **kw)
             if R > 1 and cnt == 0:
                 vel = vel + 0.5 * R * dt * _safe_accel(rfrc, m)
             vel = vel + 0.5 * dt * _safe_accel(sfrc, m)
@@ -593,9 +959,7 @@ class Integrator:
                 pos = pos_new
                 e_fast, ffrc = self._tier(fast, pos, boxes)
                 if self._langevin:
-                    noise = torch.randn(vel.shape, generator=self.generator,
-                                        device=self.device, dtype=self.dtype)
-                    vel = langevin_kick(vel, noise, self.gamma, ddt, vcoeff)
+                    vel = langevin_kick(vel, self._randn(vel), self.gamma, ddt, vcoeff)
                 vel = rattle(_second_vv(vel, ffrc, m, ddt))
             if vsites:
                 pos = torch.stack([apply_vsites(vsites, p, b) for p, b in zip(pos, boxes)])
@@ -611,7 +975,7 @@ class Integrator:
                 vel = vel + 0.5 * R * dt * _safe_accel(rfrc, m)
             vel = rattle(vel)
             if thermo is not None:
-                vel, aux = thermo.post(vel, aux, m, dt, generator=self.generator)
+                vel, aux = thermo.post(vel, aux, m, dt, **kw)
                 vel = rattle(vel)
         epot = e_fast + e_slow + (e_rec if R > 1 else 0.0)
         return SimState(pos, vel, sfrc), epot, aux, overflow
@@ -634,9 +998,12 @@ class Integrator:
             raise ValueError(
                 f"mts_recip={R}: step()/chunk length must close full "
                 f"reciprocal cycles (niter % {R} == 0), got {niter}")
+        if self._sp is not None:
+            return self._step_spatial_npt(niter) if self._npt else self._step_spatial(niter)
         if self._npt is not None:
             return self._step_npt(niter)
-        box_np = np.asarray(self.systems.box_diag, dtype=np.float64)
+        # this rank's replicas on a replica mesh
+        box_np = np.asarray(self.systems.box_diag, dtype=np.float64)[self._rep]
         # static no-PBC specialisation: an all-zero box leaves the wrap out
         use_pbc = bool(np.any(box_np != 0))
         boxes = [torch.as_tensor(b, dtype=self.dtype, device=self.device)
@@ -667,7 +1034,10 @@ class Integrator:
         e = np.zeros(self.systems.nreplicas)
         if self._thermostat is None:
             return e
-        return e + to_numpy(self._thermostat.conserved(self._thermo_aux)).astype(np.float64)
+        conserved = self._thermostat.conserved(self._thermo_aux)
+        if isinstance(conserved, torch.Tensor):
+            conserved = self._gather_replicas(conserved)
+        return e + to_numpy(conserved).astype(np.float64)
 
     # ------------------------------------------------------------------
     # MTK NPT: the dense path and the cell or column kernel path
@@ -701,7 +1071,7 @@ class Integrator:
         return ((plan is not None and bool(getattr(plan, "families", True)))
                 or self.forces.has_autograd_terms())
 
-    def _npt_ef_vir(self, pos, box, cl=None, fast=True, slow=True):
+    def _npt_ef_vir(self, pos, box, cl=None, fast=True, slow=True, pairs=True):
         """(Epot, forces, per-axis virial -dU(s pos, s box)/ds) of one
         replica, for the fast (bonded) tier, the slow tier (pairs,
         reciprocal term, external) or both. On the kernel path
@@ -710,12 +1080,13 @@ class Integrator:
         -sum F (r - dr/ds) before the site forces move onto the hosts; on
         the dense path (:1203-1220) the pairs ride the autograd pass. The
         rest (bonded terms, the exact Ewald sum, an external's energy_fn)
-        comes from one autograd pass over (pos, s)."""
+        comes from one autograd pass over (pos, s). `pairs=False` leaves
+        the real-space pairs out (spatial MTK evaluates them by rows)."""
         from .potentials import compute_potentials, nonbonded_energies
         from .vsites import apply_vsites, apply_vsites_scaling, spread_vsite_forces
 
         forces, vsg = self.forces, self.vsites
-        kern = forces._cell_kernel if (slow and self._use_cell) else None
+        kern = forces._cell_kernel if (slow and pairs and self._use_cell) else None
         rec = forces._ewald if slow else None
         rec_analytic = rec is not None and not rec.differentiable
         zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
@@ -737,7 +1108,7 @@ class Integrator:
                 frc = spread_vsite_forces(vsg, pos, frc, box)
         ext = getattr(forces.external, "energy_fn", None) if slow else None
         cheap = fast and self._cheap_terms()
-        dense_nb = (slow and not self._use_cell and forces.has_nb
+        dense_nb = (slow and pairs and not self._use_cell and forces.has_nb
                     and forces.ffparams.nb_mask is not None)
         rec_ad = rec is not None and rec.differentiable
         if not (cheap or dense_nb or rec_ad or ext is not None):
@@ -785,10 +1156,13 @@ class Integrator:
         epot, frc, vir = (torch.stack(t) for t in zip(*out))
         return epot, frc, vir, overflow
 
-    def _mtk_ops(self):
+    def _mtk_ops(self, m=None, reduce=None):
         """The MTK building blocks shared by the NPT loops: (project,
-        baro_half, eps_kick, kick)."""
-        m, dt = self.masses, self.dt
+        baro_half, eps_kick, kick), for masses `m` (default the
+        Integrator's); `reduce` sums eps_kick's per-axis kinetic energy
+        over the ranks of spatial MTK."""
+        m = self.masses if m is None else m
+        dt = self.dt
         npt = self._npt
         W, ndof, P, chain_b, mode = (npt["W"], npt["ndof"], npt["P"],
                                      npt["chain_b"], npt["mode"])
@@ -810,6 +1184,8 @@ class Integrator:
 
         def eps_kick(v_eps, vel, vir, box):
             k2 = (m * vel * vel).sum(1)
+            if reduce is not None:
+                k2 = reduce(k2)
             G = k2 + k2.sum(-1, keepdim=True) / ndof + vir - box.prod(-1, keepdim=True) * P
             if mode == "membrane" and npt["gamma_st"] != 0.0:
                 G = G + npt["gamma_st"] * (box[:, :1] * box[:, 1:2]) * xy
@@ -856,7 +1232,7 @@ class Integrator:
 
         m, dt = self.masses, self.dt
         ndof = self._npt["ndof"]
-        thermo, cs = self._thermostat, self.constraints
+        thermo, cs, kw = self._thermostat, self.constraints, self._thermo_kw()
         _, baro_half, eps_kick, kick = self._mtk_ops()
         pos, vel, frc = state
         box = boxes
@@ -864,7 +1240,7 @@ class Integrator:
         overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         for _ in range(niter):
             v_eps, aux_b = baro_half(v_eps, aux_b)
-            vel, aux_p = thermo.pre(vel, aux_p, m, dt, generator=self.generator)
+            vel, aux_p = thermo.pre(vel, aux_p, m, dt, **kw)
             v_eps = eps_kick(v_eps, vel, vir, box)
             x = ((v_eps + v_eps.sum(-1, keepdim=True) / ndof) * 0.5 * dt)[:, None, :]
             vel = kick(vel, frc, x, 0.5 * dt)
@@ -875,7 +1251,7 @@ class Integrator:
                 vir = vir + constraint_virial(cs, m, delta, drift, pos)
             vel = kick(vel, frc, x, 0.5 * dt)
             v_eps = eps_kick(v_eps, vel, vir, box)
-            vel, aux_p = thermo.post(vel, aux_p, m, dt, generator=self.generator)
+            vel, aux_p = thermo.post(vel, aux_p, m, dt, **kw)
             v_eps, aux_b = baro_half(v_eps, aux_b)
             if cs is not None:
                 vel = apply_velocity_constraints(cs, pos, vel)
@@ -893,7 +1269,7 @@ class Integrator:
         n = self.mts
         ddt = dt / n
         ndof = self._npt["ndof"]
-        thermo, cs = self._thermostat, self.constraints
+        thermo, cs, kw = self._thermostat, self.constraints, self._thermo_kw()
         _, baro_half, eps_kick, kick = self._mtk_ops()
         pos, vel, sfrc = state
         box = boxes
@@ -907,7 +1283,7 @@ class Integrator:
         ffrc = self._npt_evaluate(pos, box, slow=False)[1]
         for _ in range(niter):
             v_eps, aux_b = baro_half(v_eps, aux_b)
-            vel, aux_p = thermo.pre(vel, aux_p, m, dt, generator=self.generator)
+            vel, aux_p = thermo.pre(vel, aux_p, m, dt, **kw)
             v_eps = eps_kick(v_eps, vel, vir, box)
             vel = vel + 0.5 * dt * _safe_accel(sfrc, m)
             x = ((v_eps + v_eps.sum(-1, keepdim=True) / ndof) * 0.5 * ddt)[:, None, :]
@@ -923,7 +1299,7 @@ class Integrator:
                 vir = vir + constraint_virial(cs, m, delta, drift, pos)
             vel = rattle(vel + 0.5 * dt * _safe_accel(sfrc, m))
             v_eps = eps_kick(v_eps, vel, vir, box)
-            vel, aux_p = thermo.post(vel, aux_p, m, dt, generator=self.generator)
+            vel, aux_p = thermo.post(vel, aux_p, m, dt, **kw)
             v_eps, aux_b = baro_half(v_eps, aux_b)
             vel = rattle(vel)
             epot = e_fast + e_slow
@@ -935,7 +1311,8 @@ class Integrator:
         its grid, the virial is carried unless the host changed the state,
         and a sticky overflow grows the kernel and redoes the chunk."""
         forces = self.forces
-        box_np = np.asarray(self.systems.box_diag, dtype=np.float64)
+        # this rank's replicas on a replica mesh
+        box_np = np.asarray(self.systems.box_diag, dtype=np.float64)[self._rep]
         state0 = self._state_from_system()
         cached = self._state_was_cached or self._npt_vir_given
         self._npt_vir_given = False
@@ -973,12 +1350,24 @@ class Integrator:
         v_eps, aux_b, _ = self._npt_extra
         npt = self._npt
         boxd = np.asarray(self.systems.box_diag, np.float64)
-        v = v_eps.detach().cpu().numpy().astype(np.float64)
+        v = to_numpy(self._gather_replicas(v_eps)).astype(np.float64)
+        chain = to_numpy(self._gather_replicas(npt["chain_b"].conserved(aux_b)))
         e = (npt["P"] * np.prod(boxd, axis=1) + 0.5 * npt["W"] * (v * v).sum(-1)
-             + npt["chain_b"].conserved(aux_b).cpu().numpy().astype(np.float64))
+             + chain.astype(np.float64))
         if npt["mode"] == "membrane":
             e = e - npt["gamma_st"] * boxd[:, 0] * boxd[:, 1]
         return e
+
+
+def _same_device(a, b) -> bool:
+    """Whether two torch devices are one ("cuda" is the current card)."""
+    def norm(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    return norm(a) == norm(b)
 
 
 def _total(pot, like, shape=()):

@@ -165,6 +165,26 @@ def mtk_state_from_numpy(v_eps, xi, vxi, virial=None, device="cpu",
             {"xi": _tensor(xi, device, dtype), "vxi": _tensor(vxi, device, dtype)}, vir)
 
 
+def spatial_state_from_numpy(aux, npt_extra=None, device="cpu", dtype=torch.float64):
+    """A spatially sharded JAX run's thermostat and MTK state, handed to
+    the port's spatial run mid-run: the JAX spatial scans strip the
+    replica axis (torchmd_tpu/integrator.py:441-447, :2014), the port
+    keeps one. `aux`: the JAX `_thermo_aux` ({} for none, or the chain's
+    {"xi", "vxi"} of shape (nchain,)); `npt_extra`: its `_npt_extra`
+    (v_eps (3,), the barostat chain {"xi", "vxi"}, virial) or None.
+    Returns (thermo_aux for `Integrator._thermo_aux`, the MTK state for
+    `Integrator.npt_state` or None); the spatial MTK scan recomputes the
+    virial at each chunk's entry, so none is carried. The rows come
+    through the System (the JAX run's synced pos, vel and forces)."""
+    thermo = {k: _tensor(np.reshape(aux[k], (1, -1)), device, dtype) for k in aux}
+    if npt_extra is None:
+        return thermo, None
+    v_eps, aux_b = npt_extra[0], npt_extra[1]
+    return thermo, mtk_state_from_numpy(
+        np.reshape(v_eps, (1, 3)), np.reshape(aux_b["xi"], (1, -1)),
+        np.reshape(aux_b["vxi"], (1, -1)), device=device, dtype=dtype)
+
+
 # ----------------------------------------------------------------------
 # The sampling slice: implicit solvent, alchemy, metadynamics and
 # lambda-dynamics

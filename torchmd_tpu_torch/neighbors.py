@@ -170,16 +170,19 @@ def build_exclusion_table(parameters, natoms,
 
 
 def cell_nonbonded_energy_forces(ffp, cfg, clcfg: CellListConfig, cl: CellList,
-                                 excl_table, pos, box, with_virial=False):
+                                 excl_table, pos, box, with_virial=False, slab=None):
     """Nonbonded energies + forces in cell-pair form, the plain PyTorch
     version (energies carry the 0.5 symmetric factor: every pair is seen
     from both cells). `excl_table` is the (natoms, E) table of
     `build_exclusion_table`. With `with_virial=True` also the per-axis
-    pair virial (3,), -dE/ds_a of E(s pos, s box)."""
+    pair virial (3,), -dE/ds_a of E(s pos, s box). `slab=(cx0, nloc)`
+    takes the i atoms of the cell columns [cx0, cx0 + nloc) along x only
+    (the JAX package's slab, torchmd_tpu/neighbors.py:340-380;
+    `ops.cell.slab_cells`)."""
     from .ops.cell import cell_reference, prepare_cell_data
 
     return cell_reference(prepare_cell_data(ffp, excl_table), cfg, clcfg, cl,
-                          pos, box, with_virial)
+                          pos, box, with_virial, slab)
 
 
 class CellKernel:
@@ -255,11 +258,13 @@ class CellKernel:
         slots (each atom once; natoms = empty)."""
         return cl.slots
 
-    def energy_forces(self, pos, box, cl: CellList):
+    def energy_forces(self, pos, box, cl: CellList, slab=None):
+        """(pot, forces); with `slab=(cx0, nloc)` those of the slab's i
+        atoms (`ops.cell`)."""
         from .ops import cell as _ops_cell
 
         fn = _ops_cell.cell_reference if self.plain else _ops_cell.cell_energy_forces
-        return fn(self.data, self.cfg, self.clcfg, cl, pos, box)
+        return fn(self.data, self.cfg, self.clcfg, cl, pos, box, slab=slab)
 
     def energy_forces_virial(self, pos, box, cl: CellList):
         """(pot, forces, per-axis pair virial (3,)): the MTK barostat's

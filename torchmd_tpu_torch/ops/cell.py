@@ -12,7 +12,13 @@ reaction field / Ewald erfc), Lorentz-Berthelot from per-atom rows or
 NBFIX A/B tables by type pair. Energies carry the 0.5 symmetric factor
 (every pair is seen from both of its cells); forces are per atom. With
 `with_virial=True` the per-axis pair virial -0.5 sum g d_a^2 (the MTK
-barostat's -dE/ds_a) comes back too.
+barostat's -dE/ds_a) comes back too. With `slab=(cx0, nloc)` only the
+cells of the x columns [cx0, min(cx0 + nloc, ncx)) take their i atoms
+(the spatially sharded path's slab, the JAX package's rule at
+torchmd_tpu/neighbors.py:340-380): their atoms' forces and their half of
+the pair energies, zero forces elsewhere, so the slabs of the ranks sum
+to the full call. Cells are x-major, so a slab is a contiguous range of
+cells, of the kernel's blocks and of its energy partials.
 
 `cell_energy_forces(data, cfg, clcfg, cl, pos, box)` runs the plain
 version for a CPU tensor and launches the kernel (`csrc/cell.cu`) for a
@@ -39,8 +45,10 @@ from ..units import ELEC_FACTOR
 from . import _build
 from .nonbonded import STATS, atom_rows, make_kernel_cfg, over_launches, supported_terms
 
-# Kernel launches made by `cell_energy_forces` (one per call on CUDA).
+# Kernel launches made by `cell_energy_forces` (one per call on CUDA),
+# and those of its slab form (`slab=`, the spatially sharded path)
 LAUNCHES = 0
+SLAB_LAUNCHES = 0
 
 MAX_CAPACITY = 1024  # csrc/cell.cu: slot ranks pack into 10 bits
 TILE = 32            # csrc/tile_pairs.cuh: atoms per tile
@@ -88,11 +96,25 @@ def _image_shift(clcfg, box, offset, like):
     return torch.stack(torch.broadcast_tensors(*axes), dim=-1)[..., None, :]
 
 
-def cell_reference(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False):
+def slab_cells(clcfg, slab):
+    """The cell range [c0, c1) of `slab` = (cx0, nloc) (None: all cells);
+    empty when cx0 >= ncx."""
+    ncx, ncy, ncz = clcfg.ncells
+    if slab is None:
+        return 0, ncx * ncy * ncz
+    cx0, nloc = (int(v) for v in slab)
+    if cx0 < 0 or nloc < 1:
+        raise ValueError(f"slab {slab}: want cx0 >= 0 and nloc >= 1")
+    lo, hi = min(cx0, ncx), min(cx0 + nloc, ncx)
+    return lo * ncy * ncz, hi * ncy * ncz
+
+
+def cell_reference(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False, slab=None):
     """Plain PyTorch version of the cell kernel: the 27 stencil offsets in
     turn, each a (ncells * cap, cap) pair block through the port's
     `nonbonded_block_energy_forces`, at the dtype and on the device of
-    `pos`. Returns ({term: energy}, forces (N, 3)[, virial (3,)])."""
+    `pos`; with `slab`, only the slab's cells' atoms as i atoms. Returns
+    ({term: energy}, forces (N, 3)[, virial (3,)])."""
     from ..neighbors import anchored_positions
 
     n, dt, dev = data.natoms, pos.dtype, pos.device
@@ -114,6 +136,10 @@ def cell_reference(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False):
     ids = slots.reshape(grid + (cap,))
     ids_i = slots.reshape(rows)
     valid_i = ids_i < n
+    if slab is not None:
+        c0, c1 = slab_cells(clcfg, slab)
+        cell_i = torch.arange(rows, device=dev) // cap
+        valid_i = valid_i & (cell_i >= c0) & (cell_i < c1)
     nexcl = data.excl.shape[1]
     EX = slot_rows(data.excl.long(), n).reshape(rows, 1, nexcl)
     want_lj = any(t in cfg.terms for t in LJ_FAMILY)
@@ -266,7 +292,7 @@ class CellCfg(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "natoms", "capacity", "ncx", "ncy", "ncz", "nexcl", "ntypes", "lj_kind",
-        "elec_kind", "use_switch")] + [(name, ctypes.c_float) for name in (
+        "elec_kind", "use_switch", "cell0", "cell1")] + [(name, ctypes.c_float) for name in (
             "cutoff2", "switch_dist", "inv_switch_width", "krf", "crf",
             "ewald_alpha", "elec_factor")]
 
@@ -317,13 +343,15 @@ def pair_fields(cfg) -> dict:
         elec_factor=kcfg["elec_factor"])
 
 
-def kernel_cfg(cfg, clcfg, natoms, nexcl, ntypes=0) -> CellCfg:
+def kernel_cfg(cfg, clcfg, natoms, nexcl, ntypes=0, slab=None) -> CellCfg:
     ncx, ncy, ncz = clcfg.ncells
+    c0, c1 = slab_cells(clcfg, slab)
     return CellCfg(natoms=natoms, capacity=clcfg.capacity, ncx=ncx, ncy=ncy,
-                   ncz=ncz, nexcl=nexcl, ntypes=ntypes, **pair_fields(cfg))
+                   ncz=ncz, nexcl=nexcl, ntypes=ntypes, cell0=c0, cell1=c1,
+                   **pair_fields(cfg))
 
 
-def _checked_inputs(data: CellData, cfg, clcfg, cl, pos, box):
+def _checked_inputs(data: CellData, cfg, clcfg, cl, pos, box, slab=None):
     """Raise on what the kernel does not take; returns (kernel cfg,
     anchored positions)."""
     from ..neighbors import anchored_positions
@@ -350,7 +378,7 @@ def _checked_inputs(data: CellData, cfg, clcfg, cl, pos, box):
     _build.check_tensor(cl.slots, "slots", i32, (ncells, clcfg.capacity), dev)
     _build.check_tensor(cl.counts, "counts", i32, (ncells,), dev)
     pos_w = anchored_positions(pos, cl.ref_pos, box).contiguous()
-    return kernel_cfg(cfg, clcfg, n, nexcl, ntypes), pos_w
+    return kernel_cfg(cfg, clcfg, n, nexcl, ntypes, slab), pos_w
 
 
 def _scratch(lib, kcfg, dev):
@@ -358,12 +386,28 @@ def _scratch(lib, kcfg, dev):
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
-def _launch(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False, stats=None):
-    global LAUNCHES
-    kcfg, pos_w = _checked_inputs(data, cfg, clcfg, cl, pos, box)
+def _energies_out(cfg, energies, forces, with_virial):
+    out = {t: energies[0] for t in LJ_FAMILY if t in cfg.terms}
+    if "electrostatics" in cfg.terms:
+        out["electrostatics"] = energies[1]
+    if with_virial:
+        # the kernel returns the raw sums over ordered pairs
+        return out, forces, -0.5 * energies[2:]
+    return out, forces
+
+
+def _launch(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False, stats=None,
+            slab=None):
+    global LAUNCHES, SLAB_LAUNCHES
+    kcfg, pos_w = _checked_inputs(data, cfg, clcfg, cl, pos, box, slab)
     n, dev = data.natoms, pos.device
     if stats is not None:
         _build.check_tensor(stats, "stats", torch.int64, (NSTATS,), dev)
+    if kcfg.cell1 == kcfg.cell0:
+        # an empty slab: no i atoms
+        zero = torch.zeros(5 if with_virial else 2, dtype=torch.float32, device=dev)
+        return _energies_out(cfg, zero, torch.zeros((n, 3), dtype=torch.float32,
+                                                    device=dev), with_virial)
     forces = torch.empty((n, 3), dtype=torch.float32, device=dev)
     energies = torch.empty(5 if with_virial else 2, dtype=torch.float32, device=dev)
     lib = _library()
@@ -381,14 +425,11 @@ def _launch(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False, stats=N
     if err != 0:
         raise RuntimeError(
             f"cell kernel launch failed: {lib.tmd_error_string(err).decode()}")
-    LAUNCHES += 1
-    out = {t: energies[0] for t in LJ_FAMILY if t in cfg.terms}
-    if "electrostatics" in cfg.terms:
-        out["electrostatics"] = energies[1]
-    if with_virial:
-        # the kernel returns the raw sums over ordered pairs
-        return out, forces, -0.5 * energies[2:]
-    return out, forces
+    if slab is None:
+        LAUNCHES += 1
+    else:
+        SLAB_LAUNCHES += 1
+    return _energies_out(cfg, energies, forces, with_virial)
 
 
 def cell_tiles(data: CellData, cfg, clcfg, cl, pos, box) -> Tiles:
@@ -413,20 +454,21 @@ def cell_tiles(data: CellData, cfg, clcfg, cl, pos, box) -> Tiles:
 
 
 def cell_energy_forces(data: CellData, cfg, clcfg, cl, pos, box, with_virial=False,
-                       stats=None):
+                       stats=None, slab=None):
     """pos: (N, 3); box: (3,) diagonal tensor; `cl` a CellList built for
     `clcfg`. Returns ({term: 0-dim energy tensor}, forces (N, 3)) and, with
     `with_virial`, the per-axis pair virial (3,). A CPU tensor runs the
     plain version; a CUDA tensor launches the kernel (f32 only) or raises.
     Either runs once per LJ-family term (`over_launches`). `stats`, an
     int64 (NSTATS,) tensor on the card, gains the kernel's walk counters
-    (STATS)."""
+    (STATS). `slab=(cx0, nloc)`: the slab's i atoms only (module
+    docstring; counted in SLAB_LAUNCHES)."""
     if pos.device.type == "cuda":
         def one(c):
-            return _launch(data, c, clcfg, cl, pos, box, with_virial, stats)
+            return _launch(data, c, clcfg, cl, pos, box, with_virial, stats, slab)
     elif pos.device.type == "cpu":
         def one(c):
-            return cell_reference(data, c, clcfg, cl, pos, box, with_virial)
+            return cell_reference(data, c, clcfg, cl, pos, box, with_virial, slab)
     else:
         raise ValueError(f"no cell kernel for device {pos.device}")
     return over_launches(cfg, one)

@@ -19,7 +19,11 @@ set with several takes one launch per such term (`launch_cfgs`), on
 either device. `pos` (R, N, 3) is a replica ladder of one topology, with
 a box per replica ((R, 3)) or none: one launch of the kernel for all R
 replicas (the plain version loops over them), each replica's result bit
-for bit that of a one-replica launch.
+for bit that of a one-replica launch. `rows=(it0, it1)` takes the i tiles
+[it0, it1) against all atoms (the spatially sharded path's row block,
+`torchmd_tpu/parallel/spatial.py:64-77`): forces of rows
+[32 it0, min(N, 32 it1)) and those rows' 0.5-weighted energies; the rows
+of a range equal the same rows of the full call bit for bit.
 """
 
 from __future__ import annotations
@@ -36,8 +40,10 @@ from ..potentials import (LJ_FAMILY, add_energy, nonbonded_block_energy_forces,
 from . import _build
 
 # Kernel launches made by `nonbonded_energy_forces` (one per call on CUDA;
-# a call is two launches on the card: the prep pass and the walk).
+# a call is two launches on the card: the prep pass and the walk), and
+# those of its row-range form (`rows=`, the spatially sharded path)
 LAUNCHES = 0
+ROW_LAUNCHES = 0
 
 TILE = 32                 # atoms per tile (csrc/tile_pairs.cuh TILE)
 REFERENCE_ROWS = 2048     # row block of the plain version (bounds memory)
@@ -183,20 +189,38 @@ def prepare_nb_data(ffp, dtype=None) -> NBData:
 # Plain PyTorch version
 # ----------------------------------------------------------------------
 
-def pair_terms_reference(data: NBData, cfg, pos, box=None):
+def row_span(natoms, tiles):
+    """(first row, end row) of the i tiles `tiles` = (it0, it1), or of all
+    rows for None; raises on a range outside [0, ceil(N / TILE)]."""
+    if tiles is None:
+        return 0, natoms
+    it0, it1 = (int(t) for t in tiles)
+    nt = -(-natoms // TILE)
+    if not 0 <= it0 <= it1 <= nt:
+        raise ValueError(f"row range {tiles} outside the {nt} tiles of {natoms} atoms")
+    lo = min(natoms, it0 * TILE)
+    return lo, max(lo, min(natoms, it1 * TILE))
+
+
+def pair_terms_reference(data: NBData, cfg, pos, box=None, rows=None):
     """Plain PyTorch version of the pair kernel: the port's
     `nonbonded_block_energy_forces` on the kernel's inputs, over the full
-    square in blocks of REFERENCE_ROWS rows, at the dtype and on the
-    device of `pos`. Returns ({term: energy}, forces (N, 3))."""
+    square (or the i tiles `rows` = (it0, it1) against all atoms) in
+    blocks of REFERENCE_ROWS rows, at the dtype and on the device of
+    `pos`. Returns ({term: energy}, forces (N, 3), or of the range's
+    rows)."""
     n, dt = data.natoms, pos.dtype
+    lo, hi = row_span(n, rows)
     mask = data.mask != 0
     q, sig, eps = data.q.to(dt), data.sig.to(dt), data.eps.to(dt)
     ti = data.types.long()
     want_lj = any(t in cfg.terms for t in LJ_FAMILY)
-    pot: dict = {}
-    forces = torch.empty_like(pos)
-    for r0 in range(0, n, REFERENCE_ROWS):
-        rows = slice(r0, min(n, r0 + REFERENCE_ROWS))
+    # an empty range has no rows and zero energies
+    pot: dict = {t: pos.new_zeros(()) for t in (*LJ_FAMILY, "electrostatics")
+                 if t in cfg.terms}
+    forces = pos.new_empty((hi - lo, 3))
+    for r0 in range(lo, hi, REFERENCE_ROWS):
+        rows = slice(r0, min(hi, r0 + REFERENCE_ROWS))
         dv = wrap_displacement(pos[rows, None, :] - pos[None, :, :], box)
         qq = A = B = None
         if "electrostatics" in cfg.terms:
@@ -210,7 +234,7 @@ def pair_terms_reference(data: NBData, cfg, pos, box=None):
             A = B * s6
         block, forces_rows = nonbonded_block_energy_forces(
             cfg, dv, mask[rows], qq, A, B)
-        forces[rows] = forces_rows
+        forces[rows.start - lo:rows.stop - lo] = forces_rows
         for k, v in block.items():
             add_energy(pot, k, v)
     return pot, forces
@@ -225,7 +249,7 @@ class PairCfg(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "natoms", "ntypes", "lj_kind", "elec_kind", "use_cutoff",
-        "use_switch", "pbc", "nrep")] + [(name, ctypes.c_float) for name in (
+        "use_switch", "pbc", "nrep", "it0", "it1")] + [(name, ctypes.c_float) for name in (
             "cutoff2", "switch_dist", "inv_switch_width", "krf", "crf",
             "ewald_alpha", "elec_factor")]
 
@@ -263,9 +287,10 @@ def _energy_dict(kcfg, e_lj, e_el):
     return out
 
 
-def pair_cfg(kcfg, natoms, ntypes, nrep=1) -> PairCfg:
+def pair_cfg(kcfg, natoms, ntypes, nrep=1, tiles=None) -> PairCfg:
     """The kernel's PairCfg from a `make_kernel_cfg` dict, for `nrep`
-    replicas."""
+    replicas and the i tiles `tiles` = (it0, it1) (None: all)."""
+    it0, it1 = (0, -(-natoms // TILE)) if tiles is None else tiles
     lj_kind = (1 if kcfg["lj"] else 2 if kcfg["repulsion"]
                else 3 if kcfg["repulsioncg"] else 0)
     elec_kind = 0
@@ -277,7 +302,7 @@ def pair_cfg(kcfg, natoms, ntypes, nrep=1) -> PairCfg:
     return PairCfg(
         natoms=natoms, ntypes=ntypes, lj_kind=lj_kind, elec_kind=elec_kind,
         use_cutoff=int(cutoff is not None), use_switch=int(use_switch),
-        pbc=int(kcfg["pbc"]), nrep=nrep,
+        pbc=int(kcfg["pbc"]), nrep=nrep, it0=int(it0), it1=int(it1),
         cutoff2=cutoff ** 2 if cutoff is not None else 0.0,
         switch_dist=switch if use_switch else 0.0,
         inv_switch_width=1.0 / (cutoff - switch) if use_switch else 0.0,
@@ -285,8 +310,8 @@ def pair_cfg(kcfg, natoms, ntypes, nrep=1) -> PairCfg:
         elec_factor=kcfg["elec_factor"])
 
 
-def _launch(data: NBData, cfg, pos, box, stats=None):
-    global LAUNCHES
+def _launch(data: NBData, cfg, pos, box, stats=None, rows=None):
+    global LAUNCHES, ROW_LAUNCHES
     if not supported_terms(cfg):
         raise NotImplementedError(
             "a pair kernel launch takes at most one of lj/repulsion/repulsioncg")
@@ -317,10 +342,15 @@ def _launch(data: NBData, cfg, pos, box, stats=None):
         _build.check_tensor(stats, "stats", torch.int64, (len(STATS),), dev)
 
     kcfg = make_kernel_cfg(cfg, box is not None)
-    c = pair_cfg(kcfg, n, ntypes, nrep)
+    lo, hi = row_span(n, rows)
+    c = pair_cfg(kcfg, n, ntypes, nrep, rows)
+    forces = torch.empty(lead + (hi - lo, 3), dtype=f32, device=dev)
+    if hi == lo:
+        # an empty range: no rows, no pairs
+        zero = torch.zeros(lead + (2,), dtype=f32, device=dev)
+        return _energy_dict(kcfg, zero[..., 0], zero[..., 1]), forces
     lib = _library()
     scratch = torch.empty(lib.tmd_pair_scratch_bytes(c), dtype=torch.uint8, device=dev)
-    forces = torch.empty(lead + (n, 3), dtype=f32, device=dev)
     energies = torch.empty(lead + (2,), dtype=f32, device=dev)
 
     def ptr(t):
@@ -334,36 +364,41 @@ def _launch(data: NBData, cfg, pos, box, stats=None):
     if err != 0:
         raise RuntimeError(
             f"pair kernel launch failed: {lib.tmd_error_string(err).decode()}")
-    LAUNCHES += 1
+    if rows is None:
+        LAUNCHES += 1
+    else:
+        ROW_LAUNCHES += 1
     return _energy_dict(kcfg, energies[..., 0], energies[..., 1]), forces
 
 
-def pair_terms_reference_batch(data: NBData, cfg, pos, box=None):
+def pair_terms_reference_batch(data: NBData, cfg, pos, box=None, rows=None):
     """The plain version over a replica ladder: `pair_terms_reference`
     for each replica of pos (R, N, 3) with its box (R, 3) or None,
     stacked: ({term: (R,)}, forces (R, N, 3))."""
-    outs = [pair_terms_reference(data, cfg, p, None if box is None else box[r])
+    outs = [pair_terms_reference(data, cfg, p, None if box is None else box[r], rows)
             for r, p in enumerate(pos)]
     return ({k: torch.stack([o[0][k] for o in outs]) for k in outs[0][0]},
             torch.stack([o[1] for o in outs]))
 
 
-def nonbonded_energy_forces(data: NBData, cfg, pos, box=None, stats=None):
+def nonbonded_energy_forces(data: NBData, cfg, pos, box=None, stats=None, rows=None):
     """pos: (N, 3), or (R, N, 3) for R replicas of the topology; box:
     (3,) (or (R, 3)) diagonal tensor or None (no PBC). Returns ({term:
     energy tensor, 0-dim (or (R,))}, forces of pos's shape). A CPU tensor
     runs the plain version; a CUDA tensor launches the kernel (f32 only),
     once for all the replicas, or raises. Either runs once per LJ-family
     term (`over_launches`). `stats`, an int64 (5,) card tensor, gains the
-    walk's counters (STATS)."""
+    walk's counters (STATS). `rows=(it0, it1)`: the i tiles [it0, it1)
+    against all atoms; forces then have the range's rows (module
+    docstring; counted in ROW_LAUNCHES)."""
     if pos.device.type == "cuda":
         def one(c):
-            return _launch(data, c, pos, box, stats)
+            return _launch(data, c, pos, box, stats, rows)
     elif pos.device.type == "cpu":
         ref = pair_terms_reference_batch if pos.dim() == 3 else pair_terms_reference
 
         def one(c):
-            return ref(data, c, pos, box)
+            return ref(data, c, pos, box, rows)
     else:
         raise ValueError(f"no pair kernel for device {pos.device}")
     return over_launches(cfg, one)

@@ -438,6 +438,22 @@ def nonbonded_energy_forces(par: FFParams, pos, box, cfg: ForceTermConfig):
     return nonbonded_block_energy_forces(cfg, dv, par.nb_mask, qq, A_ij, B_ij)
 
 
+def rowblock_energy_forces(par: FFParams, cfg: ForceTermConfig, pos_rows, pos_full,
+                           box, row0):
+    """Nonbonded energies and row forces of rows [row0, row0 + nrows) of
+    the pair matrix against all atoms (torchmd_tpu/parallel/spatial.py:
+    64-77): the dense block math on a row slice. Energies carry the 0.5
+    symmetric factor, so a sum over a partition of the rows gives the
+    dense totals, and the row forces are whole per-atom forces. `par`
+    has at least row0 + nrows rows (`parallel.spatial.pad_ffparams_rows`
+    for a padded layout)."""
+    nrows = pos_rows.shape[0]
+    dv = wrap_displacement(pos_rows[:, None, :] - pos_full[None, :, :], box)
+    mask = par.nb_mask[row0:row0 + nrows]
+    qq, A_ij, B_ij = pair_coefficients(par, cfg, rows=(row0, nrows))
+    return nonbonded_block_energy_forces(cfg, dv, mask, qq, A_ij, B_ij)
+
+
 def energy_and_forces_fused(par: FFParams, pos, box, cfg: ForceTermConfig):
     """(per-term potentials, forces): analytic dense nonbonded plus the
     bonded terms by autograd."""

@@ -15,7 +15,13 @@ Counterparts of `torchmd_tpu.thermostats`:
     unlike `torch.distributions.Gamma`, takes a generator).
 
 `pre`/`post` take velocities of shape (nreplicas, natoms, 3), all on one
-device, with no host synchronisation. Units follow the rest of the
+device, with no host synchronisation. On a mesh (`parallel`) they take a
+rank's piece: `reduce` sums a rank's kinetic energy over the ranks that
+hold the system's rows (the JAX package's `axis_name=`,
+torchmd_tpu/thermostats.py:61-78), so every rank propagates the same
+chain; `replicas=(r0, nrep_total)` makes CSVR draw for all nrep_total
+replicas and keep this rank's from r0 on, so that its draws do not
+depend on how the replicas are spread over ranks. Units follow the rest of the
 package: internal time units (dt = timestep_fs / TIMEFACTOR), energies
 kcal/mol, BOLTZMANN in kcal/mol/K.
 """
@@ -49,7 +55,7 @@ class NoseHooverChain:
         return {"xi": torch.zeros((nreplicas, self.nchain), dtype=dtype, device=device),
                 "vxi": torch.zeros((nreplicas, self.nchain), dtype=dtype, device=device)}
 
-    def _chain_half(self, vel, xi, vxi, masses, dth):
+    def _chain_half(self, vel, xi, vxi, masses, dth, reduce=None):
         """Propagate the chain for dth and rescale velocities; the nchain
         loop is unrolled in Python."""
         M, kT, Q = self.nchain, self.kT, [float(q) for q in self.Q]
@@ -57,6 +63,8 @@ class NoseHooverChain:
         dt4, dt8 = 0.5 * dth, 0.25 * dth
 
         K2 = (masses[:, 0] * (vel * vel).sum(-1)).sum(-1)  # 2*KE, (R,)
+        if reduce is not None:
+            K2 = reduce(K2)
         v = [vxi[:, k] for k in range(M)]
 
         def G(k, K2_now):
@@ -80,9 +88,9 @@ class NoseHooverChain:
         v[M - 1] = v[M - 1] + G(M - 1, K2) * dt4
         return vel * s[:, None, None], xi, torch.stack(v, dim=1)
 
-    def pre(self, vel, aux, masses, dt, generator=None):
+    def pre(self, vel, aux, masses, dt, generator=None, reduce=None, replicas=None):
         vel, xi, vxi = self._chain_half(vel, aux["xi"], aux["vxi"], masses,
-                                        0.5 * dt)
+                                        0.5 * dt, reduce)
         return vel, {"xi": xi, "vxi": vxi}
 
     post = pre  # same half-propagator after the second VV half-kick
@@ -116,10 +124,10 @@ class CSVR:
     def init(self, nreplicas, dtype, device):
         return {}
 
-    def pre(self, vel, aux, masses, dt, generator=None):
+    def pre(self, vel, aux, masses, dt, generator=None, reduce=None, replicas=None):
         return vel, aux
 
-    def rescale(self, vel, masses, dt, r1, r2):
+    def rescale(self, vel, masses, dt, r1, r2, reduce=None):
         """`vel` times alpha for a standard normal r1 and a chi-square
         (nf - 1) draw r2 ((R,) each), with K each replica's kinetic energy,
         c = exp(-dt / tau) and kbar = nf kT / 2:
@@ -127,19 +135,24 @@ class CSVR:
                   + 2 r1 sqrt(c (1 - c) kbar / (nf K))."""
         nf, kbar = self.ndof, 0.5 * self.ndof * self.kT
         c = float(np.exp(-dt / self.tau))
-        K = torch.clamp(0.5 * (masses[:, 0] * (vel * vel).sum(-1)).sum(-1), min=1e-12)
+        K = 0.5 * (masses[:, 0] * (vel * vel).sum(-1)).sum(-1)
+        if reduce is not None:
+            K = reduce(K)
+        K = torch.clamp(K, min=1e-12)
         a2 = (c + (1.0 - c) * (kbar / (nf * K)) * (r1 * r1 + r2)
               + 2.0 * r1 * torch.sqrt(c * (1.0 - c) * kbar / (nf * K)))
         return vel * torch.sqrt(torch.clamp(a2, min=0.0))[:, None, None]
 
-    def post(self, vel, aux, masses, dt, generator=None):
+    def post(self, vel, aux, masses, dt, generator=None, reduce=None, replicas=None):
         nrep = vel.shape[0]
-        r1 = torch.randn(nrep, generator=generator, dtype=vel.dtype,
+        r0, ndraw = (0, nrep) if replicas is None else replicas
+        r1 = torch.randn(ndraw, generator=generator, dtype=vel.dtype,
                          device=vel.device)
-        shape = torch.full((nrep,), 0.5 * (self.ndof - 1), dtype=vel.dtype,
+        shape = torch.full((ndraw,), 0.5 * (self.ndof - 1), dtype=vel.dtype,
                            device=vel.device)
         r2 = 2.0 * torch._standard_gamma(shape, generator=generator)
-        return self.rescale(vel, masses, dt, r1, r2), aux
+        return self.rescale(vel, masses, dt, r1[r0:r0 + nrep], r2[r0:r0 + nrep],
+                            reduce), aux
 
     def conserved(self, aux):
         return 0.0

@@ -6,9 +6,15 @@ reference forces and energies (coarse-grained models, say): the loss
 differentiates through the force computation, d(loss)/d(params) of F =
 -dE/dpos, a double backward through the torch-op `compute_potentials`.
 The conformations of a batch are one leading dimension, evaluated with
-`torch.func.vmap`; sharding the batch over devices (the JAX package's
-`mesh=` with its `dp_axis`/`sp_axis` names) is ROADMAP item 21: `mesh=`
-raises here, and the axis names are not taken until then.
+`torch.func.vmap`. With `mesh=` (a `parallel.Mesh`, one process per
+rank; torchmd_tpu/train.py:78-145) the batch shards over `dp_axis` and
+each conformation's pair-matrix rows over `sp_axis`: the energy is
+`parallel.sharded_energy_fn`'s, every rank differentiates its share of
+the loss (its rows' forces, and its part of the energy term), and the
+parameter gradients are summed over all ranks before every rank takes
+the same optimizer step, so the loss stays the mean over the whole
+batch and the parameters equal the unsharded trainer's. Every rank
+calls `step` with the same whole batch.
 """
 
 from __future__ import annotations
@@ -71,11 +77,14 @@ class ForceMatchingTrainer:
     mean((E - e_ref)^2), as in the JAX package."""
 
     def __init__(self, ffp: FFParams, cfg: ForceTermConfig, trainable=("lj",),
-                 optimizer=None, energy_weight=0.0, mesh=None):
+                 optimizer=None, energy_weight=0.0, mesh=None, dp_axis="dp", sp_axis="sp"):
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: sharding the batch over devices is not ported yet "
-                "(ROADMAP item 21)")
+            from .parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a torchmd_tpu_torch.parallel.Mesh, got "
+                                f"{type(mesh).__name__}")
+        self.mesh, self.dp_axis, self.sp_axis = mesh, dp_axis, sp_axis
         self.cfg = cfg
         self.energy_weight = energy_weight
         self.optimizer = optimizer or (lambda ps: torch.optim.Adam(ps, lr=1e-3))
@@ -89,6 +98,10 @@ class ForceMatchingTrainer:
         return torch.func.vmap(lambda p, b: total_energy(ffp, p, b, self.cfg))(pos, box)
 
     def loss_fn(self, params, pos, box, f_ref, e_ref):
+        """mean((F - f_ref)^2) (+ energy_weight x mean((E - e_ref)^2)); on a
+        mesh this rank's share of it (`_share`)."""
+        if self.mesh is not None:
+            return self._share(params, pos, box, f_ref, e_ref)
         x = pos.detach().requires_grad_(True)
         E = self.batched_energy(params, x, box)
         (g,) = torch.autograd.grad(E.sum(), x, create_graph=True)
@@ -96,6 +109,33 @@ class ForceMatchingTrainer:
         if self.energy_weight:
             loss = loss + self.energy_weight * ((E - e_ref) ** 2).mean()
         return loss
+
+    def _share(self, params, pos, box, f_ref, e_ref):
+        """This rank's share of the loss; the shares of all ranks sum to
+        it. The forces of its rows are the gradient of its energy share,
+        whose sp all-gather's adjoint adds the other ranks' parts; the
+        energy term's all-reduce adjoint all-reduces its gradient, so
+        each sp rank carries 1/sp of that term."""
+        from .parallel.spatial import sharded_energy_fn
+
+        mesh, sp_axis = self.mesh, self.sp_axis
+        efn = sharded_energy_fn(self._rebuild(params), self.cfg, mesh, self.dp_axis, sp_axis)
+        nb, natoms = pos.shape[0], pos.shape[1]
+        bsl = efn.batch_slice(nb)
+        rows = efn.my_rows(pos.detach()).requires_grad_(True)
+        e = efn.local(rows, box[bsl])
+        (g,) = torch.autograd.grad(e.sum(), rows, create_graph=True)
+        loss = ((-g - efn.my_rows(f_ref)) ** 2).sum() / (nb * natoms * 3)
+        if self.energy_weight:
+            e_tot = mesh.all_reduce_d(e, sp_axis)
+            loss = loss + self.energy_weight * ((e_tot - e_ref[bsl]) ** 2).sum() / (
+                nb * mesh.shape[sp_axis])
+        return loss
+
+    def _world_sum(self, t):
+        for axis in self.mesh.axis_names:
+            t = self.mesh.all_reduce(t, axis)
+        return t
 
     def init(self) -> TrainState:
         params = {k: v.detach().clone().requires_grad_(True)
@@ -112,6 +152,12 @@ class ForceMatchingTrainer:
         opt.zero_grad()
         loss = self.loss_fn(state.params, pos, box, f_ref, e_ref)
         loss.backward()
+        if self.mesh is not None:
+            # every rank's share of the gradient and of the loss, summed
+            for p in state.params.values():
+                if p.grad is not None:
+                    p.grad = self._world_sum(p.grad)
+            loss = self._world_sum(loss.detach())
         opt.step()
         return TrainState(state.params, opt, state.step + 1), loss.detach()
 

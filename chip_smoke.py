@@ -322,13 +322,28 @@ Phases (each prints lines; any failure raises and exits non-zero):
      counters reset just before and read just after: stage times, deltas,
      the mxred-vs-forces error (within 1e-5 of each row's scale, without
      the close pairs) and the chain throughputs.
+ 31. halo: halo-exchange MD (`parallel.HaloMD`) on solvated alanine
+     dipeptide tiled 4 x 4 x 4 (44,032 atoms; cutoff 9 A, switch 7.5 A,
+     classic Ewald, hbonds, 2 fs) on one NCCL rank, 2 and 4 gloo slabs and
+     2 x 2 gloo pencils: every rank's halo kernel against its plain f64
+     version (the Pallas bars) and timed, a zero-velocity step against the
+     unsharded port with the same exact Ewald sum (HALO_E_REL, HALO_F_REL),
+     10 NVE steps without constraints at 1 fs and 10 with hbonds at 2 fs,
+     each against the unsharded Integrator at f64 within
+     WATER_FLOOR_FACTOR x the unsharded f32 run's distance from it (charge
+     controls of 0.1 % and 1 % beyond; the first also within MESH_TRAJ_TOL
+     of the unsharded f32 run, the second's reading of it logged), and
+     200 timed Langevin steps (steps/s, mean T within MESH_T_TOL, one halo
+     kernel and one bonded launch a step a rank, migrations, capacity
+     growths, comm bytes, collectives, peak memory).
 The last two lines are a JSON summary of the kernels and the JSON status
 line. Usage: python3 chip_smoke.py
 
 `python3 chip_smoke.py --amoeba` runs the device and amoeba phases alone
 (they build no kernel); `python3 chip_smoke.py --drude` the device and
 build phases, then drude and drude_swm4; `python3 chip_smoke.py --mesh`
-the device and build phases, then mesh.
+the device and build phases, then mesh; `python3 chip_smoke.py --halo`
+the device and build phases, then halo.
 
 `python3 chip_smoke.py --remd-seeds N` is a measurement, not the smoke
 test: it builds the kernels and runs the remd phase, ungated, for seeds
@@ -378,7 +393,7 @@ ODD_MESH = {"water216": 45, "water-full": 75}
 # waters, 10,976 sites in a 43.5 A box
 DENSE_PME_N = 14
 WATER_TERMS = ["bonds", "lj", "electrostatics"]
-WATER_WARMUP, WATER_STEPS, WATER_CHUNK = 100, 500, 100
+WATER_WARMUP, WATER_STEPS, WATER_CHUNK = 100, 300, 100
 # 10 steps from one state at ~440 K, kernel path f32 against the plain
 # path at f32 and f64: SETTLE's velocity correction (pos_c - pos) / dt
 # turns f32 rounding of the absolute coordinates (an ulp is 7.6e-6 A
@@ -396,7 +411,7 @@ WATER_TAU = 200.0             # fs, the Nose-Hoover chain's time constant
 # (each +12 to +26 kcal/mol over 100 steps, run to run) differ by that
 # spread; they agree within NVE_DH_TOL kcal/mol
 NVE_STEPS, NVE_DH_TOL = 100, 20.0
-KERNEL_SOURCES = ("nonbonded", "bonded", "cell", "pme", "column", "roofline")
+KERNEL_SOURCES = ("nonbonded", "bonded", "cell", "pme", "column", "roofline", "halo")
 # Device ms per call of the lane-per-pair cell and column kernels that the
 # tile walk replaced, at the full box's state (lowest and highest of three
 # runs on an H100 80GB HBM3 at 700 W; PERF.md)
@@ -426,7 +441,7 @@ PROBE_N, PROBE_TILE = 4676, 512
 MXRED_TOL = 1e-5
 # NPT phase: scripts/bench_waterbox.py's second phase, 1 bar, tau_p 2000 fs
 NPT_PRESSURE, NPT_TAU_P = 1.0, 2000.0
-NPT_WARMUP, NPT_STEPS, NPT_CHUNK = 100, 500, 100
+NPT_WARMUP, NPT_STEPS, NPT_CHUNK = 100, 300, 100
 NPT_VOLUME_RANGE = (0.7, 1.4)     # final volume over the lattice's
 # the kernel's per-axis virial: 3 multiplies and 3 adds per pair
 VIRIAL_FLOPS = 6
@@ -576,7 +591,7 @@ SOL {nw}
 # the 62.5k-site box's NVT phase with the reciprocal tier (PME every
 # RECIP_R outer steps), RECIP_STEPS steps in WATER_CHUNK chunks; NVE legs
 # of RECIP_NVE_STEPS steps with and without the tier from one state
-RECIP_R, RECIP_STEPS, RECIP_NVE_STEPS = 2, 500, 200
+RECIP_R, RECIP_STEPS, RECIP_NVE_STEPS = 2, 300, 200
 # the alanine dipeptide box under MTK with SHAKE through the CLI (its
 # ACEMD input: 688 atoms, cutoff 9 A, switching from 7.5 A), the exact
 # Ewald sum, X-H bonds constrained, hydrogens x3, 4 fs, NHC at 300 K, 1 bar
@@ -1221,23 +1236,45 @@ def _water_forces(par, cutoff, precision="single", plain=False, gather=None,
                   device=DEVICE, plain=plain, gather=gather, column=column)
 
 
-def _water_pair_count(data, pos, box, cutoff, rows=2048):
-    """Unordered pairs inside the cutoff: minimum-image pairs within the
-    cutoff, less self and excluded pairs, halved."""
+def _pairs_within(pos, ids, nrows, excl, box, wrap, cutoff, rows=2048):
+    """(i, j) pairs inside the cutoff with i one of the first `nrows` rows
+    and j any row, less pairs of one id (self) and of excluded ids: the
+    ordered count over the columns [0, nrows) and the count over the
+    rest. `ids` are global ids into the (N, nexcl) exclusion table `excl`
+    (ids and entries >= N: padding, never paired); `wrap` says which axes
+    take the minimum image."""
+    import torch
+
+    n = int(excl.shape[0])
+    wrap = torch.as_tensor(wrap, device=pos.device)
+    ex = excl.long()
+    keys = torch.arange(n, device=pos.device)[:, None] * (n + 1) + ex
+    keys = torch.sort(keys[ex < n]).values
+    inner = outer = 0
+    for r0 in range(0, nrows, rows):
+        r1 = min(nrows, r0 + rows)
+        dv = pos[r0:r1, None, :] - pos[None, :, :]
+        dv = torch.where(wrap, dv - box * torch.round(dv / box), dv)
+        i, j = torch.nonzero((dv * dv).sum(-1) <= cutoff * cutoff, as_tuple=True)
+        gi, gj = ids[r0 + i], ids[j]
+        key = gi * (n + 1) + gj
+        hit = torch.searchsorted(keys, key).clamp(max=max(0, len(keys) - 1))
+        kept = (gi != gj) & (gi < n) & (gj < n)
+        if len(keys):
+            kept &= keys[hit] != key
+        inner += int((kept & (j < nrows)).sum())
+        outer += int((kept & (j >= nrows)).sum())
+    return inner, outer
+
+
+def _water_pair_count(data, pos, box, cutoff):
+    """Unordered non-excluded pairs inside the cutoff (minimum image)."""
     import torch
 
     n = pos.shape[0]
-    total = 0
-    for r0 in range(0, n, rows):
-        dv = pos[r0:r0 + rows, None, :] - pos[None, :, :]
-        dv = dv - box * torch.round(dv / box)
-        total += int(((dv * dv).sum(-1) <= cutoff * cutoff).sum())
-    excl = data.excl.long()
-    partner = torch.where(excl < n, excl, torch.arange(n, device=pos.device)[:, None])
-    dv = pos[:, None, :] - pos[partner]
-    dv = dv - box * torch.round(dv / box)
-    near = ((dv * dv).sum(-1) <= cutoff * cutoff) & (excl < n)
-    return (total - n - int(near.sum())) // 2
+    inner, _ = _pairs_within(pos, torch.arange(n, device=pos.device), n, data.excl, box,
+                             (True, True, True), cutoff)
+    return inner // 2
 
 
 def water_cases():
@@ -5353,6 +5390,332 @@ def phase_mesh(cfg=None):
                 o["launches"]["cell_slab"] for o in water))}
 
 
+# ----------------------------------------------------------------------
+# Halo-exchange MD (phase 31; `python3 chip_smoke.py --halo` runs it
+# alone): solvated alanine dipeptide (tests/data/prod_alanine_dipeptide_
+# amber: 688 atoms, box 19.84 x 19.62 x 19.63 A) tiled HALO_TILE into
+# 44,032 atoms in 79.4 x 78.5 x 78.5 A, at its input's settings (cutoff
+# 9 A, switch 7.5 A, all AMBER terms) under the halo's classic Ewald
+# (kmax 32 an axis), hbonds SHAKE groups owned whole, 2 fs. Layouts: one
+# NCCL rank (W = 1), 2 and 4 gloo slabs and 2 x 2 gloo pencils sharing
+# cuda:0. Each rank: its halo kernel against the plain f64 version at the
+# Pallas bars and timed one rank at a time; a zero-velocity step (no
+# constraints) whose summed energy and half-kick forces are held to the
+# unsharded port with the same exact Ewald sum (`EwaldRecip`); two runs of
+# 10 NVE steps, each held to the unsharded Integrator at f64 within
+# WATER_FLOOR_FACTOR x the unsharded f32 run's own distance from it: one
+# without constraints at HALO_FREE_DT (the sharp check: within
+# MESH_TRAJ_TOL of the unsharded f32 run too, and a HALO_FREE_CONTROL_Q
+# charge control beyond the limit), one with hbonds at 2 fs (a 1 % charge
+# control beyond; whether within MESH_TRAJ_TOL of the unsharded f32 run is
+# logged). f32 SHAKE sets the second's floor: its fixed point carries
+# ~10 position ulps of noise each step (scripts/halo_floor.py), 3.7e-3 A
+# after 10 steps here, far above the unconstrained floor; HALO_CFG
+# ["t_steps"] timed Langevin steps at MESH_T_GAMMA, the counters reset
+# just before and read just after.
+# ----------------------------------------------------------------------
+HALO_CFG = dict(device="cuda:0", w1_backend="nccl", tile=(4, 4, 4), steps=10, t_steps=200,
+                t_chunk=20, plain_calls=1, layouts=("w1", "w2", "w4", "p2x2"))
+# layout: (ranks, mesh axes, mesh shape, the halo's axis or axes)
+HALO_LAYOUTS = {"w1": (1, ("sp",), None, "sp"), "w2": (2, ("sp",), None, "sp"),
+                "w4": (4, ("sp",), None, "sp"),
+                "p2x2": (4, ("spx", "spy"), (2, 2), ("spx", "spy"))}
+HALO_E_REL = 2e-5        # summed energy against the unsharded port, both f32
+HALO_F_REL = 1e-4        # half-kick forces against the unsharded port, of max |F|
+# the halo kernel against its plain f64 version: tests/test_pallas.py:51-57
+HALO_KERNEL_E_REL, HALO_KERNEL_F_REL = 2e-5, 5e-5
+HALO_FREE_DT = 1.0           # fs: the NVE check without constraints
+HALO_FREE_CONTROL_Q = 1e-3   # its fault control: every charge 0.1 % larger
+
+
+def halo_system(tile, precision="single"):
+    """(mol, par) of the alanine dipeptide box tiled tile[0] x tile[1] x
+    tile[2] (every topology table shifted by the copy's atom offset)."""
+    import copy
+
+    from torchmd_tpu_torch.forcefields.ff_amber import AmberForcefield
+    from torchmd_tpu_torch.io import Molecule
+    from torchmd_tpu_torch.parameters import Parameters
+
+    d = os.path.join(DATA, ALA_SYSTEM)
+    mol = Molecule(os.path.join(d, "structure.prmtop"))
+    mol.read(os.path.join(d, "input.coor"))
+    mol.read(os.path.join(d, "input.xsc"))
+    ff = AmberForcefield(mol, os.path.join(d, "structure.prmtop"))
+    n, L = mol.numAtoms, mol.box[:, 0]
+    shifts = [np.array([i, j, k]) * L for i in range(tile[0]) for j in range(tile[1])
+              for k in range(tile[2])]
+    big = copy.copy(mol)
+    big.numAtoms = n * len(shifts)
+    big.coords = np.concatenate([mol.coords[:, :, 0] + s for s in shifts])[:, :, None]
+    big.box = (L * np.asarray(tile))[:, None]
+    for a in ("name", "element", "atomtype", "charge", "masses"):
+        setattr(big, a, np.concatenate([getattr(mol, a)] * len(shifts)))
+    for a in ("bonds", "angles", "dihedrals", "impropers", "crossterms"):
+        v = getattr(mol, a)
+        if len(v):
+            setattr(big, a, np.concatenate([v + t * n for t in range(len(shifts))]))
+    return big, Parameters(ff, big, TERMS, precision=precision)
+
+
+def _halo_forces(par, box, dev, precision="single"):
+    """Forces at the input's settings with the exact Ewald sum at any size
+    (the halo's reciprocal term)."""
+    from torchmd_tpu_torch.forces import Forces
+
+    f = Forces(par, terms=TERMS, precision=precision, cutoff=ALA_CUTOFF,
+               switch_dist=ALA_SWITCH, elec="ewald", device=dev)
+    f.ensure_ewald(box, exact=True)
+    return f
+
+
+def _halo_pairs(rows, nown, excl, geom, cutoff):
+    """(owned-owned pairs, counted once; owned-ghost pairs) inside the
+    cutoff that the halo function needs, exclusions removed."""
+    import torch
+
+    box = torch.tensor(geom.box, dtype=rows.dtype, device=rows.device)
+    inner, outer = _pairs_within(rows[:, 1:4], rows[:, 0].long(), nown, excl, box,
+                                 geom.wrap, cutoff, rows=1024)
+    return inner // 2, outer
+
+
+def _rank_halo(rank, cfg, name, want_refs):
+    """One rank of a halo layout (see the block comment above); with
+    `want_refs` (the one-rank layout) also the unsharded port's references:
+    the zero-velocity energy and forces and the 10-step NVE positions."""
+    import copy
+
+    import torch
+
+    from torchmd_tpu_torch.constraints import build_constraint_spec
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.neighbors import build_exclusion_table
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import halo as kh
+    from torchmd_tpu_torch.ops.cell import prepare_cell_data
+    from torchmd_tpu_torch.parallel import HaloMD, make_mesh
+    from torchmd_tpu_torch.potentials import make_ffparams
+    from torchmd_tpu_torch.systems import System
+    from torchmd_tpu_torch.units import TIMEFACTOR
+
+    world, axes, shape, axis = HALO_LAYOUTS[name]
+    dev = torch.device(cfg["device"])
+    t0 = time.perf_counter()
+    mol, par = halo_system(cfg["tile"])
+    n, box = mol.numAtoms, mol.box[:, 0]
+    forces = _halo_forces(par, box, dev)
+    excl = build_exclusion_table(par, n)
+    masses = np.asarray(par.masses, np.float64).reshape(-1, 1)
+    cs = build_constraint_spec(par, masses, mode="hbonds", device=dev, dtype=torch.float32)
+    mesh = make_mesh(axes=axes, shape=shape, device=dev)
+    pos0 = mol.coords[:, :, 0]
+    vel0 = maxwell_boltzmann(par.masses, TEMP, 1, seed=1, device="cpu",
+                             dtype=torch.float64)[0].numpy()
+    out = dict(setup_s=time.perf_counter() - t0, transport=mesh.transport)
+
+    def halo(timestep=TIMESTEP, **kw):
+        return HaloMD(forces.ffparams, forces.config, mesh, box, excl_table=excl,
+                      timestep=timestep, axis=axis, **kw)
+
+    # the kernel against plain f64 on this rank's rows at the start
+    h = halo()
+    h.init(pos0, np.zeros_like(pos0))
+    out["spec"] = h.spec
+    rows, nown, geom = h.pair_inputs()
+    cfg_nb = forces.config
+    pot_k, f_k = kh.halo_energy_forces(h.data, cfg_nb, rows, nown, geom)
+    d64 = prepare_cell_data(make_ffparams(par, dtype=torch.float64, device=dev,
+                                          dense_mask=False), excl)
+    pot_p, f_p = kh.halo_reference(d64, cfg_nb, rows.double(), nown, geom)
+    _mesh_sync(dev)
+    e_k, e_p = float(sum(pot_k.values())), float(sum(pot_p.values()))
+    fscale = max(1.0, float(f_p.abs().max()))
+    out.update(rows=int(rows.shape[0]), nown=nown, e_err=abs(e_k - e_p) / max(1.0, abs(e_p)),
+               f_err=float((f_k.double() - f_p).abs().max()) / fscale,
+               max_abs_err=float((f_k.double() - f_p).abs().max()))
+    # owned-owned pairs give forces on both rows (Newton's third law);
+    # owned-ghost pairs on the owned row only
+    d = h.data
+    n_oo, n_og = _halo_pairs(rows, nown, d.excl, geom, ALA_CUTOFF)
+    out["bound"] = bound(tensor_bytes(rows, d.q, d.sig, d.eps, d.types, d.excl) + 12 * nown,
+                         pair_flops(n_oo, "ewald") + n_og * PAIR_FLOPS["ewald"])
+    out["pairs"] = n_oo + n_og
+    times = _one_at_a_time(lambda: dict(
+        ms=_mesh_ms(lambda: kh.halo_energy_forces(h.data, cfg_nb, rows, nown, geom), dev),
+        # the plain version at f32 (seconds a call): the kernel entry's layout only
+        plain_ms=_mesh_ms(lambda: kh.halo_reference(h.data, cfg_nb, rows, nown, geom), dev,
+                          calls=cfg["plain_calls"], warmup=1) if want_refs else None))
+    out.update(times)
+    del d64, pot_p, f_p
+
+    # a zero-velocity step: the summed energy and the half-kick forces
+    _, out["e0"], _ = h.step(1)
+    _, v = h.gather()
+    out["f0"] = 2.0 * masses * v / (TIMESTEP / TIMEFACTOR)
+    del h
+
+    def unsharded(f, precision="single", free=False):
+        system = System(n, 1, precision)
+        system.set_positions(pos0[:, :, None])
+        system.set_box(box)
+        system.set_velocities(vel0[None])
+        Integrator(system, f, HALO_FREE_DT if free else TIMESTEP,
+                   constraints=None if free else "hbonds").step(niter=cfg["steps"])
+        return np.array(system.pos[0], np.float64)
+
+    for key, hh in (("nve_pos", halo(constraints=cs)), ("free_pos", halo(HALO_FREE_DT))):
+        hh.init(pos0, vel0)
+        hh.step(cfg["steps"])
+        out[key] = hh.gather()[0]
+        del hh
+    if want_refs:
+        e_ref = forces.compute(pos0[None], box[None])[0]
+        f_ref = forces.last_forces[0].double().cpu().numpy()
+        # the references: the unsharded runs at f64 (the torch-op path);
+        # the f32 floors: the unsharded f32 runs' distances from them; the
+        # fault controls: the unsharded f32 runs with every charge larger
+        f64 = _halo_forces(par, box, dev, "double")
+
+        def charged(e):
+            par_c = copy.copy(par)
+            par_c.charges = np.asarray(par.charges) * (1.0 + e)
+            return _halo_forces(par_c, box, dev)
+
+        def far(a, b):
+            d = a - b
+            return float(np.abs(d - box * np.round(d / box)).max())
+
+        refs = dict(e0=e_ref, f0=f_ref)
+        for key, free, e in (("nve", False, WATER_CONTROL_Q[1]),
+                             ("free", True, HALO_FREE_CONTROL_Q)):
+            ref, ref32 = unsharded(f64, "double", free), unsharded(forces, free=free)
+            refs.update({f"{key}_pos": ref, f"{key}_pos32": ref32,
+                         f"{key}_floor": far(ref32, ref),
+                         f"{key}_control": far(unsharded(charged(e), free=free), ref)})
+        out["refs"] = refs
+
+    # timed Langevin, the counters reset just before and read just after
+    h = halo(constraints=cs, T=TEMP, gamma=MESH_T_GAMMA, seed=2)
+    h.init(pos0, vel0)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _mesh_sync(dev)
+    kh.LAUNCHES = kb.LAUNCHES = 0
+    mesh.calls.clear()
+    mesh.bytes.clear()
+    t1 = time.perf_counter()
+    temps = [h.step(cfg["t_chunk"])[2] for _ in range(cfg["t_steps"] // cfg["t_chunk"])]
+    _mesh_sync(dev)
+    out.update(sps=cfg["t_steps"] / (time.perf_counter() - t1),
+               mean_T=float(np.mean(temps[len(temps) // 2:])),
+               launches={"halo": kh.LAUNCHES, "bonded": kb.LAUNCHES},
+               collectives=dict(mesh.calls), moved=dict(mesh.bytes),
+               migrations=h.migrations, growths=len(h.overflow_log),
+               overflow_log=h.overflow_log, comm_bytes_per_step=h.spec.comm_bytes_per_step(),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30 if on_card else 0.0,
+               finite=bool(np.all(np.isfinite(h.gather()[0]))))
+    return out
+
+
+def phase_halo(cfg=None):
+    """Halo-exchange MD on the card (phase 31): every layout of
+    HALO_CFG["layouts"]; returns the halo kernel's entry (the one-rank
+    layout's times and bound, the largest error of every rank) and its
+    launches summed over the timed runs."""
+    from torchmd_tpu_torch.parallel.launch import Ranks
+
+    cfg = dict(HALO_CFG, **(cfg or {}))
+    dev = cfg["device"]
+    cores = len(os.sched_getaffinity(0))
+    refs, results, pool, key = None, {}, None, None
+    try:
+        for name in cfg["layouts"]:
+            world = HALO_LAYOUTS[name][0]
+            backend = cfg["w1_backend"] if world == 1 else "gloo"
+            t0 = time.perf_counter()
+            if (world, backend) != key:
+                # consecutive layouts of one world size share its ranks
+                if pool is not None:
+                    pool.close()
+                key = (world, backend)
+                pool = Ranks(world, backend=backend, device=dev,
+                             threads=max(1, cores // world), timeout=900)
+            results[name] = pool.run(_rank_halo, cfg, name, refs is None)
+            refs = refs or results[name][0]["refs"]
+            _check_halo_layout(cfg, name, backend, results[name], refs)
+            log("halo_wall", layout=name, seconds=f"{time.perf_counter() - t0:.1f}")
+    finally:
+        if pool is not None:
+            pool.close()
+    every = [o for outs in results.values() for o in outs]
+    one = results[cfg["layouts"][0]][0]
+    return (dict(ms=one["ms"], plain_ms=one["plain_ms"], bound=one["bound"],
+                 max_abs_err=max(o["max_abs_err"] for o in every)),
+            sum(o["launches"]["halo"] for o in every))
+
+
+def _check_halo_layout(cfg, name, backend, outs, refs):
+    """The lines and gates of one layout of phase_halo (its ranks' results
+    `outs`, the unsharded references `refs`)."""
+    world = HALO_LAYOUTS[name][0]
+    L = np.asarray(outs[0]["spec"].box)
+    fscale = float(np.abs(refs["f0"]).max())
+    for r, o in enumerate(outs):
+        e_rel = abs(o["e0"] - refs["e0"]) / abs(refs["e0"])
+        f_rel = float(np.abs(o["f0"] - refs["f0"]).max()) / fscale
+
+        def dev_from(pos, ref):
+            d = pos - ref
+            return float(np.abs(d - L * np.round(d / L)).max())
+
+        # per NVE run: its distance from the unsharded f64 run and from the
+        # unsharded f32 run, the limit (WATER_FLOOR_FACTOR x the f32 floor)
+        nve = {k: (dev_from(o[f"{k}_pos"], refs[f"{k}_pos"]),
+                   dev_from(o[f"{k}_pos"], refs[f"{k}_pos32"]),
+                   WATER_FLOOR_FACTOR * refs[f"{k}_floor"]) for k in ("free", "nve")}
+        steps = cfg["t_steps"] + cfg["t_chunk"] * o["growths"]
+        log("halo", layout=name, world=world, backend=backend, rank=r,
+            transport=o["transport"], rows=o["rows"], owned_cap=o["nown"],
+            pairs=o["pairs"], kernel_e_rel=f"{o['e_err']:.3e}",
+            kernel_f_rel=f"{o['f_err']:.3e}", ms=o["ms"],
+            plain_f32_ms=o["plain_ms"], bound_ms=f"{o['bound'][0]:.5f}",
+            bound_by=o["bound"][1], e0_rel_vs_unsharded=f"{e_rel:.3e}",
+            f0_rel_vs_unsharded=f"{f_rel:.3e}",
+            steps_per_s=f"{o['sps']:.2f}", mean_T=f"{o['mean_T']:.2f}",
+            migrations=o["migrations"], growths=o["growths"],
+            halo_launches=o["launches"]["halo"], bonded_launches=o["launches"]["bonded"],
+            comm_bytes_per_step=o["comm_bytes_per_step"], moved_bytes=o["moved"],
+            peak_gib=f"{o['peak_gib']:.2f}", setup_s=f"{o['setup_s']:.1f}")
+        for k, (d64, d32, limit) in nve.items():
+            log("halo_nve", layout=name, rank=r, run=k,
+                dt_fs=HALO_FREE_DT if k == "free" else TIMESTEP,
+                constraints="none" if k == "free" else "hbonds",
+                dev_vs_f64_A=f"{d64:.3e}", f32_floor_A=f"{refs[k + '_floor']:.3e}",
+                limit_A=f"{limit:.3e}", charge_control_A=f"{refs[k + '_control']:.3e}",
+                control_q=HALO_FREE_CONTROL_Q if k == "free" else WATER_CONTROL_Q[1],
+                dev_vs_f32_A=f"{d32:.3e}", within_mesh_traj_tol=d32 <= MESH_TRAJ_TOL)
+            require(d64 <= limit, f"halo {name} rank {r}: NVE ({k}) {d64} A off the "
+                    f"unsharded f64 run, beyond {WATER_FLOOR_FACTOR} x the f32 floor "
+                    f"{refs[k + '_floor']} A")
+            require(refs[k + "_control"] > limit, f"the halo charge control ({k}) moved "
+                    f"only {refs[k + '_control']} A")
+        require(nve["free"][1] <= MESH_TRAJ_TOL, f"halo {name} rank {r}: NVE without "
+                f"constraints {nve['free'][1]} A off the unsharded f32 run")
+        log("halo_collectives", layout=name, rank=r, steps=cfg["t_steps"],
+            **o["collectives"])
+        require(o["e_err"] <= HALO_KERNEL_E_REL and o["f_err"] <= HALO_KERNEL_F_REL,
+                f"halo {name} rank {r}: kernel vs plain f64 {o['e_err']}, {o['f_err']}")
+        require(e_rel <= HALO_E_REL and f_rel <= HALO_F_REL,
+                f"halo {name} rank {r}: zero-velocity step vs unsharded {e_rel}, {f_rel}")
+        require(abs(o["mean_T"] - TEMP) <= MESH_T_TOL, f"halo {name}: mean T {o['mean_T']}")
+        require(o["launches"] == {"halo": steps, "bonded": steps},
+                f"halo {name} rank {r}: launches {o['launches']} (one halo kernel and one "
+                "bonded launch a step)")
+        require(o["finite"], f"halo {name}: non-finite positions")
+
+
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -5360,39 +5723,49 @@ def _kernel_entry(name, source, replaces, launches, t):
             "bound_by": t["bound"][1], "library_ms": None}
 
 
+def walled(phase, *args):
+    """phase(*args), its wall time logged as a `[phase_wall]` line."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log("phase_wall", of=phase.__name__[len("phase_"):],
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
 def main():
-    phase_device()
-    phase_build()
-    times = phase_kernels()
-    times.update(phase_water_kernels())
-    phase_dense_pme()
-    times.update(phase_column_kernels())
-    phase_parity()
-    thr_launches, api_steps_per_s, thr_profile = phase_dynamics()
-    water_launches, water_sps = phase_waterbox()
-    npt_launches, _ = phase_npt()
-    cli_launches, _ = phase_cli(api_steps_per_s)
-    phase_external()
-    prod_launches, prod_sps, prod_profile = phase_production(api_steps_per_s, thr_profile)
-    mc_launches = phase_mc_barostat()
-    phase_cmap()
-    mts_launches = phase_mts_thrombin(prod_sps, prod_profile)
-    mts_water_launches, times["column_rf"] = phase_mts_water()
-    recip_launches = phase_recip_tier(water_sps)
-    phase_alanine_mtk()
-    phase_verlet(api_steps_per_s)
-    times.update(phase_replica_kernels())
-    gb_launches, _ = phase_gbsa()
-    remd_launches, _, _ = phase_remd()
-    metad_launches, _ = phase_metad()
-    alch_launches = phase_alchemy()
-    phase_amoeba()
-    drude_launches, _ = phase_drude()
-    swm4_launches = phase_drude_swm4()
-    phase_nnp()
-    phase_train()
-    mesh_times = phase_mesh()
-    times["roofline"], probe_launches = phase_roofline()
+    walled(phase_device)
+    walled(phase_build)
+    times = walled(phase_kernels)
+    times.update(walled(phase_water_kernels))
+    walled(phase_dense_pme)
+    times.update(walled(phase_column_kernels))
+    walled(phase_parity)
+    thr_launches, api_steps_per_s, thr_profile = walled(phase_dynamics)
+    water_launches, water_sps = walled(phase_waterbox)
+    npt_launches, _ = walled(phase_npt)
+    cli_launches, _ = walled(phase_cli, api_steps_per_s)
+    walled(phase_external)
+    prod_launches, prod_sps, prod_profile = walled(phase_production, api_steps_per_s, thr_profile)
+    mc_launches = walled(phase_mc_barostat)
+    walled(phase_cmap)
+    mts_launches = walled(phase_mts_thrombin, prod_sps, prod_profile)
+    mts_water_launches, times["column_rf"] = walled(phase_mts_water)
+    recip_launches = walled(phase_recip_tier, water_sps)
+    walled(phase_alanine_mtk)
+    walled(phase_verlet, api_steps_per_s)
+    times.update(walled(phase_replica_kernels))
+    gb_launches, _ = walled(phase_gbsa)
+    remd_launches, _, _ = walled(phase_remd)
+    metad_launches, _ = walled(phase_metad)
+    alch_launches = walled(phase_alchemy)
+    walled(phase_amoeba)
+    drude_launches, _ = walled(phase_drude)
+    swm4_launches = walled(phase_drude_swm4)
+    walled(phase_nnp)
+    walled(phase_train)
+    mesh_times = walled(phase_mesh)
+    halo_time, halo_launches = walled(phase_halo)
+    times["roofline"], probe_launches = walled(phase_roofline)
     # the dense pair and bonded kernels' main paths: the API's dynamics,
     # the CLI's run, the production protocol's and its r-RESPA run, the
     # GB/OBC run, metadynamics, alchemy and lambda-dynamics, the Drude
@@ -5456,6 +5829,12 @@ def main():
                       mesh_times["pair_rows"][1], mesh_times["pair_rows"][0]),
         _kernel_entry("cell_slab", src + "cell.cu", "torchmd_tpu/ops/pallas_cell.py:238",
                       mesh_times["cell_slab"][1], mesh_times["cell_slab"][0]),
+        # the halo form of #4's tile walk (the JAX halo's pair stage is
+        # plain arrays, torchmd_tpu/parallel/halo.py:620-688): the one-rank
+        # layout's times and bound, launches summed over every layout's
+        # timed run
+        _kernel_entry("halo", src + "halo.cu", "torchmd_tpu/ops/pallas_cell.py:238",
+                      halo_launches, halo_time),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5480,6 +5859,11 @@ if __name__ == "__main__":
         phase_device()
         phase_build()
         phase_mesh()
+    elif sys.argv[1:2] == ["--halo"]:
+        # the halo-exchange MD phase alone
+        phase_device()
+        phase_build()
+        phase_halo()
     elif sys.argv[1:2] == ["--remd-seeds"]:
         # a measurement, not the smoke test: the REMD phase's T spread
         phase_device()

@@ -1,5 +1,5 @@
 """Rank functions of the port's mesh tests (`test_torch_parallel.py`,
-`test_torch_spatial.py`), run on the ranks of a `parallel.launch.Ranks`
+`test_torch_spatial.py`, `test_torch_halo.py`), run on the ranks of a `parallel.launch.Ranks`
 pool. The ranks import this module to unpickle the functions, so it
 imports neither JAX nor the JAX package: systems are built with the
 port's own front end, and every result goes back as numpy.
@@ -255,3 +255,67 @@ def train_steps(rank, spec):
                                    t(spec["e_ref"]))
         losses.append(float(loss))
     return np.asarray(losses), state.params["lj"].detach().numpy()
+
+
+# ----------------------------------------------------------------------
+# Halo-exchange MD (test_torch_halo.py)
+# ----------------------------------------------------------------------
+
+def neighbour_shifts(rank, spec):
+    """`Mesh.ppermute` of a rank-stamped tensor along both axes of a
+    (dp, sp) mesh of spec["shape"], by shifts 1, -1 and 2, over
+    spec["transport"]: (coords, {(axis, shift): received}, calls,
+    bytes, transport)."""
+    mesh = make_mesh(axes=("dp", "sp"), shape=spec["shape"], device="cpu",
+                     transport=spec["transport"])
+    x = torch.arange(6.0).reshape(2, 3) + 100.0 * rank
+    got = {(axis, shift): mesh.ppermute(x, axis, shift).numpy()
+           for axis in ("dp", "sp") for shift in (1, -1, 2)}
+    return mesh.coords, got, dict(mesh.calls), dict(mesh.bytes), mesh.transport
+
+
+def halo_inputs(spec):
+    """(FFParams, ForceTermConfig, exclusion table, constraints, virtual
+    sites) of a halo spec: the JAX package's FFParams as numpy
+    (spec["ffp"], a dict) with its config (spec["cfg"]) and exclusion
+    table, or a system built here (spec["system"], with SETTLE)."""
+    from torchmd_tpu_torch import interop
+    from torchmd_tpu_torch.constraints import build_constraint_spec
+    from torchmd_tpu_torch.neighbors import build_exclusion_table
+    from torchmd_tpu_torch.potentials import ForceTermConfig
+
+    if "ffp" in spec:
+        dtype = torch.float64 if spec.get("precision", "double") == "double" else torch.float32
+        return (interop.ffparams_from_numpy(spec["ffp"], dtype=dtype),
+                ForceTermConfig(**spec["cfg"]), spec.get("excl"), None, None)
+    mol, par, fkw = system_of(spec)
+    forces = Forces(par, precision="double", device="cpu", **fkw)
+    masses = np.asarray(par.masses, np.float64).reshape(-1, 1)
+    cs = build_constraint_spec(par, masses, mode="settle", device="cpu", dtype=torch.float64)
+    return (forces.ffparams, forces.config, build_exclusion_table(par, mol.numAtoms), cs,
+            forces.vsites)
+
+
+def run_halo(rank, spec):
+    """A HaloMD run on this rank's mesh (spec["axes"], spec["shape"];
+    the halo over spec["axis"]): init from spec["pos"], spec["vel"]; the
+    capacities of spec["plant"] set after init; spec["chunks"] calls of
+    step(spec["niter"]). Returns the gathered state, the per-chunk (ekin,
+    epot, T), the counters and the capacities before and after."""
+    torch.set_num_threads(1)
+    from torchmd_tpu_torch.parallel import HaloMD
+
+    ffp, cfg, excl, cs, vsites = halo_inputs(spec)
+    mesh = make_mesh(axes=spec["axes"], shape=spec.get("shape"), device="cpu")
+    h = HaloMD(ffp, cfg, mesh, spec["box"], excl_table=excl, timestep=spec["timestep"],
+               T=spec.get("T"), gamma=spec.get("gamma"), axis=spec["axis"],
+               seed=spec.get("seed", 1), constraints=cs, vsites=vsites)
+    h.init(spec["pos"], spec["vel"])
+    if spec.get("plant"):
+        h.spec = h.spec._replace(**spec["plant"])
+    start = h.spec
+    out = np.asarray([h.step(spec["niter"]) for _ in range(spec["chunks"])])
+    pos, vel = h.gather()
+    return dict(pos=pos, vel=vel, ekin=out[:, 0], epot=out[:, 1], T=out[:, 2],
+                migrations=h.migrations, overflow_log=h.overflow_log, start=start,
+                spec=h.spec, calls=dict(mesh.calls), bytes=dict(mesh.bytes))

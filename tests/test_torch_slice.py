@@ -59,6 +59,8 @@ SLICE_MODULES = (
     "torchmd_tpu_torch.amoeba_valence", "torchmd_tpu_torch.amoeba",
     "torchmd_tpu_torch.parallel", "torchmd_tpu_torch.parallel.mesh",
     "torchmd_tpu_torch.parallel.spatial", "torchmd_tpu_torch.parallel.launch",
+    "torchmd_tpu_torch.parallel.halo", "torchmd_tpu_torch.parallel.halo_bonded",
+    "torchmd_tpu_torch.ops.halo",
 )
 # names of the JAX package's __all__ whose modules are not ported yet
 # (none since the device mesh, ROADMAP item 21, was ported)

@@ -559,18 +559,21 @@ class Forces:
         return fast, slow, recip
 
     # ------------------------------------------------------------------
-    def ensure_ewald(self, box):
+    def ensure_ewald(self, box, exact=None):
         """Build (once) the reciprocal term for a concrete box and switch
         the pair terms to erfc-damped real space: the exact Ewald sum
         (`EwaldRecip`) for elec='ewald' below PME_AUTO_N atoms, smooth PME
-        (`PmeRecip`) otherwise."""
+        (`PmeRecip`) otherwise. `exact` True or False picks the exact sum
+        or PME at any size instead."""
         if self.elec_mode == "auto" or self._ewald is not None:
             return self._ewald
         from .ewald import EwaldRecip, PmeRecip
 
         box = np.asarray(box, np.float64).reshape(-1)[:3]
         excl = self.par.get_exclusions(types=self.exclusions)
-        if self.elec_mode == "ewald" and self.natoms < PME_AUTO_N:
+        if exact is None:
+            exact = self.elec_mode == "ewald" and self.natoms < PME_AUTO_N
+        if exact:
             self._ewald = EwaldRecip(self.ffparams.charges, box, self.cutoff,
                                      excl_pairs=excl)
         else:

@@ -221,7 +221,15 @@ def _inv_norm(v):
 def _family_physics(fam, pos, idx, p, box):
     """(e_main, e_aux, [force per atom slot]) of one family's real rows:
     the function of pallas_bonded._physics."""
-    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+    e_main, e_aux, forces = _family_rows(fam, pos, idx, p, box)
+    return e_main.sum(), e_aux.sum(), forces
+
+
+def _family_rows(fam, pos, idx, p, box):
+    """`_family_physics` row by row: (e_main (rows,), e_aux (rows,),
+    [force per atom slot]); e_aux is the 1-4 electrostatics (zeros for
+    the other kinds)."""
+    zero = torch.zeros(idx.shape[0], dtype=pos.dtype, device=pos.device)
     if fam.kind == "bond":
         d = _delta(pos, idx[:, 0], idx[:, 1], box)
         d2 = _dot(d, d)
@@ -234,7 +242,7 @@ def _family_physics(fam, pos, idx, p, box):
             keep = (r <= fam.cutoff).to(pos.dtype)
             e, coeff = e * keep, coeff * keep
         f = (coeff * rinv)[:, None] * d
-        return e.sum(), zero, [-f, f]
+        return e, zero, [-f, f]
     if fam.kind == "angle":
         r21 = _delta(pos, idx[:, 0], idx[:, 1], box)
         r23 = _delta(pos, idx[:, 2], idx[:, 1], box)
@@ -251,7 +259,7 @@ def _family_physics(fam, pos, idx, p, box):
         ab = (coeff * n21 * n23)[:, None]
         f0 = a21 * r21 - ab * r23
         f2 = a23 * r23 - ab * r21
-        return (p[:, 0] * dt_ * dt_).sum(), zero, [f0, -(f0 + f2), f2]
+        return p[:, 0] * dt_ * dt_, zero, [f0, -(f0 + f2), f2]
     if fam.kind == "torsion":
         r12 = _delta(pos, idx[:, 0], idx[:, 1], box)
         r23 = _delta(pos, idx[:, 1], idx[:, 2], box)
@@ -277,7 +285,7 @@ def _family_physics(fam, pos, idx, p, box):
         f0 = (-coeff * normD * inA * inA)[:, None] * A
         f3 = (coeff * normD * inB * inB)[:, None] * B
         s = (_dot(r12, r23) * in2D)[:, None] * f0 - (_dot(r34, r23) * in2D)[:, None] * f3
-        return e.sum(), zero, [-f0, f0 + s, f3 - s, -f3]
+        return e, zero, [-f0, f0 + s, f3 - s, -f3]
     # nb14
     d = _delta(pos, idx[:, 0], idx[:, 1], box)
     rinv = _inv_norm(d)
@@ -287,11 +295,11 @@ def _family_physics(fam, pos, idx, p, box):
     if fam.flags & 1:
         rinv6 = rinv2 * rinv2 * rinv2
         rinv12 = rinv6 * rinv6
-        e_lj = (p[:, 0] * rinv12 - p[:, 1] * rinv6).sum()
+        e_lj = p[:, 0] * rinv12 - p[:, 1] * rinv6
         coeff = coeff + (-12.0 * p[:, 0] * rinv12 + 6.0 * p[:, 1] * rinv6) * rinv2
     if fam.flags & 2:
         p_e = p[:, 2] * rinv
-        e_el = p_e.sum()
+        e_el = p_e
         coeff = coeff - p_e * rinv2
     f = coeff[:, None] * d
     return e_lj, e_el, [-f, f]

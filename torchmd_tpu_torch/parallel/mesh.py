@@ -13,6 +13,18 @@ and carries the collectives the sharded paths use:
   - `all_reduce(x, axis)`: sum;
   - `reduce_scatter(x, axis)`: sum, then this rank's block of dim 0;
   - `any(flag, axis)`: OR of a bool flag;
+  - `ppermute(x, axis, shift)`: this rank's x to its neighbour `shift`
+    places on along the axis (periodic), and the x of the rank `shift`
+    places back in return (`jax.lax.ppermute` with the permutation
+    [(i, (i + shift) % n)], the halo's `fwd` and `bwd`). Its transport
+    is fixed when the mesh is built: "p2p" (`batch_isend_irecv`, where
+    the backend takes point-to-point on the mesh's tensors: NCCL, and
+    gloo on host tensors) or "all_gather" (gloo on CUDA tensors, which
+    its point-to-point does not take: every rank of the line gathers the
+    blocks and keeps its neighbour's). It is counted in `calls` as
+    "ppermute_<transport>" and the bytes this rank received in `bytes`;
+    over an axis of one rank it is a local copy (NCCL refuses a send to
+    self);
   - `all_gather_d` and `all_reduce_d`: differentiable forms, for the
     trainer, with the adjoints of `torch.distributed.nn.functional`: the
     objective is the sum of every rank's own loss, so all_gather's
@@ -38,6 +50,7 @@ rank is no call).
 
 from __future__ import annotations
 
+import logging
 import math
 import warnings
 from collections import Counter
@@ -47,6 +60,20 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "make_mesh", "mesh_shape", "replica_sharding", "shard_replicas"]
+
+TRANSPORTS = ("p2p", "all_gather")
+_log = logging.getLogger(__name__)
+
+
+def default_transport(backend, device) -> str:
+    """The neighbour shift's transport for a backend and the mesh's
+    device: point-to-point where the backend takes it on such tensors
+    (NCCL; gloo on the host), else the all_gather form (gloo on CUDA
+    tensors: the `torch.distributed` backend table gives gloo no send or
+    recv on them)."""
+    if str(backend) == "gloo" and torch.device(device).type == "cuda":
+        return "all_gather"
+    return "p2p"
 
 
 def mesh_shape(n: int, axes=("dp", "sp"), shape=None) -> tuple:
@@ -71,7 +98,8 @@ class Mesh:
     global index is row-major over the axes (the JAX package reshapes
     its device list the same way)."""
 
-    def __init__(self, axes, shape, device, backend, rank, groups):
+    def __init__(self, axes, shape, device, backend, rank, groups, members=None,
+                 transport=None):
         self.axis_names = tuple(axes)
         self.shape = dict(zip(self.axis_names, shape))
         self.size = math.prod(shape)
@@ -80,11 +108,18 @@ class Mesh:
         self.device = torch.device(device)
         self.backend = backend
         self._groups = groups
+        # the global ranks of this rank's line along each axis, in order
+        self._members = members or {}
+        self.transport = transport or default_transport(backend, self.device)
+        if self.transport not in TRANSPORTS:
+            raise ValueError(f"transport {self.transport!r}: one of {TRANSPORTS}")
         self.calls: Counter = Counter()
+        self.bytes: Counter = Counter()
 
     def __repr__(self):
         return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "
-                f"device={self.device}, backend={self.backend})")
+                f"device={self.device}, backend={self.backend}, "
+                f"transport={self.transport})")
 
     def index(self, axis) -> int:
         return self.coords[axis]
@@ -137,6 +172,31 @@ class Mesh:
     def any(self, flag, axis):
         """OR of a bool tensor over the ranks of the axis."""
         return self.all_reduce(flag.to(torch.int32), axis) > 0
+
+    def ppermute(self, x, axis, shift):
+        """x of the rank `shift` places back along the axis (periodic);
+        this rank's x goes to the rank `shift` places on. Every rank of
+        the line calls it with the same shape and shift."""
+        n = self.shape[axis]
+        if n == 1 or shift % n == 0:
+            return x.clone()
+        x = x.contiguous()
+        k = self.coords[axis]
+        name = f"ppermute_{self.transport}"
+        self.calls[name] += 1
+        if self.transport == "all_gather":
+            blocks = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+            dist.all_gather_into_tensor(blocks, x, group=self.group(axis))
+            self.bytes[name] += (n - 1) * x.numel() * x.element_size()
+            return blocks.view((n,) + tuple(x.shape))[(k - shift) % n].clone()
+        line = self._members[axis]
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, line[(k + shift) % n], self.group(axis)),
+               dist.P2POp(dist.irecv, out, line[(k - shift) % n], self.group(axis))]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        self.bytes[name] += x.numel() * x.element_size()
+        return out
 
     # ------------------------------------------------------------------
     def all_gather_d(self, x, axis):
@@ -193,7 +253,7 @@ def _unravel(rank, shape):
 
 
 def make_mesh(n_devices: Optional[int] = None, axes=("dp", "sp"), shape=None,
-              device=None) -> Mesh:
+              device=None, transport=None) -> Mesh:
     """This rank's `Mesh` over the initialised default process group
     (`torch.distributed.init_process_group`, or `parallel.launch`).
     `n_devices` must be the world size when given; the axes split as
@@ -201,7 +261,9 @@ def make_mesh(n_devices: Optional[int] = None, axes=("dp", "sp"), shape=None,
     makes a process group for every line of every axis. `device`
     defaults to the card `cuda:{rank % cards}` on either backend, as the
     port's entry points default to the card; without a card it must be
-    given (`"cpu"` for a gloo group on the host)."""
+    given (`"cpu"` for a gloo group on the host). `transport` is the
+    neighbour shift's ("p2p" or "all_gather"; default
+    `default_transport(backend, device)`), logged at INFO."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "torch.distributed.init_process_group (or use "
@@ -219,7 +281,7 @@ def make_mesh(n_devices: Optional[int] = None, axes=("dp", "sp"), shape=None,
                 "make_mesh: no CUDA device; the mesh runs on the card unless asked "
                 "otherwise: pass device='cpu' for a gloo group on the host")
         device = f"cuda:{rank % torch.cuda.device_count()}"
-    groups = {}
+    groups, lines = {}, {}
     for a, axis in enumerate(axes):
         # the lines along `axis`: ranks that differ only in that coordinate
         for r in range(n):
@@ -232,8 +294,11 @@ def make_mesh(n_devices: Optional[int] = None, axes=("dp", "sp"), shape=None,
                 members.append(_ravel(coord, shape))
             group = dist.new_group(members)
             if rank in members:
-                groups[axis] = group
-    return Mesh(axes, shape, device, backend, rank, groups)
+                groups[axis], lines[axis] = group, members
+    mesh = Mesh(axes, shape, device, backend, rank, groups, lines, transport)
+    _log.info("mesh %s: backend %s, neighbour shifts by %s", mesh.shape, backend,
+              mesh.transport)
+    return mesh
 
 
 def _ravel(coord, shape):

@@ -133,10 +133,15 @@ def bond_energy(table: TermTable, pos, box, cutoff=None):
 
 def g96_bond_energy(table: TermTable, pos, box):
     """GROMOS-96 quartic bond: E = kq (r^2 - b0^2)^2, rows [kq, b0]."""
+    return g96_bond_rows(table, pos, box).sum()
+
+
+def g96_bond_rows(table: TermTable, pos, box):
+    """`g96_bond_energy` per assignment row (instance `table.map_term`)."""
     p = table.params[table.map_param]
     dv = _gather_disp(pos, table.idx[:, 0], table.idx[:, 1], box)
     x = (dv * dv).sum(1)[table.map_term] - p[:, 1] * p[:, 1]
-    return (p[:, 0] * x * x).sum()
+    return p[:, 0] * x * x
 
 
 def _cos_angle(table, pos, box):
@@ -148,9 +153,14 @@ def _cos_angle(table, pos, box):
 
 def g96_angle_energy(table: TermTable, pos, box):
     """GROMOS-96 cosine angle: E = kc (cos th - cos th0)^2, rows [kc, cos0]."""
+    return g96_angle_rows(table, pos, box).sum()
+
+
+def g96_angle_rows(table: TermTable, pos, box):
+    """`g96_angle_energy` per assignment row (instance `table.map_term`)."""
     p = table.params[table.map_param]
     x = _cos_angle(table, pos, box)[table.map_term] - p[:, 1]
-    return (p[:, 0] * x * x).sum()
+    return p[:, 0] * x * x
 
 
 def angle_energy(table: TermTable, pos, box):

@@ -105,7 +105,7 @@ Phases (each prints lines; any failure raises and exits non-zero):
      for the work these inputs need);
   4. parity: thrombin's Forces on the kernel path against autograd of the
      port's compute_potentials at f32;
-  5. dynamics: thrombin, a warm-up chunk, then 1,000 timed Langevin steps
+  5. dynamics: thrombin, a warm-up chunk, then TIMED_STEPS timed Langevin steps
      with the launch counters reset just before and read just after, a
      profiler breakdown (device busy share, the pair and bonded kernels'
      shares of a step's device time); 10 NVE steps on the kernel path
@@ -373,7 +373,7 @@ CUTOFF, RFA, TEMP, GAMMA = 7.3, True, 300.0, 0.1
 # limit (the JAX package integrates the same numbers). 2 fs stays stable;
 # the work per step, and so steps/s, does not depend on the timestep.
 TIMESTEP = 2.0
-TIMED_STEPS = 1000
+TIMED_STEPS = 200
 WARMUP_STEPS = 100
 E_TOL, F_TOL = 2e-5, 5e-5     # tests/test_pallas.py:51-57 bars
 MESH_TOL = 1e-5               # spread: max |d mesh| <= MESH_TOL * max |mesh|
@@ -393,7 +393,7 @@ ODD_MESH = {"water216": 45, "water-full": 75}
 # waters, 10,976 sites in a 43.5 A box
 DENSE_PME_N = 14
 WATER_TERMS = ["bonds", "lj", "electrostatics"]
-WATER_WARMUP, WATER_STEPS, WATER_CHUNK = 100, 300, 100
+WATER_WARMUP, WATER_STEPS, WATER_CHUNK = 50, 100, 100
 # 10 steps from one state at ~440 K, kernel path f32 against the plain
 # path at f32 and f64: SETTLE's velocity correction (pos_c - pos) / dt
 # turns f32 rounding of the absolute coordinates (an ulp is 7.6e-6 A
@@ -408,9 +408,14 @@ WATER_CONTROL_Q = (1e-3, 1e-2)   # relative charge errors of the fault controls
 WATER_TAU = 200.0             # fs, the Nose-Hoover chain's time constant
 # NVE from one state, kernel path f32 against the plain path f64: the two
 # trajectories part at the rounding floor above, so their energy changes
-# (each +12 to +26 kcal/mol over 100 steps, run to run) differ by that
-# spread; they agree within NVE_DH_TOL kcal/mol
+# over 100 steps (+12 to +26 kcal/mol run to run from the state after 400
+# NVT steps; +43.7 plain and +49.1 kernels in one run after WATER_WARMUP
+# + WATER_STEPS = 150) differ by that spread; they agree within
+# NVE_DH_TOL kcal/mol
 NVE_STEPS, NVE_DH_TOL = 100, 20.0
+# calls (after one warm-up) when the ~0.2 s plain cell and column
+# references are timed
+PLAIN_CALLS = 3
 KERNEL_SOURCES = ("nonbonded", "bonded", "cell", "pme", "column", "roofline", "halo")
 # Device ms per call of the lane-per-pair cell and column kernels that the
 # tile walk replaced, at the full box's state (lowest and highest of three
@@ -441,7 +446,7 @@ PROBE_N, PROBE_TILE = 4676, 512
 MXRED_TOL = 1e-5
 # NPT phase: scripts/bench_waterbox.py's second phase, 1 bar, tau_p 2000 fs
 NPT_PRESSURE, NPT_TAU_P = 1.0, 2000.0
-NPT_WARMUP, NPT_STEPS, NPT_CHUNK = 100, 300, 100
+NPT_WARMUP, NPT_STEPS, NPT_CHUNK = 100, 200, 100
 NPT_VOLUME_RANGE = (0.7, 1.4)     # final volume over the lattice's
 # the kernel's per-axis virial: 3 multiplies and 3 adds per pair
 VIRIAL_FLOPS = 6
@@ -502,12 +507,12 @@ PROD_TIMESTEP, PROD_STEPS, PROD_PERIOD, PROD_HMR = 4.0, 1000, 50, 3.0
 PROD_XH, PROD_T_TOL, PROD_SHAKE_ULPS = 2319, 15.0, 10.0
 # the restrained leg: C-alpha atoms held to the start by k RESTRAINT_K
 # kcal/mol/A^2, RESTRAINT_STEPS steps of the production protocol
-RESTRAINT_K, RESTRAINT_STEPS = 1.0, 200
+RESTRAINT_K, RESTRAINT_STEPS = 1.0, 100
 # the Monte Carlo phase: the NVT water box plus MonteCarloBarostat(MC_PRESSURE
 # bar, TEMP, groups = waters, seed MC_SEED), an attempt after each MC_CHUNK
 # steps for MC_STEPS steps; then aniso (scale_axes x, z) and membrane moves
 # on the 216-water box, MC_SMALL_ATTEMPTS each with dV_max MC_SMALL_DV of V
-MC_PRESSURE, MC_SEED, MC_STEPS, MC_CHUNK = 1.0, 5, 500, 25
+MC_PRESSURE, MC_SEED, MC_STEPS, MC_CHUNK = 1.0, 5, 250, 25
 MC_VOLUME_RANGE = (0.7, 1.4)
 MC_SMALL_ATTEMPTS, MC_SMALL_CHUNK, MC_SMALL_DV = 30, 10, 0.002
 # the CMAP check: a 5-atom chain with one cross-term on a CMAP_N x CMAP_N
@@ -541,8 +546,14 @@ AR {n}
 # steps in chunks of PROD_PERIOD, then MTS_TIMED steps through the API
 # and a profile beside the production phase's (MTS_STEPS 1,000 before the
 # device mesh's phases joined; 500 keep the whole script within 1,200 s
-# on a slow host, where it took 1,015 s)
-MTS_N, MTS_STEPS, MTS_TIMED = 2, 500, 200
+# on a slow host, where it took 1,015 s; MTS_TIMED 200 before the halo
+# phase grew, with the timing depth of other phases: TIMED_STEPS,
+# WATER_WARMUP, WATER_STEPS, NPT_STEPS, RESTRAINT_STEPS, MC_STEPS,
+# RECIP_STEPS, RECIP_NVE_STEPS, ALA_STEPS and METAD_STEPS were 1,000, 100,
+# 300, 300, 200, 500, 300, 200, 500 and 1,000, and the plain versions'
+# timings of the ~0.2 s cell and column references 5 calls; no gate or
+# tolerance changed, and no count a tolerance was set on)
+MTS_N, MTS_STEPS, MTS_TIMED = 2, 500, 50
 # scripts/bench_mts.py's water in the port: MTS_WATER_N^3 flexible SPC/Fw
 # waters on the 3.104 A lattice, cutoff 8.5 A, reaction field, NVE on the
 # defaults of Forces; after MTS_WATER_WARM steps of CSVR at 0.5 fs from
@@ -591,13 +602,14 @@ SOL {nw}
 # the 62.5k-site box's NVT phase with the reciprocal tier (PME every
 # RECIP_R outer steps), RECIP_STEPS steps in WATER_CHUNK chunks; NVE legs
 # of RECIP_NVE_STEPS steps with and without the tier from one state
-RECIP_R, RECIP_STEPS, RECIP_NVE_STEPS = 2, 300, 200
+RECIP_R, RECIP_STEPS, RECIP_NVE_STEPS = 2, 100, 100
 # the alanine dipeptide box under MTK with SHAKE through the CLI (its
 # ACEMD input: 688 atoms, cutoff 9 A, switching from 7.5 A), the exact
 # Ewald sum, X-H bonds constrained, hydrogens x3, 4 fs, NHC at 300 K, 1 bar
 ALA_SYSTEM = "prod_alanine_dipeptide_amber"
-# (ALA_STEPS 1,000 before the device mesh's phases joined; see MTS_STEPS)
-ALA_STEPS, ALA_PERIOD, ALA_CUTOFF, ALA_SWITCH = 500, 50, 9.0, 7.5
+# (ALA_STEPS 1,000 before the device mesh's phases joined, then 500; see
+# MTS_STEPS)
+ALA_STEPS, ALA_PERIOD, ALA_CUTOFF, ALA_SWITCH = 250, 50, 9.0, 7.5
 ALA_CHECK_STEPS, ALA_POS_TOL, ALA_VIRIAL_TOL = 10, 1e-3, 1e-5
 # Verlet lists on thrombin: VERLET_STEPS Langevin steps at 2 fs, timed
 VERLET_WARMUP, VERLET_STEPS = 20, 200
@@ -634,7 +646,7 @@ REMD_WARMUP, REMD_SAMPLE = 200, 10
 # well-tempered metadynamics on the ligand (residue MOL) - pocket (protein
 # heavy atoms within METAD_POCKET A of it at the start) COM distance in GB
 METAD_POCKET, METAD_BIASF, METAD_HEIGHT, METAD_SIGMA = 6.0, 10.0, 0.3, 0.2
-METAD_STRIDE, METAD_STEPS, METAD_SHORT, METAD_DX = 50, 1000, 100, 0.01
+METAD_STRIDE, METAD_STEPS, METAD_SHORT, METAD_DX = 50, 500, 100, 0.01
 LIGAND = "MOL"
 # alchemy and lambda-dynamics on the ligand: ALCH_STEPS Langevin steps at
 # lam = 0.5; LD_STEPS steps of lambda-dynamics; LD_CHECK_STEPS steps at f32
@@ -872,10 +884,23 @@ def tip4p_water(origin):
     return np.stack([o, h1, h2, o])
 
 
+_WATER = {}
+
+
 def build_water(n, spacing, jitter, precision="single"):
     """(mol, par, box edge) of an n^3 TIP4P/2005 lattice: origins at
     g * spacing + 0.8 plus seed-0 normal jitter of 0.05 A (the bench), or
-    g * spacing + 0.9 without jitter (the 216-water test box)."""
+    g * spacing + 0.9 without jitter (the 216-water test box). Built once
+    for each set of arguments; every call gets its own copy."""
+    import copy
+
+    key = (n, spacing, jitter, precision)
+    if key not in _WATER:
+        _WATER[key] = _build_water(*key)
+    return copy.deepcopy(_WATER[key])
+
+
+def _build_water(n, spacing, jitter, precision):
     from torchmd_tpu_torch.forcefields import ForceField
     from torchmd_tpu_torch.io import Molecule
     from torchmd_tpu_torch.parameters import Parameters
@@ -1494,7 +1519,7 @@ def phase_water_kernels():
         out["cell"] = dict(
             ms=cuda_events_ms(lambda: kc.cell_energy_forces(d32, cfg, clcfg, cl, p32, b32)),
             plain_ms=cuda_events_ms(lambda: kc.cell_reference(d32, cfg, clcfg, cl, p32, b32),
-                                    calls=5, warmup=1),
+                                    calls=PLAIN_CALLS, warmup=1),
             bound=bound(tensor_bytes(p32, d32.q, d32.sig, d32.eps, cl.slots,
                                      cl.counts, d32.excl, p32),
                         pair_flops(npairs, "ewald")),
@@ -2013,7 +2038,8 @@ def phase_column_kernels():
             ms=cuda_events_ms(lambda: kcol.column_energy_forces(
                 data, cfg, ck.ccfg, st, p32, b32, with_virial=True)),
             plain_ms=cuda_events_ms(lambda: kcol.column_reference(
-                data, cfg, ck.ccfg, st, p32, b32, with_virial=True), calls=5, warmup=1),
+                data, cfg, ck.ccfg, st, p32, b32, with_virial=True),
+                calls=PLAIN_CALLS, warmup=1),
             bound=bound(tensor_bytes(p32, data.q, data.sig, data.eps, data.excl, st.islot,
                                      st.jslot, st.jzshift, st.wstart, p32), flops),
             work=(f"pairs_in_cutoff={npairs} window_slot_pairs={windows} "
@@ -2024,7 +2050,8 @@ def phase_column_kernels():
             ms=cuda_events_ms(lambda: kc.cell_energy_forces(
                 kk.data, cfg, kk.clcfg, cl, p32, b32, with_virial=True)),
             plain_ms=cuda_events_ms(lambda: kc.cell_reference(
-                kk.data, cfg, kk.clcfg, cl, p32, b32, with_virial=True), calls=5, warmup=1),
+                kk.data, cfg, kk.clcfg, cl, p32, b32, with_virial=True),
+                calls=PLAIN_CALLS, warmup=1),
             bound=bound(tensor_bytes(p32, data.q, data.sig, data.eps, cl.slots, cl.counts,
                                      data.excl, p32), flops),
             work=(f"pairs_in_cutoff={npairs} cell_slot_pairs={cell_visited} "
@@ -2633,7 +2660,7 @@ def phase_production(api_steps_per_s, thr_profile):
     integ.step(niter=TIMED_STEPS)
     torch.cuda.synchronize()
     sps4 = TIMED_STEPS / (time.perf_counter() - t0)
-    prof4 = profile_water_step(integ, 1.0 / sps4, steps=50, label="production_profile",
+    prof4 = profile_water_step(integ, 1.0 / sps4, steps=20, label="production_profile",
                                shares=("pair_", "bonded", "index_add"))
     log("production_vs_2fs", api_4fs_steps_per_s=f"{sps4:.2f}",
         api_4fs_ns_per_day=f"{sps4 * PROD_TIMESTEP * 1e-6 * 86400:.3f}",
@@ -3041,7 +3068,7 @@ def spcfw_column_check(forces, pos_np, box_np):
         max_abs_err=err,
         ms=cuda_events_ms(lambda: kcol.column_energy_forces(data, cfg, ccfg, st, p32, b32)),
         plain_ms=cuda_events_ms(lambda: kcol.column_reference(data, cfg, ccfg, st, p32, b32),
-                                calls=5, warmup=1),
+                                calls=PLAIN_CALLS, warmup=1),
         bound=bound(tensor_bytes(p32, data.q, data.sig, data.eps, data.excl, st.islot,
                                  st.jslot, st.jzshift, st.wstart, p32),
                     pair_flops(npairs, "rfa")))
@@ -5086,7 +5113,7 @@ def _rank_water(rank, cfg):
                                                               slab=s_k), dev),
                     plain_ms=_mesh_ms(lambda: kc.cell_reference(d32, ncfg, clcfg, cl, p32, b32,
                                                                 slab=s_k),
-                                      dev, calls=5, warmup=1))
+                                      dev, calls=PLAIN_CALLS, warmup=1))
 
     def other_layouts():
         """Rank 0 checks and times the slabs of 1 and 4 ranks too."""
@@ -5480,6 +5507,90 @@ def _halo_pairs(rows, nown, excl, geom, cutoff):
     return inner // 2, outer
 
 
+HALO_MAX_DEVICE_OPS = 6   # device operations of one halo call (memset + 5 kernels)
+
+
+def halo_kernel_class(name):
+    """The part of a halo call a device operation belongs to: `walk`
+    (halo_kernel), `finish` (finish_parts), `prep` (csrc/halo.cu's other
+    kernels, halo_*, and memsets) or `other` (torch ops)."""
+    import re
+
+    if "halo_kernel" in name:
+        return "walk"
+    if "finish_parts" in name:
+        return "finish"
+    if re.search(r"\bhalo_", name) or "emset" in name:
+        return "prep"
+    return "other"
+
+
+def _device_ops(fn, calls=10):
+    """torch.profiler over `calls` calls of fn(): (device operations a
+    call, {kernel name: (device us, count) a call})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    kernels = [e for e in prof.key_averages() if dev_us(e) > 0 and e.cpu_time_total == 0]
+    return (sum(e.count for e in kernels) / calls,
+            {e.key: (dev_us(e) / calls, e.count / calls) for e in kernels})
+
+
+def _halo_prep_checks(h, cfg_nb, rows, nown, geom, dev, split=False):
+    """The halo kernel's device prep against its plain version on the
+    CPU, bit for bit; two calls alike, bit for bit; the prep's overflow
+    flag; the walk's counters; with `split` (on the card) the device
+    operations of a call and their microseconds by part."""
+    import torch
+
+    from torchmd_tpu_torch.ops import halo as kh
+
+    out = {}
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    cpu = h.data._replace(**{k: v.cpu() for k, v in h.data._asdict().items()
+                             if torch.is_tensor(v)})
+    want = kh.halo_tiles_reference(cpu, cfg_nb, rows.cpu(), nown, geom)
+    if dev.type == "cuda":
+        got = kh.halo_tiles(h.data, cfg_nb, rows, nown, geom, overflow=flag)
+    else:
+        got = kh.halo_tiles_reference(h.data, cfg_nb, rows, nown, geom)
+    out["prep_bitwise"] = all(
+        a.shape == b.shape and torch.equal(a.contiguous().cpu().view(torch.int32),
+                                           b.contiguous().view(torch.int32))
+        for a, b in zip(got, want))
+    out["tiles"] = int(want.tile_cell.shape[0])
+    stats = torch.zeros(len(kh.STATS), dtype=torch.int64, device=dev)
+    (pot_a, f_a), (pot_b, f_b) = [
+        kh.halo_energy_forces(h.data, cfg_nb, rows, nown, geom, overflow=flag,
+                              stats=stats if k == 0 and dev.type == "cuda" else None)
+        for k in range(2)]
+    out["deterministic"] = bool(torch.equal(f_a, f_b) and all(
+        torch.equal(pot_a[k], pot_b[k]) for k in pot_a))
+    out["overflow"] = int(flag[0])
+    walk = dict(zip(kh.STATS, (int(v) for v in stats.tolist())))
+    walk["active_lane_share"] = walk["lane_rounds"] / max(1, 32 * walk["rounds"])
+    out["walk"] = walk
+    if split and dev.type == "cuda":
+        ops, us = _device_ops(lambda: kh.halo_energy_forces(h.data, cfg_nb, rows, nown, geom))
+        part = {"prep": 0.0, "walk": 0.0, "finish": 0.0, "other": 0.0}
+        for k, (v, _) in us.items():
+            part[halo_kernel_class(k)] += v
+        out["split"] = dict(device_ops=ops, **{f"{k}_us": round(v, 3)
+                                               for k, v in part.items()})
+    return out
+
+
 def _rank_halo(rank, cfg, name, want_refs):
     """One rank of a halo layout (see the block comment above); with
     `want_refs` (the one-rank layout) also the unsharded port's references:
@@ -5541,6 +5652,7 @@ def _rank_halo(rank, cfg, name, want_refs):
     out["bound"] = bound(tensor_bytes(rows, d.q, d.sig, d.eps, d.types, d.excl) + 12 * nown,
                          pair_flops(n_oo, "ewald") + n_og * PAIR_FLOPS["ewald"])
     out["pairs"] = n_oo + n_og
+    out.update(_halo_prep_checks(h, cfg_nb, rows, nown, geom, dev, split=want_refs))
     times = _one_at_a_time(lambda: dict(
         ms=_mesh_ms(lambda: kh.halo_energy_forces(h.data, cfg_nb, rows, nown, geom), dev),
         # the plain version at f32 (seconds a call): the kernel entry's layout only
@@ -5714,6 +5826,18 @@ def _check_halo_layout(cfg, name, backend, outs, refs):
                 f"halo {name} rank {r}: launches {o['launches']} (one halo kernel and one "
                 "bonded launch a step)")
         require(o["finite"], f"halo {name}: non-finite positions")
+        log("halo_prep", layout=name, rank=r, tiles=o["tiles"],
+            prep_bitwise_vs_plain=o["prep_bitwise"], deterministic=o["deterministic"],
+            overflow_flag=o["overflow"], **o["walk"])
+        require(o["prep_bitwise"], f"halo {name} rank {r}: the device prep differs from "
+                "its plain version")
+        require(o["deterministic"], f"halo {name} rank {r}: two calls differ")
+        require(o["overflow"] == 0, f"halo {name} rank {r}: a cell of {o['overflow']} rows "
+                f"beyond the prep's cap")
+        if "split" in o:
+            log("halo_split", layout=name, rank=r, ms=o["ms"], **o["split"])
+            require(o["split"]["device_ops"] <= HALO_MAX_DEVICE_OPS,
+                    f"halo {name}: {o['split']['device_ops']} device operations a call")
 
 
 def _kernel_entry(name, source, replaces, launches, t):

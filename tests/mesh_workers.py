@@ -319,3 +319,40 @@ def run_halo(rank, spec):
     return dict(pos=pos, vel=vel, ekin=out[:, 0], epot=out[:, 1], T=out[:, 2],
                 migrations=h.migrations, overflow_log=h.overflow_log, start=start,
                 spec=h.spec, calls=dict(mesh.calls), bytes=dict(mesh.bytes))
+
+
+def halo_prep_overflow(rank, spec):
+    """HaloMD's two reads of the pair kernel's prep flag, this rank's set
+    to a count of spec["planted"] + rank rows by hand (the plain pair
+    stage has no cap and never sets it): set before a step (the per-step
+    read), set by the one step's pair stage (the chunk end's read), then
+    a step with the flag cleared by the error. The errors, or None."""
+    torch.set_num_threads(1)
+    from torchmd_tpu_torch.parallel import HaloMD
+
+    ffp, cfg, excl, _, _ = halo_inputs(spec)
+    mesh = make_mesh(axes=spec["axes"], shape=spec.get("shape"), device="cpu")
+    h = HaloMD(ffp, cfg, mesh, spec["box"], excl_table=excl, timestep=spec["timestep"],
+               axis=spec["axis"])
+    h.init(spec["pos"], np.zeros_like(spec["pos"]))
+    count, pair_stage = spec["planted"] + rank, h._forces
+
+    def planted(*args):
+        out = pair_stage(*args)
+        h._prep_over.fill_(count)
+        return out
+
+    def error():
+        try:
+            h.step(1)
+        except RuntimeError as e:
+            return str(e)
+        return None
+
+    h._prep_over.fill_(count)
+    out = dict(step=error())
+    h._forces = planted
+    out["chunk"] = error()
+    h._forces = pair_stage
+    out["cleared"] = error()
+    return out

@@ -20,8 +20,14 @@ JAX):
   - a planted too-small Gcap2 (pencils) and Mcap (slabs): every
     capacity grows, the log names the one that overflowed, and the run
     ends equal to one that never overflowed;
-  - `gpu`: the halo kernel against its plain version (skips without a
-    card).
+  - the kernel's layout: its plain prep pass (`halo_tiles_reference`)
+    against a numpy recomputation of the contract, on the gas and edge
+    cases;
+  - HaloMD's two reads of the prep flag, set by hand on one rank and on
+    2 slabs: each raises naming the fullest rank's count and its rank;
+  - `gpu`: the halo kernel against its plain version, its device prep
+    bit for bit the plain prep, two calls bit-identical, a planted
+    over-full cell (skip without a card).
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import torch
 
 import mesh_workers as mw
 from torchmd_tpu_torch.ops import halo as khalo
-from torchmd_tpu_torch.ops.cell import prepare_cell_data
+from torchmd_tpu_torch.ops.cell import CellData, prepare_cell_data
 from torchmd_tpu_torch.parallel import launch
 from torchmd_tpu_torch.parallel.halo import HaloSpec, make_halo_spec
 from torchmd_tpu_torch.units import BOLTZMANN
@@ -514,38 +520,294 @@ def test_cuda_halo_kernel_matches_plain(wrap_y):
             1.0, float(f_p.abs().max()))
 
 
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _on(data, dev):
+    return data._replace(**{k: v.to(dev) for k, v in data._asdict().items()
+                            if torch.is_tensor(v)})
+
+
+def _assert_same_bits(got, want):
+    """Every field of two HaloTiles equal bit for bit."""
+    for field, a, b in zip(want._fields, got, want):
+        a, b = a.contiguous().cpu(), b.contiguous().cpu()
+        assert a.shape == b.shape, field
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), field
+
+
+def _slab_geom(wrap_y=True):
+    return khalo.HaloGeom(box=(L_GAS,) * 3, wrap=(False, wrap_y, True),
+                          lo=(-11.0, -11.0, 0.0), hi=(L_GAS + 11.0,) * 2 + (L_GAS,))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("wrap_y", [True, False])
-def test_kernel_walk_order(wrap_y):
-    """The kernel's walk order (`ops.halo.halo_layout`, torch ops, the same
-    on either device) on one rank's rows with padding: every real row
-    once, cell-major, each cell's owned rows before its ghosts, each row
-    in the cell of its binned coordinates, 32-row tiles per cell."""
-    forces, pos, _ = _jax_system("gas")
+def test_cuda_halo_prep_matches_plain_prep(wrap_y):
+    """The kernel's device prep pass (`halo_tiles`) equals its plain
+    version bit for bit (packed rows, tile boxes, each slot's row, each
+    tile's cell) on one rank's rows of the charged gas and the NBFIX gas;
+    the overflow flag stays 0."""
+    dev = _card()
+    for name in ("gas", "nbfix"):
+        forces, pos, excl = _jax_system(name, port=True)
+        d32 = prepare_cell_data(forces.ffparams, excl, dtype=torch.float32)
+        rows = torch.as_tensor(_one_rank_rows(pos, L_GAS, CUTOFF + 2.0, wrap_y)).float()
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = khalo.halo_tiles(_on(d32, dev), forces.config, rows.to(dev), len(pos),
+                               _slab_geom(wrap_y), overflow=flag)
+        want = khalo.halo_tiles_reference(d32, forces.config, rows, len(pos),
+                                          _slab_geom(wrap_y))
+        _assert_same_bits(got, want)
+        assert int(flag) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrap_y", [True, False])
+def test_cuda_halo_kernel_is_deterministic(wrap_y):
+    """Two calls of the halo kernel on the same rows give bit-identical
+    forces and energies (the prep's atomics leave no trace in the layout,
+    two force additions onto zero commute)."""
+    dev = _card()
+    forces, pos, excl = _jax_system("gas", port=True)
+    d32 = _on(prepare_cell_data(forces.ffparams, excl, dtype=torch.float32), dev)
+    rows = torch.as_tensor(_one_rank_rows(pos, L_GAS, CUTOFF + 2.0, wrap_y)).float().to(dev)
+    (pot_a, f_a), (pot_b, f_b) = [
+        khalo.halo_energy_forces(d32, forces.config, rows, len(pos), _slab_geom(wrap_y))
+        for _ in range(2)]
+    assert torch.equal(f_a, f_b)
+    assert all(torch.equal(pot_a[k], pot_b[k]) for k in pot_a)
+
+
+@pytest.mark.gpu
+def test_cuda_halo_prep_overflow_raises():
+    """1,100 ghost rows planted in one cell, beyond the cutoff of every
+    owned row: the prep sorts the cell from device memory, bit for bit the
+    plain prep (no row dropped), raises the flag to the cell's count,
+    `check_overflow` raises naming it, and the forces stay the plain
+    version's."""
+    dev = _card()
+    forces, pos, excl = _jax_system("gas", port=True)
+    rs = np.random.RandomState(4)
+    k = 1100
+    plant = np.concatenate([(np.arange(k) % len(pos))[:, None].astype(np.float64),
+                            rs.uniform([-11.0, 1.0, 1.0], [-10.2, 2.0, 2.0], (k, 3))], 1)
+    rows = torch.as_tensor(np.concatenate([_one_rank_rows(pos, L_GAS, CUTOFF + 2.0, True),
+                                           plant]))
+    geom, nown = _slab_geom(), len(pos)
+    d32 = prepare_cell_data(forces.ffparams, excl, dtype=torch.float32)
+    want = khalo.halo_tiles_reference(d32, forces.config, rows.float(), nown, geom)
+    cells = want.tile_cell.long().repeat_interleave(khalo.TILE)
+    count = int(torch.bincount(cells[want.rowof >= 0]).max())
+    assert count > khalo.PREP_CAP
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = khalo.halo_tiles(_on(d32, dev), forces.config, rows.float().to(dev), nown, geom,
+                           overflow=flag)
+    _assert_same_bits(got, want)
+    assert int(flag) == count
+    with pytest.raises(RuntimeError, match=f"a cell holds {count} rows"):
+        khalo.check_overflow(flag)
+    pot_k, f_k = khalo.halo_energy_forces(_on(d32, dev), forces.config, rows.float().to(dev),
+                                          nown, geom)
+    pot_p, f_p = khalo.halo_reference(prepare_cell_data(forces.ffparams, excl),
+                                      forces.config, rows, nown, geom)
+    for key in pot_p:
+        assert abs(float(pot_k[key]) - float(pot_p[key])) <= 2e-3 + 2e-5 * abs(
+            float(pot_p[key]))
+    assert float((f_k.double().cpu() - f_p).abs().max()) < 5e-5 * max(
+        1.0, float(f_p.abs().max()))
+
+
+# ----------------------------------------------------------------------
+# The kernel's layout: its plain prep pass against the contract
+# ----------------------------------------------------------------------
+
+def _contract_layout(rows, nown, geom, cutoff, natoms):
+    """numpy recomputation of the layout contract (csrc/halo.cu): per real
+    row its binned coordinates (f32: a wrapped axis takes x - L floor(x
+    * f32(1 / L))) and its cell, clamped at an unwrapped end; rows sorted
+    by (cell, ghost, Morton index of the 4x4x4 sub-cell, row); each cell
+    in ceil(count / 32) tiles. Returns (expected rowof, binned (M, 3),
+    each tile's cell)."""
+    f32 = np.float32
+    rows = np.asarray(rows, f32)
+    m = len(rows)
+    ids = rows[:, 0].astype(np.int64)
+    real = ids < natoms
+    xyz, cell3, sub = [], [], []
+    for a, (o, nc, s) in enumerate(khalo.grid(geom, cutoff)):
+        x = rows[:, 1 + a]
+        if geom.wrap[a]:
+            L = f32(geom.box[a])
+            x = x - L * np.floor(x * f32(1.0 / float(geom.box[a])))
+        f = (x - f32(o)) * f32(s)
+        c = np.clip(np.floor(f), 0, nc - 1)
+        sub.append(np.clip(((f - c) * f32(4)).astype(np.int64), 0, 3))
+        xyz.append(x)
+        cell3.append(c.astype(np.int64))
+    dims = [nc for _, nc, _ in khalo.grid(geom, cutoff)]
+    cell = (cell3[0] * dims[1] + cell3[1]) * dims[2] + cell3[2]
+    morton = sum(((sub[a] >> b) & 1) << (3 * b + a) for b in range(2) for a in range(3))
+    ghost = np.arange(m) >= nown
+    order = sorted(np.nonzero(real)[0], key=lambda r: (cell[r], ghost[r], morton[r], r))
+    counts = np.bincount(cell[real], minlength=int(np.prod(dims)))
+    rowof = []
+    for c in range(len(counts)):
+        mine = [r for r in order if cell[r] == c]
+        rowof += mine + [-1] * (-len(mine) % 32)
+    tile_cell = np.repeat(np.arange(len(counts)), -(-counts // 32))
+    return np.asarray(rowof, np.int64), np.stack(xyz, 1), tile_cell
+
+
+def _check_layout(tiles, rows, nown, geom, cutoff, natoms, q):
+    """HaloTiles against `_contract_layout`: the same slots, binned
+    coordinates, charges and ids on real slots, padding elsewhere, tight
+    boxes."""
+    rowof, xyz, tile_cell = _contract_layout(rows, nown, geom, cutoff, natoms)
+    np.testing.assert_array_equal(tiles.rowof.numpy(), rowof)
+    np.testing.assert_array_equal(tiles.tile_cell.numpy(), tile_cell)
+    real = rowof >= 0
+    ids = np.asarray(rows, np.float32)[:, 0].astype(np.int64)
+    pq, aux = tiles.pq.numpy(), tiles.aux.numpy()
+    np.testing.assert_array_equal(pq[real, :3], xyz[rowof[real]])
+    np.testing.assert_array_equal(pq[real, 3], np.asarray(q, np.float32)[ids[rowof[real]]])
+    np.testing.assert_array_equal(aux[:, 2].view(np.int32),
+                                  np.where(real, ids[rowof], natoms))
+    assert (pq[~real, :3] == np.float32(1e18)).all()
+    t = len(tile_cell)
+    x = pq[:, :3].reshape(t, 32, 3)
+    v = real.reshape(t, 32, 1)
+    np.testing.assert_array_equal(tiles.tbox[:, 0, :3].numpy(), np.where(v, x, np.inf).min(1))
+    np.testing.assert_array_equal(tiles.tbox[:, 1, :3].numpy(), np.where(v, x, -np.inf).max(1))
+
+
+def _gas_layout_case(wrap_y):
+    """(forces, CellData, rows, nown, HaloGeom) of the charged gas on one
+    rank's rows (built by the port alone), 5 padding rows after the owned
+    ones."""
+    forces, pos, excl = _jax_system("gas", port=True)
     rows = torch.as_tensor(_one_rank_rows(pos, L_GAS, CUTOFF + 2.0, wrap_y)).float()
     pad = torch.tensor([[float(len(pos)), 0.0, 0.0, 0.0]]).expand(5, -1)
-    nown = len(pos) + 5
     rows = torch.cat([rows[:len(pos)], pad, rows[len(pos):]])
     geom = khalo.HaloGeom(box=(L_GAS,) * 3, wrap=(False, wrap_y, True),
                           lo=(-11.0, -11.0, 0.0), hi=(L_GAS + 11.0,) * 2 + (L_GAS,))
-    xyz, ids, order, cells, cstart, tstart, counts, owned, nc, ntiles = khalo.halo_layout(
-        rows, nown, geom, CUTOFF, len(pos))
-    real = (ids < len(pos)).numpy()
-    order, cells = order.long().numpy(), cells.long().numpy()
-    m = int(real.sum())
-    assert (cells[:m] >= 0).all() and (cells[m:] == -1).all()
-    assert sorted(order[:m]) == list(np.nonzero(real)[0])
-    assert (np.diff(cells[:m]) >= 0).all()
-    g = khalo.grid(geom, CUTOFF)
-    c3 = [np.clip(np.floor((xyz[:, a].numpy() - g[a][0]) * g[a][2]), 0, g[a][1] - 1)
-          for a in range(3)]
-    flat = ((c3[0] * nc[1] + c3[1]) * nc[2] + c3[2]).astype(int)
-    assert (flat[order[:m]] == cells[:m]).all()
-    ghost = order[:m] >= nown
-    for c in range(int(np.prod(nc))):
-        sel = cells[:m] == c
-        assert not np.any(np.diff(ghost[sel].astype(int)) < 0)
-    counts, owned = counts.long().numpy(), owned.long().numpy()
-    assert counts.sum() == m and owned.sum() == len(pos)
-    assert (np.diff(cstart.long().numpy()) == counts).all()
-    assert (np.diff(tstart.long().numpy()) == -(-counts // 32)).all()
-    assert ntiles >= int(tstart[-1])
+    data = prepare_cell_data(forces.ffparams, excl, dtype=torch.float32)
+    return forces, data, rows, len(pos) + 5, geom
+
+
+@pytest.mark.parametrize("wrap_y", [True, False])
+def test_kernel_walk_order(wrap_y):
+    """The kernel's walk order (`ops.halo.halo_tiles_reference`, the plain
+    version of its prep pass) on one rank's rows with padding: every real
+    row once, cell-major, each cell's owned rows before its ghosts, Morton
+    and then row order within a class, each row in the cell of its binned
+    coordinates, 32-row tiles per cell with tight boxes."""
+    forces, data, rows, nown, geom = _gas_layout_case(wrap_y)
+    tiles = khalo.halo_tiles_reference(data, forces.config, rows, nown, geom)
+    _check_layout(tiles, rows, nown, geom, CUTOFF, data.natoms, data.q)
+    assert (tiles.rowof.numpy() >= nown).any()
+
+
+def _layout_case(name):
+    """(rows (M, 4) f32, nown, HaloGeom, natoms) of a planted layout case;
+    60 atoms, cutoff CUTOFF."""
+    rs = np.random.RandomState(LAYOUT_CASES.index(name))
+    n = 60
+
+    def rows_of(ids, xyz):
+        return np.concatenate([np.asarray(ids, np.float64)[:, None], xyz], 1)
+
+    box, wrap, lo, hi = (L_GAS,) * 3, (False, True, True), (-9.0, 0.0, 0.0), (33.0, 0.0, 0.0)
+    if name == "beyond_unwrapped_end":
+        # rows past both ends of the unwrapped x region and on it
+        own = rows_of(range(40), rs.uniform(0, L_GAS, (40, 3)))
+        x = np.concatenate([rs.uniform(-20.0, -9.0, 10), rs.uniform(33.0, 45.0, 10)])
+        gh = rows_of(range(40, 60), np.stack([x, rs.uniform(0, L_GAS, 20),
+                                              rs.uniform(0, L_GAS, 20)], 1))
+        nown, rows = 40, np.concatenate([own, gh])
+    elif name in ("wrap_one_cell", "wrap_two_cells"):
+        # z wraps with one cell (L < 2 cutoffs is refused by the kernel, but
+        # the layout takes it) or two; coordinates outside [0, L) too
+        lz = 10.0 if name == "wrap_one_cell" else 15.0
+        box = (L_GAS, L_GAS, lz)
+        xyz = np.stack([rs.uniform(0, L_GAS, n), rs.uniform(0, L_GAS, n),
+                        rs.uniform(-lz, 2 * lz, n)], 1)
+        nown, rows = 45, rows_of(range(n), xyz)
+    elif name == "ghost_only_cells":
+        # owned rows in x [0, 8), ghosts fill x cells of their own
+        xyz = rs.uniform(0, L_GAS, (n, 3))
+        xyz[:30, 0] = rs.uniform(0, 7.5, 30)
+        xyz[30:, 0] = rs.uniform(16.0, 33.0, 30)
+        nown, rows = 30, rows_of(range(n), xyz)
+    elif name == "no_owned_rows":
+        nown, rows = 0, rows_of(range(n), rs.uniform(-9.0, 33.0, (n, 3)))
+    elif name == "padding_between":
+        # padding rows inside the owned block and between owned and ghosts
+        own = rows_of(range(30), rs.uniform(0, L_GAS, (30, 3)))
+        pad = rows_of([n] * 7, np.zeros((7, 3)))
+        gh = rows_of(range(30, 60), rs.uniform(-9.0, 33.0, (30, 3)))
+        nown, rows = 37 + 4, np.concatenate([own[:20], pad[:4], own[20:], pad[4:], gh])
+    else:
+        raise KeyError(name)
+    geom = khalo.HaloGeom(box=box, wrap=wrap, lo=lo, hi=hi)
+    return torch.as_tensor(rows).float(), nown, geom, n
+
+
+LAYOUT_CASES = ["beyond_unwrapped_end", "wrap_one_cell", "wrap_two_cells",
+                "ghost_only_cells", "no_owned_rows", "padding_between"]
+
+
+@pytest.mark.parametrize("name", LAYOUT_CASES)
+def test_layout_edge_cases(name):
+    """halo_tiles_reference on planted rows against the numpy contract:
+    rows beyond an unwrapped end (clamped into the end cells), a wrapped
+    axis of one and of two cells (coordinates wrapped into the box), cells
+    holding only ghosts, no owned rows, padding rows among the owned rows
+    and between owned and ghost rows."""
+    from torchmd_tpu_torch.potentials import ForceTermConfig
+
+    rows, nown, geom, n = _layout_case(name)
+    rs = np.random.RandomState(1)
+    data = CellData(natoms=n, q=torch.as_tensor(rs.randn(n), dtype=torch.float32),
+                    sig=torch.full((n,), 1.7), eps=torch.full((n,), 0.3),
+                    types=torch.zeros(n, dtype=torch.int32),
+                    excl=torch.full((n, 1), n, dtype=torch.int32))
+    cfg = ForceTermConfig(terms=("lj", "electrostatics"), cutoff=CUTOFF, rfa=True)
+    tiles = khalo.halo_tiles_reference(data, cfg, rows, nown, geom)
+    _check_layout(tiles, rows, nown, geom, CUTOFF, n, data.q)
+    ids = rows[:, 0].long()
+    assert sorted(tiles.rowof[tiles.rowof >= 0].tolist()) == torch.nonzero(ids < n)[:, 0].tolist()
+    cells = tiles.tile_cell.long()
+    if name == "beyond_unwrapped_end":
+        g = khalo.grid(geom, CUTOFF)
+        xcell = cells // (g[1][1] * g[2][1])
+        assert xcell.min() == 0 and xcell.max() == g[0][1] - 1
+    if name == "ghost_only_cells":
+        owned_tiles = {int(c) for c, r in zip(cells.repeat_interleave(32), tiles.rowof)
+                       if 0 <= r < nown}
+        assert set(cells.tolist()) - owned_tiles
+    if name == "wrap_one_cell":
+        assert khalo.grid(geom, CUTOFF)[2][1] == 1
+
+
+@pytest.mark.parametrize("layout", ["one", "slabs"])
+def test_prep_overflow_raises_through_halomd(ranks2, layout):
+    """The pair kernel's prep flag set on every rank (1,500 + rank rows,
+    by hand: the plain pair stage never sets it), before a step and by the
+    last step's pair stage: HaloMD's per-step read and its chunk end's
+    read each raise, naming the fullest rank's count and, across 2 slabs,
+    that rank; the error clears the flag and the next step runs."""
+    forces, pos, excl = _jax_system("gas")
+    spec = _halo_spec(forces, pos, np.zeros_like(pos), excl, timestep=1.0, planted=1500,
+                      **LAYOUTS[layout])
+    outs = ranks2.run(mw.halo_prep_overflow, spec)
+    for rank, o in enumerate(outs):
+        want = (f"a cell holds {1500 + rank} rows, more than the {khalo.PREP_CAP} "
+                if layout == "one" else
+                f"a cell holds 1501 rows on rank 1 of 2, more than the {khalo.PREP_CAP} ")
+        for read in ("step", "chunk"):
+            assert o[read] is not None and want in o[read], (read, o[read])
+        assert o["cleared"] is None

@@ -22,17 +22,25 @@ it (`parallel.halo` adds it).
 
 `halo_energy_forces(data, cfg, rows, nown, geom)` runs the plain version
 for a CPU tensor and launches the kernel (`csrc/halo.cu`, f32) for a CUDA
-tensor; on a CUDA tensor it launches or raises. The layout the kernel
-walks: the rows binned into cells of edge at least the cutoff over the
-rank's region (`HaloGeom.lo`/`hi` on an unwrapped axis, the box on a
-wrapped one), each cell's rows owned first and then along a Morton curve
-of 4x4x4 sub-cells, in tiles of 32; torch ops compute that order, the
-kernel packs the rows, boxes the tiles and walks them (`csrc/halo.cu`).
+tensor; on a CUDA tensor it launches or raises, and no torch op runs
+between `rows` and the launch. The layout the kernel walks, which its own
+prep pass builds on the device from the raw rows: the rows binned into
+cells of edge at least the cutoff over the rank's region (`HaloGeom.lo`/
+`hi` on an unwrapped axis, the box on a wrapped one, coordinates wrapped
+into it), cell-major; each cell's owned rows first, then its ghosts, each
+class along a Morton curve of 4x4x4 sub-cells and then by row index; 32
+rows a tile, each tile with its tight box. `halo_tiles_reference` is that
+prep pass's plain version and `halo_tiles` runs it alone on the card.
+The kernel sorts a cell of more than PREP_CAP rows from device memory
+(no row is dropped) and raises the optional `overflow` flag to its row
+count; `check_overflow` turns the flag into an error (`parallel.HaloMD`
+reads it with its per-step host read). The plain version has no cap.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -41,14 +49,15 @@ import torch
 from ..potentials import LJ_FAMILY, add_energy, nonbonded_block_energy_forces
 from ..units import ELEC_FACTOR
 from . import _build
-from .cell import CellData, pair_fields
-from .nonbonded import over_launches, supported_terms
+from .cell import CellData, pack_rows, pair_fields, tile_boxes
+from .nonbonded import STATS, over_launches, supported_terms
 
 # Kernel launches made by `halo_energy_forces` (one per call on CUDA)
 LAUNCHES = 0
 
 TILE = 32             # csrc/tile_pairs.cuh: rows per tile
-SUB = 4               # sub-cells per cell edge (Morton order)
+SUB = 4               # csrc/halo.cu: sub-cells per cell edge (Morton order)
+PREP_CAP = 1024       # csrc/halo.cu: rows a cell's prep block sorts in shared memory
 REFERENCE_ROWS = 256  # owned rows per block of the plain version (bounds memory)
 
 
@@ -130,36 +139,17 @@ def halo_reference(data: CellData, cfg, rows, nown, geom: HaloGeom):
 
 
 # ----------------------------------------------------------------------
-# CUDA kernel
+# The layout: the kernel's prep pass and its plain version
 # ----------------------------------------------------------------------
 
-class HaloCfg(ctypes.Structure):
-    """Mirror of `struct HaloCfg` in csrc/halo.cu."""
+class HaloTiles(NamedTuple):
+    """The layout the halo kernel walks, as its prep pass writes it."""
 
-    _fields_ = [(name, ctypes.c_int) for name in (
-        "natoms", "nrows", "nown", "ncx", "ncy", "ncz", "wrapx", "wrapy", "wrapz",
-        "ntiles", "nexcl", "ntypes", "lj_kind", "elec_kind", "use_switch")] + [
-        (name, ctypes.c_float) for name in (
-            "bx", "by", "bz", "cutoff2", "switch_dist", "inv_switch_width", "krf", "crf",
-            "ewald_alpha", "elec_factor")]
-
-
-_P = ctypes.c_void_p
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load("halo")
-        lib.tmd_halo_energy_forces.argtypes = [_P] * 15 + [HaloCfg] + [_P] * 4
-        lib.tmd_halo_energy_forces.restype = ctypes.c_int
-        lib.tmd_halo_scratch_bytes.argtypes = [HaloCfg]
-        lib.tmd_halo_scratch_bytes.restype = ctypes.c_longlong
-        lib.tmd_error_string.argtypes = [ctypes.c_int]
-        lib.tmd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    pq: torch.Tensor         # (S, 4) f32: binned x, y, z, q per slot
+    aux: torch.Tensor        # (S, 4) f32: sigma/2, sqrt|eps|, id, LJ type (int32 bits)
+    tbox: torch.Tensor       # (T, 2, 4) f32: lo and hi corner (w = 0) per tile
+    rowof: torch.Tensor      # (S,) int32: each slot's row of `rows` (-1: padding)
+    tile_cell: torch.Tensor  # (T,) int32: each tile's cell
 
 
 def grid(geom: HaloGeom, cutoff):
@@ -173,61 +163,145 @@ def grid(geom: HaloGeom, cutoff):
     return out
 
 
-def halo_layout(rows, nown, geom: HaloGeom, cutoff, natoms):
-    """The kernel's walk order of `rows` (f32 coordinates, torch ops on
-    rows' device): (binned coordinates (M, 3), ids, order, cells of the
-    sorted rows (-1: padding), cstart, tstart, counts, owned counts, grid
-    cells (ncx, ncy, ncz), tiles)."""
-    dev, m = rows.device, rows.shape[0]
+def _f32(x):
+    return float(np.float32(x))
+
+
+def _axes(geom: HaloGeom, cutoff):
+    """Per axis the binning's constants as csrc/halo.cu reads them, each
+    rounded to f32: (wraps, box edge, its reciprocal, origin, cells, cells
+    per A)."""
+    return [(bool(w), _f32(L), _f32(1.0 / float(L)), _f32(o), nc, _f32(s))
+            for w, L, (o, nc, s) in zip(geom.wrap, geom.box, grid(geom, cutoff))]
+
+
+def _cutoff(cfg):
+    return math.sqrt(pair_fields(cfg)["cutoff2"])
+
+
+def _bin(rows, nown, geom: HaloGeom, cutoff, natoms):
+    """csrc/halo.cu's `halo_bin` in torch ops, in its f32 arithmetic:
+    (ids (M,) int64, binned coordinates (M, 3) f32, each row's cell (-1:
+    padding) and class code ghost * 64 + Morton index, int64, and the
+    grid's cells per axis)."""
+    m = rows.shape[0]
     ids = rows[:, 0].to(torch.int64)
-    valid = ids < natoms
     xyz, cells, sub = [], [], []
-    g = grid(geom, cutoff)
-    for a, (o, nc, scale) in enumerate(g):
+    axes = _axes(geom, cutoff)
+    for a, (wrap, L, inv, o, nc, s) in enumerate(axes):
         x = rows[:, 1 + a].float()
-        if geom.wrap[a]:
-            L = float(geom.box[a])
-            x = x - L * torch.floor(x / L)
-        f = (x - o) * scale
+        if wrap:
+            x = x - L * torch.floor(x * inv)
+        f = (x - o) * s
         c = torch.clamp(torch.floor(f), 0, nc - 1)
-        s = torch.clamp(((f - c) * SUB).to(torch.int64), 0, SUB - 1)
+        sub.append(torch.clamp(((f - c) * SUB).to(torch.int64), 0, SUB - 1))
         xyz.append(x)
         cells.append(c.to(torch.int64))
-        sub.append(s)
-    ncx, ncy, ncz = (nc for _, nc, _ in g)
-    ncells = ncx * ncy * ncz
-    cell = (cells[0] * ncy + cells[1]) * ncz + cells[2]
-    morton = torch.zeros_like(cell)
+    dims = tuple(ax[4] for ax in axes)
+    cell = (cells[0] * dims[1] + cells[1]) * dims[2] + cells[2]
+    cell = torch.where(ids < natoms, cell, torch.full_like(cell, -1))
+    code = (torch.arange(m, device=rows.device) >= nown).to(torch.int64) * 64
     for bit in range(2):
         for ax in range(3):
-            morton = morton | (((sub[ax] >> bit) & 1) << (3 * bit + ax))
-    ghost = (torch.arange(m, device=dev) >= nown).to(torch.int64)
-    key = torch.where(valid, (cell * 2 + ghost) * 64 + morton,
-                      torch.full_like(cell, ncells * 128))
-    skey, order = torch.sort(key, stable=True)
-    cell_sorted = torch.where(skey < ncells * 128, skey // 128, torch.full_like(skey, -1))
-    cv = torch.where(valid, cell, torch.full_like(cell, ncells))
-
-    def count(c):
-        # scatter_add: torch.bincount on CUDA reads its size on the host
-        return torch.zeros(ncells + 1, dtype=torch.int64, device=dev).scatter_add_(
-            0, c, torch.ones_like(c))[:ncells]
-
-    counts = count(cv)
-    owned = count(torch.where(ghost == 0, cv, torch.full_like(cv, ncells)))
-    zero = torch.zeros(1, dtype=torch.int64, device=dev)
-    cstart = torch.cat([zero, torch.cumsum(counts, 0)])
-    tstart = torch.cat([zero, torch.cumsum((counts + TILE - 1) // TILE, 0)])
-    i32 = torch.int32
-    return (torch.stack(xyz, 1).contiguous(), ids.to(i32).contiguous(),
-            order.to(i32).contiguous(), cell_sorted.to(i32).contiguous(),
-            cstart.to(i32).contiguous(), tstart.to(i32).contiguous(),
-            counts.to(i32).contiguous(), owned.to(i32).contiguous(), (ncx, ncy, ncz),
-            ncells + -(-m // TILE))
+            code = code | (((sub[ax] >> bit) & 1) << (3 * bit + ax))
+    return ids, torch.stack(xyz, 1), cell, code, dims
 
 
-def _launch(data: CellData, cfg, rows, nown, geom: HaloGeom):
-    global LAUNCHES
+def halo_tiles_reference(data: CellData, cfg, rows, nown, geom: HaloGeom) -> HaloTiles:
+    """Plain version of the halo kernel's prep pass, torch ops on the
+    device of `rows` (f32 coordinates): each real row once, cell-major;
+    within a cell the owned rows, then the ghosts, each class in Morton
+    order of its sub-cells and then by row index; each cell in
+    ceil(count / 32) tiles of 32 slots, the last one padded; each tile's
+    tight box over its rows."""
+    n, dev = data.natoms, rows.device
+    m = rows.shape[0]
+    ids, xyz, cell, code, dims = _bin(rows, nown, geom, _cutoff(cfg), n)
+    ncells = math.prod(dims)
+    valid = cell >= 0
+    r = torch.arange(m, device=dev)
+    key = torch.where(valid, (cell * 128 + code) * m + r, torch.full_like(r, ncells * 128 * m))
+    order = torch.argsort(key)[:int(valid.sum())]
+    counts = torch.bincount(cell[valid], minlength=ncells)
+    ntile = (counts + TILE - 1) // TILE
+    cell_s = cell[order]
+    first = (torch.cumsum(ntile, 0) - ntile) * TILE - (torch.cumsum(counts, 0) - counts)
+    slot = first[cell_s] + torch.arange(len(order), device=dev)
+    nslots = int(ntile.sum()) * TILE
+    ids_s = torch.full((nslots,), n, dtype=torch.int64, device=dev)
+    ids_s[slot] = ids[order]
+    xyz_s = torch.zeros((nslots, 3), dtype=torch.float32, device=dev)
+    xyz_s[slot] = xyz[order]
+    valid_s = torch.zeros(nslots, dtype=torch.bool, device=dev)
+    valid_s[slot] = True
+    rowof = torch.full((nslots,), -1, dtype=torch.int32, device=dev)
+    rowof[slot] = order.to(torch.int32)
+    pq, aux = pack_rows(xyz_s, ids_s, valid_s, data.q, data.sig, data.eps, n, data.types)
+    tile_cell = torch.repeat_interleave(torch.arange(ncells, device=dev), ntile)
+    return HaloTiles(pq, aux, tile_boxes(xyz_s, valid_s), rowof, tile_cell.to(torch.int32))
+
+
+def overflow_error(count, rank=0, ranks=1) -> RuntimeError:
+    """The error of a cell of `count` rows, beyond PREP_CAP, on halo rank
+    `rank` of `ranks`."""
+    where = "" if ranks == 1 else f" on rank {rank} of {ranks}"
+    return RuntimeError(
+        f"halo pair kernel: a cell holds {count} rows{where}, more than the {PREP_CAP} its "
+        "prep pass sorts in shared memory (it sorted them from device memory: no row was "
+        "dropped, but such a cell means atoms piled up far beyond any liquid density)")
+
+
+def check_overflow(overflow):
+    """Raise `overflow_error` if the `overflow` flag of
+    `halo_energy_forces` / `halo_tiles` is set (a host read)."""
+    count = int(overflow.max())
+    if count > 0:
+        raise overflow_error(count)
+
+
+# ----------------------------------------------------------------------
+# CUDA kernel
+# ----------------------------------------------------------------------
+
+class HaloCfg(ctypes.Structure):
+    """Mirror of `struct HaloCfg` in csrc/halo.cu."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "natoms", "nrows", "nown", "ncx", "ncy", "ncz", "wrapx", "wrapy", "wrapz",
+        "ntiles", "nwalk", "nexcl", "ntypes", "lj_kind", "elec_kind", "use_switch")] + [
+        (name, ctypes.c_float) for name in (
+            "bx", "by", "bz", "ibx", "iby", "ibz", "ox", "oy", "oz", "sx", "sy", "sz",
+            "cutoff2", "switch_dist", "inv_switch_width", "krf", "crf", "ewald_alpha",
+            "elec_factor")]
+
+
+# csrc/halo.cu's `Carve`: the scratch arrays read back, by index, and the
+# number of entries (the last is the scratch size)
+PQ, AUX, TBOX, ROWOF, TILE_CELL, COUNTS, OWNED, TSTART, WSTART = range(9)
+NCARVE = 18
+
+_P = ctypes.c_void_p
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.load("halo")
+        lib.tmd_halo_energy_forces.argtypes = [_P] * 8 + [HaloCfg] + [_P] * 6
+        lib.tmd_halo_energy_forces.restype = ctypes.c_int
+        lib.tmd_halo_prep.argtypes = [_P] * 5 + [HaloCfg] + [_P] * 3
+        lib.tmd_halo_prep.restype = ctypes.c_int
+        lib.tmd_halo_carve.argtypes = [HaloCfg, ctypes.POINTER(ctypes.c_longlong)]
+        lib.tmd_halo_carve.restype = None
+        lib.tmd_error_string.argtypes = [ctypes.c_int]
+        lib.tmd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _kernel_cfg(data: CellData, cfg, rows, nown, geom: HaloGeom) -> HaloCfg:
+    """Raise on what the kernel does not take; its HaloCfg."""
     if not supported_terms(cfg):
         raise NotImplementedError(
             "a halo kernel launch takes at most one of lj/repulsion/repulsioncg")
@@ -247,32 +321,86 @@ def _launch(data: CellData, cfg, rows, nown, geom: HaloGeom):
         _build.check_tensor(data.lj_a, "lj_a", f32, (ntypes, ntypes), dev)
         _build.check_tensor(data.lj_b, "lj_b", f32, (ntypes, ntypes), dev)
     fields = pair_fields(cfg)
-    check_geometry(geom, float(np.sqrt(fields["cutoff2"])))
-    forces = torch.zeros((nown, 3), dtype=f32, device=dev)
-    energies = torch.zeros(2, dtype=f32, device=dev)
-    if m == 0 or nown == 0:
-        return _energies_out(cfg, energies, forces)
-    xyz, ids, order, cell_sorted, cstart, tstart, counts, owned, nc, ntiles = halo_layout(
-        rows, nown, geom, float(np.sqrt(fields["cutoff2"])), n)
-    kcfg = HaloCfg(natoms=n, nrows=m, nown=nown, ncx=nc[0], ncy=nc[1], ncz=nc[2],
-                   wrapx=int(geom.wrap[0]), wrapy=int(geom.wrap[1]),
-                   wrapz=int(geom.wrap[2]), ntiles=ntiles, nexcl=nexcl, ntypes=ntypes,
-                   bx=geom.box[0], by=geom.box[1], bz=geom.box[2], **fields)
+    cutoff = math.sqrt(fields["cutoff2"])
+    check_geometry(geom, cutoff)
+    axes = _axes(geom, cutoff)
+    kw = {}
+    for a, (wrap, L, inv, o, nc, s) in zip("xyz", axes):
+        kw.update({f"wrap{a}": int(wrap), f"b{a}": L, f"ib{a}": inv, f"o{a}": o,
+                   f"nc{a}": nc, f"s{a}": s})
+    ncells = math.prod(ax[4] for ax in axes)
+    return HaloCfg(natoms=n, nrows=m, nown=nown, ntiles=ncells + -(-m // TILE),
+                   nwalk=ncells + -(-nown // TILE), nexcl=nexcl, ntypes=ntypes, **kw,
+                   **fields)
+
+
+def _scratch(lib, kcfg, dev):
+    """(scratch tensor, csrc/halo.cu's byte offsets into it)."""
+    off = (ctypes.c_longlong * NCARVE)()
+    lib.tmd_halo_carve(kcfg, off)
+    return torch.empty(int(off[NCARVE - 1]), dtype=torch.uint8, device=dev), list(off)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_flags(overflow, stats, dev):
+    if overflow is not None:
+        _build.check_tensor(overflow, "overflow", torch.int32, (1,), dev)
+    if stats is not None:
+        _build.check_tensor(stats, "stats", torch.int64, (len(STATS),), dev)
+
+
+def _launch(data: CellData, cfg, rows, nown, geom: HaloGeom, overflow=None, stats=None):
+    global LAUNCHES
+    kcfg = _kernel_cfg(data, cfg, rows, nown, geom)
+    dev = rows.device
+    _check_flags(overflow, stats, dev)
+    if kcfg.nrows == 0 or nown == 0:
+        return _energies_out(cfg, torch.zeros(2, dtype=torch.float32, device=dev),
+                             torch.zeros((nown, 3), dtype=torch.float32, device=dev))
+    forces = torch.empty((nown, 3), dtype=torch.float32, device=dev)
+    energies = torch.empty(2, dtype=torch.float32, device=dev)
     lib = _library()
-    scratch = torch.empty(int(lib.tmd_halo_scratch_bytes(kcfg)), dtype=torch.uint8,
-                          device=dev)
-    tables = (None, None) if data.lj_a is None else (data.lj_a.data_ptr(),
-                                                     data.lj_b.data_ptr())
+    scratch, _ = _scratch(lib, kcfg, dev)
     err = lib.tmd_halo_energy_forces(
-        xyz.data_ptr(), ids.data_ptr(), order.data_ptr(), cell_sorted.data_ptr(),
-        cstart.data_ptr(), tstart.data_ptr(), counts.data_ptr(), owned.data_ptr(),
-        data.q.data_ptr(), data.sig.data_ptr(), data.eps.data_ptr(), data.types.data_ptr(),
-        data.excl.data_ptr(), *tables, kcfg, scratch.data_ptr(), forces.data_ptr(),
-        energies.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        rows.data_ptr(), data.q.data_ptr(), data.sig.data_ptr(), data.eps.data_ptr(),
+        data.types.data_ptr(), data.excl.data_ptr(), _ptr(data.lj_a), _ptr(data.lj_b), kcfg,
+        scratch.data_ptr(), _ptr(overflow), forces.data_ptr(), energies.data_ptr(),
+        _ptr(stats), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"halo kernel launch failed: {lib.tmd_error_string(err).decode()}")
     LAUNCHES += 1
     return _energies_out(cfg, energies, forces)
+
+
+def halo_tiles(data: CellData, cfg, rows, nown, geom: HaloGeom, overflow=None) -> HaloTiles:
+    """The kernel's prep pass alone on a CUDA tensor (for tests): the
+    layout as `halo_tiles_reference` gives it (one host read: the number
+    of tiles the cells fill)."""
+    kcfg = _kernel_cfg(data, cfg, rows, nown, geom)
+    dev = rows.device
+    _check_flags(overflow, None, dev)
+    lib = _library()
+    scratch, off = _scratch(lib, kcfg, dev)
+    err = lib.tmd_halo_prep(
+        rows.data_ptr(), data.q.data_ptr(), data.sig.data_ptr(), data.eps.data_ptr(),
+        data.types.data_ptr(), kcfg, scratch.data_ptr(), _ptr(overflow),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"halo prep launch failed: {lib.tmd_error_string(err).decode()}")
+
+    def array(k, dtype, count):
+        return scratch[off[k]:off[k] + 4 * count].view(dtype)
+
+    ncells = kcfg.ncx * kcfg.ncy * kcfg.ncz
+    t = int(array(TSTART, torch.int32, ncells + 1)[ncells])
+    s = t * TILE
+    return HaloTiles(array(PQ, torch.float32, 4 * s).view(s, 4),
+                     array(AUX, torch.float32, 4 * s).view(s, 4),
+                     array(TBOX, torch.float32, 8 * t).view(t, 2, 4),
+                     array(ROWOF, torch.int32, s), array(TILE_CELL, torch.int32, t))
 
 
 def _energies_out(cfg, energies, forces):
@@ -282,15 +410,20 @@ def _energies_out(cfg, energies, forces):
     return out, forces
 
 
-def halo_energy_forces(data: CellData, cfg, rows, nown, geom: HaloGeom):
+def halo_energy_forces(data: CellData, cfg, rows, nown, geom: HaloGeom, overflow=None,
+                       stats=None):
     """rows: (M, 4) [id, x, y, z], the first `nown` owned; `geom` the
     rank's `HaloGeom`. Returns ({term: 0-dim energy tensor}, forces
     (nown, 3)). A CPU tensor runs the plain version; a CUDA tensor
     launches the kernel (f32 only) or raises. Either runs once per
-    LJ-family term (`over_launches`)."""
+    LJ-family term (`over_launches`). `overflow`, an int32 (1,) tensor on
+    the card, is raised by the kernel to the row count of a cell beyond
+    PREP_CAP (`check_overflow` reads it; the plain version has no cap and
+    leaves it as it is); `stats`, an int64 (NSTATS,) tensor on the card,
+    gains the walk's counters (`ops.nonbonded.STATS`)."""
     if rows.device.type == "cuda":
         def one(c):
-            return _launch(data, c, rows, nown, geom)
+            return _launch(data, c, rows, nown, geom, overflow, stats)
     elif rows.device.type == "cpu":
         def one(c):
             return halo_reference(data, c, rows, nown, geom)

@@ -314,6 +314,13 @@ class HaloMD:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.migrations = 0
         self.overflow_log: list = []
+        # the pair kernel's prep flag: the row count of a cell beyond its
+        # cap (ops.halo.PREP_CAP), read with the rebuild flag each step and
+        # at the chunk's end; placed at this rank's slot of a vector over
+        # the halo's ranks, so the sum over them gathers every rank's count
+        self._prep_over = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self._rank_hot = torch.zeros(self.R * self.Ry, dtype=torch.int32, device=self.device)
+        self._rank_hot[self.rx * self.Ry + self.ry] = 1
         self._table = None
         self._setup_tables()
 
@@ -602,12 +609,25 @@ class HaloMD:
 
     def _needs_rebuild(self, atoms) -> bool:
         """Has any atom of the mesh moved more than skin / 2 since the last
-        rebuild? (One host read.)"""
+        rebuild? (One host read, which also raises if the pair kernel's
+        prep flag is set.)"""
         _, valid = self._ids(atoms)
         d = atoms[:, _POS] - atoms[:, _REF]
         d = d - self._box * torch.round(d / self._box)
         moved = (valid & ((d * d).sum(1) > (0.5 * self.spec.skin) ** 2)).any()
-        return bool(self._sum(moved.to(torch.int32).reshape(1)).item() > 0)
+        flags = self._sum(torch.cat([moved.to(torch.int32).reshape(1),
+                                     self._rank_hot * self._prep_over])).tolist()
+        self._check_prep(flags[1:])
+        return flags[0] > 0
+
+    def _check_prep(self, counts):
+        """Raise if a rank's pair-kernel prep met a cell beyond its cap
+        (`counts`: each rank's flag, by rank); the error names the fullest
+        such cell's rows and its rank. The flag is cleared first."""
+        rank = int(np.argmax(counts))
+        if counts[rank] > 0:
+            self._prep_over.zero_()
+            raise _ops_halo.overflow_error(int(counts[rank]), rank, len(counts))
 
     def _recip(self, pos, q):
         """(global reciprocal energy, this rank's reciprocal forces): the
@@ -700,7 +720,8 @@ class HaloMD:
         acap = atoms.shape[0]
         rows = torch.cat([atoms[:, :GHOST_COLS], ghosts])
         geom = self.geometry()
-        pot, frc = _ops_halo.halo_energy_forces(self.data, self.cfg, rows, acap, geom)
+        pot, frc = _ops_halo.halo_energy_forces(self.data, self.cfg, rows, acap, geom,
+                                                overflow=self._prep_over)
         e_part = sum(pot.values(), frc.new_zeros(())) if want_energy else None
         need_vis = self.bonded is not None or (self._ewald is not None
                                                and self.excl_table.shape[1])
@@ -790,8 +811,10 @@ class HaloMD:
             ke = 0.5 * torch.where(valid[:, None], self._mass[ids] * atoms[:, _VEL] ** 2,
                                    torch.zeros_like(atoms[:, _VEL])).sum()
             tot = self._sum(torch.cat([flags.double(), ke.double().reshape(1),
-                                       e_part.double().reshape(1)]))
+                                       e_part.double().reshape(1),
+                                       (self._rank_hot * self._prep_over).double()]))
             tot = tot.cpu().numpy()
+            self._check_prep(tot[7:])
             if tot[4] > 0:
                 raise RuntimeError("halo migration: an atom's owner is beyond the "
                                    "neighbouring ranks (it moved more than a slab width "

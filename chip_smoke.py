@@ -42,6 +42,10 @@ Integrator.step), f32, imports nothing of JAX or of the JAX package:
     with SHAKE through the CLI: the dense MTK scan on the exact Ewald sum
     (torch ops, no CUDA kernel);
   - thrombin on Verlet lists (`Forces(kernel="verlet")`, torch ops);
+  - the automatic Verlet choice (`forces.VERLET_AUTO_N`): the alanine
+    box tiled 5 x 5 x 6 (103,200 atoms) with its box dropped, through
+    Forces(kernel="auto"): Verlet lists built by cells (torch ops) and
+    the bonded kernel, hbonds and Langevin at 2 fs;
   - thrombin in GB/OBC implicit solvent (`--gbsa` through the CLI; GB is
     torch ops, as the JAX package has no kernel for it); an 8-replica
     temperature ladder in GB (`ReplicaExchange`), whose every evaluation
@@ -202,6 +206,14 @@ Phases (each prints lines; any failure raises and exits non-zero):
      against the dense pair kernel's at the Pallas bars, VERLET_STEPS
      timed Langevin steps, rebuilds and capacity, steps/s beside the
      dynamics phase's;
+ 18b. verlet_auto: the 103,200-atom vacuum system through
+     Forces(kernel="auto") at f32: the path is Verlet lists built by
+     cells, with no dense mask and no Parameters.get_exclusions(
+     fullarray=True) call; VA_ROWS seeded rows of the f64 list against a
+     brute-force scan; per-term energies and forces against the f64
+     Verlet path at the Pallas bars; VA_STEPS timed steps (mean T within
+     VA_T_TOL, the bonded kernel every step, the pair kernel never);
+     capacity, build and evaluation ms, steps/s, rebuilds, peak memory;
  19. replica_kernels: the pair and bonded kernels' replica axis on
      REPLICAS thrombin conformations, one launch each against one launch
      per replica (the pair kernel bit for bit, the bonded kernel's
@@ -343,7 +355,8 @@ line. Usage: python3 chip_smoke.py
 (they build no kernel); `python3 chip_smoke.py --drude` the device and
 build phases, then drude and drude_swm4; `python3 chip_smoke.py --mesh`
 the device and build phases, then mesh; `python3 chip_smoke.py --halo`
-the device and build phases, then halo.
+the device and build phases, then halo; `python3 chip_smoke.py
+--verlet-auto` the device and build phases, then verlet_auto.
 
 `python3 chip_smoke.py --remd-seeds N` is a measurement, not the smoke
 test: it builds the kernels and runs the remd phase, ungated, for seeds
@@ -613,6 +626,14 @@ ALA_STEPS, ALA_PERIOD, ALA_CUTOFF, ALA_SWITCH = 250, 50, 9.0, 7.5
 ALA_CHECK_STEPS, ALA_POS_TOL, ALA_VIRIAL_TOL = 10, 1e-3, 1e-5
 # Verlet lists on thrombin: VERLET_STEPS Langevin steps at 2 fs, timed
 VERLET_WARMUP, VERLET_STEPS = 20, 200
+# the automatic Verlet choice (forces.VERLET_AUTO_N): the alanine box
+# tiled VA_TILE (103,200 atoms, ~99.3 x 98.1 x 117.8 A) with its box
+# dropped, ALA_CUTOFF / ALA_SWITCH, reaction field, Forces(kernel="auto")
+# at f32; VA_ROWS seeded rows of the f64 list held to a brute-force scan;
+# VA_WARMUP + VA_STEPS Langevin steps at 2 fs (hbonds, VA_GAMMA ps^-1),
+# the timed ones in chunks of VA_CHUNK, their mean T within VA_T_TOL
+VA_TILE, VA_ROWS, VA_SCAN_ROWS = (5, 5, 6), 2048, 128
+VA_WARMUP, VA_STEPS, VA_CHUNK, VA_GAMMA, VA_T_TOL = 50, 200, 25, 10.0, 15.0
 # slice 7: implicit solvent and enhanced sampling on thrombin. The replica
 # axis of the pair and bonded kernels: REPLICAS conformations (the start
 # plus a Maxwell-Boltzmann half-step each, seeds 0..R-1) in one launch,
@@ -3423,6 +3444,153 @@ def phase_verlet(api_steps_per_s):
     require(f_err <= F_TOL, f"Verlet forces off the dense kernel's by {f_err}")
     require(np.all(np.isfinite(system.pos)) and np.isfinite([T[0], Epot[0]]).all(),
             "Verlet run not finite")
+
+
+def _brute_rows(pos, excl, rows, rc, chunk=VA_SCAN_ROWS):
+    """Each row's neighbours within rc, exclusions removed, in ascending
+    index order (numpy lists), by a scan of the rows against every atom
+    in chunks, no box; |d|^2 summed over x, y, z in that order."""
+    import torch
+
+    n, rc2, out = pos.shape[0], rc * rc, []
+    allj = torch.arange(n, device=pos.device)
+    for c0 in range(0, len(rows), chunk):
+        r = torch.as_tensor(rows[c0:c0 + chunk], device=pos.device)
+        d = pos[r, None, :] - pos[None, :, :]
+        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+        ok = (d2 <= rc2) & (allj[None, :] != r[:, None])
+        ex = excl[r]
+        ok[torch.arange(len(r), device=pos.device)[:, None].expand_as(ex)[ex < n],
+           ex[ex < n]] = False
+        out += [np.flatnonzero(m) for m in ok.cpu().numpy()]
+    return out
+
+
+def phase_verlet_auto(smi):
+    """The automatic Verlet choice at forces.VERLET_AUTO_N: the alanine
+    box tiled VA_TILE (103,200 atoms) with its box dropped, through
+    Forces(kernel="auto") on the card at f32 (Verlet lists built by
+    cells, torch ops; the bonded kernel) and the Integrator at 2 fs with
+    hbonds and Langevin at VA_GAMMA ps^-1. Gates: the path is "verlet",
+    the dense mask never built and Parameters.get_exclusions(fullarray=
+    True) never called from Parameters on; VA_ROWS seeded rows of the f64
+    list equal a brute-force scan, no overflow; the f32 per-term energies
+    and forces against the f64 Verlet path on the card at the same
+    (f32) positions at the Pallas bars; the timed steps finite with a mean T within VA_T_TOL of TEMP,
+    the bonded kernel launched every step and the pair kernel never.
+    Returns the timed run's launches."""
+    import torch
+
+    from torchmd_tpu_torch import forces as tforces
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.integrator import Integrator, maxwell_boltzmann
+    from torchmd_tpu_torch.neighbors import VerletKernel
+    from torchmd_tpu_torch.ops import bonded as kb
+    from torchmd_tpu_torch.ops import nonbonded as kn
+    from torchmd_tpu_torch.parameters import Parameters
+    from torchmd_tpu_torch.systems import System
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dense_calls = []
+    get = Parameters.get_exclusions
+
+    def counted(self, types=("bonds", "angles", "1-4"), fullarray=False):
+        if fullarray:
+            dense_calls.append(types)
+        return get(self, types=types, fullarray=fullarray)
+
+    Parameters.get_exclusions = counted
+    try:
+        mol, par = halo_system(VA_TILE)
+        n = mol.numAtoms
+        require(n >= tforces.VERLET_AUTO_N, (n, tforces.VERLET_AUTO_N))
+        pos0 = mol.coords[:, :, 0]
+        # the positions as the f32 path holds them: the f64 path at the
+        # same inputs (rounding 118 A coordinates to f32 alone moves the
+        # bonded forces by ~1e-4 of max |F|)
+        pos_in = pos0.astype(np.float32).astype(np.float64)
+        kw = dict(terms=TERMS, cutoff=ALA_CUTOFF, switch_dist=ALA_SWITCH, rfa=True,
+                  device=DEVICE)
+        forces = Forces(par, precision="single", **kw)
+        frc32 = np.zeros((1, n, 3))
+        e32 = forces.compute(pos_in[None], None, frc32, returnDetails=True)[0]
+        kern = forces._cell_kernel
+        require(forces.nb_path == "verlet" and isinstance(kern, VerletKernel)
+                and kern.binned, ("verlet_auto path", forces.nb_path, type(kern).__name__))
+        # the f64 Verlet path on the card (torch ops), the same positions
+        f64 = Forces(par, precision="double", **kw)
+        frc64 = np.zeros((1, n, 3))
+        e64 = f64.compute(pos_in[None], None, frc64, returnDetails=True)[0]
+        k64 = f64._cell_kernel
+        require(f64.nb_path == "verlet" and k64.binned, "f64 verlet_auto path")
+        worst_e = max(abs(e32[k] - w) / max(1.0, abs(w)) for k, w in e64.items())
+        f_err = float(np.abs(frc32 - frc64).max()) / max(1.0, float(np.abs(frc64).max()))
+        # VA_ROWS seeded rows of the f64 list against a brute-force scan
+        p64 = torch.as_tensor(pos0, dtype=torch.float64, device=DEVICE)
+        nl64 = k64.build(p64)
+        rows = np.sort(np.random.RandomState(0).choice(n, VA_ROWS, replace=False))
+        want = _brute_rows(p64, k64.excl, rows, k64.vcfg.rc)
+        got = nl64.nbr[torch.as_tensor(rows, device=DEVICE)].cpu().numpy()
+        bad = [int(r) for r, g, w in zip(rows, got, want) if not np.array_equal(g[g < n], w)]
+        nbrs = int(sum(len(w) for w in want))
+        overflow64 = bool(nl64.overflow)
+        del f64, k64, nl64, p64
+        torch.cuda.empty_cache()
+        # one build and one evaluation at f32, device ms by CUDA events
+        p32 = torch.as_tensor(pos0, dtype=torch.float32, device=DEVICE)
+        build_ms = cuda_events_ms(lambda: kern.build(p32), calls=5, warmup=1)
+        nl = kern.build(p32)
+        eval_ms = cuda_events_ms(lambda: forces.ef_one(p32, None, nl), calls=5, warmup=1)
+        del nl
+        # the dynamics
+        system = System(n, 1, "single")
+        system.set_positions(mol.coords)
+        system.set_velocities(maxwell_boltzmann(par.masses, TEMP, 1, seed=1, device=DEVICE,
+                                                dtype=torch.float32))
+        integ = Integrator(system, forces, TIMESTEP, gamma=VA_GAMMA, T=TEMP, seed=2,
+                           constraints="hbonds")
+        require(integ._use_verlet, "the Integrator did not take the Verlet path")
+        integ.step(niter=VA_WARMUP)
+        torch.cuda.synchronize()
+        r0 = forces._cell_kernel.rebuilds
+        kn.LAUNCHES = kb.LAUNCHES = 0
+        t0 = time.perf_counter()
+        temps = []
+        for _ in range(VA_STEPS // VA_CHUNK):
+            Ekin, Epot, T = integ.step(niter=VA_CHUNK)
+            temps.append(float(T[0]))
+        torch.cuda.synchronize()
+        sps = VA_STEPS / (time.perf_counter() - t0)
+        launches = {"pair": kn.LAUNCHES, "bonded": kb.LAUNCHES}
+        kern_rebuilds = forces._cell_kernel.rebuilds - r0
+    finally:
+        Parameters.get_exclusions = get
+    t_mean = float(np.mean(temps))
+    log("verlet_auto", natoms=n, path=forces.nb_path, capacity=forces._cell_kernel.capacity,
+        grid_bound=forces._cell_kernel.grid.ncells, build_ms=f"{build_ms:.3f}",
+        eval_ms=f"{eval_ms:.3f}", steps=VA_STEPS, steps_per_s=f"{sps:.2f}",
+        rebuilds=kern_rebuilds, overflow_retries=integ.overflow_retries,
+        T_mean=f"{t_mean:.2f}", T_last=f"{temps[-1]:.2f}", Epot=f"{Epot[0]:.2f}",
+        e_rel_err=f"{worst_e:.3e}", f_rel_err=f"{f_err:.3e}", scan_rows=VA_ROWS,
+        scan_neighbours=nbrs, scan_mismatches=len(bad), f64_overflow=overflow64,
+        pair_launches=launches["pair"], bonded_launches=launches["bonded"],
+        fullarray_calls=len(dense_calls), nb_mask_built=forces.ffparams.nb_mask is not None,
+        max_memory_GiB=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        card=repr(smi), seconds=f"{time.perf_counter() - t_phase:.1f}")
+    require(not dense_calls, f"get_exclusions(fullarray=True) called {len(dense_calls)} times")
+    require(forces.ffparams.nb_mask is None, "the dense mask was built on the Verlet path")
+    require(not bad, f"list rows differ from the brute-force scan: {bad[:8]}")
+    require(not overflow64, "the f64 list overflowed")
+    require(worst_e <= E_TOL, f"f32 energies off the f64 Verlet path's by {worst_e}")
+    require(f_err <= F_TOL, f"f32 forces off the f64 Verlet path's by {f_err}")
+    require(np.all(np.isfinite(system.pos)) and np.isfinite(temps).all(),
+            "verlet_auto run not finite")
+    require(abs(t_mean - TEMP) <= VA_T_TOL, f"verlet_auto mean T {t_mean:.2f} K")
+    require(launches["bonded"] >= VA_STEPS and launches["pair"] == 0,
+            ("verlet_auto launches", launches))
+    return launches
     return sps
 
 
@@ -5857,7 +6025,7 @@ def walled(phase, *args):
 
 
 def main():
-    walled(phase_device)
+    smi = walled(phase_device)
     walled(phase_build)
     times = walled(phase_kernels)
     times.update(walled(phase_water_kernels))
@@ -5877,6 +6045,7 @@ def main():
     recip_launches = walled(phase_recip_tier, water_sps)
     walled(phase_alanine_mtk)
     walled(phase_verlet, api_steps_per_s)
+    va_launches = walled(phase_verlet_auto, smi)
     times.update(walled(phase_replica_kernels))
     gb_launches, _ = walled(phase_gbsa)
     remd_launches, _, _ = walled(phase_remd)
@@ -5893,7 +6062,8 @@ def main():
     # the dense pair and bonded kernels' main paths: the API's dynamics,
     # the CLI's run, the production protocol's and its r-RESPA run, the
     # GB/OBC run, metadynamics, alchemy and lambda-dynamics, the Drude
-    # thrombin run and the SWM4-NDP box's f32 SCF solve (their
+    # thrombin run and the SWM4-NDP box's f32 SCF solve, and the bonded
+    # kernel's also the 103,200-atom run on Verlet lists (their
     # replica-axis instances: the REMD ladder's run); the
     # cell, spread and gather kernels': the NVT water box's, the Monte
     # Carlo phase's and the reciprocal tier's, and the spread's also the
@@ -5902,7 +6072,7 @@ def main():
     # instance's (column_rf) the r-RESPA SPC/Fw water's mts 4 run
     thr_launches = {k: thr_launches[k] + cli_launches[k] + prod_launches[k] + mts_launches[k]
                     + gb_launches[k] + metad_launches[k] + alch_launches[k]
-                    + drude_launches[k] + swm4_launches[k]
+                    + drude_launches[k] + swm4_launches[k] + va_launches[k]
                     for k in thr_launches}
     water_launches = {k: water_launches[k] + mc_launches.get(k, 0) + recip_launches.get(k, 0)
                       + (swm4_launches["pme_spread"] if k == "pme_spread" else 0)
@@ -5983,6 +6153,11 @@ if __name__ == "__main__":
         phase_device()
         phase_build()
         phase_mesh()
+    elif sys.argv[1:2] == ["--verlet-auto"]:
+        # the automatic Verlet choice's phase alone
+        smi = phase_device()
+        phase_build()
+        phase_verlet_auto(smi)
     elif sys.argv[1:2] == ["--halo"]:
         # the halo-exchange MD phase alone
         phase_device()

@@ -286,7 +286,8 @@ def halo_inputs(spec):
 
     if "ffp" in spec:
         dtype = torch.float64 if spec.get("precision", "double") == "double" else torch.float32
-        return (interop.ffparams_from_numpy(spec["ffp"], dtype=dtype),
+        return (interop.ffparams_from_numpy(spec["ffp"], device=spec.get("device", "cpu"),
+                                            dtype=dtype),
                 ForceTermConfig(**spec["cfg"]), spec.get("excl"), None, None)
     mol, par, fkw = system_of(spec)
     forces = Forces(par, precision="double", device="cpu", **fkw)
@@ -298,15 +299,17 @@ def halo_inputs(spec):
 
 def run_halo(rank, spec):
     """A HaloMD run on this rank's mesh (spec["axes"], spec["shape"];
-    the halo over spec["axis"]): init from spec["pos"], spec["vel"]; the
-    capacities of spec["plant"] set after init; spec["chunks"] calls of
-    step(spec["niter"]). Returns the gathered state, the per-chunk (ekin,
-    epot, T), the counters and the capacities before and after."""
+    the halo over spec["axis"]; on spec["device"], default the CPU): init
+    from spec["pos"], spec["vel"]; the capacities of spec["plant"] set
+    after init; spec["chunks"] calls of step(spec["niter"]). Returns the
+    gathered state, the per-chunk (ekin, epot, T), the counters and the
+    capacities before and after."""
     torch.set_num_threads(1)
     from torchmd_tpu_torch.parallel import HaloMD
 
     ffp, cfg, excl, cs, vsites = halo_inputs(spec)
-    mesh = make_mesh(axes=spec["axes"], shape=spec.get("shape"), device="cpu")
+    mesh = make_mesh(axes=spec["axes"], shape=spec.get("shape"),
+                     device=spec.get("device", "cpu"))
     h = HaloMD(ffp, cfg, mesh, spec["box"], excl_table=excl, timestep=spec["timestep"],
                T=spec.get("T"), gamma=spec.get("gamma"), axis=spec["axis"],
                seed=spec.get("seed", 1), constraints=cs, vsites=vsites)
@@ -318,6 +321,7 @@ def run_halo(rank, spec):
     pos, vel = h.gather()
     return dict(pos=pos, vel=vel, ekin=out[:, 0], epot=out[:, 1], T=out[:, 2],
                 migrations=h.migrations, overflow_log=h.overflow_log, start=start,
+                prep=(h.prep_overflows, h.prep_overflow_last),
                 spec=h.spec, calls=dict(mesh.calls), bytes=dict(mesh.bytes))
 
 
@@ -326,7 +330,11 @@ def halo_prep_overflow(rank, spec):
     to a count of spec["planted"] + rank rows by hand (the plain pair
     stage has no cap and never sets it): set before a step (the per-step
     read), set by the one step's pair stage (the chunk end's read), then
-    a step with the flag cleared by the error. The errors, or None."""
+    a step with the flag left alone. Each read that finds the flag counts
+    it in `prep_overflows`, keeps (rows, rank) of the fullest cell in
+    `prep_overflow_last` and clears it, and the step goes on. After each
+    step: the two counters, the flag, and whether the state and the
+    step's (ekin, epot, T) are finite."""
     torch.set_num_threads(1)
     from torchmd_tpu_torch.parallel import HaloMD
 
@@ -342,17 +350,18 @@ def halo_prep_overflow(rank, spec):
         h._prep_over.fill_(count)
         return out
 
-    def error():
-        try:
-            h.step(1)
-        except RuntimeError as e:
-            return str(e)
-        return None
+    def stepped():
+        out = h.step(1)
+        pos, vel = h.gather()
+        return dict(count=h.prep_overflows, last=h.prep_overflow_last,
+                    flag=int(h._prep_over.sum()),
+                    finite=bool(np.isfinite(out).all() and np.isfinite(pos).all()
+                                and np.isfinite(vel).all()))
 
     h._prep_over.fill_(count)
-    out = dict(step=error())
+    out = dict(step=stepped())
     h._forces = planted
-    out["chunk"] = error()
+    out["chunk"] = stepped()
     h._forces = pair_stage
-    out["cleared"] = error()
+    out["cleared"] = stepped()
     return out

@@ -24,10 +24,12 @@ JAX):
     against a numpy recomputation of the contract, on the gas and edge
     cases;
   - HaloMD's two reads of the prep flag, set by hand on one rank and on
-    2 slabs: each raises naming the fullest rank's count and its rank;
+    2 slabs: each counts it with the fullest rank's count and its rank,
+    clears it, and the run steps on;
   - `gpu`: the halo kernel against its plain version, its device prep
     bit for bit the plain prep, two calls bit-identical, a planted
-    over-full cell (skip without a card).
+    over-full cell through the bare wrapper and through HaloMD, which
+    steps through it (skip without a card).
 """
 
 from __future__ import annotations
@@ -582,13 +584,58 @@ def test_cuda_halo_kernel_is_deterministic(wrap_y):
     assert all(torch.equal(pot_a[k], pot_b[k]) for k in pot_a)
 
 
+def _planted_gas(planted=1500, spacing=0.3):
+    """The charged gas with `planted` chargeless atoms without LJ on a
+    cubic lattice of `spacing` A inside one halo cell of a lone rank
+    (x in [4.33, 12), y and z in [8, 16)), built by the port's front end:
+    (Forces on the CPU at f64, positions, exclusion table). The planted
+    atoms feel no force and exert none, but the pair kernel bins, sorts
+    and walks them, and their x ghosts fill a cell too."""
+    from torchmd_tpu_torch.forcefields.ff_yaml import YamlForcefield
+    from torchmd_tpu_torch.forces import Forces
+    from torchmd_tpu_torch.io import Molecule
+    from torchmd_tpu_torch.neighbors import build_exclusion_table
+    from torchmd_tpu_torch.parameters import Parameters
+
+    rs = np.random.RandomState(0)
+    gas = _grid(300, L_GAS, rs, 0.3)
+    side = int(np.ceil(planted ** (1 / 3)))
+    lat = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    lat = (lat[:planted] - 0.5 * (side - 1)) * spacing + np.array([8.0, 12.0, 12.0])
+    pos = np.concatenate([gas, lat])
+    n = len(pos)
+    mol = Molecule()
+    mol.numAtoms = n
+    mol.atomtype = np.array(["AR"] * len(gas) + ["DU"] * planted, dtype=object)
+    mol.charge = np.concatenate([rs.randn(len(gas)) * 0.03, np.zeros(planted)])
+    mol.masses = np.full(n, 39.948)
+    mol.bonds = np.zeros((0, 2), dtype=np.int64)
+    mol.coords = pos[:, :, None]
+    mol.box = np.full((3, 1), L_GAS)
+    ffd = {"atomtypes": ["AR", "DU"],
+           "lj": {"AR": {"sigma": 3.405, "epsilon": 0.238},
+                  "DU": {"sigma": 1.0, "epsilon": 0.0}},
+           "electrostatics": {"AR": {"charge": 0.0}, "DU": {"charge": 0.0}},
+           "masses": {"AR": 39.948, "DU": 39.948}}
+    terms = ["lj", "electrostatics"]
+    par = Parameters(YamlForcefield(mol, ffd), mol, terms, precision="double")
+    par.charges = mol.charge.copy()
+    forces = Forces(par, terms=terms, precision="double", cutoff=CUTOFF, rfa=True,
+                    device="cpu")
+    return forces, pos, build_exclusion_table(par, n)
+
+
 @pytest.mark.gpu
 def test_cuda_halo_prep_overflow_raises():
-    """1,100 ghost rows planted in one cell, beyond the cutoff of every
-    owned row: the prep sorts the cell from device memory, bit for bit the
-    plain prep (no row dropped), raises the flag to the cell's count,
+    """Beyond PREP_CAP rows in one cell. The bare wrapper: 1,100 ghost
+    rows planted in one cell, beyond the cutoff of every owned row; the
+    prep sorts the cell from device memory, bit for bit the plain prep
+    (no row dropped), raises the flag to the cell's count,
     `check_overflow` raises naming it, and the forces stay the plain
-    version's."""
+    version's. Through HaloMD on the card (one NCCL rank): ~1,500 atoms
+    planted in one cell; a step from rest runs, `prep_overflows` counts
+    the cell with its rows and rank, and the energy and the forces from
+    the half-kick match the plain f64 HaloMD's at the Pallas bars."""
     dev = _card()
     forces, pos, excl = _jax_system("gas", port=True)
     rs = np.random.RandomState(4)
@@ -619,6 +666,24 @@ def test_cuda_halo_prep_overflow_raises():
             float(pot_p[key]))
     assert float((f_k.double().cpu() - f_p).abs().max()) < 5e-5 * max(
         1.0, float(f_p.abs().max()))
+
+    forces, pos, excl = _planted_gas()
+    spec = _halo_spec(forces, pos, np.zeros_like(pos), excl, timestep=1.0, chunks=1, niter=1,
+                      axes=("sp",), shape=None, axis="sp")
+    with launch.Ranks(1, backend="nccl", device="cuda:0", timeout=600) as ranks:
+        card = ranks.run(mw.run_halo, dict(spec, precision="single", device="cuda:0"))[0]
+    with launch.Ranks(1, threads=1, timeout=600) as ranks:
+        plain = ranks.run(mw.run_halo, spec)[0]
+    n_prep, last = card["prep"]
+    assert n_prep >= 1 and last[0] > khalo.PREP_CAP and last[1] == 0, card["prep"]
+    assert plain["prep"] == (0, None)
+    assert np.isfinite(card["pos"]).all() and np.isfinite(card["T"]).all()
+    e_k, e_p = float(card["epot"][0]), float(plain["epot"][0])
+    assert abs(e_k - e_p) <= 2e-3 + 2e-5 * abs(e_p), (e_k, e_p)
+    m = np.asarray(forces.ffparams.masses, np.float64).reshape(-1, 1)
+    dt = 1.0 / 48.88821
+    f_card, f_plain = 2.0 * m * card["vel"] / dt, 2.0 * m * plain["vel"] / dt
+    assert np.abs(f_card - f_plain).max() < 5e-5 * max(1.0, np.abs(f_plain).max())
 
 
 # ----------------------------------------------------------------------
@@ -798,16 +863,18 @@ def test_prep_overflow_raises_through_halomd(ranks2, layout):
     """The pair kernel's prep flag set on every rank (1,500 + rank rows,
     by hand: the plain pair stage never sets it), before a step and by the
     last step's pair stage: HaloMD's per-step read and its chunk end's
-    read each raise, naming the fullest rank's count and, across 2 slabs,
-    that rank; the error clears the flag and the next step runs."""
+    read each count it in `prep_overflows`, keep the fullest rank's count
+    and, across 2 slabs, that rank in `prep_overflow_last`, clear the flag
+    and step on (the kernel's result is complete: it sorted such a cell
+    from device memory); a step without the flag leaves them as they
+    were."""
     forces, pos, excl = _jax_system("gas")
     spec = _halo_spec(forces, pos, np.zeros_like(pos), excl, timestep=1.0, planted=1500,
                       **LAYOUTS[layout])
     outs = ranks2.run(mw.halo_prep_overflow, spec)
     for rank, o in enumerate(outs):
-        want = (f"a cell holds {1500 + rank} rows, more than the {khalo.PREP_CAP} "
-                if layout == "one" else
-                f"a cell holds 1501 rows on rank 1 of 2, more than the {khalo.PREP_CAP} ")
-        for read in ("step", "chunk"):
-            assert o[read] is not None and want in o[read], (read, o[read])
-        assert o["cleared"] is None
+        want = (1500 + rank, 0) if layout == "one" else (1501, 1)
+        for read, count in (("step", 1), ("chunk", 2), ("cleared", 2)):
+            got = o[read]
+            assert got["count"] == count and tuple(got["last"]) == want, (read, got)
+            assert got["flag"] == 0 and got["finite"], (read, got)

@@ -166,6 +166,18 @@ def test_step_reuses_device_state_and_sees_host_edits():
     np.testing.assert_allclose(system.pos[0], np.full((4, 3), dt))
 
 
+@pytest.mark.parametrize("value", [1.0, 0])
+def test_misspelt_keyword_raises_type_error(value):
+    """An unknown keyword (`gama` for `gamma`) is a TypeError in both
+    packages, whatever its value: the port's Integrator has no keyword
+    catch-all."""
+    natoms = 2
+    f = _ZeroForces(np.full((natoms, 1), 1.0))
+    for Integ, S in ((jint.Integrator, JaxSystem), (tint.Integrator, System)):
+        with pytest.raises(TypeError, match="gama"):
+            Integ(S(natoms, 1, "double"), f, 1.0, gama=value)
+
+
 def test_unported_options_raise():
     """A device mesh that is not a `parallel.Mesh` raises TypeError (the
     mesh is ported: tests/test_torch_parallel.py); atom batching and

@@ -11,9 +11,12 @@ Small size: the solvated alanine dipeptide (688 atoms) in its ACEMD box
   - capacity: a list sized too small overflows, `Forces.prepare` grows
     it until the rows fit, and the Integrator's retry names the capacity
     it grew;
-  - no automatic choice: kernel="auto" keeps the dense path where the
-    JAX package's TMD_AUTO_VERLET_N would take the lists (the build forms
-    (natoms, natoms) arrays, beyond the card at its 100,000 atoms);
+  - the automatic choice (`forces.VERLET_AUTO_N`, the JAX package's
+    TMD_AUTO_VERLET_N, both at 500 atoms here): both packages take Verlet
+    lists with no box and in a box without a cell grid, with the same
+    energies, forces and trajectory; without a box the port forms no
+    (natoms, natoms) array from its `Parameters` on; with a grid both
+    take the cell path;
   - Forces(kernel="verlet") trajectories (SETTLE, NHC, 2 x 10 steps)
     against the JAX package's Verlet scan: the standard step, and r-RESPA
     with the exact Ewald sum's reciprocal tier (mts 2, mts_recip 2),
@@ -137,33 +140,115 @@ def test_verlet_capacity_grows_on_overflow():
     assert np.isfinite(s.pos).all() and forces._cell_kernel.rebuilds >= 1
 
 
+@functools.lru_cache(maxsize=None)
+def _port_alanine():
+    """The alanine box through the port's own front end."""
+    from torchmd_tpu_torch.forcefields import ForceField
+    from torchmd_tpu_torch.io import Molecule
+
+    d = os.path.join(DATA_DIR, "prod_alanine_dipeptide_amber")
+    mol = Molecule(os.path.join(d, "structure.prmtop"))
+    mol.read(os.path.join(d, "input.coor"))
+    mol.read(os.path.join(d, "input.xsc"))
+    return mol, ForceField.create(mol, os.path.join(d, "structure.prmtop"))
+
+
+def _no_dense(monkeypatch):
+    """The port's (N, N) forms raise: the dense exclusion matrix of its
+    `Parameters` and the dense build's distance pass."""
+    from torchmd_tpu_torch.parameters import Parameters as TParameters
+
+    get = TParameters.get_exclusions
+
+    def guarded(self, types=("bonds", "angles", "1-4"), fullarray=False):
+        if fullarray:
+            raise AssertionError("get_exclusions(fullarray=True) on the Verlet path")
+        return get(self, types=types)
+
+    def dense_d2(*args, **kw):
+        raise AssertionError("the dense Verlet build's (N, N) distances")
+
+    monkeypatch.setattr(TParameters, "get_exclusions", guarded)
+    monkeypatch.setattr(tnb, "_verlet_d2", dense_d2)
+
+
+def _auto_run(F, S, I, par, mol, box, vel, dev, steps):
+    """The automatic choice on alanine (`OPEN`: cutoff 7.3 A): per-term
+    energies and forces, the chosen path, then `steps` chunks of 10
+    steps (SETTLE, NHC) from `vel`."""
+    forces = F(par, terms=ALL_TERMS, precision="double", **OPEN, **dev)
+    s = S(mol.numAtoms, 1, "double")
+    s.set_positions(mol.coords)
+    if box is not None:
+        s.set_box(box)
+    frc = np.zeros((1, mol.numAtoms, 3))
+    pot = forces.compute(s.pos, s.box, frc, returnDetails=True)[0]
+    s.set_velocities(vel)
+    integ = I(s, forces, 2.0, T=300.0, thermostat="nhc", constraints="settle")
+    out = [integ.step(niter=10) for _ in range(steps)]
+    return forces, integ, pot, frc, np.asarray(s.pos).copy(), out
+
+
 def test_verlet_auto_selection(monkeypatch):
-    """kernel='auto' never takes Verlet lists: where the JAX package's
-    TMD_AUTO_VERLET_N would take them (no box, or a box that hosts no
-    27-cell grid), the port keeps the dense path, and so does the
-    Integrator, which reads the forces' choice (`Forces.nb_path`)."""
+    """kernel='auto' takes Verlet lists where the JAX package does: with
+    both packages' thresholds at 500 atoms (`forces.VERLET_AUTO_N`,
+    TMD_AUTO_VERLET_N), the 688-atom alanine with no box and in its
+    box, which hosts no 27-cell grid at cutoff 7.3 A, goes on Verlet
+    lists in both, and so does the Integrator, which reads the forces'
+    choice (`Forces.nb_path`). Without a box the port builds by cells:
+    from its own `Parameters` on, `get_exclusions(fullarray=True)` and
+    the dense build's `_verlet_d2` raise (the box, below 3 cells of
+    cutoff + skin a side, keeps the dense build over the mask). Per-term
+    energies and forces agree with the JAX package to 1e-7, and with no
+    box a 2 x 10-step trajectory to 1e-8 A. With the cell thresholds at
+    500 too and a box that hosts a grid, both take the cell path."""
+    from torchmd_tpu_torch.parameters import Parameters as TParameters
+
     mol, par, vel = _alanine()
-    assert not hasattr(tforces, "VERLET_AUTO_N")
+    tmol, tff = _port_alanine()
+    monkeypatch.setattr(tforces, "VERLET_AUTO_N", 500)
     monkeypatch.setenv("TMD_AUTO_VERLET_N", "500")
+    for box in (None, mol.box):
+        steps = 2 if box is None else 0
+        jf, jinteg, jpot, jfrc, jpos, jout = _auto_run(
+            JaxForces, JaxSystem, JaxIntegrator, par, mol, box, vel, {}, steps)
+        with monkeypatch.context() as m:
+            if box is None:
+                _no_dense(m)
+            tpar = TParameters(tff, tmol, ALL_TERMS, precision="double")
+            tf, tinteg, tpot, tfrc, tpos, tout = _auto_run(
+                Forces, System, Integrator, tpar, tmol, box, vel, dict(device="cpu"),
+                steps)
+        b = None if box is None else box.reshape(-1)
+        assert jf.wants_verlet(b) and tf.wants_verlet(b) and tf.verlet_auto
+        assert jinteg._use_verlet and tinteg._use_verlet and tf.nb_path == "verlet"
+        kern = tf._cell_kernel
+        assert isinstance(kern, tnb.VerletKernel) and kern.binned == (box is None)
+        assert (tf.ffparams.nb_mask is None) == (box is None)
+        assert set(tpot) == set(jpot)
+        for k, w in jpot.items():
+            assert abs(tpot[k] - w) <= 1e-7 * max(1.0, abs(w)), (k, tpot[k], w)
+        assert np.abs(tfrc - jfrc).max() <= 1e-7 * max(1.0, np.abs(jfrc).max())
+        if steps:
+            assert np.abs(tpos - jpos).max() <= 1e-8
+            for a, c in zip(jout, tout):
+                for x, y in zip(a, c):
+                    np.testing.assert_allclose(y, x, rtol=1e-9)
+    monkeypatch.setattr(tforces, "CELL_AUTO_N", 500)
+    monkeypatch.setenv("TMD_AUTO_CELL_N", "500")
+    grid_box = np.full((3, 1), 30.0)  # 3 cells of 9.3 A a side
+    b = grid_box.reshape(-1)
     jf = JaxForces(par, terms=ALL_TERMS, precision="double", **OPEN)
-    box = mol.box.reshape(-1)
-    for b in (None, box):
-        assert jf.wants_verlet(b) is True
-        f = Forces(par, terms=ALL_TERMS, precision="double", device="cpu", **OPEN)
-        assert not f.wants_verlet(b)
-        s = System(mol.numAtoms, 1, "double")
-        s.set_positions(mol.coords)
-        if b is not None:
-            s.set_box(mol.box)
-        s.set_velocities(vel)
-        f.compute(s.pos, s.box, s.forces)
-        assert f.nb_path == "dense" and f._cell_kernel is None
-        integ = Integrator(s, f, 2.0)
-        assert not (integ._use_verlet or integ._use_cell)
-    f = Forces(par, terms=ALL_TERMS, precision="double", device="cpu", kernel="verlet",
-               **OPEN)
-    f.compute(mol.coords[:, :, 0][None], None)
-    assert f.nb_path == "verlet" and isinstance(f._cell_kernel, tnb.VerletKernel)
+    tf = Forces(par, terms=ALL_TERMS, precision="double", device="cpu", **OPEN)
+    assert jf.wants_cell(b) and not jf.wants_verlet(b)
+    assert tf.wants_cell(b) and not tf.wants_verlet(b)
+    s = System(mol.numAtoms, 1, "double")
+    s.set_positions(mol.coords)
+    s.set_box(grid_box)
+    tf.compute(s.pos, s.box, s.forces)
+    assert tf.nb_path == "cell" and isinstance(tf._cell_kernel, tnb.CellKernel)
+    integ = Integrator(s, tf, 2.0)
+    assert integ._use_cell and not integ._use_verlet
 
 
 def _verlet_run(F, S, I, dev, elec=None, **kw):

@@ -178,8 +178,9 @@ def _require_masked_nonbonded(forces):
     """Alchemical constructions edit the dense nb_mask: the cell and
     column kernels read only the bonds/angles/1-4 exclusion table and
     would count every crossing pair twice, so a Forces that can take the
-    cell path raises. A built Verlet kernel holds the mask as it was
-    and is dropped (the next `prepare` builds it from the edited one)."""
+    cell path raises. The mask is built if it was deferred. A built
+    Verlet kernel holds the mask or the exclusion table as it was and is
+    dropped (the next `prepare` builds one over the edited mask)."""
     if getattr(forces, "cell_requested", False) or getattr(forces, "cell_auto", False):
         raise NotImplementedError(
             "alchemical coupling requires a nonbonded path driven by the "
@@ -187,6 +188,8 @@ def _require_masked_nonbonded(forces):
             "not consult nb_mask and would double-count crossing pairs")
     from .neighbors import VerletKernel
 
+    if hasattr(forces, "require_nb_mask"):
+        forces.require_nb_mask()
     if isinstance(getattr(forces, "_cell_kernel", None), VerletKernel):
         forces._cell_kernel = None
 
@@ -199,6 +202,8 @@ def _cut_crossing(forces, alch, env):
     mask[a[:, None], e[None, :]] = False
     mask[e[:, None], a[None, :]] = False
     forces.ffparams = forces.ffparams._replace(nb_mask=mask)
+    # the exclusion table lacks these edits: Verlet lists build over the mask
+    forces._nb_mask_authoritative = True
 
 
 def make_alchemical(forces, alch_atoms, lam=1.0, alpha=0.5, softcore_power=1):

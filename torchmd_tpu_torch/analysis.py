@@ -179,6 +179,8 @@ def normal_modes(forces, pos, box=None):
     p0 = torch.as_tensor(to_numpy(pos), dtype=dtype, device=dev)
     box_t = None if box is None else torch.as_tensor(
         np.asarray(box, np.float64).reshape(-1)[:3], dtype=dtype, device=dev)
+    if getattr(forces, "_nb_mask_deferred", False):
+        forces.require_nb_mask()   # the dense Hessian reads the mask
     ffp, cfg = forces.ffparams, forces.config
     ext_fn = getattr(getattr(forces, "external", None), "energy_fn", None)
     vsg = getattr(forces, "vsites", None)

@@ -21,9 +21,14 @@ The path follows the device:
   - `kernel="verlet"` asks for Verlet lists (`neighbors.VerletKernel`, a
     padded per-atom list with a skin, with or without a box; torch ops on
     every device, as the JAX package has no kernel for it). `"auto"`
-    never takes them: the list's build forms (natoms, natoms) arrays
-    (~120 GB at the JAX package's automatic threshold of 100,000 atoms),
-    so systems no cell grid covers stay on the dense pair kernel;
+    takes them, as the JAX package does (torchmd_tpu/forces.py:213-219,
+    :577-585), for a system with a cutoff of at least VERLET_AUTO_N atoms
+    that no cell grid covers (no box, or a box too small for a 27-cell
+    grid). The list is built by cells (`neighbors.
+    build_binned_verlet_list`: no (natoms, natoms) array, which would be
+    ~10 GB as a mask and ~128 GB as displacements at 103,200 atoms)
+    wherever that applies: no box, or a box of at least 3 cells of edge
+    cutoff + skin a side; in a smaller box over the dense mask;
   - on that large-N path, `column` picks the neighbour structure: the
     z-sorted column kernel (`columns.ColumnKernel`) or the 27-cell
     kernel (`neighbors.CellKernel`). None (the default) takes the column
@@ -71,9 +76,12 @@ JAX package's `bonded_ef_one` / `nb_ef_one` split): the bonded terms in
 their own buffer, the real-space pairs with the reciprocal term and the
 external, and the reciprocal term alone. Virtual sites
 (`parameters.vsites`) wrap every path: evaluation at the reconstructed
-site geometry, site forces spread onto the hosts. On the cell path the
-dense (natoms, natoms) exclusion mask is never built (3.9 GB at 62,500
-atoms).
+site geometry, site forces spread onto the hosts. On the cell path, and
+on Verlet lists built by cells, the dense (natoms, natoms) exclusion mask
+is never built (3.9 GB at 62,500 atoms): only the paths that read it
+build it (`require_nb_mask`): the dense pair kernel and the torch-op
+pairs, the spatial row block (`prepare_rows`), alchemy, the dense MTK
+scan's pair term and the autograd observables.
 """
 
 from __future__ import annotations
@@ -104,6 +112,7 @@ from .vsites import vsite_groups_to, wrap_energy_forces
 # values, tuned on a TPU; not yet measured on the H100.
 CELL_AUTO_N = 12000   # kernel="auto": cell-list path from this many atoms
 PME_AUTO_N = 4096     # elec="ewald": PME from this many atoms
+VERLET_AUTO_N = 100_000  # kernel="auto": Verlet lists from this many atoms, no grid
 CELL_SKIN = 2.0       # A, cell edges >= cutoff + skin
 
 
@@ -451,9 +460,16 @@ class Forces:
         self.verlet_requested = kernel == "verlet" and self.has_nb
         if self.verlet_requested and cutoff is None:
             raise ValueError("kernel='verlet' requires a cutoff")
-        # the cell path never reads the dense mask: defer it until a path
-        # that needs it asks (require_nb_mask)
-        self._nb_mask_deferred = self.cell_requested or self.cell_auto
+        # the JAX package's automatic choice; `wants_verlet` defers to the
+        # cell grid where one fits
+        self.verlet_auto = (kernel == "auto" and self.has_nb and cutoff is not None
+                            and self.natoms >= VERLET_AUTO_N)
+        # the cell path and the binned Verlet build never read the dense
+        # mask: defer it until a path that needs it asks (require_nb_mask)
+        self._nb_mask_deferred = (self.cell_requested or self.cell_auto
+                                  or self.verlet_requested or self.verlet_auto)
+        # set by alchemy: the mask holds edits the exclusion table lacks
+        self._nb_mask_authoritative = False
         self.ffparams = make_ffparams(parameters, exclusions, dtype=self.dtype,
                                       device=self.device, nbfix=nbfix,
                                       dense_mask=not self._nb_mask_deferred)
@@ -600,9 +616,10 @@ class Forces:
         return self.cell_requested or (self.cell_auto and self._grid_feasible(box))
 
     def wants_verlet(self, box=None) -> bool:
-        """True when evaluation runs on Verlet lists: only when asked for
-        (`kernel="verlet"`; see the module docstring)."""
-        return self.verlet_requested
+        """True when evaluation runs on Verlet lists for this box (None: no
+        box): requested, or automatic for a large system with a cutoff
+        whose box hosts no cell grid (torchmd_tpu/forces.py:577-585)."""
+        return self.verlet_requested or (self.verlet_auto and not self.wants_cell(box))
 
     def choose_nb_path(self, box_diag) -> str:
         """The neighbour path for an (R, 3) box (zeros: no box), recorded
@@ -619,7 +636,7 @@ class Forces:
             self.ensure_ewald(box0)
         if periodic and self.wants_cell(box0):
             self.nb_path = "cell"
-        elif self.wants_verlet():
+        elif self.wants_verlet(box0 if periodic else None):
             self.nb_path = "verlet"
         else:
             self.nb_path = "dense"
@@ -627,22 +644,32 @@ class Forces:
 
     def ensure_verlet_kernel(self, box=None, pos0=None):
         """Build (once) the Verlet-list kernel into the neighbour-kernel
-        slot; `pos0` sizes its capacity from the real occupancy."""
-        from .neighbors import VerletKernel
+        slot; `pos0` sizes its capacity from the real occupancy. It builds
+        by cells from the exclusion table where that applies (no box, or
+        3 cells of cutoff + skin a side) and the mask holds no alchemical
+        edit; otherwise over the dense mask, built here."""
+        from .neighbors import VerletKernel, build_exclusion_table
 
         if not isinstance(self._cell_kernel, VerletKernel):
             b = None if box is None or not np.any(np.asarray(box) != 0) else box
-            self._cell_kernel = VerletKernel(self.require_nb_mask(), self.config,
-                                             box=b, skin=CELL_SKIN, pos0=pos0)
+            excl = None
+            if not self._nb_mask_authoritative and (b is None or self._grid_feasible(b)):
+                excl = build_exclusion_table(self.par, self.natoms, self.exclusions)
+            else:
+                self.require_nb_mask()
+            self._cell_kernel = VerletKernel(self.ffparams, self.config, box=b,
+                                             skin=CELL_SKIN, pos0=pos0, excl_table=excl)
             self._build_evaluators()
         return self._cell_kernel
 
     def resolve_kernel_for_box(self, box):
         """An automatic cell choice stands only while the box hosts a
-        grid; otherwise the dense path takes over and needs the mask."""
+        grid; otherwise Verlet lists take over where they are automatic
+        (`verlet_auto`), else the dense path, which needs the mask."""
         if self.cell_auto and not self._grid_feasible(box):
             self.cell_auto = False
-            self.require_nb_mask()
+            if not self.verlet_auto:
+                self.require_nb_mask()
 
     def require_nb_mask(self):
         """Materialize the deferred dense (natoms, natoms) exclusion mask
@@ -725,6 +752,11 @@ class Forces:
                     kern = kern.with_box(np.min(box_diag, axis=0), pos0=to_numpy(pos[0]))
             else:
                 kern = self.ensure_verlet_kernel(box0, pos0=to_numpy(pos[0]))
+                if not kern.covers(box_diag):
+                    # the box left the binned build's grid: a new kernel
+                    self._cell_kernel = None
+                    kern = self.ensure_verlet_kernel(np.min(box_diag, axis=0),
+                                                     pos0=to_numpy(pos[0]))
             box_t = torch.as_tensor(box0, dtype=self.dtype, device=self.device)
         for _ in range(4):
             if not any(bool(kern.build(p, box_t).overflow) for p in pos):

@@ -225,7 +225,7 @@ class Integrator:
                  T=None, batch=None, seed=1, generator=None, mesh=None,
                  constraints=None, thermostat=None, tau=None, nchain=3,
                  barostat=None, mts=None, mts_recip=None, mesh_axis="dp",
-                 shard="replica", **unported):
+                 shard="replica"):
         # r-RESPA: the JAX package's argument checks (torchmd_tpu/
         # integrator.py:321-341)
         self.mts = None if mts in (None, 0, False) else int(mts)
@@ -240,12 +240,6 @@ class Integrator:
                 raise ValueError(f"mts_recip must be >= 1, got {mts_recip}")
             if batch is not None:
                 raise NotImplementedError("mts_recip + atom batching")
-        for name, value in unported.items():
-            if value is not None and not (isinstance(value, (bool, int))
-                                          and not value):
-                raise NotImplementedError(
-                    f"Integrator({name}=...) is not ported yet; a later "
-                    "slice of the port brings it")
         if mesh is not None:
             from .parallel.mesh import Mesh
 
@@ -336,6 +330,11 @@ class Integrator:
         self._npt_vir_given = False
         if barostat is not None:
             self._setup_npt(barostat, timestep, tau, nchain, T)
+            if not self._use_cell and getattr(forces, "has_nb", False):
+                # the dense MTK scan's pair term (`_npt_ef_vir`) reads the
+                # mask, on the Verlet path too (the JAX package's
+                # torchmd_tpu/integrator.py:448-449)
+                forces.require_nb_mask()
 
         # the checks of torchmd_tpu/integrator.py:389-409
         if self.mts_recip is not None:

@@ -286,13 +286,20 @@ class CellKernel:
 #
 # Counterpart of the JAX package's `VerletConfig` ... `VerletKernel`
 # (torchmd_tpu/neighbors.py:676-870): every pair within cutoff + skin
-# that the nonbonded mask allows, as an (natoms, capacity) table padded
-# with natoms, rebuilt when the displacement since the build could have
+# that the exclusions allow, as an (natoms, capacity) table padded with
+# natoms, rebuilt when the displacement since the build could have
 # brought an unlisted pair inside the cutoff. It works with or without a
 # periodic box (the cell grid needs one). The JAX package has no Pallas
-# kernel for it, so it is torch ops on every device: one (N, N) distance
-# pass per build, a row gather and the shared pair-block math per
-# evaluation.
+# kernel for it, so it is torch ops on every device: a build, then a row
+# gather and the shared pair-block math per evaluation.
+#
+# Two builds give the same list. `build_verlet_list`, the JAX package's
+# form, takes one (N, N) distance pass over the dense nonbonded mask: the
+# plain reference, and the build of a box too small for 3 cells of edge
+# cutoff + skin a side. `build_binned_verlet_list` bins the atoms into
+# cells of edge >= cutoff + skin and takes each row's candidates from its
+# 27 neighbouring cells, with the exclusions as per-atom rows
+# (`build_exclusion_table`), chunked over rows: no (N, N) array.
 
 
 class VerletConfig(NamedTuple):
@@ -330,12 +337,18 @@ def _verlet_box(vcfg: VerletConfig, box, like):
     return b
 
 
+def _sq_norm(dv):
+    """|dv|^2 over the last axis in one fixed order, so that the dense and
+    the binned build compare the same bits with rc^2."""
+    return dv[..., 0] * dv[..., 0] + dv[..., 1] * dv[..., 1] + dv[..., 2] * dv[..., 2]
+
+
 def _verlet_d2(pos, vcfg: VerletConfig, box=None):
     """Dense squared-distance matrix (minimum image with a box)."""
     from .potentials import wrap_displacement
 
-    dv = wrap_displacement(pos[:, None, :] - pos[None, :, :], _verlet_box(vcfg, box, pos))
-    return (dv * dv).sum(-1)
+    return _sq_norm(wrap_displacement(pos[:, None, :] - pos[None, :, :],
+                                      _verlet_box(vcfg, box, pos)))
 
 
 def build_verlet_list(pos, nb_mask, vcfg: VerletConfig, box=None) -> NeighborList:
@@ -354,6 +367,184 @@ def build_verlet_list(pos, nb_mask, vcfg: VerletConfig, box=None) -> NeighborLis
     cols = torch.arange(n, device=pos.device).expand(n, n)
     nbr.scatter_(1, slot, torch.where(keep, cols, torch.full_like(cols, n)))
     return NeighborList(nbr[:, :vcfg.capacity], pos, overflow)
+
+
+# Candidate pairs a chunk of rows of the binned build holds at once
+# (each row against 27 cells' slots): ~1 GB of temporaries at f64
+BUILD_CHUNK_PAIRS = 1 << 24
+# Without a box the cell edge is the bounding box's extent over as many
+# cells as fit at rc (1 + OPEN_EDGE_MARGIN): two atoms within rc then lie
+# in the same or adjacent cells despite rounding in the binning
+OPEN_EDGE_MARGIN = 1e-5
+
+
+class VerletGrid(NamedTuple):
+    """The binned build's cell grid. With a box, the cell list's grid of
+    the configuration's box (`make_cell_config`: edges >= rc, at least 3
+    cells a side), wrapped. Without one, `ncells` bounds the cells a side:
+    each build bins over its positions' bounding box at build time, as
+    many cells of edge >= rc as fit, at most these."""
+    ncells: tuple
+    periodic: bool
+
+    @property
+    def size(self) -> int:
+        return self.ncells[0] * self.ncells[1] * self.ncells[2]
+
+
+def verlet_grid(vcfg: VerletConfig, pos0=None):
+    """The binned build's grid for `vcfg`, or None where the binned build
+    does not apply (a box with fewer than 3 cells of edge rc on an axis:
+    the dense build). Without a box the bound of the cells a side comes
+    from `pos0`'s extent (numpy), two cells of room a side for the system
+    to spread."""
+    rc = vcfg.rc
+    if vcfg.pbc:
+        nc = tuple(max(1, int(b // rc)) for b in vcfg.box)
+        return VerletGrid(nc, True) if min(nc) >= 3 else None
+    p = np.asarray(pos0, np.float64).reshape(-1, 3)
+    ext = p.max(0) - p.min(0) if len(p) else np.zeros(3)
+    nc = tuple(int(e // (rc * (1.0 + OPEN_EDGE_MARGIN))) + 2 for e in ext)
+    return VerletGrid(nc, False)
+
+
+def _stencil(grid: VerletGrid) -> np.ndarray:
+    """(cells + 1, 27) ids of each cell's neighbouring cells; cell id
+    `grid.size` is an empty cell, where a neighbour falls off an open
+    grid (and the extra row's own neighbours)."""
+    nx, ny, nz = grid.ncells
+    c = np.stack(np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij"),
+                 -1).reshape(-1, 1, 3)
+    d = np.stack(np.meshgrid(*[np.arange(-1, 2)] * 3, indexing="ij"), -1).reshape(1, 27, 3)
+    nb = c + d
+    n = np.asarray(grid.ncells)
+    if grid.periodic:
+        nb %= n
+        off = np.zeros(nb.shape[:2], bool)
+    else:
+        off = ((nb < 0) | (nb >= n)).any(-1)
+    ids = (nb[..., 0] * ny + nb[..., 1]) * nz + nb[..., 2]
+    ids = np.where(off, grid.size, ids)
+    return np.concatenate([ids, np.full((1, 27), grid.size)]).astype(np.int64)
+
+
+def _grid_cells(pos, vcfg: VerletConfig, grid: VerletGrid, box=None):
+    """Each atom's cell id in `grid`'s layout, on the device. With a box,
+    the cell list's binning (`_cell_ids`, the call's box); without one,
+    over the positions' bounding box, as many cells of edge >= rc a side
+    as fit, up to the grid's bound, with no host read."""
+    if grid.periodic:
+        ccfg = CellListConfig(vcfg.box, vcfg.cutoff, vcfg.skin, grid.ncells, 0)
+        return _cell_ids(pos, ccfg, box)
+    rc = vcfg.rc
+    lo = pos.min(0).values
+    ext = pos.max(0).values - lo
+    bound = torch.as_tensor(grid.ncells, device=pos.device)
+    nc = torch.minimum(torch.clamp(
+        torch.floor(ext / (rc * (1.0 + OPEN_EDGE_MARGIN))).to(torch.int64), min=1), bound)
+    edge = torch.clamp(ext / nc.to(pos.dtype), min=rc)
+    c3 = torch.minimum(torch.floor((pos - lo) / edge).to(torch.int64), nc - 1)
+    return (c3[:, 0] * grid.ncells[1] + c3[:, 1]) * grid.ncells[2] + c3[:, 2]
+
+
+def _binned_rows(pos, excl, vcfg: VerletConfig, grid: VerletGrid, stencil, box=None,
+                 capacity=None):
+    """The binned build's chunks of rows: yields (a0, a1, nbr, count),
+    the rows [a0, a1)'s neighbours within rc in ascending index order,
+    padded with natoms, `capacity` wide (None: no list, the counts only),
+    and each row's neighbour count (exclusions removed, not capped).
+    Distances are `_verlet_d2`'s, component by component (the minimum
+    image as `potentials.wrap_displacement` takes it for a box with
+    every edge > 0). One host read: the fullest cell's count, the slot
+    table's width."""
+    n, dev = pos.shape[0], pos.device
+    boxt = _verlet_box(vcfg, box, pos)
+    rc2 = vcfg.rc * vcfg.rc
+    cid = _grid_cells(pos, vcfg, grid, box)
+    ncell = grid.size + 1                      # the last: always empty
+    counts = torch.zeros(ncell, dtype=torch.int64, device=dev).index_add_(
+        0, cid, torch.ones_like(cid))
+    sorted_cid, order = torch.sort(cid, stable=True)
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=dev) - start[sorted_cid]
+    cap = max(1, int(counts.max()))            # the build's one host read
+    slots = torch.full((ncell, cap), n, dtype=torch.int64, device=dev)
+    slots[sorted_cid, rank] = order
+    width = 27 * cap
+    ecols = excl.shape[1]
+    keep_w = None if capacity is None else capacity + ecols
+    comps = [torch.cat([pos[:, k], pos.new_zeros(1)]) for k in range(3)]
+
+    def sq_dist(rows, j):
+        """|pos[rows] - pos[j]|^2 with the minimum image, (R, J)."""
+        d2 = None
+        for k in range(3):
+            d = pos[rows, k, None] - comps[k][j]
+            if boxt is not None:
+                d = d - boxt[k] * torch.round(d / boxt[k])
+            d2 = d * d if d2 is None else d2 + d * d
+        return d2
+
+    chunk = max(1, BUILD_CHUNK_PAIRS // width)
+    for a0 in range(0, n, chunk):
+        a1 = min(n, a0 + chunk)
+        rows = torch.arange(a0, a1, device=dev)
+        cand = slots[stencil[cid[a0:a1]]].reshape(a1 - a0, width)
+        inr = (sq_dist(rows, cand) <= rc2) & (cand < n) & (cand != rows[:, None])
+        rank = torch.cumsum(inr, 1)
+        count = rank[:, -1]
+        if ecols:
+            # in-range exclusion partners: each is one of the candidates
+            ex = excl[a0:a1]
+            count = count - ((sq_dist(rows, ex) <= rc2) & (ex < n)
+                             & (ex != rows[:, None])).sum(1)
+        nbr = None
+        if capacity is not None:
+            # the first capacity + E in-range candidates (all of them
+            # unless the row overflows), exclusions out, then sorted
+            keep = inr & (rank <= keep_w)
+            buf = torch.full((a1 - a0, keep_w + 1), n, dtype=torch.int64, device=dev)
+            buf.scatter_(1, torch.where(keep, rank - 1, keep_w), torch.where(keep, cand, n))
+            buf = buf[:, :keep_w]
+            if ecols:
+                buf = torch.where((buf[:, :, None] == ex[:, None, :]).any(-1), n, buf)
+            nbr = torch.sort(buf, dim=1).values[:, :capacity]
+        yield a0, a1, nbr, count
+
+
+def build_binned_verlet_list(pos, excl, vcfg: VerletConfig, grid: VerletGrid, stencil,
+                             box=None) -> NeighborList:
+    """`build_verlet_list`'s list (each row's neighbours within rc,
+    exclusions removed, in ascending index order, padded with natoms; the
+    same overflow flag) without an (N, N) array: atoms binned into
+    `grid`'s cells, candidates from each row's 27 neighbouring cells'
+    slots, exclusions from `excl`, the (natoms, E) table of
+    `build_exclusion_table` (each partner once, natoms = empty), in
+    chunks of rows of at most BUILD_CHUNK_PAIRS candidate pairs.
+    `stencil` is `_stencil(grid)` on the device of `pos`. Torch ops, no
+    bincount; one host read a build, the fullest cell's count, which
+    sizes the slot table. A row that overflows keeps `capacity` of its
+    neighbours, not the lowest."""
+    n, cap = pos.shape[0], vcfg.capacity
+    nbr = torch.full((n, cap), n, dtype=torch.int64, device=pos.device)
+    overflow = torch.zeros((), dtype=torch.bool, device=pos.device)
+    if n == 0:
+        return NeighborList(nbr, pos, overflow)
+    for a0, a1, rows, count in _binned_rows(pos, excl, vcfg, grid, stencil, box, cap):
+        nbr[a0:a1] = rows
+        overflow = overflow | (count > cap).any()
+    return NeighborList(nbr, pos, overflow)
+
+
+def binned_row_counts(pos, excl, vcfg: VerletConfig, grid: VerletGrid, stencil,
+                      box=None):
+    """Each row's neighbour count within rc, exclusions removed (the
+    binned build's counts, no list)."""
+    out = torch.zeros(pos.shape[0], dtype=torch.int64, device=pos.device)
+    if pos.shape[0]:
+        for a0, a1, _, count in _binned_rows(pos, excl, vcfg, grid, stencil, box):
+            out[a0:a1] = count
+    return out
 
 
 def verlet_needs_rebuild(nl: NeighborList, pos, vcfg: VerletConfig, box=None):
@@ -414,41 +605,80 @@ class VerletKernel:
         nl = kern.refresh(nl, pos, box)    # rebuilt only on displacement
         pot, forces = kern.energy_forces(pos, box, nl)
 
-    The capacity (neighbours per atom) is sized from `pos0` when given;
-    a build that finds a fuller row sets `nl.overflow`, and `grow`
-    doubles the capacity. `rebuilds` counts the builds `refresh` made."""
+    With `excl_table` (`build_exclusion_table`'s) it builds by cells
+    (`build_binned_verlet_list`) wherever that applies: no box (`pos0`
+    then bounds the grid), or a box of at least 3 cells of edge cutoff +
+    skin a side (`verlet_grid`); `ffp.nb_mask` may then be None. Otherwise, or for a smaller box, it
+    takes the dense build over `ffp.nb_mask` (`build_verlet_list`),
+    which an edited mask (alchemy) also needs. `binned` says which.
+
+    The capacity (neighbours per atom) is sized from the build's row
+    counts at `pos0` (at f64) when given; a build that finds a fuller row
+    sets `nl.overflow`, and `grow` doubles the capacity. `rebuilds`
+    counts the builds `refresh` made."""
 
     capacity_name = "Verlet list capacity (neighbours per atom)"
 
-    def __init__(self, ffp, cfg, box=None, skin=2.0, capacity=None, pos0=None):
+    def __init__(self, ffp, cfg, box=None, skin=2.0, capacity=None, pos0=None,
+                 excl_table=None):
         if cfg.cutoff is None:
             raise ValueError("Verlet lists require a cutoff")
-        if ffp.nb_mask is None:
-            raise ValueError("Verlet lists need the dense nonbonded mask")
         self.ffp = ffp
         self.cfg = cfg
+        dev = ffp.charges.device
         natoms = int(ffp.charges.shape[0])
         boxt = ((0.0, 0.0, 0.0) if box is None
                 else tuple(float(b) for b in np.asarray(box).reshape(-1)[:3]))
         self.vcfg = VerletConfig(boxt, float(cfg.cutoff), float(skin), int(capacity or 0))
         self.rebuilds = 0
+        self.grid = self.excl = self.stencil = None
+        if excl_table is not None and (self.vcfg.pbc or pos0 is not None):
+            self.grid = verlet_grid(self.vcfg, pos0)
+        if self.grid is not None:
+            self.excl = torch.as_tensor(np.asarray(excl_table), dtype=torch.int64, device=dev)
+            self.stencil = torch.as_tensor(_stencil(self.grid), device=dev)
+        elif ffp.nb_mask is None:
+            raise ValueError(
+                "Verlet lists need the dense nonbonded mask where the binned build "
+                "does not apply (a box with fewer than 3 cells of cutoff + skin a side, "
+                "or no box and no pos0 to bound the grid)")
         if capacity is None:
             if pos0 is not None:
-                p0 = torch.as_tensor(np.asarray(pos0), dtype=torch.float64,
-                                     device=ffp.nb_mask.device)
+                p0 = torch.as_tensor(np.asarray(pos0), dtype=torch.float64, device=dev)
                 # size from the real occupancy; overflow growth covers
                 # later density fluctuations
-                occ = int(((_verlet_d2(p0, self.vcfg) <= self.vcfg.rc**2)
-                           & ffp.nb_mask).sum(1).max())
+                if self.binned:
+                    occ = int(binned_row_counts(p0, self.excl, self.vcfg, self.grid,
+                                                self.stencil).max())
+                else:
+                    occ = int(((_verlet_d2(p0, self.vcfg) <= self.vcfg.rc**2)
+                               & ffp.nb_mask).sum(1).max())
             else:
                 occ = 128
             self.vcfg = self.vcfg.with_capacity(max(8, min(natoms, int(occ * 1.2) + 8)))
 
     @property
+    def binned(self) -> bool:
+        """True when the list is built by cells (no (N, N) array)."""
+        return self.grid is not None
+
+    @property
     def capacity(self) -> int:
         return self.vcfg.capacity
 
+    def covers(self, box) -> bool:
+        """True while the box still hosts the binned build's grid (edges
+        >= rc); always on the dense build or without a box."""
+        if self.grid is None or not self.grid.periodic:
+            return True
+        b = np.asarray(box, np.float64).reshape(-1, 3)
+        edges = b.min(axis=0) / np.asarray(self.grid.ncells)
+        return bool(np.all(edges >= self.vcfg.rc * (1.0 - 1e-9)))
+
     def build(self, pos, box=None) -> NeighborList:
+        if self.grid is not None:
+            return build_binned_verlet_list(pos, self.excl, self.vcfg, self.grid,
+                                            self.stencil, box)
         return build_verlet_list(pos, self.ffp.nb_mask, self.vcfg, box)
 
     def needs_rebuild(self, nl: NeighborList, pos, box=None):

@@ -100,6 +100,8 @@ def pressure(forces, system, units="bar"):
     pos = torch.as_tensor(np.asarray(system.pos), dtype=dtype, device=dev)
     forces.prepare(pos, box)
     cell = forces.nb_path == "cell"
+    if not cell and forces.has_nb:
+        forces.require_nb_mask()   # the pairs' virial by autograd reads the mask
     etot_one = _total_energy_fn(forces, nonbonded=not cell)
     boxd = torch.as_tensor(box, dtype=dtype, device=dev)
     W = []

@@ -33,8 +33,9 @@ rows a tile, each tile with its tight box. `halo_tiles_reference` is that
 prep pass's plain version and `halo_tiles` runs it alone on the card.
 The kernel sorts a cell of more than PREP_CAP rows from device memory
 (no row is dropped) and raises the optional `overflow` flag to its row
-count; `check_overflow` turns the flag into an error (`parallel.HaloMD`
-reads it with its per-step host read). The plain version has no cap.
+count; `check_overflow` turns the flag into an error for callers of the
+bare wrapper. `parallel.HaloMD` reads it with its per-step host read,
+counts it and steps on. The plain version has no cap.
 """
 
 from __future__ import annotations

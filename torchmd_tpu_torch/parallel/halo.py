@@ -267,7 +267,11 @@ class HaloMD:
     `constraints` is a `constraints.Constraints` and `vsites` the
     virtual-site groups, both on that device. Counters:
     `migrations` (rebuilds in accepted chunks), `overflow_log`,
-    `mesh.calls` and `mesh.bytes`."""
+    `prep_overflows` (host reads that found a cell beyond the pair
+    kernel's `ops.halo.PREP_CAP` rows on some rank; the kernel sorted it
+    from device memory, so the step is complete and goes on) with
+    `prep_overflow_last`, (rows, rank) of the fullest such cell at the
+    last of them, `mesh.calls` and `mesh.bytes`."""
 
     def __init__(self, ffp, cfg, mesh, box, excl_table=None, timestep=1.0, T=None,
                  gamma=None, axis="sp", seed=1, slack=1.35, constraints=None, vsites=None):
@@ -319,6 +323,8 @@ class HaloMD:
         # at the chunk's end; placed at this rank's slot of a vector over
         # the halo's ranks, so the sum over them gathers every rank's count
         self._prep_over = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self.prep_overflows = 0
+        self.prep_overflow_last = None
         self._rank_hot = torch.zeros(self.R * self.Ry, dtype=torch.int32, device=self.device)
         self._rank_hot[self.rx * self.Ry + self.ry] = 1
         self._table = None
@@ -609,25 +615,29 @@ class HaloMD:
 
     def _needs_rebuild(self, atoms) -> bool:
         """Has any atom of the mesh moved more than skin / 2 since the last
-        rebuild? (One host read, which also raises if the pair kernel's
-        prep flag is set.)"""
+        rebuild? (One host read, which also records the pair kernel's
+        prep flag, `_record_prep`.)"""
         _, valid = self._ids(atoms)
         d = atoms[:, _POS] - atoms[:, _REF]
         d = d - self._box * torch.round(d / self._box)
         moved = (valid & ((d * d).sum(1) > (0.5 * self.spec.skin) ** 2)).any()
         flags = self._sum(torch.cat([moved.to(torch.int32).reshape(1),
                                      self._rank_hot * self._prep_over])).tolist()
-        self._check_prep(flags[1:])
+        self._record_prep(flags[1:])
         return flags[0] > 0
 
-    def _check_prep(self, counts):
-        """Raise if a rank's pair-kernel prep met a cell beyond its cap
-        (`counts`: each rank's flag, by rank); the error names the fullest
-        such cell's rows and its rank. The flag is cleared first."""
+    def _record_prep(self, counts):
+        """Count a read that found a rank's pair-kernel prep beyond its cap
+        (`counts`: each rank's flag, by rank) in `prep_overflows`, keep the
+        fullest such cell's rows and its rank in `prep_overflow_last`, and
+        clear the flag. The kernel sorted that cell from device memory, so
+        its forces are complete and the step goes on (the JAX halo's pair
+        stage has no cells and runs any density)."""
         rank = int(np.argmax(counts))
         if counts[rank] > 0:
             self._prep_over.zero_()
-            raise _ops_halo.overflow_error(int(counts[rank]), rank, len(counts))
+            self.prep_overflows += 1
+            self.prep_overflow_last = (int(counts[rank]), rank)
 
     def _recip(self, pos, q):
         """(global reciprocal energy, this rank's reciprocal forces): the
@@ -814,7 +824,7 @@ class HaloMD:
                                        e_part.double().reshape(1),
                                        (self._rank_hot * self._prep_over).double()]))
             tot = tot.cpu().numpy()
-            self._check_prep(tot[7:])
+            self._record_prep(tot[7:])
             if tot[4] > 0:
                 raise RuntimeError("halo migration: an atom's owner is beyond the "
                                    "neighbouring ranks (it moved more than a slab width "

@@ -330,8 +330,15 @@ class Parameters:
         uqdihedrals = np.unique(
             [d if d[0] < d[3] else d[::-1] for d in mol.dihedrals], axis=0
         )
-        exclusions = self.get_exclusions(types=("bonds", "angles"), fullarray=True)
-        keep = ~exclusions[uqdihedrals[:, 0], uqdihedrals[:, 3]]
+        # the end pairs that are bonds or angles, by a sorted key a * N + b
+        # of each unordered pair (the dense (N, N) matrix is 10.6 GB at
+        # 103,200 atoms)
+        n = np.int64(self.natoms)
+        excl = np.asarray(self.get_exclusions(types=("bonds", "angles")),
+                          dtype=np.int64).reshape(-1, 2)
+        ekeys = np.unique(excl.min(1) * n + excl.max(1))
+        ends = uqdihedrals[:, [0, 3]].astype(np.int64)
+        keep = ~np.isin(ends.min(1) * n + ends.max(1), ekeys)
         dih14 = uqdihedrals[keep, :]
         out = {"idx": [], "map": [], "params": []}
         if not len(dih14):

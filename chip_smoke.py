@@ -2373,6 +2373,21 @@ def phase_roofline():
         ms=f"{out['ms']:.4f}", plain_ms=f"{out['plain_ms']:.4f}",
         speedup=f"{out['plain_ms'] / out['ms']:.2f}", bound_ms=f"{out['bound'][0]:.5f}",
         bound_by=out["bound"][1], work=out["work"])
+    # each stage beside its dense floor (the pair loop's instructions over
+    # npad^2 pairs, from the built kernels' SASS) and the forces stage's
+    # function bound; mxred's tensor-core instructions
+    loops, floors = res["loops"], res["dense_floor_ms"]
+    for st in rl.STAGES:
+        c = (loops or {}).get(st, {})
+        log("roofline_stage", stage=st, ms=f"{res['ms'][st]:.4f}",
+            dense_floor_ms=f"{floors[st]:.5f}" if st in floors else "not taken",
+            issued_per_pair=c.get("issued"), mufu_per_pair=c.get("mufu"),
+            forces_bound_ms=f"{out['bound'][0]:.5f}")
+    if loops is None:
+        log("roofline_mma", hmma_in_mxred="not taken: the toolkit has no cuobjdump")
+    else:
+        log("roofline_mma", hmma_in_mxred=loops["mxred"]["hmma_in_kernel"],
+            hmma_per_pair=loops["mxred"]["hmma"])
     return out, launches["stages"]
 
 
@@ -6158,6 +6173,11 @@ if __name__ == "__main__":
         smi = phase_device()
         phase_build()
         phase_verlet_auto(smi)
+    elif sys.argv[1:2] == ["--roofline"]:
+        # the staged probe's phase alone
+        phase_device()
+        phase_build()
+        phase_roofline()
     elif sys.argv[1:2] == ["--halo"]:
         # the halo-exchange MD phase alone
         phase_device()

@@ -20,6 +20,12 @@ outweigh the rest by many decades, so:
     switch moved) fail those checks;
   - `mxred` gives the `forces` stage's forces within 1e-5 of each row's
     scale without the close pairs;
+  - the kernel's mxred, emulated with g and the coordinates split into
+    TF32 hi + lo (`mxred_tf32_reference`, products summed in f64), stays
+    within that bar with three products and misses it with one (a
+    planted control);
+  - the pair loop is read from a SASS listing as the kernel's floors
+    need it;
   - the chain kernels' plain versions take UNROLL dependent steps.
 The kernels themselves run on the card (marked gpu; chip_smoke.py holds
 them to the plain versions at the full 4,676 atoms).
@@ -30,6 +36,7 @@ from __future__ import annotations
 import functools
 import importlib.util
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -164,6 +171,71 @@ def test_mxred_gives_the_forces(which):
     assert rl.row_error(m[:3], f[:3], _scale(which)) <= REL
 
 
+def test_tf32_round_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2**-11, 1.0 + 2**-11 - 2**-20, -(1.0 + 3 * 2**-11), 0.0])
+    want = [1.0, 1.0 + 2**-10, 1.0, -(1.0 + 2**-9), 0.0]
+    assert rl.tf32_round(x).tolist() == want
+    bits = rl.tf32_round(torch.randn(1000, generator=torch.Generator().manual_seed(0)))
+    assert int((bits.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("products,within", [(3, True), (1, False)],
+                         ids=["three_products", "one_product_control"])
+def test_mxred_tf32_emulation_against_the_forces(products, within):
+    inp = _inputs("no_close_pairs")
+    m = rl.mxred_tf32_reference(inp, products)
+    f = rl.stage_call("forces", inp)
+    err = rl.row_error(m[:3], f[:3], _scale("no_close_pairs"))
+    assert (err <= REL) == within, err
+    assert abs(float(m[3]) - float(f[3])) <= REL * max(1.0, abs(float(f[3])))
+
+
+SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_112stage_kernelILi6EEEvPK6float4
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   FFMA R2, R3, R4, R5 ;
+        /*0020*/                   HMMA.1688.F32.TF32 R8, R12, R16, R8 ;
+        /*0030*/                   FADD R2, R3, R4 ;
+        /*0040*/                   MUFU.RSQ R5, R6 ;
+        /*0050*/                   FFMA R2, R3, R4, R5 ;
+        /*0060*/                   HMMA.1688.F32.TF32 R8, R12, R16, R8 ;
+        /*0070*/                   NOP ;
+        /*0080*/               @P0 BRA 0x30 ;
+        /*0090*/                   LDS.128 R4, [R2] ;
+        /*00a0*/              @!P1 BRA 0x90 ;
+        /*00b0*/                   BRA 0xb0;
+        /*00c0*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_112chain_kernelILi0EEEvPfii
+        /*0000*/                   FFMA R2, R3, R4, R5 ;
+"""
+
+
+def test_sass_pair_loop_from_listing(monkeypatch):
+    monkeypatch.setattr(rl, "_cuobjdump", lambda: "cuobjdump")
+    monkeypatch.setattr(rl._build, "build", lambda name: "lib.so")
+    monkeypatch.setattr(rl.subprocess, "run",
+                        lambda *a, **k: types.SimpleNamespace(stdout=SASS))
+    counts = rl.sass_loop_counts()
+    # the loop 0x30-0x80 (the self-loop at 0xb0 is not the largest, 0x90-0xa0
+    # is smaller): FADD, MUFU, FFMA, HMMA, BRA; the NOP is not issued
+    assert list(counts) == ["mxred"]
+    c = counts["mxred"]
+    n = rl.PAIRS_PER_LOOP
+    assert c["loop_instructions"] == 5
+    assert (c["issued"], c["fp32"], c["mufu"], c["hmma"]) == (5 / n, 2 / n, 1 / n, 1 / n)
+    assert c["hmma_in_kernel"] == 2
+
+
+def test_dense_floor_is_the_longer_of_issue_and_mufu():
+    loops = {"forces": {"issued": 70.0, "mufu": 1.0}, "chain": {"issued": 4.0, "mufu": 1.0},
+             "unread": {"issued": None, "mufu": None}}
+    floors = probe_run.dense_floors(5120, loops)
+    assert set(floors) == {"forces", "chain"}
+    pairs = 5120 * 5120
+    assert floors["forces"] == pytest.approx(1e3 * pairs * 70.0 / probe_run.ISSUE_PER_S)
+    assert floors["chain"] == pytest.approx(1e3 * pairs * 1.0 / probe_run.MUFU_PER_S)
+
+
 def test_force_scale_bounds_the_forces():
     inp = rl.in_f64(_inputs("probe"))
     f = torch.stack(rl.stage_call("forces", inp)[:3])
@@ -196,6 +268,18 @@ def test_stage_kernel_on_cuda_matches_plain(stage, which):
     ref = rl.stage_reference(stage, rl.in_f64(inp))
     assert abs(float(got[3]) - float(ref[3])) <= 2e-5 * max(1.0, abs(float(ref[3])))
     assert rl.row_error(got[:3], ref[:3], rl.force_scale(rl.in_f64(inp))) <= 5e-5
+
+
+@pytest.mark.gpu
+def test_mxred_kernel_matches_tf32_emulation():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    inp = rl.without_close_pairs(rl.make_inputs(N, TILE, "cuda"))
+    got = rl.stage_call("mxred", inp)
+    cpu = rl.ProbeInputs(*(t.cpu() if torch.is_tensor(t) else t for t in inp))
+    want = rl.mxred_tf32_reference(cpu, 3)
+    scale = rl.force_scale(rl.in_f64(cpu))
+    assert rl.row_error([t.cpu() for t in got[:3]], want[:3], scale) <= REL
 
 
 @pytest.mark.gpu

@@ -26,6 +26,12 @@ catch a wrong one. `chain_call(op, x, iters)` runs UNROLL x iters
 dependent steps of one elemental operation (CHAIN_OPS) on every element
 of x, the probe's throughput chains.
 
+The kernel's mxred takes its force sums on the tensor cores, g and the
+coordinates split into TF32 hi + lo parts. `mxred_tf32_reference(inp,
+products)` is the plain emulation of that split (`tf32_round`), the
+products summed in f64, for the tests; `sass_loop_counts()` reads the
+built kernels' pair loops from `cuobjdump -sass` for their dense floors.
+
 The random inputs put a few pairs a fraction of an angstrom apart, whose
 forces outweigh the rest by ~1e15; so results are held row by row, each
 force to `force_scale` (sum_j |g| r of its row), and also on
@@ -35,6 +41,10 @@ force to `force_scale` (sum_j |g| r of its row), and also on
 from __future__ import annotations
 
 import ctypes
+import os
+import re
+import shutil
+import subprocess
 from typing import NamedTuple
 
 import numpy as np
@@ -49,7 +59,11 @@ CHAIN_LAUNCHES = 0
 STAGES = ("load", "d2", "rsqrt", "math", "g", "forces", "mxred")
 CHAIN_OPS = ("fma", "rsqrt", "exp", "div")
 UNROLL = 64               # csrc/roofline.cu: chain steps per iteration
-I_ROWS = 128              # csrc/roofline.cu: i rows per CUDA block
+UNIT = 128                # csrc/roofline.cu: j columns of a work unit (JC)
+PAIRS_PER_LOOP = 8        # csrc/roofline.cu: pairs a thread computes per pair-loop pass
+# mxred's products, (part of g, part of the coordinates) in the order
+# `mxred_tf32_reference` takes them
+TF32_PRODUCTS = (("hi", "hi"), ("hi", "lo"), ("lo", "hi"), ("lo", "lo"))
 ELEC = 332.0637
 REFERENCE_ROWS = 512      # row block of the plain version (bounds memory)
 CLOSE_PAIR = 2.0          # A: `without_close_pairs` drops pairs nearer than this
@@ -209,6 +223,38 @@ def row_error(got, want, scale):
     return float((d / scale.double().clamp(min=1.0)).max())
 
 
+def tf32_round(x):
+    """f32 tensor x rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, on its bit pattern (cvt.rna.tf32.f32)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mxred_tf32_reference(inp: ProbeInputs, products=3):
+    """Plain emulation of mxred on the tensor cores (f32 inputs): g (at
+    f32) and B = (x_j, y_j, z_j, 1) split into TF32 hi + lo, the first
+    `products` of TF32_PRODUCTS summed in f64 (only the operands'
+    rounding), f_i = sum_j g B_j[:3] - r_i sum_j g. Used only by tests.
+    Returns (fx, fy, fz, energy) in f64."""
+    x, y, z = inp.x, inp.y, inp.z
+    npad = x.shape[0]
+    b = torch.stack([x, y, z, torch.ones_like(x)], 1)
+    b_hi = tf32_round(b)
+    parts_b = {"hi": b_hi.double(), "lo": tf32_round(b - b_hi).double()}
+    f = torch.zeros((3, npad), dtype=torch.float64)
+    energy = torch.zeros((), dtype=torch.float64)
+    for r0 in range(0, npad, REFERENCE_ROWS):
+        rows = slice(r0, r0 + REFERENCE_ROWS)
+        _, _, _, _, pot, g = _pair_block(inp, rows, CONSTANTS)
+        g_hi = tf32_round(g)
+        parts_g = {"hi": g_hi.double(), "lo": tf32_round(g - g_hi).double()}
+        gr = sum(parts_g[a] @ parts_b[c] for a, c in TF32_PRODUCTS[:products])
+        ri = torch.stack([x[rows], y[rows], z[rows]]).double()
+        f[:, rows] = gr[:, :3].T - ri * gr[:, 3]
+        energy = energy + pot.double().sum()
+    return f[0], f[1], f[2], energy
+
+
 def chain_reference(op, x, iters):
     """Plain version of the chain kernel: UNROLL x iters steps of `op` on
     a copy of x."""
@@ -238,8 +284,10 @@ def _library():
     if _lib is None:
         lib = _build.load("roofline")
         lib.tmd_roofline_stage.argtypes = ([ctypes.c_int] + [_P] * 7
-                                           + [ctypes.c_int] * 2 + [_P] * 6)
+                                           + [ctypes.c_int] * 2 + [_P] * 8)
         lib.tmd_roofline_stage.restype = ctypes.c_int
+        lib.tmd_roofline_scratch_bytes.argtypes = [ctypes.c_int]
+        lib.tmd_roofline_scratch_bytes.restype = ctypes.c_longlong
         lib.tmd_roofline_chain.argtypes = [ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P]
         lib.tmd_roofline_chain.restype = ctypes.c_int
         lib.tmd_error_string.argtypes = [ctypes.c_int]
@@ -261,21 +309,27 @@ def _check(lib, err, what):
 def _launch(stage, inp: ProbeInputs):
     global LAUNCHES
     dev, npad, tile = inp.x.device, inp.x.shape[0], inp.tile
-    if tile % I_ROWS or tile > 1024 or npad % tile:
-        raise ValueError(f"tile {tile} must be a multiple of {I_ROWS} up to 1024 "
+    if tile % UNIT or tile > 1024 or npad % tile:
+        raise ValueError(f"tile {tile} must be a multiple of {UNIT} up to 1024 "
                          f"dividing npad {npad}")
     for name in ("x", "y", "z", "q", "s", "e"):
         _build.check_tensor(getattr(inp, name), name, torch.float32, (npad,), dev)
     _build.check_tensor(inp.mask, "mask", torch.int8, (npad, npad), dev)
+    if inp.mask.data_ptr() % 16:
+        raise ValueError("mask must start on a 16-byte boundary (the kernel copies "
+                         "16-byte pieces)")
+    lib = _library()
+    scratch = torch.empty(lib.tmd_roofline_scratch_bytes(npad), dtype=torch.uint8, device=dev)
     f = torch.empty((3, npad), dtype=torch.float32, device=dev)
     acc = torch.empty(1, dtype=torch.float64, device=dev)
+    ticket = torch.empty(1, dtype=torch.int32, device=dev)
     out = torch.empty(1, dtype=torch.float32, device=dev)
-    lib = _library()
     _check(lib, lib.tmd_roofline_stage(
         STAGES.index(stage), inp.x.data_ptr(), inp.y.data_ptr(), inp.z.data_ptr(),
         inp.q.data_ptr(), inp.s.data_ptr(), inp.e.data_ptr(), inp.mask.data_ptr(), npad,
-        tile, f[0].data_ptr(), f[1].data_ptr(), f[2].data_ptr(), acc.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream), "roofline stage")
+        tile, scratch.data_ptr(), f[0].data_ptr(), f[1].data_ptr(), f[2].data_ptr(),
+        acc.data_ptr(), ticket.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "roofline stage")
     LAUNCHES += 1
     return f[0], f[1], f[2], out[0]
 
@@ -311,3 +365,66 @@ def chain_call(op, x, iters):
            "chain")
     CHAIN_LAUNCHES += 1
     return x
+
+
+# ----------------------------------------------------------------------
+# The built kernels' pair loops (cuobjdump -sass)
+# ----------------------------------------------------------------------
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def _cuobjdump():
+    for cand in (shutil.which("cuobjdump"), os.path.join(os.path.dirname(_build.CUDA_NVCC),
+                                                         "cuobjdump")):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    return None
+
+
+def _pair_loop(instrs):
+    """The largest innermost loop of one function's (address, opcode,
+    operands) list: the instructions between a backward BRA's target and
+    the BRA, for the BRA whose span holds no other backward branch."""
+    edges = []
+    for addr, op, args in instrs:
+        m = re.search(r"0x([0-9a-f]+)", args)
+        if op.startswith("BRA") and m and int(m.group(1), 16) <= addr:
+            edges.append((int(m.group(1), 16), addr))
+    inner = [(t, s) for t, s in edges
+             if not any(t <= t2 and s2 <= s and (t2, s2) != (t, s) for t2, s2 in edges)]
+    if not inner:
+        return []
+    t, s = max(inner, key=lambda e: e[1] - e[0])
+    return [op for addr, op, _ in instrs if t <= addr <= s and not op.startswith("NOP")]
+
+
+def sass_loop_counts():
+    """{stage: {"issued", "fp32", "mufu", "hmma" per pair, "hmma_in_kernel"}}
+    of each built stage kernel, read from `cuobjdump -sass` of the library:
+    its pair loop's instructions (every one an issue slot; fp32 the F*
+    arithmetic among them; MUFU; HMMA) over the PAIRS_PER_LOOP pairs a
+    thread computes in one pass, and the HMMA instructions of the whole
+    kernel. None where the toolkit has no cuobjdump. Builds the library."""
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    text = subprocess.run([tool, "-sass", _build.build("roofline")], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        name = _build._kernel_name(block.split(None, 1)[0])
+        m = re.fullmatch(r"stage_kernel<(\d)>", name)
+        if not m:
+            continue
+        instrs = [(int(a, 16), op, args) for a, op, args in _SASS_LINE.findall(block)]
+        loop = _pair_loop(instrs)
+        per_pair = {k: sum(map(f, loop)) / PAIRS_PER_LOOP if loop else None for k, f in (
+            ("issued", lambda op: True),
+            ("fp32", lambda op: op.startswith("F") and not op.startswith("F2")),
+            ("mufu", lambda op: op.startswith("MUFU")),
+            ("hmma", lambda op: op.startswith("HMMA")))}
+        out[STAGES[int(m.group(1))]] = dict(
+            per_pair, loop_instructions=len(loop),
+            hmma_in_kernel=sum(op.startswith("HMMA") for _, op, _ in instrs))
+    return out

@@ -9,7 +9,12 @@ each stage adds) and the four elemental throughputs of dependent chains
 (fma, rsqrt, exp, div) in tera-operations per second. The errors are
 bench_roofline.py's (the largest force difference over the largest force)
 and, on the inputs without pairs nearer than 2 A, the largest force
-difference of a row over its `force_scale`. Needs a CUDA device.
+difference of a row over its `force_scale`. Where the toolkit has
+cuobjdump, it also prints each stage's pair loop read from the built
+kernels (instructions, MUFU and HMMA per pair) and its dense floor: npad^2
+pairs times the loop's instructions per pair over the card's issue rate
+(ISSUE_PER_S, one instruction a lane a clock), or times its MUFU
+operations over the MUFU rate, whichever is longer. Needs a CUDA device.
 
 Usage: python -m torchmd_tpu_torch.roofline [--n 4676] [--tile 512]
 """
@@ -27,6 +32,11 @@ from .ops import roofline as rl
 SLEEP_CYCLES = 40_000_000       # ~20 ms of device sleep before each timed call
 CHAIN_SHAPE = (1024, 512)       # elements of the throughput chains
 CHAIN_ITERS = 200               # x UNROLL dependent steps per element
+# H100 SXM: 67e12 FP32 FLOP/s is 132 SMs x 128 lanes x 2 (an FMA) x 1.98 GHz,
+# so 33.5e12 instructions a second issue across the lanes; the SFU does 16
+# lanes a clock per SM, an eighth of that
+ISSUE_PER_S = 67e12 / 2
+MUFU_PER_S = ISSUE_PER_S / 8
 
 
 def device_ms(fn, calls=30, warmup=3):
@@ -60,10 +70,19 @@ def elemental_throughputs(calls=5):
             / 1e12 for op in rl.CHAIN_OPS}
 
 
+def dense_floors(npad, loops):
+    """{stage: ms} of `sass_loop_counts()`'s per-pair counts over npad^2
+    pairs: the longer of issue and MUFU time."""
+    return {st: 1e3 * npad * npad * max(c["issued"] / ISSUE_PER_S, c["mufu"] / MUFU_PER_S)
+            for st, c in loops.items() if c["issued"] is not None}
+
+
 def run(n=4676, tile=512, calls=30, echo=print):
     """Time every stage and the chains; returns {"ms": {stage: ms},
     "deltas_ms", "mxred_vs_forces_rel_err", "mxred_vs_forces_row_err",
-    "elemental_tops", "outputs": {stage: (fx, fy, fz, energy)}}."""
+    "elemental_tops", "loops" (`sass_loop_counts()`, None without
+    cuobjdump), "dense_floor_ms", "outputs": {stage: (fx, fy, fz,
+    energy)}}."""
     if not torch.cuda.is_available():
         raise SystemExit("torchmd_tpu_torch.roofline: no CUDA device")
     inp = rl.make_inputs(n, tile, "cuda")
@@ -92,8 +111,13 @@ def run(n=4676, tile=512, calls=30, echo=print):
     echo(json.dumps({"deltas_ms": deltas}))
     tops = elemental_throughputs()
     echo(json.dumps({"elemental_tops": tops}))
+    loops = rl.sass_loop_counts()
+    floors = {} if loops is None else dense_floors(inp.x.shape[0], loops)
+    echo(json.dumps({"pair_loops": loops if loops is not None else "not taken: no cuobjdump",
+                     "dense_floor_ms": floors}))
     return {"ms": res, "deltas_ms": deltas, "mxred_vs_forces_rel_err": err,
-            "mxred_vs_forces_row_err": row_err, "elemental_tops": tops, "outputs": outs}
+            "mxred_vs_forces_row_err": row_err, "elemental_tops": tops, "loops": loops,
+            "dense_floor_ms": floors, "outputs": outs}
 
 
 def main(argv=None):
